@@ -1,0 +1,163 @@
+"""The batched iLQR outer loop (counterpart of ``dilqr_tpu/core/ilqr.py``):
+
+ * each iteration: open-loop rollout of the current u, linearization,
+   delta-space cost shift ``c_back = C tau + c``, one Riccati backward and
+   a line-searched forward;
+ * per-example best-so-far tracking with the best_cost_eps tolerance;
+ * stop when max(full_du_norm) < eps or no improvement for
+   not_improved_lim iterations.
+
+``ilqr_loop`` sends a covered configuration on CUDA tensors to the
+whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``) and everything else to
+the plain loop below on the tensors' own device. The choice depends on the
+configuration and the device alone; nothing falls back after a failure.
+
+All arrays are time-major [T, B, ...] here; ``core/solver.py`` transposes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.cuda import ilqr_fused as fused
+from ..ops.riccati import lqr_backward
+from ..ops.rollout import get_traj, lqr_forward
+from ..types import GradMethod, ILQRConfig, LinDx, QuadCost
+from ..utils.batch import bmv
+from .linearize import approximate_cost, linearize_dynamics
+
+
+class ILQRInternal(NamedTuple):
+    x: torch.Tensor  # [T, B, nx] best trajectory
+    u: torch.Tensor  # [T, B, nu]
+    costs: torch.Tensor  # [B]
+    full_du_norm: torch.Tensor  # [B] of the best iterate
+    n_iter: torch.Tensor  # [] int
+
+
+def _linearize(cfg: ILQRConfig, dyn, params, x, u):
+    if isinstance(dyn, LinDx):
+        return dyn.F, dyn.f
+    # ANALYTIC differentiates the un-clamped physics; AUTO_DIFF the clamped
+    # forward, so saturated controls get zero Jacobian columns
+    lin_fn = None if cfg.grad_method is GradMethod.AUTO_DIFF else dyn.linearize_point
+    return linearize_dynamics(
+        dyn.step, params, x, u, method=cfg.grad_method,
+        jacobian_fn=dyn.jacobian, fd_eps=cfg.fd_eps, linearize_fn=lin_fn,
+    )
+
+
+def _quadraticize(cost, x, u):
+    if isinstance(cost, QuadCost):
+        return cost.C, cost.c
+    C, c, _ = approximate_cost(cost, x, u)
+    return C, c
+
+
+def lqr_step(cfg: ILQRConfig, cost, dyn, params, x_init, x, u,
+             u_lower=None, u_upper=None, u_zero_I=None, delta_u=None):
+    """One backward+forward iLQR sweep. Returns (new_x, new_u, LqrForOut,
+    n_qp_iter)."""
+    F, _ = _linearize(cfg, dyn, params, x, u)
+    C, c = _quadraticize(cost, x, u)
+    c_back = bmv(C, torch.cat([x, u], -1)) + c  # delta-space shift
+    ric = lqr_backward(
+        cfg.n_state, cfg.n_ctrl, C, c_back, F, None, u,
+        u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
+        pnqp_iter=cfg.pnqp_iter, qp_solver=cfg.qp_solver,
+        parallel=cfg.riccati_parallel,
+    )
+    dyn_roll = dyn if isinstance(dyn, LinDx) else (dyn.step, params)
+    new_x, new_u, out = lqr_forward(
+        cfg.T, cfg.n_state, cfg.n_ctrl, x_init, cost, dyn_roll, x, u,
+        ric.K, ric.k, u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I,
+        delta_u=delta_u, linesearch_decay=cfg.linesearch_decay,
+        max_linesearch_iter=cfg.max_linesearch_iter,
+    )
+    return new_x, new_u, out, ric.n_total_qp_iter
+
+
+def use_kernel(cfg: ILQRConfig, cost, dyn, params, x_init, u_zero_I, delta_u,
+               cost_small, u_lower, u_upper) -> bool:
+    """Backend dispatch. "torch" never takes the kernel; "auto" takes it
+    for CUDA tensors in the covered configuration; "cuda" must take it and
+    raises where it cannot."""
+    if cfg.backend == "torch":
+        return False
+    ok = isinstance(cost, QuadCost) and fused.covered(
+        cfg, dyn, params, x_init.dtype, cost_small, u_zero_I, delta_u,
+        u_lower, u_upper)
+    if cfg.backend == "cuda":
+        if not x_init.is_cuda:
+            raise ValueError(
+                "backend='cuda' needs CUDA tensors; CPU tensors take "
+                "backend='auto' or 'torch'")
+        if not ok:
+            raise ValueError(
+                "backend='cuda': this configuration is not covered by the "
+                "CUDA kernel (see ops/cuda/ilqr_fused.covered)")
+        return True
+    return ok and x_init.is_cuda
+
+
+def ilqr_loop(
+    cfg: ILQRConfig,
+    cost,
+    dyn,
+    params,
+    x_init: torch.Tensor,
+    u_init: torch.Tensor,
+    u_lower=None,
+    u_upper=None,
+    u_zero_I=None,
+    delta_u=None,
+    cost_small=None,
+    u_init_zero: bool = False,
+) -> ILQRInternal:
+    """Run up to cfg.lqr_iter iterations with best tracking and the
+    reference's stopping rule. u_init: [T, B, nu] (already broadcast).
+    cost_small: the user's example-invariant (C, c), [n,n]+[n] or
+    [T,n,n]+[T,n], when there is one; u_init_zero: the warm start is known
+    to be zeros. Both are hints for the kernel."""
+    if use_kernel(cfg, cost, dyn, params, x_init, u_zero_I, delta_u,
+                  cost_small, u_lower, u_upper):
+        return ILQRInternal(*fused.ilqr_fused(
+            cfg, dyn, params, x_init, cost_small,
+            None if u_init_zero else u_init,
+            u_lower=u_lower, u_upper=u_upper,
+        ))
+
+    T, B = cfg.T, x_init.shape[0]
+    dyn_roll = dyn if isinstance(dyn, LinDx) else (dyn.step, params)
+    inf = torch.full((B,), float("inf"), dtype=x_init.dtype, device=x_init.device)
+    u = u_init
+    bx = torch.zeros(T, B, cfg.n_state, dtype=x_init.dtype, device=x_init.device)
+    bu = torch.zeros(T, B, cfg.n_ctrl, dtype=x_init.dtype, device=x_init.device)
+    bc, bdu, cur_du = inf, inf, inf
+    nni = 0
+    i = 0
+    while i < cfg.lqr_iter:
+        # NaN compares False, so a NaN max does not stop, as in the reference
+        if bool(cur_du.max() < cfg.eps) or nni > cfg.not_improved_lim:
+            break
+        x = get_traj(T, u, x_init, dyn_roll)
+        new_x, new_u, out, _ = lqr_step(
+            cfg, cost, dyn, params, x_init, x, u, u_lower=u_lower,
+            u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u)
+        if cfg.verbose >= 1:
+            print(f"ilqr iter {i}: mean cost {float(out.costs.mean()):.6g} "
+                  f"|du|max {float(out.full_du_norm.max()):.3e} "
+                  f"mean alpha {float(out.mean_alphas):.3g}")
+        improved = out.costs <= bc + cfg.best_cost_eps
+        bx = torch.where(improved[None, :, None], new_x, bx)
+        bu = torch.where(improved[None, :, None], new_u, bu)
+        bc = torch.where(improved, out.costs, bc)
+        bdu = torch.where(improved, out.full_du_norm, bdu)
+        # the reference increments, then resets if any example improved,
+        # except on the very first iteration (mpc.py:266, 281)
+        nni = 0 if (i > 0 and bool(improved.any())) else nni + 1
+        u, cur_du = new_u, out.full_du_norm
+        i += 1
+    return ILQRInternal(bx, bu, bc, bdu,
+                        torch.tensor(i, dtype=torch.int32, device=x_init.device))

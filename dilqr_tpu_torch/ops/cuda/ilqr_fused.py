@@ -1,0 +1,324 @@
+"""Whole-solve batched iLQR on the card: the wrapper of the hand-written
+CUDA kernel ``csrc/ilqr_fused.cu`` and its plain PyTorch version.
+
+Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
+the Pallas kernel ``_ilqr_kernel``) for the configuration ``covered``
+admits: n_ctrl == 1 with the closed-form 1-D box-QP, static bounds, an
+example-invariant QuadCost ([n,n]+[n] or [T,n,n]+[T,n]), a zero or given
+warm start, GradMethod.ANALYTIC with the env's hand-derived Jacobian
+(cartpole, simple pendulum), f32.
+
+Semantics, shared by the kernel and ``ilqr_fused_reference``: the batch is
+zero-padded to a multiple of 1024 with the real cost, and the line search's
+any(cost worsened), the not-improved reset's any(improved) and the stopping
+rule's max(du) < eps are decided per 1024-example tile, as the JAX kernel
+decides them (ilqr_fused.py:35-47). The env steps and Jacobians are the
+kernel forms (rotate_cs angle addition, ``Dynamics.kernel_step`` /
+``jac_lanes``).
+
+``ilqr_fused`` launches the kernel for CUDA tensors and takes the plain
+version only for tensors on the CPU; there is no fallback from one to the
+other.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ...models.base import Dynamics
+from ...types import GradMethod, ILQRConfig
+from ...utils.batch import clamp
+from . import build
+
+SOURCE = "ilqr_fused.cu"
+TILE = 1024  # examples per block: the JAX kernel's base tile
+N_PARAMS = {0: 4, 1: 3}  # device_env -> params the device code reads
+
+# kernel launches made by ilqr_fused (the plain version does not count)
+LAUNCHES = 0
+
+
+def static_bounds(u_lower, u_upper) -> Optional[Tuple[float, float]]:
+    """(lo, hi) floats for example- and time-invariant bounds of one
+    control (None | scalar | [1]); None = the bounds vary and the kernel
+    does not take them. A missing bound is +-inf."""
+
+    def conv(v, sign):
+        if v is None:
+            return sign * float("inf")
+        if isinstance(v, (int, float)):
+            return float(v)
+        if isinstance(v, torch.Tensor) and v.numel() == 1 and v.dim() <= 1:
+            return float(v)
+        return None
+
+    lo, hi = conv(u_lower, -1.0), conv(u_upper, 1.0)
+    return None if lo is None or hi is None else (lo, hi)
+
+
+def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
+            u_lower, u_upper) -> bool:
+    """True when the configuration is one the kernel computes (counterpart
+    of ``fused_supported`` plus ``lane_compatible`` for this subset)."""
+    return (
+        isinstance(dyn, Dynamics)
+        and dyn.device_env in N_PARAMS
+        and dyn.jacobian is None
+        and cfg.n_ctrl == 1
+        and cfg.n_state == dyn.n_state
+        and cfg.grad_method is GradMethod.ANALYTIC
+        and cfg.qp_solver == "auto"
+        and not cfg.unroll
+        and cfg.verbose < 1
+        and cfg.slew_rate_penalty is None
+        and dtype == torch.float32
+        and cost_small is not None
+        and u_zero_I is None
+        and delta_u is None
+        and static_bounds(u_lower, u_upper) is not None
+        and isinstance(params, torch.Tensor)
+        and params.dim() == 1
+        and params.shape[0] == N_PARAMS[dyn.device_env]
+    )
+
+
+def _padded(B: int) -> int:
+    return -(-B // TILE) * TILE
+
+
+def _cost_arrays(cost_small, T: int, n: int, device):
+    """Example-invariant cost as f32 (C [Tc, n, n], c [Tc, n]), Tc in {1, T}."""
+    Cs, cs = (torch.as_tensor(a, device=device).to(torch.float32) for a in cost_small)
+    if Cs.dim() == 2:
+        Cs, cs = Cs[None], cs[None]
+    if Cs.shape[1:] != (n, n) or cs.shape[1:] != (n,) or Cs.shape[0] not in (1, T) \
+            or cs.shape[0] != Cs.shape[0]:
+        raise ValueError(
+            f"cost_small must be ([n,n], [n]) or ([T,n,n], [T,n]) with n={n}, "
+            f"T={T}; got {tuple(Cs.shape)}, {tuple(cs.shape)}")
+    return Cs, cs
+
+
+def _check_inputs(cfg, dyn, params, x_init, u_init):
+    if cfg.n_ctrl != 1 or dyn.device_env not in N_PARAMS:
+        raise ValueError("ilqr_fused covers n_ctrl == 1 on cartpole or the simple pendulum")
+    if x_init.dtype != torch.float32:
+        raise ValueError(f"ilqr_fused is f32 only, got {x_init.dtype}")
+    if x_init.dim() != 2 or x_init.shape[1] != cfg.n_state:
+        raise ValueError(f"x_init must be [B, {cfg.n_state}], got {tuple(x_init.shape)}")
+    if params.dim() != 1 or params.shape[0] != N_PARAMS[dyn.device_env]:
+        raise ValueError(f"params must be [{N_PARAMS[dyn.device_env]}], got {tuple(params.shape)}")
+    if u_init is not None and tuple(u_init.shape) != (cfg.T, x_init.shape[0], 1):
+        raise ValueError(f"u_init must be [T, B, 1], got {tuple(u_init.shape)}")
+    for name, t in (("params", params), ("u_init", u_init)):
+        if t is not None and t.device != x_init.device:
+            raise ValueError(f"{name} is on {t.device}, x_init on {x_init.device}")
+
+
+def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
+               x_init: torch.Tensor, cost_small, u_init: Optional[torch.Tensor] = None,
+               u_lower=None, u_upper=None):
+    """Run the whole solve. x_init [B, nx]; cost_small the example-invariant
+    (C, c); u_init [T, B, 1] time-major or None (zeros). Returns time-major
+    (x [T,B,nx], u [T,B,1], costs [B], full_du_norm [B], n_iter []).
+
+    CUDA tensors launch the kernel; CPU tensors take ilqr_fused_reference."""
+    if not x_init.is_cuda:
+        return ilqr_fused_reference(cfg, dyn, params, x_init, cost_small, u_init,
+                                    u_lower=u_lower, u_upper=u_upper)
+    global LAUNCHES
+    _check_inputs(cfg, dyn, params, x_init, u_init)
+    bounds = static_bounds(u_lower, u_upper)
+    if bounds is None:
+        raise ValueError("ilqr_fused takes example- and time-invariant bounds only")
+    T, B, nx = cfg.T, x_init.shape[0], cfg.n_state
+    n = nx + 1
+    dev = x_init.device
+    Bp = _padded(B)
+    Cs, cs = _cost_arrays(cost_small, T, n, dev)
+    Cs = Cs.reshape(Cs.shape[0], n * n).contiguous()
+    cs = cs.contiguous()
+    xi = torch.zeros(nx, Bp, dtype=torch.float32, device=dev)
+    xi[:, :B] = x_init.T
+    u0 = None
+    if u_init is not None:
+        u0 = torch.zeros(T, Bp, dtype=torch.float32, device=dev)
+        u0[:, :B] = u_init[..., 0]
+    p = params.to(torch.float32).contiguous()
+
+    work = torch.empty(T * (3 * nx + 3) * Bp, dtype=torch.float32, device=dev)
+    bx = torch.zeros(T, nx, Bp, dtype=torch.float32, device=dev)
+    bu = torch.zeros(T, Bp, dtype=torch.float32, device=dev)
+    bc = torch.empty(Bp, dtype=torch.float32, device=dev)
+    bdu = torch.empty(Bp, dtype=torch.float32, device=dev)
+    iters = torch.empty(Bp // TILE, dtype=torch.int32, device=dev)
+
+    fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(dyn.device_env, T, Bp, Cs.shape[0], p.data_ptr(), xi.data_ptr(),
+                Cs.data_ptr(), cs.data_ptr(), 0 if u0 is None else u0.data_ptr(),
+                bounds[0], bounds[1], cfg.lqr_iter, cfg.eps, cfg.linesearch_decay,
+                cfg.max_linesearch_iter, cfg.best_cost_eps, cfg.not_improved_lim,
+                work.data_ptr(), bx.data_ptr(), bu.data_ptr(), bc.data_ptr(),
+                bdu.data_ptr(), iters.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"ilqr_fused kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return (bx.permute(0, 2, 1)[:, :B], bu[:, :B, None], bc[:B], bdu[:B],
+            iters.max())
+
+
+def _entry():
+    fn = build.load(SOURCE).dilqr_ilqr_fused
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [I, I, I, I, P, P, P, P, P, F, F, I, F, F, I, F, I,
+                       P, P, P, P, P, P, P]
+        fn.restype = I
+    return fn
+
+
+def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
+                         x_init: torch.Tensor, cost_small,
+                         u_init: Optional[torch.Tensor] = None,
+                         u_lower=None, u_upper=None):
+    """The kernel's function in plain PyTorch, on the tensors' own device:
+    the same padding, per-tile decisions, kernel-form step and Jacobian,
+    Riccati arithmetic and accept/best-tracking order. Same arguments and
+    returns as ilqr_fused."""
+    _check_inputs(cfg, dyn, params, x_init, u_init)
+    bounds = static_bounds(u_lower, u_upper)
+    if bounds is None:
+        raise ValueError("ilqr_fused takes example- and time-invariant bounds only")
+    lo, hi = bounds
+    T, B, nx = cfg.T, x_init.shape[0], cfg.n_state
+    n = nx + 1
+    f32, dev = torch.float32, x_init.device
+    Bp = _padded(B)
+    G = Bp // TILE
+    Cs, cs = _cost_arrays(cost_small, T, n, dev)
+    Cf = (lambda t: Cs[0]) if Cs.shape[0] == 1 else (lambda t: Cs[t])
+    cf = (lambda t: cs[0]) if cs.shape[0] == 1 else (lambda t: cs[t])
+    p = params.to(f32)
+    step, jac = dyn.kernel_step, dyn.jac_lanes
+
+    x0 = torch.zeros(Bp, nx, dtype=f32, device=dev)
+    x0[:B] = x_init
+    u = torch.zeros(T, Bp, dtype=f32, device=dev)
+    if u_init is not None:
+        u[:, :B] = u_init[..., 0]
+
+    def obj(t, xt, ut):
+        tau = torch.cat([xt, ut[:, None]], -1)
+        Ctau = (Cf(t) * tau[:, None, :]).sum(-1)
+        return 0.5 * (tau * Ctau).sum(-1) + (cf(t) * tau).sum(-1)
+
+    def lanes(m):  # [G] per-tile value -> [Bp]
+        return m.repeat_interleave(TILE)
+
+    def tiles(v):  # [Bp] -> [G, TILE]
+        return v.view(G, TILE)
+
+    # 1) initial open-loop rollout and objective
+    xs, oc, xt = [], torch.zeros(Bp, dtype=f32, device=dev), x0
+    for t in range(T):
+        xs.append(xt)
+        oc = oc + obj(t, xt, u[t])
+        xt = step(xt, u[t][:, None], p)
+    x = torch.stack(xs)
+
+    bx = torch.zeros(T, Bp, nx, dtype=f32, device=dev)
+    bu = torch.zeros(T, Bp, dtype=f32, device=dev)
+    bc = torch.full((Bp,), float("inf"), dtype=f32, device=dev)
+    bdu = bc.clone()
+    stopped = torch.zeros(G, dtype=torch.bool, device=dev)
+    nni = torch.zeros(G, dtype=torch.int64, device=dev)
+    iters = torch.zeros(G, dtype=torch.int32, device=dev)
+    zF = torch.zeros(Bp, nx, n, dtype=f32, device=dev)
+
+    for it in range(cfg.lqr_iter):
+        run = ~stopped
+        if not bool(run.any()):
+            break
+        run_l = lanes(run)
+
+        # 2-5) Riccati with F = jac (zero at T-1), delta-space shift,
+        # closed-form 1-D box-QP gains, V/v update
+        V = torch.zeros(Bp, nx, nx, dtype=f32, device=dev)
+        v = torch.zeros(Bp, nx, dtype=f32, device=dev)
+        K, k = [None] * T, [None] * T
+        for t in range(T - 1, -1, -1):
+            xt, ut = x[t], u[t]
+            Ct = Cf(t)
+            tau = torch.cat([xt, ut[:, None]], -1)
+            F = jac(xt, ut[:, None], p) if t < T - 1 else zF
+            cb = tau @ Ct.T + cf(t)
+            FT = F.transpose(-1, -2)
+            Q = Ct + FT @ (V.transpose(-1, -2) @ F)
+            q = cb + (FT @ v[..., None])[..., 0]
+            H, qu = Q[:, nx, nx], q[:, nx]
+            lb, ub = lo - ut, hi - ut
+            kt = clamp(-qu / H, lb, ub)
+            g = H * kt + qu
+            Ic = ((kt <= lb) & (g > 0.0)) | ((kt >= ub) & (g < 0.0))
+            If = torch.where(Ic, 0.0, 1.0).to(f32)
+            Hinv = 1.0 / (H * If + 1e-11)
+            Kt = -(Hinv[:, None] * (Q[:, nx, :nx] * If[:, None]))
+            M = Q[:, :nx, nx:] * Kt[:, None, :]
+            V = (Q[:, :nx, :nx] + M + M.transpose(-1, -2)
+                 + Kt[:, :, None] * (H[:, None, None] * Kt[:, None, :]))
+            v = q[:, :nx] + Q[:, :nx, nx] * kt[:, None] + Kt * (qu + H * kt)[:, None]
+            K[t], k[t] = Kt, kt
+
+        # 6) line search; the trial runs on every lane and is kept on the
+        # lanes of tiles that run it
+        def trial(alpha):
+            xt, cost, du2 = x0, torch.zeros_like(alpha), torch.zeros_like(alpha)
+            txs, tus = [], []
+            for t in range(T):
+                new_u = clamp((K[t] * (xt - x[t])).sum(-1) + u[t] + alpha * k[t], lo, hi)
+                d = u[t] - new_u
+                du2 = du2 + d * d
+                txs.append(xt)
+                tus.append(new_u)
+                cost = cost + obj(t, xt, new_u)
+                xt = step(xt, new_u[:, None], p)
+            return cost, du2, torch.stack(txs), torch.stack(tus)
+
+        alpha = torch.ones(Bp, dtype=f32, device=dev)
+        cc, du2s, tx, tu = oc.clone(), torch.zeros_like(oc), x, u
+        for i in range(cfg.max_linesearch_iter):
+            active = run if i == 0 else run & tiles(cc > oc).any(1)
+            if bool(active.any()):
+                cost, du2, ntx, ntu = trial(alpha)
+                a = lanes(active)
+                cc = torch.where(a, cost, cc)
+                tx = torch.where(a[None, :, None], ntx, tx)
+                tu = torch.where(a[None], ntu, tu)
+                if i == 0:
+                    du2s = torch.where(a, du2, du2s)
+            alpha = torch.where(cc > oc, alpha * cfg.linesearch_decay, alpha)
+        cur_du = torch.sqrt(du2s)
+
+        # 7) accept the last trial and track the best
+        improved = (cc <= bc + cfg.best_cost_eps) & run_l
+        x = torch.where(run_l[None, :, None], tx, x)
+        u = torch.where(run_l[None], tu, u)
+        bx = torch.where(improved[None, :, None], tx, bx)
+        bu = torch.where(improved[None], tu, bu)
+        oc = torch.where(run_l, cc, oc)
+        bc = torch.where(improved, cc, bc)
+        bdu = torch.where(improved, cur_du, bdu)
+
+        # 8) per-tile stopping rule (NaN du compares False, as in the kernel)
+        imp_tile = tiles(improved).any(1)
+        nni_new = torch.where(imp_tile & (it > 0), torch.zeros_like(nni), nni + 1)
+        stop = (tiles(cur_du).amax(1) < cfg.eps) | (nni_new > cfg.not_improved_lim)
+        nni = torch.where(run, nni_new, nni)
+        stopped = stopped | (run & stop)
+        iters = iters + run.to(torch.int32)
+
+    return bx[:, :B], bu[:, :B, None], bc[:B], bdu[:B], iters.max()

@@ -1,0 +1,70 @@
+"""The CUDA kernel of the port against its plain version, on the card.
+
+These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
+and skip elsewhere. They import neither JAX nor the JAX package, so they
+run without this directory's conftest.py:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances (f32): costs rtol 1e-4 and n_iter equal; u 2e-2 and x 1e-2, the
+loose on-device bound of docs/DESIGN.md:103-107 (u moves by about 1e-2 at
+bang-bang switching points between two equally converged optima)."""
+import pytest
+import torch
+
+import dilqr_tpu_torch as P
+from dilqr_tpu_torch.models import cartpole, pendulum
+from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card: see the module docstring)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.parametrize("env", ["cartpole", "pendulum"])
+def test_kernel_matches_plain_version(dev, env):
+    mod = {"cartpole": cartpole, "pendulum": pendulum}[env]
+    dyn, params = mod.make(), mod.default_params(device=dev)
+    q, p = mod.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(1)
+    B, T = 1030, 12
+    th = 0.5 * torch.randn(B, generator=gen) + (3.0 if env == "cartpole" else 0.0)
+    z = torch.zeros(B)
+    x0 = (torch.stack([z, z, th.cos(), th.sin(), z], 1) if env == "cartpole"
+          else torch.stack([th.cos(), th.sin(), z], 1)).to(dev)
+    cfg = P.ILQRConfig(n_state=dyn.n_state, n_ctrl=1, T=T, lqr_iter=8, eps=1e-3,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    args = (cfg, dyn, params, x0, (torch.diag(q), p), None, dyn.lower, dyn.upper)
+    before = fused.LAUNCHES
+    kx, ku, kc, _, kn = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    rx, ru, rc, _, rn = fused.ilqr_fused_reference(*args)
+    assert int(kn) == int(rn)
+    torch.testing.assert_close(kc, rc, rtol=1e-4, atol=1e-5)
+    assert (ku - ru).abs().max().item() <= 2e-2
+    assert (kx - rx).abs().max().item() <= 1e-2
+
+
+def test_solve_dispatches_to_the_kernel(dev):
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    x0 = torch.zeros(2048, 5, device=dev)
+    x0[:, 2] = -1.0
+    before = fused.LAUNCHES
+    res = P.MPC(5, 1, 10, u_lower=-100.0, u_upper=100.0, lqr_iter=5, eps=1e-4,
+                backprop=False, exit_unconverged=False)(x0, P.QuadCost(torch.diag(q), p),
+                                                        dyn, params=params)
+    assert fused.LAUNCHES == before + 1
+    assert res[0].is_cuda and torch.isfinite(res[2]).all()
+    # the plain loop stays on the card: backend="torch" launches nothing
+    mpc = P.MPC(5, 1, 10, u_lower=-100.0, u_upper=100.0, lqr_iter=2, eps=1e-4,
+                backprop=False, exit_unconverged=False, backend="torch")
+    out = mpc(x0[:8], P.QuadCost(torch.diag(q), p), dyn, params=params)
+    assert fused.LAUNCHES == before + 1 and out[0].is_cuda
