@@ -6,15 +6,23 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a),
-     in parallel, and print the build seconds and the ptxas report;
+     one nvcc per source, all started together, and print the build
+     seconds and the ptxas report;
   3. hold each kernel against its plain PyTorch version on the card, on the
-     same inputs, at the shapes of the main path;
-  4. drive the main path through its entry points -- MPC.solve (what
-     MPC.__call__ runs) on cartpole at B=4096 and B=16384 and
-     receding_horizon at B=1024 -- with
-     every launch counter set to 0 just before and read just after;
-  5. time the kernels (CUDA events, warm-up, median) and print one JSON
-     line with each kernel's numbers;
+     same inputs, at the shapes of the main path: the whole-solve kernel on
+     the bench problem and three more; the KKT-VJP kernel, in its full and
+     "Ff" forms, on the bench problem's solution and three random shapes;
+  4. drive the main paths through their entry points, every launch counter
+     set to 0 just before each and read just after:
+     serving -- MPC.solve (what MPC.__call__ runs) on cartpole at B=4096
+     and B=16384 and receding_horizon at B=1024;
+     training -- the IFT gradient of bench.py's imitation loss at B=4096
+     (with and without detach_unconverged), the KKT gradient through
+     MPC's defaults, bench.py's imempc train step for 3 steps, and ILExp
+     (imempc) for 2 epochs on data/cartpole.npz;
+  5. time the kernels (CUDA events, warm-up, median), the IFT forward and
+     backward and the train step, and print one JSON line with each
+     kernel's numbers;
   6. print the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
@@ -86,9 +94,10 @@ def main():
     from dilqr_tpu_torch.models import cartpole, pendulum
     from dilqr_tpu_torch.ops.cuda import build
     from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
+    from dilqr_tpu_torch.ops.cuda import kkt_fused as kkt
 
     dev = torch.device("cuda:0")
-    kernels = {"ilqr_fused": fused}
+    kernels = {"ilqr_fused": fused, "kkt_fused": kkt}
 
     # ---- 2) build ----
     t0 = time.perf_counter()
@@ -181,7 +190,11 @@ def main():
         if main_err is None:
             main_err = max(ex_u.max().item(), ex_x.max().item())
 
-    # ---- 4) the main path through its entry points ----
+    kkt_err, kkt_ops = check_kkt(torch, dev, gen, kkt, cp_dyn, cp_params, bench_cfg,
+                                 cartpole_x0(4096), (torch.diag(cp_q), cp_p))
+
+    # ---- 4) the main paths through their entry points ----
+    # serving
     for m in kernels.values():
         m.LAUNCHES = 0
     mpc = P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, lqr_iter=20, eps=1e-4,
@@ -214,8 +227,16 @@ def main():
         fail(f"receding_horizon: {fused.LAUNCHES - before} launches for 5 steps")
     if ep.xs.shape != (1024, 6, 5) or not torch.isfinite(ep.xs).all():
         fail("receding_horizon: bad closed-loop states")
-    launches = {name: m.LAUNCHES for name, m in kernels.items()}
-    print(f"main path launches: {launches}", flush=True)
+    serving = {name: m.LAUNCHES for name, m in kernels.items()}
+    print(f"serving path launches: {serving}", flush=True)
+    if serving["ilqr_fused"] == 0:
+        fail("kernel ilqr_fused was not launched on the serving path")
+
+    # training: every step zeroes both counters and reads them after
+    train = train_path(torch, P, dev, kernels, cp_dyn, cp_params, cp_q, cp_p, bench_cfg,
+                       cartpole_x0(4096))
+    launches = {name: serving[name] + train["launches"][name] for name in kernels}
+    print(f"main path launches (serving + training): {launches}", flush=True)
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -306,10 +327,333 @@ def main():
         "bound_by": bound_by, "library_ms": None,
     })
     del out
+
+    # the KKT-VJP kernel on the bench problem's solution (phase 3 (a))
+    ops, r = kkt_ops
+    k_ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, r), 3, 21)
+    full_ms, _ = cuda_ms(lambda: kkt.assemble(ops, *kkt.kkt_fused(ops, r)), 3, 21)
+    kp_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, r), 1, 5)
+    k_flops, k_bytes = kkt_work(ops)
+    k_bound = max(k_flops / FP32_PEAK, k_bytes / HBM_RATE) * 1e3
+    k_by = "operations" if k_flops / FP32_PEAK >= k_bytes / HBM_RATE else "bytes"
+    print(f"time kkt_fused cartpole B=4096 T={T}: {k_ms:.4f} ms median of {len(runs)} "
+          f"({', '.join(f'{x:.4f}' for x in runs)}); with the dF/dC assembly {full_ms:.4f} ms; "
+          f"plain version {kp_ms:.3f} ms [{card}]", flush=True)
+    print(f"bound kkt_fused B=4096 T={T}: {k_flops:.4e} FLOP, {k_bytes} bytes -> "
+          f"{k_bound:.5f} ms ({k_by}); launches per IFT backward {train['kkt_per_ift']}; "
+          f"no single PyTorch call computes a KKT VJP, so library_ms is null", flush=True)
+    print(f"time IFT forward+backward B=4096 (host clock, synchronized, median of 3): "
+          f"{train['ift_ms']:.2f} ms with detach_unconverged, {train['ift_ms_all']:.2f} ms "
+          f"without [{card}]", flush=True)
+    print(f"time imempc train step B=4096 (host clock, synchronized, median of 3): "
+          f"{train['step_ms']:.2f} ms [{card}]", flush=True)
+    rows.append({
+        "name": "kkt_fused", "route": "cuda",
+        "source": "dilqr_tpu_torch/csrc/kkt_fused.cu",
+        "replaces": "dilqr_tpu/ops/pallas/kkt_fused.py:173",
+        "launches": launches["kkt_fused"], "max_abs_err": kkt_err,
+        "ms": k_ms, "plain_ms": kp_ms, "bound_ms": k_bound, "bound_by": k_by,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+
+
+KKT_FIELDS = ("dx_init", "dC", "dc", "dF", "df")
+
+
+def check_kkt(torch, dev, gen, kkt, dyn, params, cfg, x0, cost_small):
+    """Phase 3 for the KKT-VJP kernel: kernel against kkt_fused_reference
+    on the same operands, assembled in the full and the "Ff" form, per
+    field max|kernel - plain| <= 1e-4 max|plain| + 1e-5 (f32 recursions
+    in another summation order, FMA contraction). Returns (the largest
+    absolute error on the bench problem, its (operands, cotangent))."""
+    import dataclasses
+
+    import dilqr_tpu_torch as P
+    from dilqr_tpu_torch.core.linearize import linearize_dynamics
+    from dilqr_tpu_torch.diff.modes import _active_set
+
+    # (a) the bench problem: C, c and F at a solve's solution, the active
+    # set from the bounds, random cotangents
+    T, B, nx, nu = cfg.T, x0.shape[0], cfg.n_state, cfg.n_ctrl
+    n = nx + nu
+    res = P.solve(dataclasses.replace(cfg, backprop=False), x0, P.QuadCost(*cost_small), dyn,
+                  params=params, u_lower=dyn.lower, u_upper=dyn.upper)
+    x, u = res.x.transpose(0, 1), res.u.transpose(0, 1)
+    F, _ = linearize_dynamics(dyn.step, params, x, u, linearize_fn=dyn.linearize_point)
+    I = _active_set(u, dyn.lower, dyn.upper)
+    cases = [(f"cartpole bench solution B={B} T={T} (active share "
+              f"{I.float().mean().item():.3f})",
+              kkt.prepare(nx, nu, cost_small[0].expand(T, B, n, n),
+                          cost_small[1].expand(T, B, n), F, x, u, I))]
+
+    def random_ops(nx, nu, T, B):
+        n = nx + nu
+        A = torch.randn(T, B, n, n, generator=gen)
+        C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+        # a contracting F keeps the T-step recursions' values of order one
+        F = (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=gen)
+        parts = (C, torch.randn(T, B, n, generator=gen), F, torch.randn(T, B, nx, generator=gen),
+                 torch.randn(T, B, nu, generator=gen), torch.rand(T, B, nu, generator=gen) < 0.3)
+        return kkt.prepare(nx, nu, *(a.to(dev) for a in parts))
+
+    for nu_ in (1, 2, 3):  # (b)
+        cases.append((f"nx=4 nu={nu_} masked B=1030 T=20", random_ops(4, nu_, 20, 1030)))
+    cases.append(("nx=13 nu=3 masked B=1030 T=20", random_ops(13, 3, 20, 1030)))  # (c)
+    cases.append(("cartpole shape nx=5 nu=1 masked B=1030 T=200",
+                  random_ops(5, 1, 200, 1030)))  # (d)
+
+    main = None
+    for name, ops in cases:
+        Tc, Bc = ops.C.shape[0], ops.C.shape[2]
+        r = torch.randn(Tc, ops.n_state + ops.n_ctrl, Bc, generator=gen).to(dev)
+        before = kkt.LAUNCHES
+        got = kkt.kkt_fused(ops, r)
+        torch.cuda.synchronize()
+        if kkt.LAUNCHES != before + 1:
+            fail(f"kkt {name}: the kernel did not launch")
+        want = kkt.kkt_fused_reference(ops, r)
+        worst = 0.0
+        for full in (True, False):
+            figs = []
+            for field, a, b in zip(KKT_FIELDS, kkt.assemble(ops, *got, full=full),
+                                   kkt.assemble(ops, *want, full=full)):
+                if b is None:
+                    continue
+                if not torch.isfinite(a).all():
+                    fail(f"kkt {name}: non-finite {field}")
+                err, scale = (a - b).abs().max().item(), b.abs().max().item()
+                figs.append(f"{field} {err:.2e}/{scale:.2e}")
+                worst = max(worst, err)
+                if err > 1e-4 * scale + 1e-5:
+                    fail(f"kkt {name} ({'full' if full else 'Ff'}): {field} off by {err:.3e} "
+                         f"at scale {scale:.3e}")
+            print(f"parity kkt {name} {'full' if full else 'Ff'}: max|kernel - plain| / "
+                  f"max|plain|: {', '.join(figs)}", flush=True)
+        if main is None:
+            main = (worst, (ops, r))
+    return main
+
+
+def kkt_work(ops):
+    """(FLOP, bytes) of one KKT VJP from its shapes. FLOP per example and
+    step: the Riccati step (V F, F^T V F on the triangle, q, the gains and
+    the V/v update), the rollout step and the two adjoint steps. Bytes:
+    every input read once (C triangle, F, r, mask, adjoint offset), every
+    output written once (dtau, lam, dlam) and the K/k scratch written and
+    read back once."""
+    nx, nu = ops.n_state, ops.n_ctrl
+    n = nx + nu
+    T, B = ops.C.shape[0], ops.C.shape[2]
+    tri = n * (n + 1) // 2
+    gains = 2 + 2 * nx if nu == 1 else 2 * nu * nu * (nx + 1) + {2: 6, 3: 30}[nu]
+    ric = (2 * nx * nx * n + 2 * nx * tri + tri + 2 * nx * n + n + 3 * nu * nu + gains
+           + 2 * nu * nu * (nx + 1) + 8 * nu * nx * nx + 6 * nu * nx + 3 * nx * nx + 3 * nx)
+    roll = nu * (2 * nx + 2) + 2 * nx * n
+    adj = 4 * nx * nx + 2 * nx * n + 3 * nx
+    floats = T * (tri + nx * n + n + nu + nx) + T * (n + 2 * nx) + 2 * T * (nu * nx + nu)
+    return B * T * (ric + roll + adj), 4 * B * floats
+
+
+def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
+    """Phase 4, training: each step zeroes both counters before and reads
+    them after, and fails unless both kernels launched. Returns the summed
+    launches, the KKT launches per IFT backward and the step times."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from dilqr_tpu_torch.il.exp import ILExp
+    from dilqr_tpu_torch.utils.optim import rmsprop_init, rmsprop_update
+
+    kkt = kernels["kkt_fused"]
+    total = {name: 0 for name in kernels}
+
+    def drive(label, fn):
+        for m in kernels.values():
+            m.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: m.LAUNCHES for name, m in kernels.items()}
+        print(f"training path {label}: launches {got}", flush=True)
+        for name, k in got.items():
+            if k == 0:
+                fail(f"training path {label}: kernel {name} was not launched")
+            total[name] += k
+        return out, got
+
+    cost = P.QuadCost(torch.diag(q), p)
+
+    def grad(c, mpc=None):
+        """bench.py's im_loss (mean u^2) and its gradient with respect to
+        the dynamics params and, per example, x_init; through solve with
+        config c, or through mpc.solve."""
+        pr = params.clone().requires_grad_(True)
+        xi = x0.clone().requires_grad_(True)
+        if mpc is not None:
+            res = mpc.solve(xi, cost, dyn, params=pr)
+        else:
+            res = P.solve(c, xi, cost, dyn, params=pr, u_lower=dyn.lower, u_upper=dyn.upper)
+        loss = (res.u ** 2).mean()
+        gp, gx = torch.autograd.grad(loss, (pr, xi))
+        return loss.detach(), gp, gx, res.converged
+
+    def check_grad(label, c, mpc=None):
+        (loss, gp, gx, conv), got = drive(label, lambda: grad(c, mpc))
+        if not (torch.isfinite(loss) and torch.isfinite(gp).all() and torch.isfinite(gx).all()):
+            fail(f"{label}: non-finite loss or gradient")
+        if gp.dtype != torch.float32:  # the reverse-over-forward VJP keeps f32
+            fail(f"{label}: the params gradient is {gp.dtype}")
+        nonzero = (gx.abs().sum(1) > 0).float().mean().item()
+        # the same forward solution (the kernel is deterministic) through
+        # the plain KKT recursions on the card; max-norm rtol 1e-3: f32
+        # recursions, and GMRES may stop one iteration apart
+        _, gp_ref, _, _ = grad(dataclasses.replace(c, backward_backend="torch"))
+        err = (gp - gp_ref).abs().max().item() / gp_ref.abs().max().item()
+        print(f"{label}: loss {loss.item():.6f}, grad params {gp.tolist()}, KKT launches in "
+              f"the backward {got['kkt_fused']}, converged share {conv.float().mean().item():.4f}, "
+              f"share of examples with a nonzero gradient {nonzero:.4f}, rel. diff to the "
+              f"plain backward {err:.2e}", flush=True)
+        if err > 1e-3:
+            fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+        if nonzero == 0.0:
+            fail(f"{label}: every example's gradient is zero")
+        return got["kkt_fused"]
+
+    # (i) the IFT gradient, with and without detach_unconverged (bench.py:
+    # 276-301 uses detach_unconverged=True)
+    ift = {}
+    for detach in (True, False):
+        c = dataclasses.replace(cfg, backprop=True, detach_unconverged=detach,
+                                backward_mode=P.BackwardMode.IFT)
+        ift[detach] = (c, check_grad(f"(i) IFT grad B={x0.shape[0]} detach_unconverged={detach}",
+                                     c))
+    # (ii) the KKT gradient through MPC with its defaults (backprop=True,
+    # BackwardMode.KKT)
+    for detach in (True, False):
+        mpc = P.MPC(cfg.n_state, cfg.n_ctrl, cfg.T, u_lower=dyn.lower, u_upper=dyn.upper,
+                    lqr_iter=cfg.lqr_iter, eps=cfg.eps, linesearch_decay=cfg.linesearch_decay,
+                    max_linesearch_iter=cfg.max_linesearch_iter, exit_unconverged=False,
+                    detach_unconverged=detach)
+        check_grad(f"(ii) KKT grad through MPC B={x0.shape[0]} detach_unconverged={detach}",
+                   mpc.cfg, mpc)
+
+    # (iii) bench.py's imempc train step (bench.py:349-395): learn a cost
+    # logit and the dynamics params, RMSprop(1e-2, decay=0.5)
+    p_hat = p / torch.sqrt(q.clamp(min=1e-8))
+    qc = q.clamp(1e-4, 0.999)
+    leaves0 = {"q_logit": torch.log(qc / (1.0 - qc)), "params": params.clone()}
+    u_exp = torch.zeros(x0.shape[0], cfg.T, cfg.n_ctrl, device=dev)
+    c_ift = ift[True][0]
+
+    def step(leaves, state):
+        lv = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        qq = torch.sigmoid(lv["q_logit"])
+        res = P.solve(c_ift, x0, P.QuadCost(torch.diag(qq), torch.sqrt(qq) * p_hat), dyn,
+                      params=lv["params"], u_lower=dyn.lower, u_upper=dyn.upper)
+        loss = ((res.u - u_exp) ** 2).mean()
+        g = dict(zip(lv, torch.autograd.grad(loss, list(lv.values()))))
+        new, state = rmsprop_update(leaves, g, state, lr=1e-2, decay=0.5)
+        return new, state, loss.detach()
+
+    def three_steps():
+        leaves, state, losses = leaves0, rmsprop_init(leaves0), []
+        for _ in range(3):
+            leaves, state, loss = step(leaves, state)
+            losses.append(loss.item())
+        return leaves, losses
+
+    (leaves, losses), _ = drive(f"(iii) imempc train step x3 B={x0.shape[0]}", three_steps)
+    moved = max((leaves[k] - leaves0[k]).abs().max().item() for k in leaves0)
+    print(f"(iii) train step losses {losses}, largest parameter move {moved:.3e}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or moved == 0.0:
+        fail("(iii) train step: non-finite loss or the parameters did not move")
+
+    # (iv) the trainer on the shipped dataset
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "cartpole.npz")
+    with tempfile.TemporaryDirectory() as work:
+        exp = ILExp.from_cli(["--env", "cartpole", "--data", data, "--mode", "imempc",
+                              "--learn_cost", "--learn_dx", "--n_epoch", "2", "--n_batch", "32",
+                              "--n_train", "100", "--work", work], device="cuda")
+        best, _ = drive("(iv) ILExp imempc cartpole 2 epochs", lambda: exp.run(verbose=False))
+        with open(os.path.join(exp.save, "train_losses.csv")) as f:
+            rows = [list(map(float, line.split(","))) for line in f.read().splitlines()[1:]]
+        ok = os.path.exists(os.path.join(exp.save, "best.ckpt"))
+    print(f"(iv) ILExp: {len(rows)} steps, last train losses {rows[-1][1:]}, best val loss "
+          f"{best:.6f}, params {{{', '.join(f'{k}: {v.tolist()}' for k, v in exp.params.items())}}}",
+          flush=True)
+    if not (ok and math.isfinite(best) and all(math.isfinite(v) for r in rows for v in r)):
+        fail("(iv) ILExp: non-finite losses or no checkpoint")
+
+    # times: IFT forward + backward, the train step (host clock, synchronized)
+    def host_ms(fn, reps=3):
+        fn()
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(ts)
+
+    profile_step(torch, "IFT forward+backward B=4096 detach_unconverged=True",
+                 lambda: grad(ift[True][0]))
+    return {
+        "launches": total,
+        "kkt_per_ift": f"{ift[True][1]} (detach_unconverged) / {ift[False][1]} (without)",
+        "ift_ms": host_ms(lambda: grad(ift[True][0])),
+        "ift_ms_all": host_ms(lambda: grad(ift[False][0])),
+        "step_ms": host_ms(lambda: step(leaves0, rmsprop_init(leaves0))),
+    }
+
+
+def profile_step(torch, label, fn):
+    """Where one call's time goes: torch.profiler over one warm call, the
+    wall time under the profiler, the device's busy time and idle share,
+    the number of device kernels and copies, the six kernels with the most
+    device time and the five host operators with the most self time.
+
+    Busy time is the union of the device activities' intervals. Only the
+    activities themselves count: the profiler also gives each host operator
+    and each annotated range the device time of the kernels under it, so
+    summing every row with device time counts a kernel two or three times.
+    Reports, never fails: nothing else relies on the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
+    busy, end = 0.0, -math.inf
+    for s, t in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    busy /= 1e3
+    by_name = {}
+    for e in device:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
+    print(f"profile {label}: wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
+          f"(idle share {1.0 - busy / wall:.3f}), {len(device)} device kernels and copies",
+          flush=True)
+    for key, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"profile {label}:   {ms:8.3f} ms  x{count:<5d} {key[:110]}", flush=True)
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    for ms, count, key in host[:5]:
+        print(f"profile {label}:   host {ms:8.3f} ms  x{count:<5d} {key[:100]}", flush=True)
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

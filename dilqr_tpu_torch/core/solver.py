@@ -126,9 +126,8 @@ def solve(
     dev, dtype = x_init.device, x_init.dtype
     if isinstance(cost, QuadCost):
         cost = QuadCost(cost.C.to(dev, dtype), cost.c.to(dev, dtype))
-    elif isinstance(cost, tuple):
-        cost_fn, cost_params = cost
-        cost = lambda tau: cost_fn(tau, cost_params)  # noqa: E731
+    # a (cost_fn, cost_params) pair passes through as it is: the backward
+    # returns the cost parameters' gradients
     if isinstance(dynamics, LinDx):
         dynamics = LinDx(dynamics.F.to(dev, dtype),
                          None if dynamics.f is None else dynamics.f.to(dev, dtype))

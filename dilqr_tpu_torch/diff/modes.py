@@ -1,30 +1,262 @@
-"""Differentiation-mode dispatch (counterpart of ``dilqr_tpu/diff/modes.py``).
+"""Differentiation-mode dispatch (counterpart of ``dilqr_tpu/diff/modes.py``):
+wires the forward iLQR solve to its backward through a
+``torch.autograd.Function``.
 
-This slice ports the forward solve only: the branch with no backward.
-With ``backprop=False`` the outputs are detached. With ``backprop=True``
-every ``backward_mode`` raises NotImplementedError -- the KKT/IFT backward
-(``diff/kkt.py``, ``diff/ift.py``, ``ops/gmres.py`` and the ``kkt_fused``
-kernels) is the next slice (ROADMAP.md, queue A item 5), and an ungraded
-result must not pass for a graded one.
+Three modes (types.BackwardMode):
+  KKT    -- the O(T) module-KKT VJP of the last LQR subproblem plus the
+            linearization chain;
+  IFT    -- fixed-point implicit differentiation, matrix-free (diff/ift.py);
+  UNROLL -- plain autograd through the plain loop (cfg.unroll must be
+            True); the gradient oracle.
+
+The Function's differentiable inputs are x_init, the cost inputs and the
+dynamics inputs; the warm start, bounds and masks are closed over and get
+no gradient, as the reference detaches its bounds. Inside the Function the
+forward is the same ``ilqr_loop`` as without a backward, so a covered
+configuration on CUDA tensors runs the whole-solve kernel; it gets the
+detached cost and params, and the gradient flows through the canonical
+broadcast cost.
 """
 from __future__ import annotations
 
+import warnings
+from typing import Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
 from ..core.ilqr import ilqr_loop
-from ..types import ILQRConfig
+from ..core.linearize import approximate_cost, linearize_dynamics
+from ..models.base import Dynamics
+from ..types import BackwardMode, ILQRConfig, LinDx, QuadCost
+from ..utils.batch import bmv
+from .ift import solve_adjoint_dense, solve_adjoint_fixed_point
+from .kkt import make_kkt_vjp
+
+ACTIVE_TOL = 1e-8  # reference lqr_step.py:325-326
 
 
-def solve_with_grad(cfg: ILQRConfig, cost, dyn, params, x_init, u_init, lb, ub,
-                    uz, delta_u, cost_small=None, u_init_zero: bool = False):
-    """Returns time-major (x, u, costs, full_du_norm, n_iter)."""
-    if cfg.backprop:
-        raise NotImplementedError(
-            f"backprop=True (backward_mode={cfg.backward_mode.name}): the "
-            "port has no backward yet -- the IFT/KKT slice is next in "
-            "ROADMAP.md (queue A item 5). Pass backprop=False for the "
-            "forward solve."
-        )
-    out = ilqr_loop(cfg, cost, dyn, params, x_init, u_init, u_lower=lb,
-                    u_upper=ub, u_zero_I=uz, delta_u=delta_u,
-                    cost_small=cost_small, u_init_zero=u_init_zero)
-    return (out.x.detach(), out.u.detach(), out.costs, out.full_du_norm,
-            out.n_iter)
+def _active_set(u, lb, ub):
+    """Frozen box active set, from the bounds alone (the reference ignores
+    any forward u_zero_I here)."""
+    if lb is None:
+        return None
+    return ((u - lb).abs() <= ACTIVE_TOL) | ((u - ub).abs() <= ACTIVE_TOL)
+
+
+def _linearize_for_vjp(cfg: ILQRConfig, dyn_static: Dynamics):
+    """The differentiable linearization map (X, U, params) -> (F, f) of the
+    backward chains: the forward's linearization with the env's un-clamped
+    physics for every grad method."""
+
+    def lin(x, u, params):
+        return linearize_dynamics(
+            dyn_static.step, params, x, u, method=cfg.grad_method,
+            jacobian_fn=dyn_static.jacobian, fd_eps=cfg.fd_eps,
+            linearize_fn=dyn_static.linearize_point)
+
+    return lin
+
+
+def _detach(tree):
+    return pytree.tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor) else a, tree)
+
+
+class _Problem:
+    """What the Function closes over: the configuration, the static parts
+    of the cost and dynamics, and the non-differentiable inputs."""
+
+    def __init__(self, cfg, quad, cost_fn, lin, dyn_static, treedef, u_init, lb, ub,
+                 uz, delta_u, cost_small, u_init_zero):
+        self.cfg, self.quad, self.cost_fn = cfg, quad, cost_fn
+        self.lin, self.dyn_static, self.treedef = lin, dyn_static, treedef
+        self.u_init, self.lb, self.ub, self.uz = u_init, lb, ub, uz
+        self.delta_u, self.cost_small, self.u_init_zero = delta_u, cost_small, u_init_zero
+
+    def cost_obj(self, cost_in):
+        if self.quad:
+            return QuadCost(*cost_in)
+        return lambda tau: self.cost_fn(tau, cost_in)
+
+    def primal(self, x_init, cost_in, dyn_in):
+        if self.lin:
+            dyn_obj, p = LinDx(*dyn_in), None
+        else:
+            dyn_obj, p = self.dyn_static, dyn_in
+        out = ilqr_loop(self.cfg, self.cost_obj(cost_in), dyn_obj, p, x_init, self.u_init,
+                        u_lower=self.lb, u_upper=self.ub, u_zero_I=self.uz,
+                        delta_u=self.delta_u, cost_small=self.cost_small,
+                        u_init_zero=self.u_init_zero)
+        return out.x, out.u, out.costs, out.full_du_norm, out.n_iter
+
+
+class _SolveWithGrad(torch.autograd.Function):
+    """custom-VJP counterpart: forward = the solve, backward = KKT or IFT."""
+
+    @staticmethod
+    def forward(ctx, prob: _Problem, x_init, *leaves):
+        cost_in, dyn_in = pytree.tree_unflatten(list(leaves), prob.treedef)
+        x, u, costs, du, n_iter = prob.primal(x_init.detach(), _detach(cost_in),
+                                              _detach(dyn_in))
+        ctx.mark_non_differentiable(costs, du, n_iter)
+        ctx.prob = prob
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in leaves]
+        ctx.others = [None if t else a for a, t in zip(leaves, ctx.is_tensor)]
+        ctx.save_for_backward(x, u, du, *[a for a, t in zip(leaves, ctx.is_tensor) if t])
+        return x, u, costs, du, n_iter
+
+    @staticmethod
+    def backward(ctx, g_x, g_u, *_):
+        x, u, du_norm, *tens = ctx.saved_tensors
+        it = iter(tens)
+        leaves = [next(it).detach() if t else o for t, o in zip(ctx.is_tensor, ctx.others)]
+        prob = ctx.prob
+        cost_in, dyn_in = pytree.tree_unflatten(leaves, prob.treedef)
+        d_x_init, d_cost_in, d_dyn_in = _backward(prob, x, u, du_norm, cost_in, dyn_in,
+                                                  g_x, g_u)
+        grads = pytree.tree_leaves((d_cost_in, d_dyn_in), is_leaf=lambda a: a is None)
+        if len(grads) != len(leaves):
+            raise RuntimeError("internal: cotangent structure differs from the inputs'")
+        return (None, d_x_init, *grads)
+
+
+def _backward(prob: _Problem, x, u, du_norm, cost_in, dyn_in, g_x, g_u):
+    """Cotangents of (x_init, cost_in, dyn_in) for the output cotangents
+    (g_x, g_u) [T, B, ...] (modes.py:173-348)."""
+    cfg = prob.cfg
+    nx, nu = cfg.n_state, cfg.n_ctrl
+    if cfg.detach_unconverged:
+        conv = (du_norm < cfg.eps)[None, :, None]
+        g_x = torch.where(conv, g_x, torch.zeros_like(g_x))
+        g_u = torch.where(conv, g_u, torch.zeros_like(g_u))
+
+    # --- problem data at the solution ---
+    if prob.quad:
+        C, c = cost_in
+        cost_pullback = None
+    elif not pytree.tree_leaves(cost_in):  # no cost parameters to differentiate
+        C, c, _ = approximate_cost(lambda tau: prob.cost_fn(tau, cost_in), x, u)
+        cost_pullback = lambda _: (cost_in,)  # noqa: E731
+    else:
+        (C, c), cost_pullback = torch.func.vjp(
+            lambda cp: approximate_cost(lambda tau: prob.cost_fn(tau, cp), x, u)[:2],
+            cost_in)
+
+    if prob.lin:
+        F, f = dyn_in
+        lin_pullback = None
+    else:
+        lin_map = _linearize_for_vjp(cfg, prob.dyn_static)
+        if cfg.backward_mode is not BackwardMode.IFT and not cfg.kkt_grad_through_F:
+            # reference-compat KKT chain: F enters as a constant; the params
+            # chain of f is only the new_x evaluation. f + (F - sg(F)) tau
+            # has f's value, and its params cotangent drops dF/dtheta
+            base_lin = lin_map
+
+            def lin_map(x_, u_, p_):
+                F_, f_ = base_lin(x_, u_, p_)
+                Fc = F_.detach()
+                tau = torch.cat([x_, u_], -1)[:-1]
+                return Fc, f_ + bmv(F_ - Fc, tau)
+
+        (F, f), lin_pullback = torch.func.vjp(lin_map, x, u, dyn_in)
+
+    I = _active_set(u, prob.lb, prob.ub)
+    # the KKT-VJP operator is built once; each GMRES iteration applies it
+    vjp_fn = make_kkt_vjp(nx, nu, C, c, F, x, u, u_zero_I=I, with_f=True,
+                          backend=cfg.backward_backend or cfg.backend,
+                          parallel=cfg.riccati_parallel)
+
+    if cfg.backward_mode is BackwardMode.IFT and not prob.lin:
+
+        def sT_Ff(w):
+            kg = vjp_fn(w[0], w[1], wants="Ff")
+            return kg.dF, kg.df
+
+        def lT_xu(dF, df):
+            dX, dU, _ = lin_pullback((dF, df))
+            return dX, dU
+
+        if cfg.ift_solver == "dense":
+            w = solve_adjoint_dense(sT_Ff, lT_xu, (g_x, g_u))
+        else:
+            w, res_b, b_norm_b = solve_adjoint_fixed_point(
+                sT_Ff, lT_xu, (g_x, g_u), tol=cfg.backward_tol,
+                restart=cfg.ift_restart, maxiter=cfg.ift_maxiter)
+            # per-example accounting: one ill-conditioned example in an
+            # easy batch is detected and repaired on its own
+            bad_b = res_b > cfg.backward_tol * (b_norm_b + 1e-30)
+            n_bad = int(bad_b.sum())
+            if n_bad:
+                ratio = res_b / (b_norm_b + 1e-30)
+                i = int(ratio.argmax())
+                warnings.warn(
+                    f"IFT GMRES adjoint did not converge for {n_bad}/{bad_b.shape[0]} "
+                    f"examples (worst: example {i}, residual {float(res_b[i]):.3e} vs tol "
+                    f"{cfg.backward_tol:.1e} * ||b||={float(b_norm_b[i]):.3e})"
+                    + ("; falling back to the dense probing solve for those examples"
+                       if cfg.ift_fallback else
+                       "; gradients may be inaccurate -- set ift_solver='dense' or "
+                       "raise ift_maxiter"))
+                if cfg.ift_fallback:
+                    # the dense probe is exact; only the failing examples
+                    # take its answer
+                    wd = solve_adjoint_dense(sT_Ff, lT_xu, (g_x, g_u))
+                    m = bad_b[None, :, None]
+                    w = (torch.where(m, wd[0], w[0]), torch.where(m, wd[1], w[1]))
+        kg = vjp_fn(w[0], w[1])
+    else:
+        kg = vjp_fn(g_x, g_u)
+
+    # --- chain to the differentiable inputs ---
+    if prob.quad:
+        d_cost_in = (kg.dC, kg.dc)
+    else:
+        (d_cost_in,) = cost_pullback((kg.dC, kg.dc))
+    if prob.lin:
+        d_dyn_in = (kg.dF, kg.df if dyn_in[1] is not None else None)
+    else:
+        _, _, d_dyn_in = lin_pullback((kg.dF, kg.df))
+    return kg.dx_init, d_cost_in, d_dyn_in
+
+
+def solve_with_grad(cfg: ILQRConfig, cost, dyn, params, x_init, u_init, lb, ub, uz,
+                    delta_u, cost_small=None, u_init_zero: bool = False):
+    """Returns time-major (x, u, costs, full_du_norm, n_iter).
+
+    cost: QuadCost, (cost_fn, cost_params) or a parameterless callable.
+    cost_small / u_init_zero: forward-only hints for the kernel; cost_small
+    gets no gradient -- the backward differentiates the canonical broadcast
+    cost tensors."""
+    lin = isinstance(dyn, LinDx)
+    quad = isinstance(cost, QuadCost)
+    cost_fn = None
+    if quad:
+        cost_in = tuple(cost)
+    elif isinstance(cost, tuple):
+        cost_fn, cost_in = cost
+    else:
+        base = cost
+        cost_fn = lambda tau, _p: base(tau)  # noqa: E731
+        cost_in = ()
+    dyn_in = tuple(dyn) if lin else params
+    leaves, treedef = pytree.tree_flatten((cost_in, dyn_in))
+    prob = _Problem(cfg, quad, cost_fn, lin, None if lin else dyn, treedef, u_init, lb,
+                    ub, uz, delta_u, cost_small, u_init_zero)
+
+    if not cfg.backprop:
+        with torch.no_grad():
+            x, u, costs, du, n_iter = prob.primal(x_init, cost_in, dyn_in)
+        return x, u, costs, du, n_iter
+
+    if cfg.backward_mode is BackwardMode.UNROLL:
+        if not cfg.unroll:
+            raise ValueError("BackwardMode.UNROLL requires cfg.unroll=True")
+        x, u, costs, du, n_iter = prob.primal(x_init, cost_in, dyn_in)
+        if cfg.detach_unconverged:
+            m = (du.detach() < cfg.eps)[None, :, None]
+            x = torch.where(m, x, x.detach())
+            u = torch.where(m, u, u.detach())
+        return x, u, costs.detach(), du.detach(), n_iter
+
+    return _SolveWithGrad.apply(prob, x_init, *leaves)

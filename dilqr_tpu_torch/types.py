@@ -54,9 +54,10 @@ class GradMethod(enum.Enum):
 
 
 class BackwardMode(enum.Enum):
-    """How gradients flow through the solver. The port has no backward
-    yet: every mode raises NotImplementedError when ``backprop`` is set
-    (ROADMAP.md, queue A item 5)."""
+    """How gradients flow through the solver (diff/modes.py): KKT, the
+    module-KKT VJP of the last LQR subproblem; IFT, implicit
+    differentiation of the iLQR fixed point (GMRES on the adjoint); UNROLL,
+    plain autograd through the plain loop (needs ``unroll=True``)."""
 
     KKT = 1
     IFT = 2
@@ -79,8 +80,11 @@ class ILQRConfig:
       * ``"cuda"`` (JAX ``"pallas"``): force the kernel; raises for CPU
         tensors or an uncovered configuration instead of interpreting;
       * ``"torch"`` (JAX ``"xla"``): the plain PyTorch loop.
-    ``backward_backend`` and ``riccati_parallel`` are kept for the surface;
-    the port has neither a backward nor the parallel Riccati yet.
+    ``backward_backend`` selects the KKT-VJP backend of the KKT and IFT
+    backwards, with the same three values (``None``: follow ``backend``):
+    the hand-written CUDA kernel (``ops/cuda/kkt_fused.covered``), forced,
+    or the plain PyTorch recursions. ``riccati_parallel`` is kept for the
+    surface; the parallel Riccati is not ported yet.
     """
 
     n_state: int

@@ -1,12 +1,15 @@
-"""The kernel's per-example device code, built for the host.
+"""The kernels' per-example device code, built for the host.
 
-csrc/ilqr_fused.cuh holds the env steps, Jacobians and the objective as
-__host__ __device__ functions; g++ compiles them here (no nvcc needed) into
-a small ctypes library, and each is held against the port's Python kernel
-forms (Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32 inputs.
-Tolerance 2e-6 absolute on values of order one: the host build takes
-1/sqrtf for rsqrtf and may contract to FMAs, a few ulp apart from PyTorch's
-evaluation order."""
+csrc/ilqr_fused.cuh holds the env steps, Jacobians and the objective, and
+csrc/kkt_fused.cuh the whole per-example KKT VJP, as __host__ __device__
+functions; g++ compiles them here (no nvcc needed) into a small ctypes
+library. The env code is held against the port's Python kernel forms
+(Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32 inputs, the KKT
+code against kkt_fused_reference. Tolerance 2e-6 absolute on values of
+order one for the env code: the host build takes 1/sqrtf for rsqrtf and may
+contract to FMAs, a few ulp apart from PyTorch's evaluation order; 1e-5
+relative to the largest output for the KKT VJP, whose T-step recursions
+carry that rounding along."""
 import ctypes
 import os
 import shutil
@@ -17,12 +20,14 @@ import pytest
 import torch
 
 from dilqr_tpu_torch.models import cartpole, pendulum
+from dilqr_tpu_torch.ops.cuda import kkt_fused
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dilqr_tpu_torch", "csrc")
 
 SHIM = r"""
 #include "ilqr_fused.cuh"
+#include "kkt_fused.cuh"
 using namespace dilqr;
 template <class Env>
 static void run(const float* p, const float* x, const float* u, int B,
@@ -45,6 +50,15 @@ extern "C" void env_eval(int env, const float* p, const float* x, const float* u
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
   return objective<6>(tau, C, c);
 }
+extern "C" int kkt_host(int nx, int nu, int T, int B, const float* C, const float* F,
+                        const float* r, const float* uz, const float* lb, float* dtau,
+                        float* lam, float* dlam, float* K, float* k) {
+  const KktArgs a{T, B, C, F, r, uz, lb, dtau, lam, dlam, K, k};
+#define CASE(X_, U_) \
+  if (nx == X_ && nu == U_) { for (int b = 0; b < B; ++b) kkt_example<X_, U_>(a, b); return 0; }
+  DILQR_KKT_SHAPES(CASE)
+  return 1;
+}
 """
 
 
@@ -57,13 +71,15 @@ def lib(tmp_path_factory):
     src, out = d / "shim.cpp", d / "libshim.so"
     src.write_text(SHIM)
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I", CSRC,
-                    "-o", str(out), str(src)], check=True, capture_output=True, timeout=120)
+                    "-o", str(out), str(src)], check=True, capture_output=True, timeout=180)
     lib = ctypes.CDLL(str(out))
-    P = ctypes.c_void_p
-    lib.env_eval.argtypes = [ctypes.c_int, P, P, P, ctypes.c_int, P, P]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.env_eval.argtypes = [I, P, P, P, I, P, P]
     lib.env_eval.restype = None
     lib.objective6.argtypes = [P, P, P]
     lib.objective6.restype = ctypes.c_float
+    lib.kkt_host.argtypes = [I, I, I, I] + [P] * 10
+    lib.kkt_host.restype = I
     return lib
 
 
@@ -110,3 +126,29 @@ def test_device_objective_matches_torch(lib):
     t = torch.from_numpy(tau)
     want = 0.5 * t @ torch.from_numpy(C) @ t + torch.from_numpy(c) @ t
     assert abs(got - float(want)) <= 2e-6 * max(1.0, abs(float(want)))
+
+
+@pytest.mark.parametrize("nx,nu", kkt_fused.SHAPES)
+def test_device_kkt_code_matches_plain_version(lib, nx, nu):
+    """kkt_example, the code the CUDA kernel runs per example, against
+    kkt_fused_reference on the same operands: every instantiated shape,
+    half the controls frozen at random."""
+    T, B, n = 7, 6, nx + nu
+    rng = np.random.RandomState(nx * 10 + nu)
+    A = rng.randn(T, B, n, n)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    C = f32(A @ A.transpose(0, 1, 3, 2) + 2.0 * np.eye(n))
+    ops = kkt_fused.prepare(nx, nu, C, f32(rng.randn(T, B, n)),
+                            f32(0.3 * rng.randn(T - 1, B, nx, n)), f32(rng.randn(T, B, nx)),
+                            f32(rng.randn(T, B, nu)),
+                            torch.from_numpy(rng.rand(T, B, nu) < 0.5))
+    r = f32(rng.randn(T, n, B))
+    want = kkt_fused.kkt_fused_reference(ops, r)
+    outs = [np.zeros((T, k, B), np.float32) for k in (n, nx, nx, nu * nx, nu)]
+    ins = [np.ascontiguousarray(a.numpy()) for a in (ops.C, ops.F, r, ops.uz, ops.lb)]
+    rc = lib.kkt_host(nx, nu, T, B, *[_ptr(a) for a in ins + outs])
+    assert rc == 0
+    for name, got, w in zip(("dtau", "lam", "dlam"), outs[:3], want):
+        w = w.numpy()
+        np.testing.assert_allclose(got, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)

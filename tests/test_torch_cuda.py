@@ -1,4 +1,4 @@
-"""The CUDA kernel of the port against its plain version, on the card.
+"""The CUDA kernels of the port against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker
 and skip elsewhere. They import neither JAX nor the JAX package, so they
@@ -15,6 +15,7 @@ import torch
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.models import cartpole, pendulum
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
+from dilqr_tpu_torch.ops.cuda import kkt_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +69,60 @@ def test_solve_dispatches_to_the_kernel(dev):
                 backprop=False, exit_unconverged=False, backend="torch")
     out = mpc(x0[:8], P.QuadCost(torch.diag(q), p), dyn, params=params)
     assert fused.LAUNCHES == before + 1 and out[0].is_cuda
+
+
+@pytest.mark.parametrize("nx,nu,T,B", [(4, 1, 6, 1030), (4, 2, 6, 1030), (4, 3, 6, 1030),
+                                       (13, 3, 20, 1030), (5, 1, 200, 1030), (3, 1, 20, 33)])
+def test_kkt_kernel_matches_plain_version(dev, nx, nu, T, B):
+    """The KKT-VJP kernel against kkt_fused_reference on the same operands,
+    half the controls frozen; per field max|kernel - plain| <= 1e-4
+    max|plain| + 1e-5 (f32 recursions, FMA contraction)."""
+    gen = torch.Generator().manual_seed(nx * 100 + nu * 10 + T)
+    n = nx + nu
+    A = torch.randn(T, B, n, n, generator=gen)
+    C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+    # a contracting F keeps the T-step recursions' values of order one
+    F = (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=gen)
+    ops = kkt_fused.prepare(nx, nu, *(a.to(dev) for a in (
+        C, torch.randn(T, B, n, generator=gen), F, torch.randn(T, B, nx, generator=gen),
+        torch.randn(T, B, nu, generator=gen), torch.rand(T, B, nu, generator=gen) < 0.5)))
+    r = torch.randn(T, n, B, generator=gen).to(dev)
+    before = kkt_fused.LAUNCHES
+    got = kkt_fused.kkt_fused(ops, r)
+    torch.cuda.synchronize()
+    assert kkt_fused.LAUNCHES == before + 1
+    want = kkt_fused.kkt_fused_reference(ops, r)
+    for full in (True, False):
+        for g, w in zip(kkt_fused.assemble(ops, *got, full=full),
+                        kkt_fused.assemble(ops, *want, full=full)):
+            if w is not None:
+                assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("mode", ["IFT", "KKT"])
+def test_gradient_through_both_kernels(dev, mode):
+    """An IFT / KKT gradient of a cartpole solve goes through both kernels
+    and agrees with the plain KKT recursions on the same forward solution
+    (rtol 1e-3: f32 recursions; GMRES may stop one iteration apart)."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(2)
+    B = 1024
+    th = 3.0 + 0.1 * torch.randn(B, generator=gen)
+    z = torch.zeros(B)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    grads = {}
+    for bb in ("auto", "torch"):
+        cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=20, lqr_iter=20, eps=1e-4,
+                           linesearch_decay=0.5, max_linesearch_iter=2, exit_unconverged=False,
+                           detach_unconverged=False, backward_mode=P.BackwardMode[mode],
+                           backward_backend=bb)
+        pr = params.clone().requires_grad_(True)
+        before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+        res = P.solve(cfg, x0, P.QuadCost(torch.diag(q), p), dyn, params=pr,
+                      u_lower=-100.0, u_upper=100.0)
+        (grads[bb],) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before[0] + 1
+        assert (kkt_fused.LAUNCHES > before[1]) == (bb == "auto")
+    torch.testing.assert_close(grads["auto"], grads["torch"], rtol=1e-3, atol=1e-6)

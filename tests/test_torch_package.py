@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port: it loads nothing of JAX or of the JAX
 package, it refuses what it does not implement instead of returning
-something else, and CPU tensors never reach the CUDA kernel."""
+something else, and CPU tensors never reach the CUDA kernels."""
 import dataclasses
 import os
 import subprocess
@@ -14,6 +14,7 @@ import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.models import cartpole
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
+from dilqr_tpu_torch.ops.cuda import kkt_fused
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,7 +30,7 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "dilqr_tpu" or m.startswith("dilqr_tpu.")]
 print(len(names), bad)
-assert len(names) >= 20, names
+assert len(names) >= 33, names
 assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -58,11 +59,19 @@ def test_backend_cuda_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("mode", list(P.BackwardMode))
-def test_backprop_raises_not_implemented(mode):
+def test_backprop_on_cpu_tensors_launches_no_kernel(mode):
+    """backprop=True (the default) gives a differentiable result in every
+    mode on CPU tensors, through the plain versions only."""
     cfg, x0, cost, dyn, params = _problem(backprop=True, backward_mode=mode,
-                                          unroll=mode is P.BackwardMode.UNROLL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.solve(cfg, x0, cost, dyn, params=params, u_lower=-100.0, u_upper=100.0)
+                                          unroll=mode is P.BackwardMode.UNROLL,
+                                          detach_unconverged=False)
+    params = params.clone().requires_grad_(True)
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+    res = P.solve(cfg, x0, cost, dyn, params=params, u_lower=-100.0, u_upper=100.0)
+    assert res.u.requires_grad and not res.costs.requires_grad
+    (g,) = torch.autograd.grad((res.u ** 2).sum(), params)
+    assert (fused.LAUNCHES, kkt_fused.LAUNCHES) == before
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 def test_unported_options_raise():
