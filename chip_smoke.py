@@ -5,21 +5,27 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. require a CUDA device; print the card's name and power limit;
-  2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a),
+  2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together, and print the build
      seconds and the ptxas report;
   3. hold each kernel against its plain PyTorch version on the card, on the
-     same inputs, at the shapes of the main path: the whole-solve kernel on
-     the bench problem and three more; the KKT-VJP kernel, in its full and
-     "Ff" forms, on the bench problem's solution and three random shapes;
+     same inputs, at the shapes of the main paths: the whole-solve kernel on
+     the cartpole bench problem and three more, and on the rocket (13
+     states, 3 controls, the in-kernel box-QP) at bench.py's start with its
+     +-20 box and on a ragged two-tile batch with active per-control bounds
+     (its active sets compared per control and per step);
+     the KKT-VJP kernel, in its full and "Ff" forms, on the cartpole bench
+     solution, four random shapes and the rocket bench solution;
   4. drive the main paths through their entry points, every launch counter
      set to 0 just before each and read just after:
      serving -- MPC.solve (what MPC.__call__ runs) on cartpole at B=4096
-     and B=16384 and receding_horizon at B=1024;
+     and B=16384 and receding_horizon at B=1024; the same on the rocket at
+     B=1024 and B=16384 and receding_horizon at B=1024;
      training -- the IFT gradient of bench.py's imitation loss at B=4096
      (with and without detach_unconverged), the KKT gradient through
-     MPC's defaults, bench.py's imempc train step for 3 steps, and ILExp
-     (imempc) for 2 epochs on data/cartpole.npz;
+     MPC's defaults, bench.py's imempc train step for 3 steps, ILExp
+     (imempc) for 2 epochs on data/cartpole.npz, and the IFT gradient of
+     bench.py's rocket loss at B=1024;
   5. time the kernels (CUDA events, warm-up, median), the IFT forward and
      backward and the train step, and print one JSON line with each
      kernel's numbers;
@@ -28,7 +34,8 @@ Phases, in order; any failure exits non-zero before the last line:
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
 this system are the dynamics parameters and the cost; they are the
-cartpole's published defaults, and the initial states come from a seed.
+cartpole's and the rocket's published defaults, and the initial states
+come from a seed.
 """
 from __future__ import annotations
 
@@ -77,6 +84,83 @@ def cuda_ms(fn, warmup: int, reps: int):
     return statistics.median(times), times
 
 
+def drive(torch, kernels, total, label, fn, want=None):
+    """Run fn with every launch counter set to 0 just before and read just
+    after; add the counts to ``total``. want: kernel -> the launches it
+    must make (None: at least one); by default every kernel at least once.
+    Returns (fn's result, the counts)."""
+    for m in kernels.values():
+        m.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: m.LAUNCHES for name, m in kernels.items()}
+    print(f"{label}: launches {got}", flush=True)
+    for name, n in (want or dict.fromkeys(kernels)).items():
+        if (got[name] == 0) if n is None else (got[name] != n):
+            fail(f"{label}: {got[name]} launches of {name}, want {'some' if n is None else n}")
+    for name in total:
+        total[name] += got[name]
+    return out, got
+
+
+def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
+    """The whole-solve kernel against its plain version on the same inputs.
+    Tolerances (f32). n_iter must be equal. Per-example costs must agree to
+    rtol 1e-4 on at least 99% of the examples and to 1e-2 on all: an
+    example that is still iterating when lqr_iter ends (the pendulum
+    swing-ups) amplifies one-ulp differences -- a line-search step accepted
+    in one version and rejected in the other -- into another path, a few
+    per thousand by up to ~1e-3 (PERF.md). x and u must agree to 1e-2 and
+    2e-2 on every example: at bang-bang switching points u moves by about
+    1e-2 between two equally converged optima (docs/DESIGN.md:103-107); the
+    examples past the CPU tests' 2e-3 are counted and printed. Returns (the
+    largest |kernel - plain| of x and u, the kernel's output, the plain
+    version's output)."""
+    k_out = fused.ilqr_fused(cfg, dyn, params, x0, cost_small, u0, lo, hi)
+    torch.cuda.synchronize()
+    r_out = fused.ilqr_fused_reference(cfg, dyn, params, x0, cost_small, u0, lo, hi)
+    torch.cuda.synchronize()
+    kx, ku, kc, kdu, kn = k_out
+    rx, ru, rc, rdu, rn = r_out
+    if not (torch.isfinite(kc).all() and torch.isfinite(ku).all()):
+        fail(f"{name}: non-finite kernel output")
+    cost_rel = (kc - rc).abs() / rc.abs().clamp(min=1e-6)
+    ex_u = (ku - ru).abs().amax(dim=(0, 2))
+    ex_x = (kx - rx).abs().amax(dim=(0, 2))
+    n_cost = int((cost_rel > 1e-4).sum())
+    print(f"parity {name}: cost rel max {cost_rel.max().item():.2e} (past 1e-4: "
+          f"{n_cost}/{x0.shape[0]}), u max {ex_u.max().item():.2e} (past 2e-3: "
+          f"{int((ex_u > 2e-3).sum())}), x max {ex_x.max().item():.2e}, "
+          f"n_iter {int(kn)} vs {int(rn)}", flush=True)
+    if cost_rel.max().item() > 1e-2 or n_cost > 0.01 * x0.shape[0]:
+        fail(f"{name}: costs disagree past their tolerance")
+    if int(kn) != int(rn):
+        fail(f"{name}: n_iter {int(kn)} (kernel) != {int(rn)} (plain)")
+    if ex_x.max().item() > 1e-2 or ex_u.max().item() > 2e-2:
+        fail(f"{name}: x or u past its bound (1e-2, 2e-2)")
+    return max(ex_u.max().item(), ex_x.max().item()), k_out, r_out
+
+
+def rocket_checks(name, cfg, k_out, r_out, lo, hi):
+    """The rocket's cases, beyond parity's: u within 2e-3 on the examples
+    that converged in both versions (du < eps), whose u the problem sets;
+    an example still iterating when lqr_iter ends has a u that f32
+    rounding alone moves by up to ~1e-2 (PERF.md), which parity's 2e-2
+    bounds. And the kernel's active set (|u - bound| < 1e-6) equal to the
+    plain version's on all but 1e-3 of each control's entries. Prints the
+    shares of controls at a bound; returns the distances."""
+    from dilqr_tpu_torch.tools.rounding_witness import describe, distances
+
+    d = distances(k_out, r_out, lo, hi, cfg.eps)
+    print(f"parity {name}: {describe(d)}", flush=True)
+    if d["converged"] == 0 or max(d["u_max_converged"]) > 2e-3:
+        fail(f"{name}: u on the converged examples past 2e-3 (or none converged)")
+    entries = k_out[1].shape[0] * k_out[1].shape[1]
+    if max(d["active_mismatch"]) > 1e-3 * entries:
+        fail(f"{name}: active sets differ in {d['active_mismatch']} of {entries} entries")
+    return d
+
+
 def main():
     import torch
 
@@ -91,7 +175,7 @@ def main():
 
     import dilqr_tpu_torch as P
     from dilqr_tpu_torch.control import receding_horizon
-    from dilqr_tpu_torch.models import cartpole, pendulum
+    from dilqr_tpu_torch.models import cartpole, pendulum, rocket
     from dilqr_tpu_torch.ops.cuda import build
     from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
     from dilqr_tpu_torch.ops.cuda import kkt_fused as kkt
@@ -134,17 +218,7 @@ def main():
     T = 20
     bench_cfg = cfg_for(cp_dyn, 5, T, 20, cp_dyn.mpc_eps)
 
-    # ---- 3) kernel against its plain version on the card ----
-    # Tolerances (f32). n_iter must be equal. Per-example costs must agree
-    # to rtol 1e-4 on at least 99% of the examples and to 1e-2 on all: an
-    # example that is still iterating when lqr_iter ends (the pendulum
-    # swing-ups) amplifies one-ulp differences -- a line-search step
-    # accepted in one version and rejected in the other -- into another
-    # path, a few per thousand by up to ~1e-3 (PERF.md).
-    # x and u must agree to 1e-2 and 2e-2 on every example: at bang-bang
-    # switching points u moves by about 1e-2 between two equally converged
-    # optima (docs/DESIGN.md:103-107); the examples past the CPU tests'
-    # 2e-3 are counted and printed.
+    # ---- 3) kernel against its plain version on the card (see parity) ----
     cases = [
         ("cartpole B=4096 T=20 eps=1e-4 (bench)", cp_dyn, cp_params, bench_cfg,
          cartpole_x0(4096), (torch.diag(cp_q), cp_p), None),
@@ -164,34 +238,44 @@ def main():
     ))
     main_err = None
     for name, dyn, params, cfg, x0, cost_small, u0 in cases:
-        lo, hi = dyn.lower, dyn.upper
-        k_out = fused.ilqr_fused(cfg, dyn, params, x0, cost_small, u0, lo, hi)
-        torch.cuda.synchronize()
-        r_out = fused.ilqr_fused_reference(cfg, dyn, params, x0, cost_small, u0, lo, hi)
-        torch.cuda.synchronize()
-        kx, ku, kc, kdu, kn = k_out
-        rx, ru, rc, rdu, rn = r_out
-        if not (torch.isfinite(kc).all() and torch.isfinite(ku).all()):
-            fail(f"{name}: non-finite kernel output")
-        cost_rel = (kc - rc).abs() / rc.abs().clamp(min=1e-6)
-        ex_u = (ku - ru).abs().amax(dim=(0, 2))
-        ex_x = (kx - rx).abs().amax(dim=(0, 2))
-        n_cost = int((cost_rel > 1e-4).sum())
-        print(f"parity {name}: cost rel max {cost_rel.max().item():.2e} (past 1e-4: "
-              f"{n_cost}/{x0.shape[0]}), u max {ex_u.max().item():.2e} (past 2e-3: "
-              f"{int((ex_u > 2e-3).sum())}), x max {ex_x.max().item():.2e}, "
-              f"n_iter {int(kn)} vs {int(rn)}", flush=True)
-        if cost_rel.max().item() > 1e-2 or n_cost > 0.01 * x0.shape[0]:
-            fail(f"{name}: costs disagree past their tolerance")
-        if int(kn) != int(rn):
-            fail(f"{name}: n_iter {int(kn)} (kernel) != {int(rn)} (plain)")
-        if ex_x.max().item() > 1e-2 or ex_u.max().item() > 2e-2:
-            fail(f"{name}: x or u past its bound (1e-2, 2e-2)")
+        err, _, _ = parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, dyn.lower,
+                           dyn.upper)
         if main_err is None:
-            main_err = max(ex_u.max().item(), ex_x.max().item())
+            main_err = err
 
-    kkt_err, kkt_ops = check_kkt(torch, dev, gen, kkt, cp_dyn, cp_params, bench_cfg,
-                                 cartpole_x0(4096), (torch.diag(cp_q), cp_p))
+    # the rocket: bench.py's rocket stage (bench.py:305-347) with its +-20
+    # box, which no control reaches from this start, and a ragged two-tile
+    # batch with active bounds, where the box-QP's active set and its
+    # per-tile Newton and Armijo votes do the work: the main thrust at most
+    # 8 (hovering takes 10) and the side thrusts within +-0.1, where each
+    # control sits at a bound in a fifth or more of its entries. Both are
+    # held to parity's bounds and to rocket_checks'.
+    rgen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    r_dyn, r_params = rocket.make(), rocket.default_params(device=dev)
+    r_q, r_p = rocket.get_true_obj(device=dev)
+    r_cs = (torch.diag(r_q), r_p)
+    r_cfg = P.ILQRConfig(
+        n_state=13, n_ctrl=3, T=T, lqr_iter=15, eps=r_dyn.mpc_eps,
+        linesearch_decay=r_dyn.linesearch_decay, max_linesearch_iter=r_dyn.max_linesearch_iter,
+        exit_unconverged=False, detach_unconverged=True, backprop=False)
+    name = "rocket B=1024 T=20 eps=1e-3 (bench, +-20 box)"
+    r_err, k_out, r_out = parity(torch, fused, name, r_dyn, r_params, r_cfg,
+                                 rocket.bench_start(1024, rgen, device=dev), r_cs, None,
+                                 r_dyn.lower, r_dyn.upper)
+    rocket_checks(name, r_cfg, k_out, r_out, r_dyn.lower.to(dev), r_dyn.upper.to(dev))
+    tight = torch.tensor([8.0, 0.1, 0.1], device=dev)
+    name = "rocket B=1030 T=20 eps=1e-3, bounds +-(8, 0.1, 0.1)"
+    _, k_out, r_out = parity(torch, fused, name, r_dyn, r_params, r_cfg,
+                             rocket.bench_start(1030, rgen, device=dev), r_cs, None, -tight, tight)
+    d = rocket_checks(name, r_cfg, k_out, r_out, -tight, tight)
+    if min(d["active_share"]) < 0.2:
+        fail(f"{name}: a control is at a bound in under 20% of its entries: {d['active_share']}")
+
+    kkt_err, kkt_ops = check_kkt(torch, dev, gen, kkt, [
+        ("cartpole bench solution", cp_dyn, cp_params, bench_cfg, cartpole_x0(4096),
+         (torch.diag(cp_q), cp_p)),
+        ("rocket bench solution", r_dyn, r_params, r_cfg,
+         rocket.bench_start(1024, rgen, device=dev), r_cs)])
 
     # ---- 4) the main paths through their entry points ----
     # serving
@@ -249,6 +333,9 @@ def main():
     print(f"main path B=4096 vs plain version: cost rel {main_cost_rel:.2e}", flush=True)
     if main_cost_rel > 1e-4:
         fail("main path costs disagree with the plain version")
+
+    # the rocket's serving and training paths (counters zeroed before each)
+    rk = rocket_paths(torch, P, dev, kernels, r_dyn, r_params, r_cs, r_cfg, rgen)
 
     # ---- 5) times ----
     rows = []
@@ -351,8 +438,43 @@ def main():
         "name": "kkt_fused", "route": "cuda",
         "source": "dilqr_tpu_torch/csrc/kkt_fused.cu",
         "replaces": "dilqr_tpu/ops/pallas/kkt_fused.py:173",
-        "launches": launches["kkt_fused"], "max_abs_err": kkt_err,
+        "launches": launches["kkt_fused"] + rk["launches"]["kkt_fused"],
+        "max_abs_err": kkt_err,
         "ms": k_ms, "plain_ms": kp_ms, "bound_ms": k_bound, "bound_by": k_by,
+        "library_ms": None,
+    })
+
+    # the rocket variant of the whole-solve kernel (nu=3, in-kernel box-QP)
+    r_ms = {}
+    for B in (1024, 16384, 132 * fused.TILE):
+        x0 = rocket.bench_start(B, rgen, device=dev)
+        ms, runs = cuda_ms(lambda: fused.ilqr_fused(r_cfg, r_dyn, r_params, x0, r_cs, None,
+                                                    r_dyn.lower, r_dyn.upper), 1, 5)
+        r_ms[B] = ms
+        out = fused.ilqr_fused(r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper)
+        print(f"time ilqr_fused rocket B={B} T={T}: {ms:.3f} ms median of {len(runs)} "
+              f"({', '.join(f'{r:.3f}' for r in runs)}), {B / ms * 1e3:.0f} solves/s, "
+              f"n_iter {int(out[4])} [{card}]", flush=True)
+    x0 = rocket.bench_start(1024, rgen, device=dev)
+    r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
+        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)
+    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms median of 3 "
+          f"[{card}]", flush=True)
+    r_flops, r_bytes, counts = rocket_work(torch, fused, r_cfg, r_dyn, r_params, x0, r_cs)
+    r_bound = max(r_flops / FP32_PEAK, r_bytes / HBM_RATE) * 1e3
+    r_by = "operations" if r_flops / FP32_PEAK >= r_bytes / HBM_RATE else "bytes"
+    print(f"bound ilqr_fused rocket B=1024: {r_flops:.3e} FLOP, {r_bytes} bytes -> "
+          f"{r_bound:.4f} ms ({r_by}); {counts}; no single PyTorch call computes an iLQR "
+          f"solve, so library_ms is null", flush=True)
+    print(f"time rocket IFT forward+backward B=1024 (host clock, synchronized, median of 3): "
+          f"{rk['ift_ms']:.2f} ms; KKT launches per IFT backward {rk['kkt_per_ift']} "
+          f"[{card}]", flush=True)
+    rows.append({
+        "name": "ilqr_fused_rocket", "route": "cuda",
+        "source": "dilqr_tpu_torch/csrc/ilqr_fused.cu",
+        "replaces": "dilqr_tpu/ops/pallas/ilqr_fused.py:699",
+        "launches": rk["launches"]["ilqr_fused"], "max_abs_err": r_err,
+        "ms": r_ms[1024], "plain_ms": r_plain_ms, "bound_ms": r_bound, "bound_by": r_by,
         "library_ms": None,
     })
     print(json.dumps({"kernels": rows}), flush=True)
@@ -364,31 +486,37 @@ def main():
 KKT_FIELDS = ("dx_init", "dC", "dc", "dF", "df")
 
 
-def check_kkt(torch, dev, gen, kkt, dyn, params, cfg, x0, cost_small):
+def check_kkt(torch, dev, gen, kkt, solutions):
     """Phase 3 for the KKT-VJP kernel: kernel against kkt_fused_reference
     on the same operands, assembled in the full and the "Ff" form, per
     field max|kernel - plain| <= 1e-4 max|plain| + 1e-5 (f32 recursions
-    in another summation order, FMA contraction). Returns (the largest
-    absolute error on the bench problem, its (operands, cotangent))."""
+    in another summation order, FMA contraction). ``solutions`` lists
+    (label, dyn, params, cfg, x0, cost_small) problems whose solution gives
+    the operands; the first is the bench problem, the others run after the
+    random shapes. Returns (the largest absolute error on the bench
+    problem, its (operands, cotangent))."""
     import dataclasses
 
     import dilqr_tpu_torch as P
     from dilqr_tpu_torch.core.linearize import linearize_dynamics
     from dilqr_tpu_torch.diff.modes import _active_set
 
-    # (a) the bench problem: C, c and F at a solve's solution, the active
-    # set from the bounds, random cotangents
-    T, B, nx, nu = cfg.T, x0.shape[0], cfg.n_state, cfg.n_ctrl
-    n = nx + nu
-    res = P.solve(dataclasses.replace(cfg, backprop=False), x0, P.QuadCost(*cost_small), dyn,
-                  params=params, u_lower=dyn.lower, u_upper=dyn.upper)
-    x, u = res.x.transpose(0, 1), res.u.transpose(0, 1)
-    F, _ = linearize_dynamics(dyn.step, params, x, u, linearize_fn=dyn.linearize_point)
-    I = _active_set(u, dyn.lower, dyn.upper)
-    cases = [(f"cartpole bench solution B={B} T={T} (active share "
-              f"{I.float().mean().item():.3f})",
-              kkt.prepare(nx, nu, cost_small[0].expand(T, B, n, n),
-                          cost_small[1].expand(T, B, n), F, x, u, I))]
+    def solution_ops(label, dyn, params, cfg, x0, cost_small):
+        """C, c and F at a solve's solution, the active set from the bounds"""
+        T, B, nx, nu = cfg.T, x0.shape[0], cfg.n_state, cfg.n_ctrl
+        n = nx + nu
+        res = P.solve(dataclasses.replace(cfg, backprop=False), x0, P.QuadCost(*cost_small), dyn,
+                      params=params, u_lower=dyn.lower, u_upper=dyn.upper)
+        x, u = res.x.transpose(0, 1), res.u.transpose(0, 1)
+        F, _ = linearize_dynamics(dyn.step, params, x, u, linearize_fn=dyn.linearize_point)
+        lo, hi = (v.to(dev) if isinstance(v, torch.Tensor) else v for v in (dyn.lower, dyn.upper))
+        I = _active_set(u, lo, hi)
+        return (f"{label} B={B} T={T} (active share {I.float().mean().item():.3f})",
+                kkt.prepare(nx, nu, cost_small[0].expand(T, B, n, n),
+                            cost_small[1].expand(T, B, n), F, x, u, I))
+
+    # (a) the bench problem, random cotangents
+    cases = [solution_ops(*solutions[0])]
 
     def random_ops(nx, nu, T, B):
         n = nx + nu
@@ -405,6 +533,7 @@ def check_kkt(torch, dev, gen, kkt, dyn, params, cfg, x0, cost_small):
     cases.append(("nx=13 nu=3 masked B=1030 T=20", random_ops(13, 3, 20, 1030)))  # (c)
     cases.append(("cartpole shape nx=5 nu=1 masked B=1030 T=200",
                   random_ops(5, 1, 200, 1030)))  # (d)
+    cases += [solution_ops(*sol) for sol in solutions[1:]]  # (e)
 
     main = None
     for name, ops in cases:
@@ -458,6 +587,136 @@ def kkt_work(ops):
     return B * T * (ric + roll + adj), 4 * B * floats
 
 
+def rocket_paths(torch, P, dev, kernels, dyn, params, cs, cfg, gen):
+    """Phase 4 for the rocket, through the entry points a user calls, each
+    path with both counters zeroed before it and read after it: serving
+    (MPC.solve at B=1024 and B=16384, one launch each; receding_horizon at
+    B=1024 for 5 steps, 5 launches) and training (the IFT gradient of
+    bench.py's rocket loss, mean u^2 with respect to the params, at B=1024,
+    with detach_unconverged; both kernels launch, and the gradient agrees
+    with the plain KKT recursions on the same forward solution to max-norm
+    rtol 1e-3). Returns the summed launches, the KKT launches of the IFT
+    backward and its host time; prints a profiler breakdown of one IFT
+    step."""
+    import dataclasses
+
+    from dilqr_tpu_torch.control import receding_horizon
+    from dilqr_tpu_torch.models import rocket
+
+    total = {name: 0 for name in kernels}
+    cost = P.QuadCost(*cs)
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"rocket path {label}", fn, want)
+
+    mpc = P.MPC(13, 3, cfg.T, u_lower=dyn.lower, u_upper=dyn.upper, lqr_iter=cfg.lqr_iter,
+                eps=cfg.eps, linesearch_decay=cfg.linesearch_decay,
+                max_linesearch_iter=cfg.max_linesearch_iter, backprop=False,
+                exit_unconverged=False)
+    for B in (1024, 16384):
+        x0 = rocket.bench_start(B, gen, device=dev)
+        res, _ = run(f"serving MPC.solve B={B}", lambda: mpc.solve(x0, cost, dyn, params=params),
+                     {"ilqr_fused": 1, "kkt_fused": 0})
+        if res.x.shape != (B, cfg.T, 13) or res.u.shape != (B, cfg.T, 3):
+            fail(f"rocket MPC at B={B}: shapes {tuple(res.x.shape)}, {tuple(res.u.shape)}")
+        if not (torch.isfinite(res.costs).all() and torch.isfinite(res.x).all()):
+            fail(f"rocket MPC at B={B}: non-finite output")
+        if res.u.abs().max().item() > 20.0:
+            fail(f"rocket MPC at B={B}: controls outside the box")
+        print(f"rocket MPC B={B}: n_iter {int(res.n_iter)}, mean cost "
+              f"{res.costs.mean().item():.4f}, converged share "
+              f"{res.converged.float().mean().item():.4f}, max |u| "
+              f"{res.u.abs().max().item():.4f}", flush=True)
+    x0 = rocket.bench_start(1024, gen, device=dev)
+    ep, _ = run("serving receding_horizon B=1024 x5 steps",
+                lambda: receding_horizon(cfg, dyn, params, cost, x0, 5, u_lower=dyn.lower,
+                                         u_upper=dyn.upper),
+                {"ilqr_fused": 5, "kkt_fused": 0})
+    if ep.xs.shape != (1024, 6, 13) or not torch.isfinite(ep.xs).all():
+        fail("rocket receding_horizon: bad closed-loop states")
+    print(f"rocket receding_horizon: mean height {ep.xs[:, :, 0].mean(0).tolist()}", flush=True)
+
+    c_ift = dataclasses.replace(cfg, backprop=True, detach_unconverged=True,
+                                backward_mode=P.BackwardMode.IFT)
+    x0 = rocket.bench_start(1024, gen, device=dev)
+
+    def grad(c):
+        pr = params.clone().requires_grad_(True)
+        res = P.solve(c, x0, cost, dyn, params=pr, u_lower=dyn.lower, u_upper=dyn.upper)
+        loss = (res.u ** 2).mean()
+        (g,) = torch.autograd.grad(loss, pr)
+        return loss.detach(), g, res.converged
+
+    (loss, g, conv), got = run("training IFT grad B=1024", lambda: grad(c_ift),
+                               {"ilqr_fused": 1, "kkt_fused": None})
+    if not (torch.isfinite(loss) and torch.isfinite(g).all()) or g.dtype != torch.float32:
+        fail("rocket IFT grad: non-finite or not float32")
+    _, g_ref, _ = grad(dataclasses.replace(c_ift, backward_backend="torch"))
+    err = (g - g_ref).abs().max().item() / g_ref.abs().max().item()
+    print(f"rocket IFT grad: loss {loss.item():.6f}, grad params {g.tolist()}, KKT launches in "
+          f"the backward {got['kkt_fused']}, converged share {conv.float().mean().item():.4f}, "
+          f"rel. diff to the plain backward {err:.2e}", flush=True)
+    if err > 1e-3:
+        fail(f"rocket IFT grad: differs from the plain backward's by {err:.3e}")
+    if g.abs().max().item() == 0.0:
+        fail("rocket IFT grad: the gradient is zero")
+
+    profile_step(torch, "rocket IFT forward+backward B=1024 detach_unconverged=True",
+                 lambda: grad(c_ift))
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grad(c_ift)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t1) * 1e3)
+    return {"launches": total, "kkt_per_ift": got["kkt_fused"], "ift_ms": statistics.median(ts)}
+
+
+def rocket_work(torch, fused, cfg, dyn, params, x0, cs):
+    """(FLOP, bytes) of one rocket solve of a one-tile batch from its
+    shapes. The work that depends on the data -- the iterations and the
+    line-search trials -- is counted from one run of the plain version,
+    which takes the kernel's per-tile decisions: with one tile, each call of
+    the step or the Jacobian is one call for the tile. The box-QP is
+    counted at one Newton step and one Armijo trial per Riccati step; its
+    repeats are not counted. FLOP per example: the step 130, the Jacobian
+    200, the objective 2n^2 + 3n; a Riccati step V F, Q's triangle,
+    C tau + c, F^T v, the box-QP, K, Quu K and the V/v update; a trial step
+    K dx, the objective and the step. Bytes: x_init, the cost, params and
+    bounds read once, x, u, costs, du and the tile counts written once."""
+    import dataclasses
+
+    calls = {"step": 0, "jac": 0}
+
+    def counted(name, fn):
+        def f(*a):
+            calls[name] += 1
+            return fn(*a)
+        return f
+
+    cdyn = dataclasses.replace(dyn, kernel_step=counted("step", dyn.kernel_step),
+                               jac_lanes=counted("jac", dyn.jac_lanes))
+    fused.ilqr_fused_reference(cfg, cdyn, params, x0, cs, None, dyn.lower, dyn.upper)
+    T, B, nx, nu = cfg.T, x0.shape[0], 13, 3
+    if B > fused.TILE:
+        raise ValueError("rocket_work counts a one-tile batch")
+    n = nx + nu
+    tri = n * (n + 1) // 2
+    step_f, jac_f, qp_f = 130, 200, 150
+    obj_f = 2 * n * n + 3 * n
+    iters = calls["jac"] // (T - 1)
+    trials = (calls["step"] - T) // T
+    ric = (2 * nx * nx * n + 2 * nx * tri + tri + 2 * n * n + n + 2 * nx * n
+           + qp_f + 2 * nu * nu * nx + 2 * nu * nu * (nx + 1)
+           + nx * nx * (6 * nu + 3) + nx * (4 * nu + 2))
+    trial_t = 2 * nu * nx + 4 * nu + obj_f + step_f
+    flops = B * (T * (obj_f + step_f) + calls["jac"] * jac_f + iters * T * ric
+                 + trials * T * trial_t)
+    bytes_ = 4 * (B * nx + n * n + n + 5 + 2 * nu) + 4 * (T * B * n + 2 * B + 1)
+    return flops, bytes_, f"iterations {iters}, line-search trials {trials}"
+
+
 def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
     """Phase 4, training: each step zeroes both counters before and reads
     them after, and fails unless both kernels launched. Returns the summed
@@ -472,18 +731,8 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
     kkt = kernels["kkt_fused"]
     total = {name: 0 for name in kernels}
 
-    def drive(label, fn):
-        for m in kernels.values():
-            m.LAUNCHES = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {name: m.LAUNCHES for name, m in kernels.items()}
-        print(f"training path {label}: launches {got}", flush=True)
-        for name, k in got.items():
-            if k == 0:
-                fail(f"training path {label}: kernel {name} was not launched")
-            total[name] += k
-        return out, got
+    def run(label, fn):
+        return drive(torch, kernels, total, f"training path {label}", fn)
 
     cost = P.QuadCost(torch.diag(q), p)
 
@@ -502,7 +751,7 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
         return loss.detach(), gp, gx, res.converged
 
     def check_grad(label, c, mpc=None):
-        (loss, gp, gx, conv), got = drive(label, lambda: grad(c, mpc))
+        (loss, gp, gx, conv), got = run(label, lambda: grad(c, mpc))
         if not (torch.isfinite(loss) and torch.isfinite(gp).all() and torch.isfinite(gx).all()):
             fail(f"{label}: non-finite loss or gradient")
         if gp.dtype != torch.float32:  # the reverse-over-forward VJP keeps f32
@@ -566,7 +815,7 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
             losses.append(loss.item())
         return leaves, losses
 
-    (leaves, losses), _ = drive(f"(iii) imempc train step x3 B={x0.shape[0]}", three_steps)
+    (leaves, losses), _ = run(f"(iii) imempc train step x3 B={x0.shape[0]}", three_steps)
     moved = max((leaves[k] - leaves0[k]).abs().max().item() for k in leaves0)
     print(f"(iii) train step losses {losses}, largest parameter move {moved:.3e}", flush=True)
     if not all(math.isfinite(v) for v in losses) or moved == 0.0:
@@ -578,7 +827,7 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
         exp = ILExp.from_cli(["--env", "cartpole", "--data", data, "--mode", "imempc",
                               "--learn_cost", "--learn_dx", "--n_epoch", "2", "--n_batch", "32",
                               "--n_train", "100", "--work", work], device="cuda")
-        best, _ = drive("(iv) ILExp imempc cartpole 2 epochs", lambda: exp.run(verbose=False))
+        best, _ = run("(iv) ILExp imempc cartpole 2 epochs", lambda: exp.run(verbose=False))
         with open(os.path.join(exp.save, "train_losses.csv")) as f:
             rows = [list(map(float, line.split(","))) for line in f.read().splitlines()[1:]]
         ok = os.path.exists(os.path.join(exp.save, "best.ckpt"))

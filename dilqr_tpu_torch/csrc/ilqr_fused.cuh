@@ -1,12 +1,15 @@
 // Per-example math of the whole-solve iLQR kernel (ilqr_fused.cu): the env
-// steps and Jacobians in their kernel form, and the quadratic objective.
+// steps and Jacobians in their kernel form, the quadratic objective, and
+// the small-matrix pieces of the multi-control box-QP (closed-form
+// inverses, the projected-Newton step and its tile-voting loop).
 //
-// These are the device counterparts of dilqr_tpu_torch/models/cartpole.py
-// and pendulum.py (`kernel_step`, `jac_lanes`): the clamped step advances
-// the angle with the angle-addition identities plus one rsqrt
-// renormalization (rotate_cs, kernel form, with its zero-norm guard), and
-// the Jacobian is the hand-derived one of the un-clamped step. The
-// functions are __host__ __device__ so a host compiler can build them too.
+// The envs are the device counterparts of dilqr_tpu_torch/models/
+// cartpole.py, pendulum.py and rocket.py (`kernel_step`, `jac_lanes`): the
+// cartpole and pendulum steps advance the angle with the angle-addition
+// identities plus one rsqrt renormalization (rotate_cs, kernel form, with
+// its zero-norm guard); the rocket step is a polynomial map. Each Jacobian
+// is the hand-derived one of the un-clamped step. The functions are
+// __host__ __device__ so a host compiler can build them too.
 #pragma once
 
 #include <math.h>
@@ -22,7 +25,10 @@ namespace dilqr {
 constexpr float kDt = 0.05f;
 
 // ids shared with the Python side (models/*.py DEVICE_ENV)
-enum EnvId { ENV_CARTPOLE = 0, ENV_PENDULUM = 1 };
+enum EnvId { ENV_CARTPOLE = 0, ENV_PENDULUM = 1, ENV_ROCKET = 2 };
+
+// the most controls any env with device code has (the rocket's 3)
+constexpr int kMaxNu = 3;
 
 DILQR_HD float rsqrt_f(float v) {
 #ifdef __CUDA_ARCH__
@@ -55,6 +61,7 @@ DILQR_HD void rotate_cs(float c, float s, float delta, float* oc, float* os) {
 // +-100, params (gravity, masscart, masspole, length).
 struct Cartpole {
   static constexpr int NX = 5;
+  static constexpr int NU = 1;
   static constexpr int NP = 4;
   float g, mc, mp, l;
 
@@ -65,7 +72,8 @@ struct Cartpole {
     l = p[3];
   }
 
-  DILQR_HD void step(const float* xs, float u, float* xn) const {
+  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
+    const float u = us[0];
     const float uu = u > 100.0f ? 100.0f : (u < -100.0f ? -100.0f : u);
     const float tm = mp + mc;
     const float pml = mp * l;
@@ -80,7 +88,8 @@ struct Cartpole {
   }
 
   // D = [dx'/dx | dx'/du] of the un-clamped step, [5][6]
-  DILQR_HD void jac(const float* xs, float u, float D[NX][NX + 1]) const {
+  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + 1]) const {
+    const float u = us[0];
     const float tm = mp + mc;
     const float pml = mp * l;
     const float dt = kDt;
@@ -133,6 +142,7 @@ struct Cartpole {
 // params (g, m, l).
 struct Pendulum {
   static constexpr int NX = 3;
+  static constexpr int NU = 1;
   static constexpr int NP = 3;
   float g, m, l;
 
@@ -142,7 +152,8 @@ struct Pendulum {
     l = p[2];
   }
 
-  DILQR_HD void step(const float* xs, float u, float* xn) const {
+  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
+    const float u = us[0];
     const float uu = u > 2.0f ? 2.0f : (u < -2.0f ? -2.0f : u);
     const float c = xs[0], s = xs[1], w = xs[2];
     const float newdth = w + kDt * (-3.0f * g / (2.0f * l) * (-s) + 3.0f * uu / (m * (l * l)));
@@ -151,7 +162,8 @@ struct Pendulum {
   }
 
   // D = [dx'/dx | dx'/du] of the un-clamped step, [3][4]
-  DILQR_HD void jac(const float* xs, float u, float D[NX][NX + 1]) const {
+  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + 1]) const {
+    const float u = us[0];
     const float dt = kDt;
     const float c = xs[0], s = xs[1], w = xs[2];
     const float k_s = dt * 1.5f * g / l;
@@ -188,6 +200,271 @@ struct Pendulum {
     D[2][3] = k_u;
   }
 };
+
+// Rocket: state (r[3], v[3], q[4], w[3]), thrust vector clamped to +-400
+// inside the step, params (Jx, Jy, Jz, mass, l), dt = 0.1; the
+// normalize_quat=False step (the reference's un-normalized return).
+struct Rocket {
+  static constexpr int NX = 13;
+  static constexpr int NU = 3;
+  static constexpr int NP = 5;
+  static constexpr float kDtR = 0.1f;
+  float Jx, Jy, Jz, mass, l;
+
+  DILQR_HD void load(const float* p) {
+    Jx = p[0];
+    Jy = p[1];
+    Jz = p[2];
+    mass = p[3];
+    l = p[4];
+  }
+
+  // c[i][j] of the direction-cosine matrix C_B_I; the step uses its
+  // transpose, R[i][j] = c[j][i]
+  DILQR_HD static void dcm(float q0, float q1, float q2, float q3, float c[3][3]) {
+    c[0][0] = 1.0f - 2.0f * (q2 * q2 + q3 * q3);
+    c[0][1] = 2.0f * (q1 * q2 + q0 * q3);
+    c[0][2] = 2.0f * (q1 * q3 - q0 * q2);
+    c[1][0] = 2.0f * (q1 * q2 - q0 * q3);
+    c[1][1] = 1.0f - 2.0f * (q1 * q1 + q3 * q3);
+    c[1][2] = 2.0f * (q2 * q3 + q0 * q1);
+    c[2][0] = 2.0f * (q1 * q3 + q0 * q2);
+    c[2][1] = 2.0f * (q2 * q3 - q0 * q1);
+    c[2][2] = 1.0f - 2.0f * (q1 * q1 + q2 * q2);
+  }
+
+  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
+    float Tb[3];
+    for (int i = 0; i < 3; ++i) {
+      const float u = us[i];
+      Tb[i] = u > 400.0f ? 400.0f : (u < -400.0f ? -400.0f : u);
+    }
+    const float q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
+    const float w0 = xs[10], w1 = xs[11], w2 = xs[12];
+    float c[3][3];
+    dcm(q0, q1, q2, q3, c);
+    float dx[NX];
+    dx[0] = xs[3];
+    dx[1] = xs[4];
+    dx[2] = xs[5];
+    const float g[3] = {-10.0f, 0.0f, 0.0f};
+    for (int i = 0; i < 3; ++i)
+      dx[3 + i] = (c[0][i] * Tb[0] + c[1][i] * Tb[1] + c[2][i] * Tb[2]) / mass + g[i];
+    dx[6] = 0.5f * (-w0 * q1 - w1 * q2 - w2 * q3);
+    dx[7] = 0.5f * (w0 * q0 + w2 * q2 - w1 * q3);
+    dx[8] = 0.5f * (w1 * q0 - w2 * q1 + w0 * q3);
+    dx[9] = 0.5f * (w2 * q0 + w1 * q1 - w0 * q2);
+    const float a = -0.5f * l;
+    const float tq1 = -a * Tb[2];
+    const float tq2 = a * Tb[1];
+    const float cw0 = w1 * (Jz * w2) - w2 * (Jy * w1);
+    const float cw1 = w2 * (Jx * w0) - w0 * (Jz * w2);
+    const float cw2 = w0 * (Jy * w1) - w1 * (Jx * w0);
+    dx[10] = (0.0f - cw0) / Jx;
+    dx[11] = (tq1 - cw1) / Jy;
+    dx[12] = (tq2 - cw2) / Jz;
+    for (int i = 0; i < NX; ++i) xn[i] = xs[i] + dx[i] * kDtR;
+  }
+
+  // D = [dx'/dx | dx'/du] of the un-clamped step, [13][16]
+  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + NU]) const {
+    const float dt = kDtR;
+    const float q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
+    const float w0 = xs[10], w1 = xs[11], w2 = xs[12];
+    const float T0 = us[0], T1 = us[1], T2 = us[2];
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX + NU; ++j) D[i][j] = 0.0f;
+    float c[3][3];
+    dcm(q0, q1, q2, q3, c);
+    // dc[e][k]: partial of c entry e = 3 * row + col by q_k
+    const float dc[9][4] = {
+        {0.0f, 0.0f, -4.0f * q2, -4.0f * q3},
+        {2.0f * q3, 2.0f * q2, 2.0f * q1, 2.0f * q0},
+        {-2.0f * q2, 2.0f * q3, -2.0f * q0, 2.0f * q1},
+        {-2.0f * q3, 2.0f * q2, 2.0f * q1, -2.0f * q0},
+        {0.0f, -4.0f * q1, 0.0f, -4.0f * q3},
+        {2.0f * q1, 2.0f * q0, 2.0f * q3, 2.0f * q2},
+        {2.0f * q2, 2.0f * q3, 2.0f * q0, 2.0f * q1},
+        {-2.0f * q1, -2.0f * q0, 2.0f * q3, 2.0f * q2},
+        {0.0f, -4.0f * q1, -4.0f * q2, 0.0f},
+    };
+    for (int i = 0; i < 3; ++i) {  // r' = r + dt v
+      D[i][i] = 1.0f;
+      D[i][3 + i] = dt;
+    }
+    for (int m = 0; m < 3; ++m) {  // v' = v + dt (R T / mass + g)
+      const int i = 3 + m;
+      D[i][i] = 1.0f;
+      for (int k = 0; k < 4; ++k)
+        D[i][6 + k] = dt * (dc[m][k] * T0 + dc[3 + m][k] * T1 + dc[6 + m][k] * T2) / mass;
+      for (int j = 0; j < 3; ++j) D[i][13 + j] = dt * c[j][m] / mass;
+    }
+    const float h = 0.5f * dt;  // q' = q + 0.5 dt Omega(w) q
+    const float dqq[4][4] = {
+        {0.0f, -h * w0, -h * w1, -h * w2},
+        {h * w0, 0.0f, h * w2, -h * w1},
+        {h * w1, -h * w2, 0.0f, h * w0},
+        {h * w2, h * w1, -h * w0, 0.0f},
+    };
+    const float dqw[4][3] = {
+        {-h * q1, -h * q2, -h * q3},
+        {h * q0, -h * q3, h * q2},
+        {h * q3, h * q0, -h * q1},
+        {-h * q2, h * q1, h * q0},
+    };
+    for (int a = 0; a < 4; ++a) {
+      for (int b = 0; b < 4; ++b) D[6 + a][6 + b] = dqq[a][b] + (a == b ? 1.0f : 0.0f);
+      for (int b = 0; b < 3; ++b) D[6 + a][10 + b] = dqw[a][b];
+    }
+    const float kzy = Jz - Jy, kxz = Jx - Jz, kyx = Jy - Jx;  // w' = w + dt (torque - w x J w) / J
+    D[10][10] = 1.0f;
+    D[10][11] = -dt * kzy * w2 / Jx;
+    D[10][12] = -dt * kzy * w1 / Jx;
+    D[11][10] = -dt * kxz * w2 / Jy;
+    D[11][11] = 1.0f;
+    D[11][12] = -dt * kxz * w0 / Jy;
+    D[11][15] = dt * (0.5f * l) / Jy;
+    D[12][10] = -dt * kyx * w1 / Jz;
+    D[12][11] = -dt * kyx * w0 / Jz;
+    D[12][12] = 1.0f;
+    D[12][14] = -dt * (0.5f * l) / Jz;
+  }
+};
+
+// ---- the multi-control box-QP of the Riccati step (nu = 2, 3) ----
+// Counterparts of _inv_lanes and _pnqp_lanes in dilqr_tpu/ops/pallas/
+// ilqr_fused.py, with its constants.
+constexpr float kPnqpReg = 1e-11f;
+constexpr float kPnqpGamma = 0.1f;
+constexpr float kPnqpDecay = 0.1f;
+constexpr float kPnqpConv = 1e-4f;
+constexpr int kPnqpArmijoIter = 10;
+// examples that no longer step carry this armijo value (the reference quirk)
+constexpr float kPnqpSentinel = (float)(0.1 + 1e-6);
+
+// A tile-wide any(): on the device a block vote over the 1024-example
+// tile; built for the host, a tile is one example. Every thread of a block
+// must reach every call.
+struct TileVote {
+  DILQR_HD static int any(int p) {
+#ifdef __CUDA_ARCH__
+    return __syncthreads_or(p);
+#else
+    return p;
+#endif
+  }
+};
+
+// Explicit inverse of a small SPD-plus-ridge matrix, M <= 3: reciprocal,
+// Cramer, adjugate over the determinant (the JAX kernels' _inv_lanes,
+// dilqr_tpu/ops/pallas/ilqr_fused.py:492)
+template <int M>
+DILQR_HD void inv_small(const float A[M][M], float R[M][M]) {
+  if constexpr (M == 1) {
+    R[0][0] = 1.0f / A[0][0];
+  } else if constexpr (M == 2) {
+    const float det = A[0][0] * A[1][1] - A[0][1] * A[1][0];
+    const float r = 1.0f / det;
+    R[0][0] = A[1][1] * r;
+    R[0][1] = -A[0][1] * r;
+    R[1][0] = -A[1][0] * r;
+    R[1][1] = A[0][0] * r;
+  } else {
+    static_assert(M == 3, "closed-form inverse for M <= 3");
+    const float c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1];
+    const float c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2];
+    const float c02 = A[1][0] * A[2][1] - A[1][1] * A[2][0];
+    const float det = A[0][0] * c00 + A[0][1] * c01 + A[0][2] * c02;
+    const float r = 1.0f / det;
+    const float c10 = A[0][2] * A[2][1] - A[0][1] * A[2][2];
+    const float c11 = A[0][0] * A[2][2] - A[0][2] * A[2][0];
+    const float c12 = A[0][1] * A[2][0] - A[0][0] * A[2][1];
+    const float c20 = A[0][1] * A[1][2] - A[0][2] * A[1][1];
+    const float c21 = A[0][2] * A[1][0] - A[0][0] * A[1][2];
+    const float c22 = A[0][0] * A[1][1] - A[0][1] * A[1][0];
+    R[0][0] = c00 * r; R[0][1] = c10 * r; R[0][2] = c20 * r;
+    R[1][0] = c01 * r; R[1][1] = c11 * r; R[1][2] = c21 * r;
+    R[2][0] = c02 * r; R[2][1] = c12 * r; R[2][2] = c22 * r;
+  }
+}
+
+// y = A x
+template <int M>
+DILQR_HD void mv_small(const float A[M][M], const float* x, float* y) {
+  for (int i = 0; i < M; ++i) {
+    float s = 0.0f;
+    for (int j = 0; j < M; ++j) s += A[i][j] * x[j];
+    y[i] = s;
+  }
+}
+
+// the QP objective 0.5 x^T H x + q^T x
+template <int M>
+DILQR_HD float qp_obj(const float H[M][M], const float* q, const float* x) {
+  float Hx[M];
+  mv_small<M>(H, x, Hx);
+  float quad = 0.0f, lin = 0.0f;
+  for (int i = 0; i < M; ++i) quad += x[i] * Hx[i];
+  for (int i = 0; i < M; ++i) lin += q[i] * x[i];
+  return 0.5f * quad + lin;
+}
+
+// One projected-Newton step at x: the gradient g, the free set If (0 on
+// the active set (x <= lb & g > 0) | (x >= ub & g < 0)), the masked and
+// ridged Hessian Hf = H * If If^T + 1e-11 I and the direction
+// dx = -Hf^{-1} (g * If).
+template <int M>
+DILQR_HD void pnqp_newton(const float H[M][M], const float* q, const float* lb,
+                          const float* ub, const float* x, float* g, float* If,
+                          float Hf[M][M], float* dx) {
+  mv_small<M>(H, x, g);
+  for (int i = 0; i < M; ++i) {
+    g[i] += q[i];
+    const bool Ic = (x[i] <= lb[i] && g[i] > 0.0f) || (x[i] >= ub[i] && g[i] < 0.0f);
+    If[i] = Ic ? 0.0f : 1.0f;
+  }
+  for (int i = 0; i < M; ++i)
+    for (int j = 0; j < M; ++j) Hf[i][j] = H[i][j] * If[i] * If[j] + (i == j ? kPnqpReg : 0.0f);
+  float Hi[M][M], gf[M];
+  inv_small<M>(Hf, Hi);
+  for (int i = 0; i < M; ++i) gf[i] = g[i] * If[i];
+  mv_small<M>(Hi, gf, dx);
+  for (int i = 0; i < M; ++i) dx[i] = -dx[i];
+}
+
+// The box-QP min 0.5 x^T H x + q^T x, lb <= x <= ub, from x0 (clipped),
+// with the tile's decisions as votes: the Newton loop ends when no example
+// of the tile still steps (||dx|| >= 1e-4); the Armijo backtracking (alpha
+// x 0.1 where armijo <= 0.1, at most 10 trials) goes on while every
+// example's armijo is <= 0.1 -- a NaN anywhere ends it, as a max does.
+// Returns x and the If/Hf of the last Newton step (taken at the iterate
+// before the last Armijo step, or at x0 when the loop does not run): the
+// Riccati step forms its gains from those.
+template <int M>
+DILQR_HD void pnqp(const float H[M][M], const float* q, const float* lb, const float* ub,
+                   const float* x0, int n_iter, float* x, float* If, float Hf[M][M]) {
+  for (int i = 0; i < M; ++i) x[i] = clip(x0[i], lb[i], ub[i]);
+  float g[M], dx[M];
+  pnqp_newton<M>(H, q, lb, ub, x, g, If, Hf, dx);
+  for (int it = 0; it < n_iter; ++it) {
+    if (it > 0) pnqp_newton<M>(H, q, lb, ub, x, g, If, Hf, dx);
+    float n2 = 0.0f;
+    for (int i = 0; i < M; ++i) n2 += dx[i] * dx[i];
+    const bool J = sqrtf(n2) >= kPnqpConv;
+    if (!TileVote::any(J)) break;  // the tile is done: x stays
+    const float ox = qp_obj<M>(H, q, x);
+    float alpha = 1.0f, mx[M];
+    for (int k = 0; k < kPnqpArmijoIter; ++k) {
+      float den = 0.0f;
+      for (int i = 0; i < M; ++i) mx[i] = clip(x[i] + alpha * dx[i], lb[i], ub[i]);
+      for (int i = 0; i < M; ++i) den += g[i] * (x[i] - mx[i]);
+      const float arm = J ? (ox - qp_obj<M>(H, q, mx)) / den : kPnqpSentinel;
+      if (arm <= kPnqpGamma) alpha *= kPnqpDecay;
+      if (TileVote::any(!(arm <= kPnqpGamma))) break;
+    }
+    for (int i = 0; i < M; ++i) x[i] = mx[i];
+  }
+}
 
 // 0.5 tau^T C tau + c^T tau for tau = (x, u); C row-major [N*N], c [N]
 template <int N>

@@ -18,7 +18,7 @@
 
 #include <stddef.h>
 
-#include "ilqr_fused.cuh"  // DILQR_HD
+#include "ilqr_fused.cuh"  // DILQR_HD, inv_small
 
 // The instantiated (NX, NU) shapes: pendulum, the JAX kernel tests' nx=4,
 // cartpole, rocket. ops/cuda/kkt_fused.py SHAPES lists the same pairs.
@@ -39,38 +39,6 @@ struct KktArgs {
   float* K;         // [T, NU*NX, B] scratch: feedback gains
   float* k;         // [T, NU, B] scratch: feedforward gains
 };
-
-// inverse of a small SPD-plus-ridge matrix in closed form (the JAX
-// kernels' _inv_lanes, dilqr_tpu/ops/pallas/ilqr_fused.py:492)
-template <int M>
-DILQR_HD void inv_small(const float A[M][M], float R[M][M]) {
-  if constexpr (M == 1) {
-    R[0][0] = 1.0f / A[0][0];
-  } else if constexpr (M == 2) {
-    const float det = A[0][0] * A[1][1] - A[0][1] * A[1][0];
-    const float r = 1.0f / det;
-    R[0][0] = A[1][1] * r;
-    R[0][1] = -A[0][1] * r;
-    R[1][0] = -A[1][0] * r;
-    R[1][1] = A[0][0] * r;
-  } else {
-    static_assert(M == 3, "closed-form inverse for M <= 3");
-    const float c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1];
-    const float c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2];
-    const float c02 = A[1][0] * A[2][1] - A[1][1] * A[2][0];
-    const float det = A[0][0] * c00 + A[0][1] * c01 + A[0][2] * c02;
-    const float r = 1.0f / det;
-    const float c10 = A[0][2] * A[2][1] - A[0][1] * A[2][2];
-    const float c11 = A[0][0] * A[2][2] - A[0][2] * A[2][0];
-    const float c12 = A[0][1] * A[2][0] - A[0][0] * A[2][1];
-    const float c20 = A[0][1] * A[1][2] - A[0][2] * A[1][1];
-    const float c21 = A[0][2] * A[1][0] - A[0][0] * A[1][2];
-    const float c22 = A[0][0] * A[1][1] - A[0][1] * A[1][0];
-    R[0][0] = c00 * r; R[0][1] = c10 * r; R[0][2] = c20 * r;
-    R[1][0] = c01 * r; R[1][1] = c11 * r; R[1][2] = c21 * r;
-    R[2][0] = c02 * r; R[2][1] = c12 * r; R[2][2] = c22 * r;
-  }
-}
 
 template <int NX, int NU>
 DILQR_HD void kkt_example(const KktArgs& a, int b) {

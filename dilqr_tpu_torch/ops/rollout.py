@@ -103,9 +103,10 @@ def lqr_forward(
             if u_zero_I is not None:
                 new_ut = torch.where(u_zero_I[t], torch.zeros_like(new_ut), new_ut)
             if boxed:
-                lo, hi = u_lower, u_upper
-                if not isinstance(lo, (int, float)) and lo.dim() == 3:
-                    lo, hi = lo[t], hi[t]
+                # each bound on its own: one may be per-step [T,B,nu] while
+                # the other is a scalar or [nu]
+                lo, hi = (v[t] if isinstance(v, torch.Tensor) and v.dim() == 3 else v
+                          for v in (u_lower, u_upper))
                 if delta_u is not None:
                     lo = clamp(u[t] - delta_u, lo, None)
                     hi = clamp(u[t] + delta_u, None, hi)

@@ -1,15 +1,20 @@
 """The kernels' per-example device code, built for the host.
 
-csrc/ilqr_fused.cuh holds the env steps, Jacobians and the objective, and
-csrc/kkt_fused.cuh the whole per-example KKT VJP, as __host__ __device__
-functions; g++ compiles them here (no nvcc needed) into a small ctypes
-library. The env code is held against the port's Python kernel forms
-(Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32 inputs, the KKT
-code against kkt_fused_reference. Tolerance 2e-6 absolute on values of
-order one for the env code: the host build takes 1/sqrtf for rsqrtf and may
-contract to FMAs, a few ulp apart from PyTorch's evaluation order; 1e-5
-relative to the largest output for the KKT VJP, whose T-step recursions
-carry that rounding along."""
+csrc/ilqr_fused.cuh holds the env steps, Jacobians, the objective and the
+multi-control box-QP (closed-form inverses, the projected-Newton step and
+its loop), and csrc/kkt_fused.cuh the whole per-example KKT VJP, as
+__host__ __device__ functions; g++ compiles them here (no nvcc needed) into
+a small ctypes library. The env code is held against the port's Python
+kernel forms (Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32
+inputs, the box-QP against the plain version's (ilqr_fused._pnqp_tiles
+with one example a tile: built for the host, the device code's tile vote is
+one example's own decision), the KKT code against kkt_fused_reference.
+Tolerance 2e-6 on values of order one for the env code (relative to the
+largest entry for the rocket's larger ones): the host build takes 1/sqrtf
+for rsqrtf and may contract to FMAs, a few ulp apart from PyTorch's
+evaluation order; 1e-5 relative for the inverses and the box-QP, whose
+Newton steps carry that rounding along; 1e-5 relative to the largest output
+for the KKT VJP, whose T-step recursions do too."""
 import ctypes
 import os
 import shutil
@@ -19,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from dilqr_tpu_torch.models import cartpole, pendulum
-from dilqr_tpu_torch.ops.cuda import kkt_fused
+from dilqr_tpu_torch.models import cartpole, pendulum, rocket
+from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
+from dilqr_tpu_torch.utils.batch import inv_small
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dilqr_tpu_torch", "csrc")
@@ -32,20 +38,49 @@ using namespace dilqr;
 template <class Env>
 static void run(const float* p, const float* x, const float* u, int B,
                 float* xn, float* D) {
+  constexpr int NX = Env::NX, N = Env::NX + Env::NU;
   Env env;
   env.load(p);
   for (int b = 0; b < B; ++b) {
-    env.step(x + b * Env::NX, u[b], xn + b * Env::NX);
-    float J[Env::NX][Env::NX + 1];
-    env.jac(x + b * Env::NX, u[b], J);
-    for (int i = 0; i < Env::NX; ++i)
-      for (int j = 0; j <= Env::NX; ++j) D[(b * Env::NX + i) * (Env::NX + 1) + j] = J[i][j];
+    env.step(x + b * NX, u + b * Env::NU, xn + b * NX);
+    float J[NX][N];
+    env.jac(x + b * NX, u + b * Env::NU, J);
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < N; ++j) D[(b * NX + i) * N + j] = J[i][j];
   }
 }
 extern "C" void env_eval(int env, const float* p, const float* x, const float* u, int B,
                          float* xn, float* D) {
   if (env == ENV_CARTPOLE) run<Cartpole>(p, x, u, B, xn, D);
-  else run<Pendulum>(p, x, u, B, xn, D);
+  else if (env == ENV_PENDULUM) run<Pendulum>(p, x, u, B, xn, D);
+  else run<Rocket>(p, x, u, B, xn, D);
+}
+template <int M>
+static void qp_run(int B, const float* H, const float* q, const float* lb, const float* ub,
+                   const float* x0, int n_iter, float* x, float* If, float* Hf, float* Hinv,
+                   float* obj) {
+  for (int b = 0; b < B; ++b) {
+    float Hb[M][M], Hfb[M][M], Hib[M][M];
+    for (int i = 0; i < M; ++i)
+      for (int j = 0; j < M; ++j) Hb[i][j] = H[(b * M + i) * M + j];
+    const int o = b * M;
+    pnqp<M>(Hb, q + o, lb + o, ub + o, x0 + o, n_iter, x + o, If + o, Hfb);
+    inv_small<M>(Hb, Hib);
+    obj[b] = qp_obj<M>(Hb, q + o, x0 + o);
+    for (int i = 0; i < M; ++i)
+      for (int j = 0; j < M; ++j) {
+        Hf[(b * M + i) * M + j] = Hfb[i][j];
+        Hinv[(b * M + i) * M + j] = Hib[i][j];
+      }
+  }
+}
+extern "C" int qp_eval(int m, int B, const float* H, const float* q, const float* lb,
+                       const float* ub, const float* x0, int n_iter, float* x, float* If,
+                       float* Hf, float* Hinv, float* obj) {
+  if (m == 2) qp_run<2>(B, H, q, lb, ub, x0, n_iter, x, If, Hf, Hinv, obj);
+  else if (m == 3) qp_run<3>(B, H, q, lb, ub, x0, n_iter, x, If, Hf, Hinv, obj);
+  else return 1;
+  return 0;
 }
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
   return objective<6>(tau, C, c);
@@ -80,6 +115,8 @@ def lib(tmp_path_factory):
     lib.objective6.restype = ctypes.c_float
     lib.kkt_host.argtypes = [I, I, I, I] + [P] * 10
     lib.kkt_host.restype = I
+    lib.qp_eval.argtypes = [I, I] + [P] * 5 + [I] + [P] * 5
+    lib.qp_eval.restype = I
     return lib
 
 
@@ -113,6 +150,66 @@ def test_device_env_code_matches_kernel_forms(lib, mod):
     # the others
     np.testing.assert_allclose(D[1:], dyn.jac_lanes(tx, tu, tp).numpy()[1:], atol=2e-6,
                                rtol=2e-6)
+
+
+def test_device_rocket_code_matches_kernel_forms(lib):
+    """Rocket::step (thrust inside and past the +-400 clamp) and
+    Rocket::jac against the port's step and jac_lanes, on states with an
+    un-normalized quaternion and non-default params."""
+    dyn = rocket.make()
+    rng = np.random.RandomState(2)
+    B = 64
+    x = rng.randn(B, 13).astype(np.float32)
+    u = (300.0 * rng.randn(B, 3)).astype(np.float32)
+    params = np.array([0.5, 1.2, 0.8, 1.3, 0.9], np.float32)
+    xn = np.zeros((B, 13), np.float32)
+    D = np.zeros((B, 13, 16), np.float32)
+    lib.env_eval(dyn.device_env, _ptr(params), _ptr(x), _ptr(u), B, _ptr(xn), _ptr(D))
+    tx, tu, tp = torch.from_numpy(x), torch.from_numpy(u), torch.from_numpy(params)
+    want = dyn.kernel_step(tx, tu, tp).numpy()
+    np.testing.assert_allclose(xn, want, atol=2e-6 * np.abs(want).max(), rtol=0)
+    want = dyn.jac_lanes(tx, tu, tp).numpy()
+    np.testing.assert_allclose(D, want, atol=2e-6 * np.abs(want).max(), rtol=0)
+
+
+def _qp_problem(m, B, seed):
+    """Box-QPs with a random SPD Hessian, half the optima outside the box."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(B, m, m)
+    H = (A @ A.transpose(0, 2, 1) + 0.5 * np.eye(m)).astype(np.float32)
+    q = (2.0 * rng.randn(B, m)).astype(np.float32)
+    lb = -rng.uniform(0.1, 1.0, (B, m)).astype(np.float32)
+    ub = rng.uniform(0.1, 1.0, (B, m)).astype(np.float32)
+    x0 = rng.randn(B, m).astype(np.float32)
+    return H, q, lb, ub, x0
+
+
+@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("n_iter", [0, 20])
+def test_device_box_qp_matches_plain_version(lib, m, n_iter):
+    """pnqp (the kernel's box-QP, per example) against the plain version's
+    _pnqp_tiles at one example a tile: n_iter=0 holds the Newton step's
+    active set and masked Hessian at the clipped start, n_iter=20 the whole
+    Newton/Armijo loop; also inv_small and qp_obj against PyTorch."""
+    B = 64
+    H, q, lb, ub, x0 = _qp_problem(m, B, 10 * m + n_iter)
+    outs = [np.zeros(s, np.float32) for s in ((B, m), (B, m), (B, m, m), (B, m, m), (B,))]
+    rc = lib.qp_eval(m, B, *[_ptr(a) for a in (H, q, lb, ub, x0)], n_iter,
+                     *[_ptr(a) for a in outs])
+    assert rc == 0
+    x, If, Hf, Hinv, obj = outs
+    t = [torch.from_numpy(a) for a in (H, q, lb, ub, x0)]
+    wx, wIf, wHf = ilqr_fused._pnqp_tiles(*t, n_iter, 1)
+    if n_iter:
+        assert (np.abs(x - ub) < 1e-6).any() or (np.abs(x - lb) < 1e-6).any()
+    np.testing.assert_array_equal(If, wIf.numpy())
+    np.testing.assert_allclose(x, wx.numpy(), atol=1e-5 * max(1.0, np.abs(x).max()), rtol=0)
+    np.testing.assert_allclose(Hf, wHf.numpy(), rtol=1e-6, atol=0)
+    wHinv = inv_small(t[0]).numpy()
+    np.testing.assert_allclose(Hinv, wHinv, rtol=0, atol=1e-5 * np.abs(wHinv).max())
+    tH, tq, tx0 = t[0], t[1], t[4]
+    wobj = (0.5 * (tx0 * (tH @ tx0[..., None])[..., 0]).sum(-1) + (tq * tx0).sum(-1)).numpy()
+    np.testing.assert_allclose(obj, wobj, rtol=1e-5, atol=1e-6)
 
 
 def test_device_objective_matches_torch(lib):

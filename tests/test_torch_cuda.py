@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import dilqr_tpu_torch as P
-from dilqr_tpu_torch.models import cartpole, pendulum
+from dilqr_tpu_torch.models import cartpole, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
 from dilqr_tpu_torch.ops.cuda import kkt_fused
+from dilqr_tpu_torch.tools.rounding_witness import distances
+from rocket_bench_start import bench_start
 
 pytestmark = pytest.mark.cuda
 
@@ -51,6 +53,60 @@ def test_kernel_matches_plain_version(dev, env):
     torch.testing.assert_close(kc, rc, rtol=1e-4, atol=1e-5)
     assert (ku - ru).abs().max().item() <= 2e-2
     assert (kx - rx).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("bounds", ["box", "tight"])
+def test_rocket_kernel_matches_plain_version(dev, bounds):
+    """The rocket (nu=3, the in-kernel box-QP) on a ragged 2-tile batch at
+    the bench configuration, with the +-20 box and with bounds +-(8, 0.1,
+    0.1) where every control sits at a bound in a fifth or more of its
+    entries; the tolerances above, and on the examples that converged in
+    both versions (du < eps), whose u the problem sets, u within 2e-3 and
+    the active sets (|u - bound| < 1e-6) equal but for 1e-3 of each
+    control's entries."""
+    dyn, params = rocket.make(), rocket.default_params(device=dev)
+    q, p = rocket.get_true_obj(device=dev)
+    B, T = 1030, 20
+    x0 = torch.from_numpy(bench_start(B, 3)).to(dev)
+    hi = dyn.upper if bounds == "box" else torch.tensor([8.0, 0.1, 0.1])
+    hi = hi.to(dev)
+    cfg = P.ILQRConfig(n_state=13, n_ctrl=3, T=T, lqr_iter=15, eps=1e-3,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    args = (cfg, dyn, params, x0, (torch.diag(q), p), None, -hi, hi)
+    before = fused.LAUNCHES
+    k_out = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    r_out = fused.ilqr_fused_reference(*args)
+    assert int(k_out[4]) == int(r_out[4])
+    torch.testing.assert_close(k_out[2], r_out[2], rtol=1e-4, atol=1e-5)
+    assert (k_out[1] - r_out[1]).abs().max().item() <= 2e-2
+    assert (k_out[0] - r_out[0]).abs().max().item() <= 1e-2
+    d = distances(k_out, r_out, -hi, hi, cfg.eps)
+    assert d["converged"] > B // 2 and max(d["u_max_converged"]) <= 2e-3, d
+    assert max(d["active_mismatch"]) <= 1e-3 * T * B, d
+    if bounds == "tight":
+        assert min(d["active_share"]) > 0.2, d
+
+
+def test_rocket_solve_dispatches_to_the_kernel(dev):
+    """MPC with the rocket's [3] bounds and a warm start goes through the
+    kernel once; backend="cuda" refuses the uncovered normalize_quat=True."""
+    dyn, params = rocket.make(), rocket.default_params(device=dev)
+    q, p = rocket.get_true_obj(device=dev)
+    x0 = torch.from_numpy(bench_start(1024, 4)).to(dev)
+    mpc = P.MPC(13, 3, 10, u_lower=dyn.lower, u_upper=dyn.upper, lqr_iter=5, eps=1e-3,
+                linesearch_decay=0.2, max_linesearch_iter=5, backprop=False,
+                exit_unconverged=False)
+    before = fused.LAUNCHES
+    x, u, costs = mpc(x0, P.QuadCost(torch.diag(q), p), dyn, params=params,
+                      u_init=0.1 * torch.ones(10, 3, device=dev))
+    assert fused.LAUNCHES == before + 1
+    assert u.shape == (1024, 10, 3) and u.is_cuda and torch.isfinite(costs).all()
+    bad = P.MPC(13, 3, 10, u_lower=dyn.lower, u_upper=dyn.upper, backprop=False, backend="cuda")
+    with pytest.raises(ValueError, match="not covered"):
+        bad(x0, P.QuadCost(torch.diag(q), p), rocket.make(normalize_quat=True), params=params)
 
 
 def test_solve_dispatches_to_the_kernel(dev):

@@ -1,6 +1,7 @@
 """The port's backward through the solver: GMRES against JAX's, the IFT, KKT
 and UNROLL gradients of pendulum and cartpole solves against the JAX
-package at f64, and the backward's options (detach_unconverged,
+package at f64, the rocket's IFT gradient against JAX's UNROLL oracle and
+its KKT gradient against JAX's KKT, and the backward's options (detach_unconverged,
 kkt_grad_through_F, the dense adjoint solve, the per-example dense repair,
 a (cost_fn, cost_params) cost). Inputs are made with numpy from a seed.
 
@@ -22,6 +23,7 @@ import torch
 import dilqr_tpu as J
 from dilqr_tpu.models import cartpole as jcart
 from dilqr_tpu.models import pendulum as jpend
+from dilqr_tpu.models import rocket as jrock
 from dilqr_tpu.ops.gmres import gmres as j_gmres
 from dilqr_tpu.ops.gmres import gmres_batched as j_gmres_batched
 import dilqr_tpu_torch as P
@@ -29,8 +31,10 @@ from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.diff import modes as M
 from dilqr_tpu_torch.models import cartpole as tcart
 from dilqr_tpu_torch.models import pendulum as tpend
+from dilqr_tpu_torch.models import rocket as trock
 from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
 from dilqr_tpu_torch.ops.gmres import gmres, gmres_batched
+from rocket_bench_start import bench_start
 
 ENVS = {"pendulum": (jpend, tpend), "cartpole": (jcart, tcart)}
 
@@ -141,6 +145,80 @@ def _assert_close_rel(got, want, rtol, names=("dparams", "dC", "dc", "dx_init"))
 def test_grads_match_jax_f64(name, mode):
     pr = _problem(name, B=3, T=8, seed=0)
     _assert_close_rel(_port_grads(name, mode, pr), _jax_grads(name, mode, pr), rtol=1e-6)
+
+
+def _rocket_problem(B, T, seed):
+    """bench.py's rocket start (near hover), f64, with random loss weights."""
+    rng = np.random.RandomState(seed)
+    x0 = bench_start(B, rng, dtype=np.float64)
+    q, c = (np.asarray(a, np.float64) for a in jrock.get_true_obj())
+    return dict(x0=x0, wx=rng.randn(B, T, 13), wu=rng.randn(B, T, 3),
+                p=np.asarray(jrock.default_params(), np.float64), C=np.diag(q), c=c)
+
+
+def _rocket_kw(T, mode):
+    dyn = jrock.make()
+    return dict(n_state=13, n_ctrl=3, T=T, lqr_iter=30, eps=1e-8,
+                linesearch_decay=dyn.linesearch_decay, max_linesearch_iter=dyn.max_linesearch_iter,
+                detach_unconverged=False, exit_unconverged=False, unroll=mode == "UNROLL")
+
+
+def _rocket_grads(pkg, mode, pr, hi):
+    """Gradients of sum(u wu) + sum(x wx) with respect to (params, C, c,
+    x_init) through package pkg ("jax" or "port"), bounds -hi..hi ([3])."""
+    T = pr["wx"].shape[1]
+    keys = ("p", "C", "c", "x0")
+    if pkg == "jax":
+        dyn = jrock.make()
+        cfg = J.ILQRConfig(backward_mode=getattr(J.BackwardMode, mode), backend="xla",
+                           **_rocket_kw(T, mode))
+
+        def loss(p, C, c, xi):
+            r = J.solve(cfg, xi, J.QuadCost(C, c), dyn, params=p, u_lower=jnp.asarray(-hi),
+                        u_upper=jnp.asarray(hi))
+            return jnp.sum(r.u * pr["wu"]) + jnp.sum(r.x * pr["wx"])
+
+        g = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(pr[k]) for k in keys))
+        return [np.asarray(a) for a in g]
+    cfg = P.ILQRConfig(backward_mode=getattr(P.BackwardMode, mode), **_rocket_kw(T, mode))
+    ins = [from_numpy(pr[k]).requires_grad_(True) for k in keys]
+    p, C, c, xi = ins
+    res = P.solve(cfg, xi, P.QuadCost(C, c), trock.make(), params=p, u_lower=from_numpy(-hi),
+                  u_upper=from_numpy(hi))
+    assert bool(res.converged.all())
+    loss = (res.u * from_numpy(pr["wu"])).sum() + (res.x * from_numpy(pr["wx"])).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, ins)]
+
+
+@pytest.mark.parametrize("mode", ["IFT", "KKT"])
+def test_rocket_grads_match_jax_f64(mode):
+    """The rocket's gradients (13 states, 3 controls, all 5 params through
+    the linearization VJP) at f64, T=5, B=2. IFT against JAX's UNROLL
+    oracle: at a converged fixed point the implicit gradient is the true
+    one (1e-4, the bar of scripts/fuzz_gradients.py). KKT against JAX's
+    KKT (1e-6, the same algorithm: on a nonlinear env it differentiates the
+    last LQR subproblem only, so it is not held to the oracle), with tight
+    per-control bounds: the frozen active set comes from [3] bounds."""
+    pr = _rocket_problem(B=2, T=5, seed=0)
+    if mode == "IFT":
+        hi = np.full(3, 20.0)
+        got, want, rtol = _rocket_grads("port", "IFT", pr, hi), _rocket_grads(
+            "jax", "UNROLL", pr, hi), 1e-4
+    else:
+        hi = np.array([0.3, 0.05, 0.05])
+        got, want, rtol = _rocket_grads("port", "KKT", pr, hi), _rocket_grads(
+            "jax", "KKT", pr, hi), 1e-6
+    assert np.abs(got[0]).max() > 1e-2
+    _assert_close_rel(got, want, rtol=rtol)
+
+
+def test_rocket_ift_matches_port_unroll():
+    """The port's own UNROLL (plain autograd through the plain loop)
+    against its IFT on the rocket (1e-4)."""
+    pr = _rocket_problem(B=2, T=5, seed=0)
+    hi = np.full(3, 20.0)
+    _assert_close_rel(_rocket_grads("port", "IFT", pr, hi), _rocket_grads("port", "UNROLL", pr, hi),
+                      rtol=1e-4)
 
 
 def test_ift_matches_unrolled():

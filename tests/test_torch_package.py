@@ -30,7 +30,7 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "dilqr_tpu" or m.startswith("dilqr_tpu.")]
 print(len(names), bad)
-assert len(names) >= 33, names
+assert len(names) >= 34, names
 assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=REPO)
