@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
-     one nvcc per source, all started together, and print the build
-     seconds and the ptxas report;
+     one nvcc per source, all started together (the whole-solve iLQR, the
+     KKT VJP, the reverse Riccati), and print the build seconds and the
+     ptxas report;
   3. hold each kernel against its plain PyTorch version on the card, on the
      same inputs, at the shapes of the main paths: the whole-solve kernel on
      the cartpole bench problem and three more, and on the rocket (13
@@ -16,29 +17,42 @@ Phases, in order; any failure exits non-zero before the last line:
      (its active sets compared per control and per step);
      the KKT-VJP kernel, in its full and "Ff" forms, on the cartpole bench
      solution, four random shapes and the rocket bench solution;
+     then (appended, with a generator of its own) the Riccati kernel in its
+     free, box, zero and delta_u modes for n_state 3..6, and the learned
+     MLP cartpole model's solve with and without it;
   4. drive the main paths through their entry points, every launch counter
      set to 0 just before each and read just after:
      serving -- MPC.solve (what MPC.__call__ runs) on cartpole at B=4096
      and B=16384 and receding_horizon at B=1024; the same on the rocket at
-     B=1024 and B=16384 and receding_horizon at B=1024;
+     B=1024 and B=16384 and receding_horizon at B=1024; the learned model
+     (hidden 100) at B=4096 and in receding_horizon at B=1024 against the
+     true cartpole plant;
      training -- the IFT gradient of bench.py's imitation loss at B=4096
      (with and without detach_unconverged), the KKT gradient through
      MPC's defaults, bench.py's imempc train step for 3 steps, ILExp
-     (imempc) for 2 epochs on data/cartpole.npz, and the IFT gradient of
-     bench.py's rocket loss at B=1024;
+     (imempc) for 2 epochs on data/cartpole.npz, the IFT gradient of
+     bench.py's rocket loss at B=1024 and of the learned model's weights;
+     the Riccati kernel's other modes -- the unboxed and the u_zero_I
+     learned-model solve, the slew-rate cartpole in receding_horizon and
+     its IFT gradient;
   5. time the kernels (CUDA events, warm-up, median), the IFT forward and
-     backward and the train step, and print one JSON line with each
-     kernel's numbers;
+     backward, the train step and the learned-model solve with and without
+     the Riccati kernel, and print one JSON line with each kernel's
+     numbers. The learned-model and slew-rate paths of phase 4 and their
+     times run last, after the earlier paths' times, which thus keep
+     their earlier order;
   6. print the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
 this system are the dynamics parameters and the cost; they are the
-cartpole's and the rocket's published defaults, and the initial states
-come from a seed.
+cartpole's and the rocket's published defaults and, for the learned model,
+1,205 MLP weights drawn from a numpy seed; the initial states come from a
+seed.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -179,9 +193,10 @@ def main():
     from dilqr_tpu_torch.ops.cuda import build
     from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
     from dilqr_tpu_torch.ops.cuda import kkt_fused as kkt
+    from dilqr_tpu_torch.ops.cuda import riccati_fused as ric
 
     dev = torch.device("cuda:0")
-    kernels = {"ilqr_fused": fused, "kkt_fused": kkt}
+    kernels = {"ilqr_fused": fused, "kkt_fused": kkt, "riccati_fused": ric}
 
     # ---- 2) build ----
     t0 = time.perf_counter()
@@ -277,6 +292,23 @@ def main():
         ("rocket bench solution", r_dyn, r_params, r_cfg,
          rocket.bench_start(1024, rgen, device=dev), r_cs)])
 
+    # the reverse Riccati kernel, and the learned model's solve with and
+    # without it; a generator of its own keeps the earlier cases' inputs
+    mgen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    ric_err = check_riccati(torch, dev, mgen, ric)
+    mlp_dyn, mlp_params = mlp_model(torch, dev, SEED)
+    mlp_cost = P.QuadCost(torch.diag(cp_q), cp_p)
+    mlp_parity(torch, ric, bench_cfg, mlp_dyn, mlp_params, mlp_cost,
+               cartpole_start(torch, mgen, 4096, dev))
+    # release what the appended cases left cached, so that the paths below
+    # start from the allocator state they had before those cases existed
+    reserved = torch.cuda.memory_reserved() / 2 ** 20
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"allocator: {reserved:.0f} MiB reserved after phase 3, "
+          f"{torch.cuda.memory_reserved() / 2 ** 20:.0f} MiB after releasing the cache",
+          flush=True)
+
     # ---- 4) the main paths through their entry points ----
     # serving
     for m in kernels.values():
@@ -321,8 +353,8 @@ def main():
                        cartpole_x0(4096))
     launches = {name: serving[name] + train["launches"][name] for name in kernels}
     print(f"main path launches (serving + training): {launches}", flush=True)
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("ilqr_fused", "kkt_fused"):
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the main path")
 
     # the kernel's answer on the main path, against its plain version
@@ -434,7 +466,7 @@ def main():
           f"without [{card}]", flush=True)
     print(f"time imempc train step B=4096 (host clock, synchronized, median of 3): "
           f"{train['step_ms']:.2f} ms [{card}]", flush=True)
-    rows.append({
+    kkt_row = {
         "name": "kkt_fused", "route": "cuda",
         "source": "dilqr_tpu_torch/csrc/kkt_fused.cu",
         "replaces": "dilqr_tpu/ops/pallas/kkt_fused.py:173",
@@ -442,7 +474,8 @@ def main():
         "max_abs_err": kkt_err,
         "ms": k_ms, "plain_ms": kp_ms, "bound_ms": k_bound, "bound_by": k_by,
         "library_ms": None,
-    })
+    }
+    rows.append(kkt_row)
 
     # the rocket variant of the whole-solve kernel (nu=3, in-kernel box-QP)
     r_ms = {}
@@ -477,6 +510,15 @@ def main():
         "ms": r_ms[1024], "plain_ms": r_plain_ms, "bound_ms": r_bound, "bound_by": r_by,
         "library_ms": None,
     })
+
+    # ---- 4) and 5) for the learned model and the slew rate ----
+    # after the earlier paths' times, so that those run in the order they
+    # ran before these paths existed; counters zeroed before each path
+    mp = mlp_paths(torch, P, dev, kernels, bench_cfg, mlp_dyn, mlp_params, mlp_cost, cp_dyn,
+                   cp_params, mgen)
+    kkt_row["launches"] += mp["launches"]["kkt_fused"]
+    rows.append(riccati_times(torch, P, dev, mgen, ric, card, bench_cfg, mlp_dyn, mlp_params,
+                              mlp_cost, mp, ric_err))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -718,8 +760,8 @@ def rocket_work(torch, fused, cfg, dyn, params, x0, cs):
 
 
 def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
-    """Phase 4, training: each step zeroes both counters before and reads
-    them after, and fails unless both kernels launched. Returns the summed
+    """Phase 4, training: each step zeroes the counters before and reads
+    them after, and fails unless the whole-solve and KKT kernels launched. Returns the summed
     launches, the KKT launches per IFT backward and the step times."""
     import dataclasses
     import os
@@ -732,7 +774,8 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
     total = {name: 0 for name in kernels}
 
     def run(label, fn):
-        return drive(torch, kernels, total, f"training path {label}", fn)
+        return drive(torch, kernels, total, f"training path {label}", fn,
+                     {"ilqr_fused": None, "kkt_fused": None})
 
     cost = P.QuadCost(torch.diag(q), p)
 
@@ -903,6 +946,389 @@ def profile_step(torch, label, fn):
                    if e.device_type == DeviceType.CPU), reverse=True)
     for ms, count, key in host[:5]:
         print(f"profile {label}:   host {ms:8.3f} ms  x{count:<5d} {key[:100]}", flush=True)
+
+
+def cartpole_start(torch, gen, B, dev):
+    """bench.py's cartpole start, angle pi/1.05 + N(0, 0.1), from ``gen``."""
+    th = math.pi / 1.05 + 0.1 * torch.randn(B, generator=gen)
+    z = torch.zeros(B)
+    return torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+
+
+def riccati_problem(torch, gen, T, B, nx, dev):
+    """Random symmetric problems in the JAX kernel test's form
+    (tests/test_pallas_kernels.py:15-23), with the control iterate at unit
+    scale (about a third of the +-1 box gains at a bound) and a zero mask."""
+    n = nx + 1
+    A = torch.randn(T, B, n, n, generator=gen)
+    C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+    parts = (C, torch.randn(T, B, n, generator=gen),
+             0.3 * torch.randn(T - 1, B, nx, n, generator=gen),
+             torch.randn(T, B, 1, generator=gen), torch.rand(T, B, 1, generator=gen) < 0.3)
+    return [a.to(dev) for a in parts]
+
+
+BOX = {"u_lower": -1.0, "u_upper": 1.0}
+
+
+def check_riccati(torch, dev, gen, ric):
+    """Phase 3 for the Riccati kernel: kernel against
+    riccati_fused_reference on a ragged batch, B=1030, T=20, for nx in
+    3..6, in the modes free, box (+-1, test_pallas_kernels.py:31), zero (a
+    random mask) and box with delta_u=0.2. Tolerance max|kernel - plain| <=
+    2e-6 + 1e-5 max|plain| on K and k: JAX holds its kernel to 2e-6
+    (test_pallas_kernels.py:34-35), and nvcc's FMA contraction moves a
+    20-step recursion by a few ulp of its largest values. In the box modes
+    more than 10% of the gains must sit at a bound. The kernel takes no
+    per-block decision: blocks of 32 and 256 threads must give the bits of
+    the default 64. Returns the largest absolute error at nx=5, box, the
+    learned cartpole model's shape."""
+    T, B = 20, 1030
+    main = None
+    for nx in (3, 4, 5, 6):
+        C, c, F, u, uz = riccati_problem(torch, gen, T, B, nx, dev)
+        for mode, kw in (("free", {}), ("box", BOX), ("zero", {"u_zero_I": uz}),
+                         ("box delta_u=0.2", dict(BOX, delta_u=0.2))):
+            label = f"riccati nx={nx} {mode} B={B} T={T}"
+            before = ric.LAUNCHES
+            K, k = ric.riccati_fused(nx, C, c, F, u, **kw)
+            torch.cuda.synchronize()
+            if ric.LAUNCHES != before + 1:
+                fail(f"{label}: the kernel did not launch")
+            figs, worst = [], 0.0
+            for name, a, b in zip(("K", "k"), (K, k), ric.riccati_fused_reference(nx, C, c, F, u,
+                                                                                 **kw)):
+                if not torch.isfinite(a).all():
+                    fail(f"{label}: non-finite {name}")
+                err, scale = (a - b).abs().max().item(), b.abs().max().item()
+                figs.append(f"{name} {err:.2e}/{scale:.2e}")
+                worst = max(worst, err)
+                if err > 2e-6 + 1e-5 * scale:
+                    fail(f"{label}: {name} off by {err:.3e} at scale {scale:.3e}")
+            extra = ""
+            if "box" in mode:
+                _, lb, ub = ric._operands(C, u, -1.0, 1.0, None, kw.get("delta_u"))
+                share = (((k[..., 0] - lb).abs() <= 1e-6)
+                         | ((k[..., 0] - ub).abs() <= 1e-6)).float().mean().item()
+                extra = f", active share {share:.3f}"
+                if share <= 0.1:
+                    fail(f"{label}: only {share:.3f} of the gains at a bound")
+            print(f"parity {label}: max|kernel - plain| / max|plain|: {', '.join(figs)}{extra}",
+                  flush=True)
+            if nx == 5 and mode == "box":
+                main = worst
+                for block in (32, 256):
+                    K2, k2 = ric.riccati_fused(nx, C, c, F, u, block=block, **kw)
+                    if not (torch.equal(K2, K) and torch.equal(k2, k)):
+                        fail(f"{label}: blocks of {block} threads change the result")
+                print(f"parity {label}: blocks of 32 and 256 threads give the bits of 64",
+                      flush=True)
+    return main
+
+
+def mlp_model(torch, dev, seed):
+    """The learned cartpole model: nn_dynamics.make(5, 1), hidden (100,),
+    sigmoid, passthrough; its 1,205 weights drawn from numpy's
+    RandomState(seed) with the init's distribution U(+-1/sqrt(fan_in))."""
+    import numpy as np
+
+    from dilqr_tpu_torch.models import nn_dynamics
+
+    rng = np.random.RandomState(seed)
+    params = []
+    for n_in, n_out in ((6, 100), (100, 5)):
+        W = rng.uniform(-1.0, 1.0, (n_out, n_in)) / math.sqrt(n_in)
+        b = rng.uniform(-1.0, 1.0, n_out) / math.sqrt(n_in)
+        params.append(tuple(torch.from_numpy(a).to(dev, torch.float32) for a in (W, b)))
+    return nn_dynamics.make(5, 1), params
+
+
+def mlp_parity(torch, ric, cfg, dyn, params, cost, x0):
+    """Phase 3, end to end: the learned-model solve (the cartpole bench
+    configuration with the MLP dynamics) with backend "auto", whose Riccati
+    steps are the kernel (one launch an iteration), and "torch", the plain
+    recursion, on the same inputs.
+
+    With random weights this problem is chaotic in f32: no example
+    converges in 20 iterations, and from the third iteration on a 2e-7
+    nudge of the start moves the plain version's own costs by up to a few
+    percent (printed below, plain vs plain nudged). parity()'s bars -- n_iter
+    equal, costs within rtol 1e-4 on at least 99% of the examples and 1e-2
+    on all, u within 2e-2 -- are therefore held after 2 iterations, where
+    rounding has not forked the iterates yet and a wrong gain would show;
+    at the serving configuration's 20 iterations the two distances are
+    printed side by side and n_iter must agree."""
+    import dataclasses
+
+    import dilqr_tpu_torch as P
+
+    B = x0.shape[0]
+
+    def solve(backend, lqr_iter, x):
+        before = ric.LAUNCHES
+        res = P.solve(dataclasses.replace(cfg, backend=backend, lqr_iter=lqr_iter), x, cost, dyn,
+                      params=params, u_lower=-100.0, u_upper=100.0)
+        torch.cuda.synchronize()
+        want = int(res.n_iter) if backend == "auto" else 0
+        if ric.LAUNCHES - before != want:
+            fail(f"learned-model solve ({backend}): {ric.LAUNCHES - before} Riccati launches, "
+                 f"want {want}")
+        if not torch.isfinite(res.costs).all():
+            fail(f"learned-model solve ({backend}): non-finite costs")
+        return res
+
+    def distance(a, b):
+        cost_rel = (a.costs - b.costs).abs() / b.costs.abs().clamp(min=1e-6)
+        ex_u = (a.u - b.u).abs().amax(dim=(1, 2))
+        text = (f"cost rel max {cost_rel.max().item():.2e} (past 1e-4: "
+                f"{int((cost_rel > 1e-4).sum())}/{B}), u max {ex_u.max().item():.2e} (past 2e-3: "
+                f"{int((ex_u > 2e-3).sum())}), n_iter {int(a.n_iter)} vs {int(b.n_iter)}")
+        return cost_rel, ex_u, text
+
+    for lqr_iter in (2, cfg.lqr_iter):
+        k, r = solve("auto", lqr_iter, x0), solve("torch", lqr_iter, x0)
+        cost_rel, ex_u, text = distance(k, r)
+        print(f"parity learned-model solve B={B} T={cfg.T} lqr_iter={lqr_iter}, kernel vs plain "
+              f"Riccati: {text}, mean cost {k.costs.mean().item():.4f}, converged share "
+              f"{k.converged.float().mean().item():.4f}", flush=True)
+        if int(k.n_iter) != int(r.n_iter):
+            fail(f"learned-model solve: n_iter {int(k.n_iter)} (kernel) != {int(r.n_iter)} (plain)")
+        if lqr_iter == 2 and (cost_rel.max().item() > 1e-2
+                              or int((cost_rel > 1e-4).sum()) > 0.01 * B
+                              or ex_u.max().item() > 2e-2):
+            fail("learned-model solve: kernel and plain past parity()'s bars after 2 iterations")
+        nudged = solve("torch", lqr_iter, x0 * (1.0 + 2e-7))
+        print(f"parity learned-model solve lqr_iter={lqr_iter}, plain vs plain with the start "
+              f"nudged by 2e-7: {distance(r, nudged)[2]}", flush=True)
+
+
+def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params, gen):
+    """Phase 4 for the Riccati kernel, through the entry points, each path
+    with every counter zeroed before it and read after it:
+    (a) serving with the learned model: MPC.solve at B=4096, one Riccati
+        launch an iteration (= n_iter) and none of the whole-solve kernel;
+        receding_horizon at B=1024 for 5 steps, planning with the model
+        against the true cartpole plant;
+    (b) training: the IFT gradient of mean u^2 with respect to every weight
+        at B=1024 (the KKT kernel at (5,1) in the backward, the Riccati
+        kernel n_iter times in the forward), finite and nonzero, and within
+        rtol 1e-3 of the plain backward's on the same forward;
+    (c) the other modes on real paths: the unboxed learned-model solve
+        (free), the same with a u_zero_I mask (zero; the whole-solve kernel
+        refuses u_zero_I), the slew-rate cartpole (n_state 6, box) in
+        receding_horizon for 3 steps, and its IFT gradient, whose KKT
+        backward's auxiliary LQR takes the zero mode ((6,1) is not a KKT
+        kernel shape).
+    Returns the summed launches and the inputs phase 5 times."""
+    import dataclasses
+
+    from dilqr_tpu_torch.control import receding_horizon
+
+    total = {name: 0 for name in kernels}
+    T = cfg.T
+    box = dict(u_lower=-100.0, u_upper=100.0)
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"learned-model path {label}", fn, want)
+
+    def check_solve(label, res, got, B):
+        if got["riccati_fused"] != int(res.n_iter):
+            fail(f"{label}: {got['riccati_fused']} Riccati launches for {int(res.n_iter)} "
+                 "iterations")
+        if res.x.shape != (B, T, 5) or res.u.shape != (B, T, 1):
+            fail(f"{label}: shapes {tuple(res.x.shape)}, {tuple(res.u.shape)}")
+        if not (torch.isfinite(res.costs).all() and torch.isfinite(res.x).all()):
+            fail(f"{label}: non-finite output")
+        print(f"{label}: n_iter {int(res.n_iter)}, mean cost {res.costs.mean().item():.4f}, "
+              f"converged share {res.converged.float().mean().item():.4f}, max |u| "
+              f"{res.u.abs().max().item():.4f}", flush=True)
+
+    serve = {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None}
+    # (a) serving
+    mpc = P.MPC(5, 1, T, lqr_iter=cfg.lqr_iter, eps=cfg.eps, linesearch_decay=cfg.linesearch_decay,
+                max_linesearch_iter=cfg.max_linesearch_iter, backprop=False,
+                exit_unconverged=False, **box)
+    x4096 = cartpole_start(torch, gen, 4096, dev)
+    label = "(a) serving MPC.solve B=4096"
+    res, got = run(label, lambda: mpc.solve(x4096, cost, dyn, params=params), serve)
+    check_solve(label, res, got, 4096)
+    if res.u.abs().max().item() > 100.0:
+        fail(f"{label}: controls outside the box")
+    x1024 = cartpole_start(torch, gen, 1024, dev)
+    label = "(a) serving receding_horizon B=1024 x5 steps against the true cartpole plant"
+    ep, got = run(label, lambda: receding_horizon(cfg, dyn, params, cost, x1024, 5,
+                                                  env_step=cp_dyn.step, env_params=cp_params,
+                                                  **box), serve)
+    if got["riccati_fused"] < 5 or ep.xs.shape != (1024, 6, 5) or not torch.isfinite(ep.xs).all():
+        fail(f"{label}: bad closed-loop states or {got['riccati_fused']} launches")
+    print(f"{label}: mean cos(theta) per step {ep.xs[:, :, 2].mean(0).tolist()}", flush=True)
+
+    # (b) training
+    c_ift = dataclasses.replace(cfg, backprop=True, detach_unconverged=False,
+                                backward_mode=P.BackwardMode.IFT)
+
+    def grad(c):
+        ws = [tuple(a.clone().requires_grad_(True) for a in layer) for layer in params]
+        res = P.solve(c, x1024, cost, dyn, params=ws, **box)
+        loss = (res.u ** 2).mean()
+        gs = torch.autograd.grad(loss, [a for layer in ws for a in layer])
+        return loss.detach(), gs, res.n_iter
+
+    label = "(b) training IFT grad B=1024"
+    (loss, gs, n_iter), got = run(label, lambda: grad(c_ift),
+                                  {"ilqr_fused": 0, "kkt_fused": None, "riccati_fused": None})
+    if got["riccati_fused"] != int(n_iter):
+        fail(f"{label}: {got['riccati_fused']} Riccati launches, forward n_iter {int(n_iter)}")
+    if not all(torch.isfinite(g).all() and g.abs().max().item() > 0.0 for g in gs):
+        fail(f"{label}: a weight's gradient is non-finite or zero")
+    # the same forward (deterministic) through the plain KKT recursions;
+    # rtol 1e-2 of each leaf's largest entry: f32 recursions and GMRES at
+    # iterates that have not converged (see mlp_parity)
+    _, gs_ref, _ = grad(dataclasses.replace(c_ift, backward_backend="torch"))
+    err = max((g - r).abs().max().item() / r.abs().max().item() for g, r in zip(gs, gs_ref))
+    print(f"{label}: loss {loss.item():.6f}, largest |grad| per leaf "
+          f"{[round(g.abs().max().item(), 6) for g in gs]}, KKT launches {got['kkt_fused']}, "
+          f"rel. diff to the plain backward {err:.2e}", flush=True)
+    if err > 1e-2:
+        fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+
+    # (c) the free and zero modes with the learned model
+    label = "(c) free mode: learned-model solve without a box B=1024"
+    res, got = run(label, lambda: P.solve(cfg, x1024, cost, dyn, params=params), serve)
+    check_solve(label, res, got, 1024)
+    mask = (torch.rand(1024, T, 1, generator=gen) < 0.3).to(dev)
+    label = "(c) zero mode: learned-model solve with a u_zero_I mask, no box, B=1024"
+    res, got = run(label, lambda: P.solve(cfg, x1024, cost, dyn, params=params, u_zero_I=mask),
+                   serve)
+    check_solve(label, res, got, 1024)
+    if res.u[mask].abs().max().item() != 0.0:
+        fail(f"{label}: a masked control is not zero")
+
+    # (c) the slew-rate cartpole: box mode at n_state 6, then its gradient
+    c_slew = dataclasses.replace(cfg, slew_rate_penalty=1.0)
+    label = "(c) box mode at n_state 6: slew-rate cartpole receding_horizon B=1024 x3 steps"
+    ep, got = run(label, lambda: receding_horizon(c_slew, cp_dyn, cp_params,
+                                                  P.QuadCost(*cost), x1024, 3, **box), serve)
+    if got["riccati_fused"] < 3 or ep.xs.shape != (1024, 4, 5) or not torch.isfinite(ep.xs).all():
+        fail(f"{label}: bad closed-loop states or {got['riccati_fused']} launches")
+    du = (ep.us[:, 1:] - ep.us[:, :-1]).abs().mean().item()
+    print(f"{label}: mean |u_t - u_(t-1)| {du:.4f}, mean |u| {ep.us.abs().mean().item():.4f}",
+          flush=True)
+    c_slew_ift = dataclasses.replace(c_slew, backprop=True, detach_unconverged=False,
+                                     backward_mode=P.BackwardMode.IFT)
+
+    def slew_grad(c):
+        pr = cp_params.clone().requires_grad_(True)
+        res = P.solve(c, x1024, cost, cp_dyn, params=pr, **box)
+        (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        return g, res.n_iter
+
+    label = "(c) zero mode in the backward: slew-rate cartpole IFT grad B=1024"
+    (g, n_iter), got = run(label, lambda: slew_grad(c_slew_ift),
+                           {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None})
+    g_ref, _ = slew_grad(dataclasses.replace(c_slew_ift, backward_backend="torch"))
+    err = (g - g_ref).abs().max().item()
+    print(f"{label}: grad params {g.tolist()}, Riccati launches {got['riccati_fused']} "
+          f"(forward n_iter {int(n_iter)}), abs. diff to the plain backward {err:.2e}",
+          flush=True)
+    if got["riccati_fused"] <= int(n_iter) or not torch.isfinite(g).all():
+        fail(f"{label}: no Riccati launch in the backward, or a non-finite gradient")
+    if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
+        fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+    print(f"learned-model and slew-rate path launches: {total}", flush=True)
+    return {"launches": total, "x4096": x4096, "c_ift": c_ift,
+            "grad": grad}
+
+
+def riccati_work(T, B, nx):
+    """(FLOP, bytes) of one riccati_fused call in box mode from its shapes,
+    counted from csrc/riccati_fused.cuh. FLOP per example and step t < T-1:
+    the column products V F (N NX (2 NX - 1)), Q's triangle (TRI 2 NX), q
+    (N 2 NX), the box gains (2 NX + 8), the V triangle update (7 per entry)
+    and v (5 NX + 2); at t = T-1 only the gains and the update. Bytes: the
+    function's inputs read once -- C [T,B,n,n], c [T,B,n], F [T-1,B,nx,n],
+    u [T,B,1] -- and its outputs K [T,B,1,nx], k [T,B,1] written once."""
+    n = nx + 1
+    tri = n * (n + 1) // 2
+    gains_update = (2 * nx + 8) + 7 * nx * (nx + 1) // 2 + 5 * nx + 2
+    step = n * nx * (2 * nx - 1) + tri * 2 * nx + n * 2 * nx + gains_update
+    flops = B * ((T - 1) * step + gains_update)
+    floats = T * (n * n + n + 1 + nx + 1) + (T - 1) * nx * n
+    return flops, 4 * B * floats
+
+
+def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err):
+    """Phase 5 for the Riccati kernel: its time at the learned-model path's
+    shape (T=20, B=4096, nx=5, box, CUDA events), its plain version's, the
+    bound; the learned-model MPC.solve end to end with backend "auto" and
+    "torch" in turns (host clock, synchronized, median of 5 each): what the
+    kernel takes off the plain loop; the IFT step; a profile of one solve.
+    Returns the JSON row."""
+    T, B, nx = cfg.T, 4096, 5
+    C, c, F, u, _ = riccati_problem(torch, gen, T, B, nx, dev)
+    ms, runs = cuda_ms(lambda: ric.riccati_fused(nx, C, c, F, u, **BOX), 5, 21)
+    plain_ms, _ = cuda_ms(lambda: ric.riccati_fused_reference(nx, C, c, F, u, **BOX), 2, 7)
+    # the same with the path's example-invariant C, read through stride 0
+    Cx = C[0, 0].expand(T, B, nx + 1, nx + 1)
+    x_ms, _ = cuda_ms(lambda: ric.riccati_fused(nx, Cx, c, F, u, **BOX), 5, 21)
+    flops, bytes_ = riccati_work(T, B, nx)
+    bound_ms = max(flops / FP32_PEAK, bytes_ / HBM_RATE) * 1e3
+    bound_by = "operations" if flops / FP32_PEAK >= bytes_ / HBM_RATE else "bytes"
+    print(f"time riccati_fused B={B} T={T} nx={nx} box: {ms:.4f} ms median of {len(runs)} "
+          f"({', '.join(f'{r:.4f}' for r in runs)}); with C expanded from one matrix "
+          f"{x_ms:.4f} ms; plain version {plain_ms:.3f} ms [{card}]", flush=True)
+    print(f"bound riccati_fused B={B} T={T} nx={nx}: {flops:.4e} FLOP, {bytes_} bytes -> "
+          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes a Riccati "
+          f"recursion, so library_ms is null", flush=True)
+    # 20 calls, one learned-model solve's worth: a single 0.15 ms call left
+    # the profiler with no device activity
+    profile_step(torch, f"riccati_fused wrapper x20 B={B} T={T} nx={nx} box",
+                 lambda: [ric.riccati_fused(nx, C, c, F, u, **BOX) for _ in range(20)])
+
+    mpcs = {backend: P.MPC(5, 1, T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                           linesearch_decay=cfg.linesearch_decay,
+                           max_linesearch_iter=cfg.max_linesearch_iter, backprop=False,
+                           exit_unconverged=False, backend=backend, u_lower=-100.0,
+                           u_upper=100.0)
+            for backend in ("auto", "torch")}
+
+    def solve_ms(backend):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mpcs[backend].solve(mp["x4096"], cost, dyn, params=params)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3
+
+    solve_ms("auto")
+    solve_ms("torch")
+    t = {"auto": [], "torch": []}
+    for order in (("auto", "torch"), ("torch", "auto")) * 2 + (("auto", "torch"),):
+        for backend in order:
+            t[backend].append(solve_ms(backend))
+    print(f"time learned-model MPC.solve B=4096 end to end (host clock, synchronized, median "
+          f"of 5, in turns): {statistics.median(t['auto']):.2f} ms with the Riccati kernel "
+          f"({', '.join(f'{v:.1f}' for v in t['auto'])}), {statistics.median(t['torch']):.2f} "
+          f"ms with the plain recursion ({', '.join(f'{v:.1f}' for v in t['torch'])}) "
+          f"[{card}]", flush=True)
+    profile_step(torch, "learned-model MPC.solve B=4096 (Riccati kernel)",
+                 lambda: mpcs["auto"].solve(mp["x4096"], cost, dyn, params=params))
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mp["grad"](mp["c_ift"])
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t1) * 1e3)
+    print(f"time learned-model IFT forward+backward B=1024 (host clock, synchronized, median "
+          f"of 3): {statistics.median(ts):.2f} ms [{card}]", flush=True)
+    return {
+        "name": "riccati_fused", "route": "cuda",
+        "source": "dilqr_tpu_torch/csrc/riccati_fused.cu",
+        "replaces": "dilqr_tpu/ops/pallas/riccati_fused.py:57",
+        "launches": mp["launches"]["riccati_fused"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

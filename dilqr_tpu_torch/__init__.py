@@ -1,12 +1,13 @@
 """dilqr_tpu_torch -- the PyTorch/CUDA port of dilqr_tpu.
 
-A second package beside the JAX one, with the same module layout. This
-slice ports the forward solve: the batched box-constrained iLQR, the
-cartpole and pendulum envs, the MPC wrapper and the closed-loop driver,
-with the whole-solve iLQR kernel hand-written in CUDA for Hopper
-(csrc/ilqr_fused.cu). Entry points run on the tensors' device: CUDA
-tensors take the kernel where the configuration is covered, CPU tensors
-the plain PyTorch loop. The backward (KKT/IFT) comes in a later slice.
+A second package beside the JAX one, with the same module layout: the
+batched box-constrained iLQR (with the slew-rate penalty), its KKT, IFT and
+UNROLL backwards, the envs and the learned MLP model, the MPC wrapper, the
+closed-loop driver and the imitation-learning trainer, with the JAX
+package's four TPU kernels hand-written in CUDA for Hopper (csrc/: the
+whole-solve iLQR, the KKT VJP, the reverse Riccati). Entry points run on
+the tensors' device: CUDA tensors take a kernel where the configuration is
+covered, CPU tensors the plain PyTorch versions.
 
 Public API:
     ILQRConfig, solve            functional batched solver
@@ -14,10 +15,13 @@ Public API:
     QuadCost, LinDx              problem types
     GradMethod, BackwardMode     enums
     receding_horizon             closed-loop episode driver
-    models.{pendulum,cartpole}   envs
+    models.{pendulum,cartpole,rocket}  envs
+    models.nn_dynamics           the learned MLP model
+    models.{affine,ctrl_passthrough}  affine dynamics, the slew-rate wrapper
     convert.from_numpy           JAX-side parameters and data -> tensors
 """
 
+from . import models
 from .control import receding_horizon
 from .core.solver import solve
 from .mpc import MPC
@@ -33,6 +37,7 @@ from .types import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "models",
     "solve",
     "MPC",
     "receding_horizon",

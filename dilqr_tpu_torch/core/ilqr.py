@@ -9,7 +9,9 @@
 
 ``ilqr_loop`` sends a covered configuration on CUDA tensors to the
 whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``) and everything else to
-the plain loop below on the tensors' own device. The choice depends on the
+the plain loop below on the tensors' own device, whose Riccati backward
+``ops/riccati.lqr_backward`` takes the CUDA Riccati kernel where that one
+covers it (``ops/cuda/riccati_fused.py``). The choice depends on the
 configuration and the device alone; nothing falls back after a failure.
 
 All arrays are time-major [T, B, ...] here; ``core/solver.py`` transposes.
@@ -66,6 +68,8 @@ def lqr_step(cfg: ILQRConfig, cost, dyn, params, x_init, x, u,
         cfg.n_state, cfg.n_ctrl, C, c_back, F, None, u,
         u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
         pnqp_iter=cfg.pnqp_iter, qp_solver=cfg.qp_solver,
+        # the Riccati kernel has no autograd rule: UNROLL stays plain
+        backend="torch" if cfg.unroll else cfg.backend,
         parallel=cfg.riccati_parallel,
     )
     dyn_roll = dyn if isinstance(dyn, LinDx) else (dyn.step, params)

@@ -1,22 +1,44 @@
-"""Public batched iLQR solve: canonicalization, input validation and
-dispatch to the differentiation modes (counterpart of
-``dilqr_tpu/core/solver.py``).
+"""Public batched iLQR solve: canonicalization, input validation, the
+slew-rate augmentation and dispatch to the differentiation modes
+(counterpart of ``dilqr_tpu/core/solver.py``).
 
 The public API is batch-major ([B, T, ...]). Broadcast rules for QuadCost
 follow the reference (mpc.py:205-226), u_init warm-start handling
-mpc.py:230-236. The slew-rate penalty needs ``models/ctrl_passthrough``,
-which a later slice ports (ROADMAP.md, queue A item 4).
+mpc.py:230-236. The slew-rate penalty becomes an up-front problem
+transformation to the augmented state (u_{t-1}, x) (reference
+mpc.py:339-445).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
+from torch.utils import _pytree as pytree
 
 from ..diff.modes import solve_with_grad
+from ..models import ctrl_passthrough
 from ..types import ILQRConfig, LinDx, QuadCost, SolveResult
+
+
+def params_to(params, device, dtype):
+    """Dynamics params on ``device``: a tensor or numpy array becomes one
+    tensor of ``dtype``, as before; any other pytree (the MLP's
+    [(W, b), ...], the affine model's dict) keeps its structure, each
+    tensor or numpy leaf moved and the floating ones cast to ``dtype``."""
+    if isinstance(params, (torch.Tensor, np.ndarray)):
+        return torch.as_tensor(params, device=device).to(dtype)
+
+    def leaf(a):
+        if not isinstance(a, (torch.Tensor, np.ndarray)):
+            return a
+        a = torch.as_tensor(a, device=device)
+        return a.to(dtype) if a.is_floating_point() else a
+
+    return pytree.tree_map(leaf, params)
 
 
 def canonicalize_cost(cost, T: int, B: int, n_tau: int):
@@ -81,6 +103,53 @@ def canonicalize_bound(v, T: int, B: int, n_ctrl: int, like: torch.Tensor):
     return v.transpose(0, 1)
 
 
+def augment_slew_rate(cfg: ILQRConfig, cost, dyn, params, x_init, prev_ctrl):
+    """Rewrite the problem over the augmented state (u_{t-1}, x) so that the
+    slew-rate penalty 0.5 pen ||u_t - u_{t-1}||^2 becomes quadratic cost
+    blocks (reference mpc.py:339-445). cost and dyn are time-major
+    (canonicalized). Returns (aug_cfg, aug_cost, aug_dyn, params,
+    aug_x_init)."""
+    nx, nu, T = cfg.n_state, cfg.n_ctrl, cfg.T
+    n_aug = nu + nx + nu  # (u_{t-1}, x, u)
+    B, dtype, dev = x_init.shape[0], x_init.dtype, x_init.device
+
+    # 0.5 pen ||u - u_{t-1}||^2 on (u_{t-1}, x, u)
+    eye = cfg.slew_rate_penalty * torch.eye(nu, dtype=dtype, device=dev)
+    slew_C = torch.zeros(n_aug, n_aug, dtype=dtype, device=dev)
+    slew_C[:nu, :nu] = eye
+    slew_C[-nu:, -nu:] = eye
+    slew_C[:nu, -nu:] = -eye
+    slew_C[-nu:, :nu] = -eye
+
+    if isinstance(cost, QuadCost):
+        C, c = cost
+        aug_cost = QuadCost(slew_C + tnf.pad(C, (nu, 0, nu, 0)),
+                            tnf.pad(c, (nu, 0)))
+    else:
+        # the true cost on (x, u) plus the slew quadratic (reference
+        # SlewRateCost, mpc.py:36-52)
+        def aug_cost(tau_aug):
+            return cost(tau_aug[nu:]) + 0.5 * tau_aug @ slew_C @ tau_aug
+
+    if isinstance(dyn, LinDx):
+        # rows [u_{t-1}' = u_t | x' = F tau (+ f)] over (u_{t-1}, x, u)
+        # (reference mpc.py:381-395)
+        Fm = dyn.F
+        Tm1, Bb = Fm.shape[0], Fm.shape[1]
+        top = torch.cat([torch.zeros(Tm1, Bb, nu, nu + nx, dtype=dtype, device=dev),
+                         torch.eye(nu, dtype=dtype, device=dev).expand(Tm1, Bb, nu, nu)], -1)
+        aug_dyn = LinDx(torch.cat([top, tnf.pad(Fm, (nu, 0))], -2),
+                        None if dyn.f is None else tnf.pad(dyn.f, (nu, 0)))
+    else:
+        aug_dyn = ctrl_passthrough.make(dyn)
+
+    prev_u0 = (torch.zeros(B, nu, dtype=dtype, device=dev) if prev_ctrl is None
+               else torch.as_tensor(prev_ctrl, device=dev).to(dtype).expand(B, nu))
+    aug_x_init = torch.cat([prev_u0, x_init], -1)
+    aug_cfg = dataclasses.replace(cfg, n_state=nu + nx, slew_rate_penalty=None)
+    return aug_cfg, aug_cost, aug_dyn, params, aug_x_init
+
+
 def solve(
     cfg: ILQRConfig,
     x_init: torch.Tensor,
@@ -118,10 +187,6 @@ def solve(
         raise ValueError("u_lower and u_upper must both be set or both None")
     if delta_u is not None and u_lower is None:
         raise ValueError("delta_u requires box bounds (u_lower/u_upper)")
-    if cfg.slew_rate_penalty is not None:
-        raise NotImplementedError(
-            "slew_rate_penalty needs models/ctrl_passthrough, which is not "
-            "ported yet: see ROADMAP.md, queue A item 4")
 
     dev, dtype = x_init.device, x_init.dtype
     if isinstance(cost, QuadCost):
@@ -132,7 +197,7 @@ def solve(
         dynamics = LinDx(dynamics.F.to(dev, dtype),
                          None if dynamics.f is None else dynamics.f.to(dev, dtype))
     elif params is not None:
-        params = torch.as_tensor(params, device=dev).to(dtype)
+        params = params_to(params, dev, dtype)
 
     # hints for the kernel: the user's compact example-invariant cost and a
     # known-zeros warm start; only exactly conforming pairs qualify
@@ -153,10 +218,19 @@ def solve(
     ub = canonicalize_bound(u_upper, T, B, nu, x_init)
     uz = u_zero_I.transpose(0, 1).to(dev) if u_zero_I is not None else None
 
+    unaug = None
+    if cfg.slew_rate_penalty is not None:
+        cfg, cost, dynamics, params, x_init = augment_slew_rate(
+            cfg, cost, dynamics, params, x_init, prev_ctrl)
+        unaug = nu  # strip the first nu state coordinates on return
+        cost_small = None  # the augmented cost is rebuilt at [T,B,...]
+
     x, u, costs, full_du_norm, n_iter = solve_with_grad(
         cfg, cost, dynamics, params, x_init, u_init_tm, lb, ub, uz, delta_u,
         cost_small=cost_small, u_init_zero=u_init_zero,
     )
+    if unaug is not None:
+        x = x[:, :, unaug:]
 
     converged = full_du_norm < cfg.eps
     if cfg.exit_unconverged:

@@ -35,16 +35,17 @@ class KKTGrads(NamedTuple):
 
 
 def lqr_solve_linear(n_state: int, n_ctrl: int, C, F, r,
-                     u_zero_I: Optional[torch.Tensor] = None,
+                     u_zero_I: Optional[torch.Tensor] = None, backend: str = "auto",
                      parallel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solve the auxiliary LQR: argmin sum 0.5 dtau^T C dtau - r^T dtau
     s.t. dx_{t+1} = F_t dtau_t, dx_0 = 0, du = 0 on u_zero_I. Linear in r.
-    Returns (dx [T,B,nx], du [T,B,nu]). ``parallel`` raises
-    NotImplementedError in lqr_backward."""
+    Returns (dx [T,B,nx], du [T,B,nu]). ``backend`` goes to lqr_backward,
+    whose Riccati kernel takes the free and u_zero_I modes; ``parallel``
+    raises NotImplementedError there."""
     T, B = C.shape[0], C.shape[1]
     ric = lqr_backward(n_state, n_ctrl, C, -r, F, None,
                        u=torch.zeros(T, B, n_ctrl, dtype=C.dtype, device=C.device),
-                       u_zero_I=u_zero_I, parallel=parallel)
+                       u_zero_I=u_zero_I, backend=backend, parallel=parallel)
     dx_t = torch.zeros(B, n_state, dtype=C.dtype, device=C.device)
     dxs, dus = [], []
     for t in range(T):
@@ -87,6 +88,8 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
         in a covered shape, the plain scans below otherwise;
       * "cuda": the kernel; raises for CPU tensors or an uncovered shape;
       * "torch": the plain scans.
+    The plain scans' auxiliary Riccati gets the same backend, so an
+    uncovered shape's "auto" still takes the CUDA Riccati kernel there.
     ``parallel`` (cfg.riccati_parallel) raises NotImplementedError."""
     if parallel:
         raise NotImplementedError(
@@ -119,7 +122,7 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
 
     def vjp_plain(g_x, g_u, wants: str = "full") -> KKTGrads:
         r = torch.cat([g_x, g_u], -1)
-        dx, du = lqr_solve_linear(n_state, n_ctrl, C, F, r, u_zero_I)
+        dx, du = lqr_solve_linear(n_state, n_ctrl, C, F, r, u_zero_I, backend=backend)
         dtau = torch.cat([dx, du], -1)
         if wants == "full":
             dC = -0.5 * (bger(dtau, tau) + bger(tau, dtau))

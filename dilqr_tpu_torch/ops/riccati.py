@@ -14,8 +14,12 @@ then the gains:
     box-QP clamp(-q/H, l, u)
   * box bounds otherwise: pnqp in delta-space bounds, warm-started with
     k_{t+1}; active rows of Q_ux zeroed before forming K
-and the cost-to-go update. The fused Riccati kernel
-(``ops/pallas/riccati_fused.py``) is not ported yet (ROADMAP.md, queue B).
+and the cost-to-go update.
+
+``lqr_backward`` sends what the JAX package sends to its fused Pallas
+Riccati kernel (ops/riccati.py:135-163 there) to the hand-written CUDA
+kernel ``ops/cuda/riccati_fused.py``: one control, f32, the closed-form QP,
+no f, 1 <= n_state <= 8, on CUDA tensors, with nothing to differentiate.
 
 Shapes (time-major): C [T,B,n,n], c [T,B,n], F [T-1,B,nx,n], f [T-1,B,nx]
 or None. Returns K [T,B,nu,nx], k [T,B,nu] ordered t=0..T-1.
@@ -26,7 +30,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..types import BACKENDS
 from ..utils.batch import bger, bmm, bmv, btr, clamp, solve_psd
+from .cuda import riccati_fused as fused
 from .pnqp import pnqp
 
 
@@ -62,6 +68,26 @@ def expand_bound(v, T: int, B: int, nu: int, like: torch.Tensor) -> torch.Tensor
     return v.expand(T, B, nu)
 
 
+def _use_kernel(backend, nx, nu, C, c, F, f, u, u_lower, u_upper, u_zero_I,
+                qp_solver) -> bool:
+    ok = fused.covered(nx, nu, C.dtype, u_zero_I, qp_solver, u_lower is not None, f)
+    grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad
+        for a in (C, c, F, u, u_lower, u_upper))
+    if backend == "cuda":
+        if not C.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors; CPU tensors take "
+                             "backend='auto' or 'torch'")
+        if not ok:
+            raise ValueError("backend='cuda': this configuration is not covered by the "
+                             "CUDA Riccati kernel (see ops/cuda/riccati_fused.covered)")
+        if grad:
+            raise ValueError("backend='cuda': the CUDA Riccati kernel has no autograd "
+                             "rule; differentiate with backend='torch'")
+        return True
+    return ok and C.is_cuda and not grad
+
+
 def lqr_backward(
     n_state: int,
     n_ctrl: int,
@@ -76,11 +102,18 @@ def lqr_backward(
     delta_u=None,
     pnqp_iter: int = 20,
     qp_solver: str = "auto",
+    backend: str = "auto",
     parallel: bool = False,
 ) -> RiccatiResult:
     """Reverse-time Riccati recursion. ``u`` [T,B,nu] is the current
     control iterate; with box bounds the QP is solved in delta space
-    around it."""
+    around it.
+
+    backend: "auto" takes the CUDA kernel (``ops/cuda/riccati_fused``) for
+    CUDA tensors when ``riccati_fused.covered`` holds and no input needs a
+    gradient (the kernel has no autograd rule, as the Pallas kernel has
+    none); "cuda" must take it and raises where it cannot; "torch" runs
+    the recursion below."""
     T, B = C.shape[0], C.shape[1]
     nx, nu = n_state, n_ctrl
     boxed = u_lower is not None
@@ -90,6 +123,13 @@ def lqr_backward(
             "dilqr_tpu/ops/parallel_riccati.py) is not ported yet: see "
             "ROADMAP.md, queue A item 8"
         )
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend != "torch" and _use_kernel(backend, nx, nu, C, c, F, f, u, u_lower, u_upper,
+                                          u_zero_I, qp_solver):
+        K, k = fused.riccati_fused(nx, C, c, F, u, u_lower=u_lower, u_upper=u_upper,
+                                   u_zero_I=u_zero_I, delta_u=delta_u)
+        return RiccatiResult(K, k, T if boxed else 0)
 
     if boxed:
         lb_all = expand_bound(u_lower, T, B, nu, C) - u

@@ -2,19 +2,21 @@
 
 csrc/ilqr_fused.cuh holds the env steps, Jacobians, the objective and the
 multi-control box-QP (closed-form inverses, the projected-Newton step and
-its loop), and csrc/kkt_fused.cuh the whole per-example KKT VJP, as
+its loop), csrc/kkt_fused.cuh the whole per-example KKT VJP and
+csrc/riccati_fused.cuh the per-example reverse Riccati, as
 __host__ __device__ functions; g++ compiles them here (no nvcc needed) into
 a small ctypes library. The env code is held against the port's Python
 kernel forms (Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32
 inputs, the box-QP against the plain version's (ilqr_fused._pnqp_tiles
 with one example a tile: built for the host, the device code's tile vote is
-one example's own decision), the KKT code against kkt_fused_reference.
+one example's own decision), the KKT code against kkt_fused_reference,
+the Riccati code against riccati_fused_reference.
 Tolerance 2e-6 on values of order one for the env code (relative to the
 largest entry for the rocket's larger ones): the host build takes 1/sqrtf
 for rsqrtf and may contract to FMAs, a few ulp apart from PyTorch's
 evaluation order; 1e-5 relative for the inverses and the box-QP, whose
 Newton steps carry that rounding along; 1e-5 relative to the largest output
-for the KKT VJP, whose T-step recursions do too."""
+for the KKT VJP and the Riccati, whose T-step recursions do too."""
 import ctypes
 import os
 import shutil
@@ -26,6 +28,7 @@ import torch
 
 from dilqr_tpu_torch.models import cartpole, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
+from dilqr_tpu_torch.ops.cuda import riccati_fused
 from dilqr_tpu_torch.utils.batch import inv_small
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -34,6 +37,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 SHIM = r"""
 #include "ilqr_fused.cuh"
 #include "kkt_fused.cuh"
+#include "riccati_fused.cuh"
 using namespace dilqr;
 template <class Env>
 static void run(const float* p, const float* x, const float* u, int B,
@@ -94,6 +98,24 @@ extern "C" int kkt_host(int nx, int nu, int T, int B, const float* C, const floa
   DILQR_KKT_SHAPES(CASE)
   return 1;
 }
+#undef CASE
+extern "C" int riccati_host(int nx, int mode, int T, int B, const float* C, long long sCt,
+                            long long sCb, const float* c, long long sct, long long scb,
+                            const float* F, long long sFt, long long sFb, const float* lb,
+                            const float* ub, float* K, float* k) {
+  const RiccatiArgs a{T, B, C, sCt, sCb, c, sct, scb, F, sFt, sFb, lb, ub, K, k};
+#define CASE(X_)                                                   \
+  if (nx == X_) {                                                  \
+    for (int b = 0; b < B; ++b) {                                  \
+      if (mode == kModeFree) riccati_example<X_, kModeFree>(a, b); \
+      else if (mode == kModeBox) riccati_example<X_, kModeBox>(a, b); \
+      else riccati_example<X_, kModeZero>(a, b);                   \
+    }                                                              \
+    return 0;                                                      \
+  }
+  DILQR_RICCATI_NX(CASE)
+  return 1;
+}
 """
 
 
@@ -117,6 +139,9 @@ def lib(tmp_path_factory):
     lib.kkt_host.restype = I
     lib.qp_eval.argtypes = [I, I] + [P] * 5 + [I] + [P] * 5
     lib.qp_eval.restype = I
+    L = ctypes.c_longlong
+    lib.riccati_host.argtypes = [I, I, I, I, P, L, L, P, L, L, P, L, L, P, P, P, P]
+    lib.riccati_host.restype = I
     return lib
 
 
@@ -249,3 +274,41 @@ def test_device_kkt_code_matches_plain_version(lib, nx, nu):
         w = w.numpy()
         np.testing.assert_allclose(got, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("mode", list(riccati_fused.MODES))
+@pytest.mark.parametrize("nx", range(1, riccati_fused.MAX_NX + 1))
+def test_device_riccati_code_matches_plain_version(lib, nx, mode):
+    """riccati_example, the code the CUDA kernel runs per example, against
+    riccati_fused_reference: every instantiated n_state in every mode, a
+    tight box (about half the gains at a bound) and a random mask; odd
+    n_state read C expanded from one [n, n] matrix (T and B strides 0),
+    as an example-invariant cost reaches the kernel."""
+    T, B, n = 9, 7, nx + 1
+    rng = np.random.RandomState(100 * nx + riccati_fused.MODES[mode])
+    A = rng.randn(T, B, n, n)
+    C = torch.from_numpy((A @ A.transpose(0, 1, 3, 2) + 2.0 * np.eye(n)).astype(np.float32))
+    if nx % 2:
+        C = C[0, 0].expand(T, B, n, n)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    c, F, u = f32(rng.randn(T, B, n)), f32(0.3 * rng.randn(T - 1, B, nx, n)), f32(rng.randn(T, B, 1))
+    kw = {"free": {}, "box": dict(u_lower=-0.3, u_upper=0.3),
+          "zero": dict(u_zero_I=torch.from_numpy(rng.rand(T, B, 1) < 0.5))}[mode]
+    want_K, want_k = riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw)
+    _, lb, ub = riccati_fused._operands(C, u, kw.get("u_lower"), kw.get("u_upper"),
+                                        kw.get("u_zero_I"), None)
+    K = np.zeros((T, B, nx), np.float32)
+    k = np.zeros((T, B), np.float32)
+    keep = [C, c, F, lb, ub]  # the pointers below stay valid while these live
+    rc = lib.riccati_host(nx, riccati_fused.MODES[mode], T, B,
+                          C.data_ptr(), C.stride(0), C.stride(1),
+                          c.data_ptr(), c.stride(0), c.stride(1),
+                          F.data_ptr(), F.stride(0), F.stride(1),
+                          lb.data_ptr(), ub.data_ptr(), _ptr(K), _ptr(k))
+    assert rc == 0 and len(keep) == 5
+    for got, w in ((K, want_K[:, :, 0]), (k, want_k[..., 0])):
+        w = w.numpy()
+        np.testing.assert_allclose(got, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()))
+    if mode == "box":
+        at = (np.abs(k - lb.numpy()) < 1e-6) | (np.abs(k - ub.numpy()) < 1e-6)
+        assert 0.1 < at.mean() < 0.9

@@ -8,14 +8,16 @@ run without this directory's conftest.py:
 
 Tolerances (f32): costs rtol 1e-4 and n_iter equal; u 2e-2 and x 1e-2, the
 loose on-device bound of docs/DESIGN.md:103-107 (u moves by about 1e-2 at
-bang-bang switching points between two equally converged optima)."""
+bang-bang switching points between two equally converged optima); the
+Riccati kernel within 2e-6 + 1e-5 max|plain| of its plain version (JAX's
+2e-6 plus FMA contraction over a 20-step recursion)."""
 import pytest
 import torch
 
 import dilqr_tpu_torch as P
-from dilqr_tpu_torch.models import cartpole, pendulum, rocket
+from dilqr_tpu_torch.models import cartpole, nn_dynamics, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
-from dilqr_tpu_torch.ops.cuda import kkt_fused
+from dilqr_tpu_torch.ops.cuda import kkt_fused, riccati_fused
 from dilqr_tpu_torch.tools.rounding_witness import distances
 from rocket_bench_start import bench_start
 
@@ -182,3 +184,73 @@ def test_gradient_through_both_kernels(dev, mode):
         assert fused.LAUNCHES == before[0] + 1
         assert (kkt_fused.LAUNCHES > before[1]) == (bb == "auto")
     torch.testing.assert_close(grads["auto"], grads["torch"], rtol=1e-3, atol=1e-6)
+
+
+def _riccati_problem(gen, T, B, nx, dev):
+    """tests/test_pallas_kernels.py:15-23's random symmetric problems, with
+    the control iterate at unit scale: about a third of the box gains at a
+    bound."""
+    n = nx + 1
+    A = torch.randn(T, B, n, n, generator=gen)
+    C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+    parts = (C, torch.randn(T, B, n, generator=gen), 0.3 * torch.randn(T - 1, B, nx, n, generator=gen),
+             torch.randn(T, B, 1, generator=gen), torch.rand(T, B, 1, generator=gen) < 0.3)
+    return [a.to(dev) for a in parts]
+
+
+@pytest.mark.parametrize("mode", ["free", "box", "zero", "delta_u"])
+@pytest.mark.parametrize("nx", [3, 4, 5, 6])
+def test_riccati_kernel_matches_plain_version(dev, nx, mode):
+    """The Riccati kernel against riccati_fused_reference on a ragged batch:
+    max|kernel - plain| <= 2e-6 + 1e-5 max|plain| on K and k (JAX's 2e-6,
+    plus FMA contraction over T=20 steps); and the same result, bit for
+    bit, at other block sizes (the kernel takes no per-block decision)."""
+    gen = torch.Generator().manual_seed(10 * nx + len(mode))
+    C, c, F, u, uz = _riccati_problem(gen, 20, 1030, nx, dev)
+    kw = {"free": {}, "box": dict(u_lower=-1.0, u_upper=1.0), "zero": dict(u_zero_I=uz),
+          "delta_u": dict(u_lower=-1.0, u_upper=1.0, delta_u=0.2)}[mode]
+    before = riccati_fused.LAUNCHES
+    K, k = riccati_fused.riccati_fused(nx, C, c, F, u, **kw)
+    torch.cuda.synchronize()
+    assert riccati_fused.LAUNCHES == before + 1
+    wK, wk = riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw)
+    for got, want in ((K, wK), (k, wk)):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 2e-6 + 1e-5 * want.abs().max().item()
+    for block in (32, 256):
+        K2, k2 = riccati_fused.riccati_fused(nx, C, c, F, u, block=block, **kw)
+        assert torch.equal(K2, K) and torch.equal(k2, k)
+
+
+def test_mlp_solve_launches_the_riccati_kernel_per_iteration(dev):
+    """The learned MLP model (hidden 100, 1,205 weights) runs the plain
+    loop, whose Riccati backward is the kernel: one launch per iteration,
+    none of the whole-solve kernel; backend="torch" launches nothing. With
+    random weights the problem is chaotic in f32 after a few iterations
+    (chip_smoke.py's mlp_parity), so the two are held after 2: n_iter
+    equal, costs within rtol 1e-4, u within 2e-2."""
+    gen = torch.Generator().manual_seed(5)
+    params = nn_dynamics.init_params(5, 1, (100,), generator=gen, device=dev)
+    dyn = nn_dynamics.make(5, 1)
+    q, p = cartpole.get_true_obj(device=dev)
+    th = torch.pi + 0.3 * torch.randn(1030, generator=gen)
+    z = torch.zeros(1030)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    out = {}
+    for lqr_iter in (2, 10):
+        for backend in ("auto", "torch"):
+            mpc = P.MPC(5, 1, 20, u_lower=-100.0, u_upper=100.0, lqr_iter=lqr_iter, eps=1e-4,
+                        linesearch_decay=0.5, max_linesearch_iter=2, backprop=False,
+                        exit_unconverged=False, backend=backend)
+            before = (fused.LAUNCHES, riccati_fused.LAUNCHES)
+            res = mpc.solve(x0, P.QuadCost(torch.diag(q), p), dyn, params=params)
+            torch.cuda.synchronize()
+            n = int(res.n_iter)
+            assert fused.LAUNCHES == before[0]
+            assert riccati_fused.LAUNCHES - before[1] == (n if backend == "auto" else 0)
+            assert torch.isfinite(res.costs).all()
+            out[lqr_iter, backend] = res
+    a, b = out[2, "auto"], out[2, "torch"]
+    assert int(a.n_iter) == int(b.n_iter) == 2
+    torch.testing.assert_close(a.costs, b.costs, rtol=1e-4, atol=0)
+    assert (a.u - b.u).abs().max().item() <= 2e-2

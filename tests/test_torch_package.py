@@ -14,7 +14,7 @@ import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.models import cartpole
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
-from dilqr_tpu_torch.ops.cuda import kkt_fused
+from dilqr_tpu_torch.ops.cuda import kkt_fused, riccati_fused
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,18 +66,15 @@ def test_backprop_on_cpu_tensors_launches_no_kernel(mode):
                                           unroll=mode is P.BackwardMode.UNROLL,
                                           detach_unconverged=False)
     params = params.clone().requires_grad_(True)
-    before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES, riccati_fused.LAUNCHES)
     res = P.solve(cfg, x0, cost, dyn, params=params, u_lower=-100.0, u_upper=100.0)
     assert res.u.requires_grad and not res.costs.requires_grad
     (g,) = torch.autograd.grad((res.u ** 2).sum(), params)
-    assert (fused.LAUNCHES, kkt_fused.LAUNCHES) == before
+    assert (fused.LAUNCHES, kkt_fused.LAUNCHES, riccati_fused.LAUNCHES) == before
     assert torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 def test_unported_options_raise():
-    cfg, x0, cost, dyn, params = _problem(slew_rate_penalty=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.solve(cfg, x0, cost, dyn, params=params)
     cfg, x0, cost, dyn, params = _problem(riccati_parallel=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.solve(cfg, x0, cost, dyn, params=params)
