@@ -8,13 +8,16 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
      KKT VJP, the reverse Riccati), and print the build seconds and the
-     ptxas report;
+     ptxas report, with each whole-solve instantiation's registers, stack
+     and spills; a stack or a spill in an n_ctrl == 1 instantiation fails;
   3. hold each kernel against its plain PyTorch version on the card, on the
      same inputs, at the shapes of the main paths: the whole-solve kernel on
      the cartpole bench problem and three more, and on the rocket (13
      states, 3 controls, the in-kernel box-QP) at bench.py's start with its
      +-20 box and on a ragged two-tile batch with active per-control bounds
-     (its active sets compared per control and per step);
+     (its active sets compared per control and per step); and the same
+     bits from every cluster size the kernel instantiates (8 and 16 blocks
+     a tile) on the cartpole bench case and the rocket's active-bound case;
      the KKT-VJP kernel, in its full and "Ff" forms, on the cartpole bench
      solution, four random shapes and the rocket bench solution;
      then (appended, with a generator of its own) the Riccati kernel in its
@@ -35,7 +38,10 @@ Phases, in order; any failure exits non-zero before the last line:
      the Riccati kernel's other modes -- the unboxed and the u_zero_I
      learned-model solve, the slew-rate cartpole in receding_horizon and
      its IFT gradient;
-  5. time the kernels (CUDA events, warm-up, median), the IFT forward and
+  5. time the kernels (CUDA events, warm-up, median; the whole-solve kernel
+     at each cluster size), print each whole-solve instantiation's
+     cudaOccupancyMaxActiveClusters, the clusters of a launch, the SMs its
+     blocks ran on and the votes a tile took with their clock share, the IFT forward and
      backward, the train step and the learned-model solve with and without
      the Riccati kernel, and print one JSON line with each kernel's
      numbers. The learned-model and slew-rate paths of phase 4 and their
@@ -155,6 +161,62 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
     return max(ex_u.max().item(), ex_x.max().item()), k_out, r_out
 
 
+def ptxas_entries(report: str):
+    """(instantiation, registers, stack bytes, spill store bytes, spill load
+    bytes) of each kernel in an nvcc -Xptxas -v report of ilqr_fused.cu; the
+    instantiation as Env<Env, NU, block threads>."""
+    import re
+
+    out, name, stack, st, ld = [], None, 0, 0, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5dilqr17ilqr_fused_kernelINS_\d+(\w+?)E"
+                      r"Li(\d+)ELi(\d+)EEEv", line)
+        if m:
+            name = f"<{m.group(1)}, {m.group(2)}, {m.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            stack, st, ld = (int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), stack, st, ld))
+            name = None
+    if not out:
+        fail("no whole-solve kernel in the ptxas report")
+    return out
+
+
+def same_bits(torch, fused, name, k_out, args):
+    """The kernel's output at every other cluster size it instantiates
+    must be the bits of the default's: the per-example arithmetic and the
+    tile's votes do not depend on how a tile is cut into blocks."""
+    for G in fused.CLUSTERS:
+        if G == fused.DEFAULT_CLUSTER:
+            continue
+        out = fused.ilqr_fused(*args, cluster=G)
+        if not all(torch.equal(a, b) for a, b in zip(out, k_out)):
+            fail(f"{name}: clusters of {G} blocks change the result")
+    print(f"parity {name}: clusters of {fused.CLUSTERS} blocks give the same bits", flush=True)
+
+
+def cluster_report(torch, fused, card, label, args, ms):
+    """Phase 5: one probed launch of the whole-solve kernel -- clusters of
+    the launch, the SMs its blocks ran on, the votes each tile took and the
+    share of the SM clock its rank-0 thread spent in them (the cluster
+    barrier's wait included), times the kernel time ``ms``."""
+    G = fused.geometry(args[3].shape[0]).cluster
+    out, stats, smids = fused.ilqr_fused_probe(*args)
+    votes, in_votes, total = (stats[:, i].double() for i in range(3))
+    share = (in_votes / total).max().item()
+    print(f"clusters {label}: {stats.shape[0]} clusters of {G} blocks, {smids.numel()} blocks on "
+          f"{len(set(smids.tolist()))} SMs; votes a tile {int(votes.min())}-{int(votes.max())}, "
+          f"in votes {share:.3f} of the kernel's clock at most (about {share * ms:.3f} of "
+          f"{ms:.3f} ms) [{card}]", flush=True)
+    return out
+
+
 def rocket_checks(name, cfg, k_out, r_out, lo, hi):
     """The rocket's cases, beyond parity's: u within 2e-3 on the examples
     that converged in both versions (du < eps), whose u the problem sets;
@@ -206,6 +268,11 @@ def main():
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "error")):
                 print(f"ptxas[{src}]: {line.strip()}", flush=True)
+    for name, regs, stack, st, ld in ptxas_entries(reports[fused.SOURCE]):
+        print(f"ptxas ilqr_fused {name}: {regs} registers, {stack} bytes stack, {st}/{ld} bytes "
+              f"spill stores/loads", flush=True)
+        if name.split("<")[1].split(",")[1].strip() == "1" and (stack or st or ld):
+            fail(f"ilqr_fused {name} (n_ctrl 1) has a stack frame or spills")
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -253,10 +320,12 @@ def main():
     ))
     main_err = None
     for name, dyn, params, cfg, x0, cost_small, u0 in cases:
-        err, _, _ = parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, dyn.lower,
-                           dyn.upper)
+        err, k_out, _ = parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, dyn.lower,
+                               dyn.upper)
         if main_err is None:
             main_err = err
+            same_bits(torch, fused, name, k_out, (cfg, dyn, params, x0, cost_small, u0, dyn.lower,
+                                                  dyn.upper))
 
     # the rocket: bench.py's rocket stage (bench.py:305-347) with its +-20
     # box, which no control reaches from this start, and a ragged two-tile
@@ -280,8 +349,10 @@ def main():
     rocket_checks(name, r_cfg, k_out, r_out, r_dyn.lower.to(dev), r_dyn.upper.to(dev))
     tight = torch.tensor([8.0, 0.1, 0.1], device=dev)
     name = "rocket B=1030 T=20 eps=1e-3, bounds +-(8, 0.1, 0.1)"
-    _, k_out, r_out = parity(torch, fused, name, r_dyn, r_params, r_cfg,
-                             rocket.bench_start(1030, rgen, device=dev), r_cs, None, -tight, tight)
+    x0 = rocket.bench_start(1030, rgen, device=dev)
+    _, k_out, r_out = parity(torch, fused, name, r_dyn, r_params, r_cfg, x0, r_cs, None, -tight,
+                             tight)
+    same_bits(torch, fused, name, k_out, (r_cfg, r_dyn, r_params, x0, r_cs, None, -tight, tight))
     d = rocket_checks(name, r_cfg, k_out, r_out, -tight, tight)
     if min(d["active_share"]) < 0.2:
         fail(f"{name}: a control is at a bound in under 20% of its entries: {d['active_share']}")
@@ -400,6 +471,28 @@ def main():
                                                 None, -100.0, 100.0), 1, 5)
     print(f"time ilqr_fused cartpole B={B_full} T={T}: {ms:.3f} ms median of {len(runs)}, "
           f"{B_full / ms * 1e3:.0f} solves/s [{card}]", flush=True)
+    # the cluster size: every cartpole instantiation at B=4096 and B_full
+    # (inputs from a generator of their own), then one probed launch
+    cgen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    for B in (4096, B_full):
+        xg = cartpole_start(torch, cgen, B, dev)
+        figs = []
+        for G in fused.CLUSTERS:
+            ms_g, runs = cuda_ms(lambda: fused.ilqr_fused(bench_cfg, cp_dyn, cp_params, xg, cs, None,
+                                                          -100.0, 100.0, cluster=G), 1, 5)
+            figs.append(f"G={G}: {ms_g:.3f} ms ({', '.join(f'{r:.3f}' for r in runs)})")
+        print(f"time ilqr_fused cartpole B={B} by cluster size: {'; '.join(figs)} [{card}]",
+              flush=True)
+    cluster_report(torch, fused, card, "cartpole B=4096",
+                   (bench_cfg, cp_dyn, cp_params, cartpole_start(torch, cgen, 4096, dev), cs, None,
+                    -100.0, 100.0), t_kernel[4096])
+    for env, label in ((0, "cartpole"), (1, "pendulum"), (2, "rocket")):
+        for G in fused.CLUSTERS:
+            info = fused.kernel_info(env, G)
+            print(f"occupancy ilqr_fused {label} G={G}: cudaOccupancyMaxActiveClusters "
+                  f"{info['max_active_clusters']}, {info['registers']} registers, "
+                  f"{info['local_bytes']} local bytes, shared {info['static_smem']} + "
+                  f"{info['dynamic_smem']} bytes a block", flush=True)
     # closed loop: one receding-horizon step is one warm-started solve plus
     # the plant step and the plan shift
     x0 = cartpole_x0(1024)
@@ -488,6 +581,21 @@ def main():
         print(f"time ilqr_fused rocket B={B} T={T}: {ms:.3f} ms median of {len(runs)} "
               f"({', '.join(f'{r:.3f}' for r in runs)}), {B / ms * 1e3:.0f} solves/s, "
               f"n_iter {int(out[4])} [{card}]", flush=True)
+    # the rocket's other cluster size (inputs from their own generator),
+    # and one probed launch at B=1024
+    cgen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    for B in (1024, 16384, 132 * fused.TILE):
+        xg = rocket.bench_start(B, cgen, device=dev)
+        figs = []
+        for G in fused.CLUSTERS:
+            ms_g, runs = cuda_ms(lambda: fused.ilqr_fused(r_cfg, r_dyn, r_params, xg, r_cs, None,
+                                                          r_dyn.lower, r_dyn.upper, cluster=G), 1, 3)
+            figs.append(f"G={G}: {ms_g:.3f} ms ({', '.join(f'{r:.3f}' for r in runs)})")
+        print(f"time ilqr_fused rocket B={B} by cluster size: {'; '.join(figs)} [{card}]",
+              flush=True)
+    cluster_report(torch, fused, card, "rocket B=1024",
+                   (r_cfg, r_dyn, r_params, rocket.bench_start(1024, cgen, device=dev), r_cs, None,
+                    r_dyn.lower, r_dyn.upper), r_ms[1024])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
         r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)

@@ -11,45 +11,63 @@
 //    started with k_{t+1} (at t = T-1 with the clipped ridged Newton point),
 //    and gains K = -inv(H_free) (Q_ux * If) from its last Newton step.
 //
-// Design. One thread per example, 1024 threads per block: a block is the
-// JAX kernel's 1024-example tile, so the decisions that kernel takes per
-// tile -- the line search's any(cost worsened), the not-improved reset's
-// any(improved), the stopping rule's max(du) < eps, and inside every
-// Riccati step the box-QP's Newton exit (no example still steps) and
-// Armijo exit (max(armijo) > 0.1) -- are block votes (__syncthreads_or /
-// __syncthreads_and; a NaN du makes both forms false, a NaN armijo ends
-// the Armijo loop). Every branch around a vote is block-uniform: a thread
-// whose example is done keeps reaching the votes, and a block whose tile
-// has stopped leaves the outer loop as a whole. Per-step arrays (reference
-// and trial trajectory, gains K/k) live in global scratch the wrapper
-// allocates, laid out [T, k, Bp] with the control axis inside k (u [T, NU,
-// Bp], K [T, NU*NX, Bp]) so a warp's accesses coalesce; the reference and
-// trial buffers swap roles on accept instead of copying. The cost-to-go V,
-// v, Q and the gains of one step stay in registers or local memory, and
-// the Jacobian F is formed at the use site (no [T, nx, n] buffer); only
-// Q's upper triangle is computed. The cost is read through the read-only
-// cache (every thread of a warp reads the same address).
+// Design. One thread per example. The JAX kernel takes its decisions per
+// 1024-example tile -- the line search's any(cost worsened), the
+// not-improved reset's any(improved), the stopping rule's max(du) < eps,
+// and inside every Riccati step the box-QP's Newton exit (no example still
+// steps) and Armijo exit (max(armijo) > 0.1). Here a tile is one
+// thread-block cluster of G blocks of 1024/G threads (G = 8 by default:
+// 128 threads), so one tile spreads over G SMs, and each decision is a
+// cluster vote (TileVote in ilqr_fused.cuh: a warp vote, the words through
+// distributed shared memory, one cluster barrier; a NaN du makes both the
+// any- and the all-form false, a NaN armijo ends the Armijo loop). Every
+// branch around a vote is cluster-uniform: a thread whose example is done
+// keeps reaching the votes, a cluster whose tile has stopped leaves the
+// outer loop as a whole, and every block passes a last cluster barrier
+// before it exits, so no block leaves while a peer may still read its vote
+// words. Per-step arrays (reference, trial and best trajectory, gains K/k)
+// live in global scratch the wrapper allocates, laid out [T, k, Bp] with
+// the control axis inside k (u [T, NU, Bp], K [T, NU*NX, Bp]) so a warp's
+// accesses coalesce; the three trajectory buffers change roles on accept
+// instead of copying, and the best is copied out once at the end (at
+// B=135168 the scratch outgrows the L2, and a copy an iteration was a fifth
+// of its traffic). The cost is read through the read-only cache.
+//  * n_ctrl == 1: the cost-to-go V, v, Q and the Jacobian F of one step are
+//    registers; a block of 128 (or 64) threads lets a thread hold 255, so
+//    nothing spills.
+//  * n_ctrl == 3: the rocket's V (13x13), Q (16x16) and F (13x16) would
+//    not fit in registers; they live in dynamic shared memory as triangles
+//    (V, Q) and a dense F, [entry][example], 1740 bytes an example: 128
+//    examples a block (G = 8) take 222,720 of the 232,448 bytes a block may
+//    have, 64 (G = 16) half that. Q is formed four columns of V F at a time,
+//    so each V entry is read once a column block. riccati_box_step in the
+//    header is that step, built with g++ in the tests.
 //
 // What bounds it. The work is a long sequential recursion per example
 // (T steps x lqr_iter iterations x Riccati + line search) with little data:
-// it is bound by operations and their latency, not by bytes. A block needs
-// 1024 examples, so B=4096 fills 4 of the 132 SMs and B=16384 16, and
-// __launch_bounds__(1024) caps a thread at 64 registers: the 5x5 V, the 6x6
-// Q and the 5x6 Jacobian spill to local memory (L1/L2), and the rocket's
-// 13x13 V, 16x16 Q and 13x16 F live there entirely. Both limits follow
-// from keeping the tile semantics; PERF.md has the measured times and the
-// -Xptxas -v report. Making it fast is later work.
+// it is bound by operations and their latency, not by bytes. A tile now
+// spans G SMs (B=4096 fills 32 of the 132 SMs at G = 8, the rocket's
+// B=1024 8), but each SM holds only 1024/G threads of it: few warps to hide
+// latency behind. Each vote is a cluster barrier; the rocket takes several
+// per Riccati step. PERF.md has the times, the vote counts and the
+// -Xptxas -v report.
 //
 // Numerics: f32, compiled without -use_fast_math (cosf/sinf are the
 // accurate versions, division and sqrt IEEE-rounded); rsqrtf and nvcc's
 // default FMA contraction move results by a few ulp from the plain
-// PyTorch version, which the tests' tolerances state.
+// PyTorch version, which the tests' tolerances state. The result does not
+// depend on G: the per-example arithmetic and the votes are the same.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "ilqr_fused.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace dilqr {
+
+constexpr int kTile = 1024;  // examples a tile: the JAX kernel's base tile
 
 struct Args {
   int T, Bp, Tc;
@@ -61,38 +79,67 @@ struct Args {
   float lo[kMaxNu], hi[kMaxNu];  // static per-control bounds, +-inf for none
   int lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter;
   float eps, ls_decay, best_cost_eps;
-  float* work;  // [T, 2*NX + 3*NU + NU*NX, Bp] scratch
+  float* work;  // scratch: 3 x [T, NX + NU, Bp] trajectories, then K [T, NU*NX, Bp], k [T, NU, Bp]
   float* bx;    // [T, NX, Bp] out: best x (zero-initialized by the wrapper)
   float* bu;    // [T, NU, Bp] out: best u (zero-initialized by the wrapper)
   float* bc;    // [Bp]        out: best cost
   float* bdu;   // [Bp]        out: full_du_norm of the best iterate
   int* iters;   // [Bp / 1024] out: iterations each tile ran
+  long long* probe;  // [Bp / 1024, 3] out, or null: per tile the votes, the
+                     // cycles in votes and the cycles of the whole kernel
+                     // (rank 0, thread 0)
+  int* smids;        // [blocks] out, or null: the SM each block ran on
 };
 
+// dynamic shared memory of a block of EX examples
 template <class Env, int NU>
-__global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
+constexpr size_t smem_bytes(int EX) {
+  return NU == 1 ? 0 : sizeof(float) * BoxStepLayout<Env, NU>::kFloats * EX;
+}
+
+template <class Env, int NU, int EX>
+__global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
   static_assert(NU == Env::NU, "the env's control count");
+  static_assert(EX % 32 == 0 && EX <= 32 * kMaxWarps, "whole warps, at most kMaxWarps");
   constexpr int NX = Env::NX;
   constexpr int N = NX + NU;
   const int T = a.T, Bp = a.Bp;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.x * EX + threadIdx.x;
   const size_t sX = (size_t)NX * Bp;       // per-t stride of [T, NX, Bp]
   const size_t sU = (size_t)NU * Bp;       // per-t stride of [T, NU, Bp]
   const size_t sK = (size_t)NU * NX * Bp;  // per-t stride of [T, NU*NX, Bp]
 
+  const long long t_start = clock64();
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ unsigned vote_words[2 * kMaxWarps];
+  TileVote vote{vote_words, 0, 0};
+  extern __shared__ float box_store[];  // n_ctrl > 1: V, Q, F [entry][example]
+
   Env env;
   env.load(a.params);
+  float lo[NU], hi[NU];
+#pragma unroll
+  for (int r = 0; r < NU; ++r) {
+    lo[r] = a.lo[r];
+    hi[r] = a.hi[r];
+  }
 
   float x0[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) x0[i] = a.x_init[i * Bp + b];
 
-  float* xr = a.work;       // reference trajectory
-  float* ur = xr + T * sX;
-  float* xq = ur + T * sU;  // trial trajectory
-  float* uq = xq + T * sX;
-  float* Kg = uq + T * sU;  // feedback gains
-  float* kg = Kg + T * sK;  // feedforward gains
+  // three trajectory buffers, each x [T, NX, Bp] then u [T, NU, Bp]: the
+  // reference, the trial and the best iterate. An accepted trial becomes
+  // the reference where it lies; the best stays in its buffer until the
+  // end, when it is copied out once.
+  const size_t sTraj = (size_t)T * (sX + sU);
+  auto xbuf = [&](int i) { return a.work + i * sTraj; };
+  auto ubuf = [&](int i) { return a.work + i * sTraj + T * sX; };
+  int ref = 0, best = -1;   // buffer indices; -1: no best yet
+  float* xr = xbuf(ref);    // reference trajectory
+  float* ur = ubuf(ref);
+  float* Kg = a.work + 3 * sTraj;  // feedback gains
+  float* kg = Kg + T * sK;         // feedforward gains
 
   auto Cat = [&](int t) { return a.Cs + (size_t)(a.Tc > 1 ? t : 0) * N * N; };
   auto cat = [&](int t) { return a.cs + (size_t)(a.Tc > 1 ? t : 0) * N; };
@@ -130,12 +177,16 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
     // ---- 2-5) reverse Riccati with F_t = jac(x_t, u_t) (zero at T-1),
     // the delta-space shift C tau + c, the box-QP gains and the V/v
     // update ----
-    float V[NX][NX], v[NX];
+    float v[NX];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      v[i] = 0.0f;
+    for (int i = 0; i < NX; ++i) v[i] = 0.0f;
+    // V in registers for n_ctrl == 1; the rocket's is in shared memory
+    [[maybe_unused]] float V[NU == 1 ? NX : 1][NU == 1 ? NX : 1];
+    if constexpr (NU == 1) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) V[i][j] = 0.0f;
+      for (int i = 0; i < NX; ++i)
+#pragma unroll
+        for (int j = 0; j < NX; ++j) V[i][j] = 0.0f;
     }
     for (int t = T - 1; t >= 0; --t) {
       float tau[N];
@@ -146,56 +197,56 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
       const float* C = Cat(t);
       const float* c = cat(t);
 
-      float F[NX][N];
-      if (t < T - 1) {
-        env.jac(tau, tau + NX, F);
-      } else {
+      if constexpr (NU == 1) {
+        float F[NX][N];
+        if (t < T - 1) {
+          env.jac(tau, tau + NX, F);
+        } else {
+#pragma unroll
+          for (int i = 0; i < NX; ++i)
+#pragma unroll
+            for (int j = 0; j < N; ++j) F[i][j] = 0.0f;
+        }
+
+        // tmp = V F
+        float tmp[NX][N];
 #pragma unroll
         for (int i = 0; i < NX; ++i)
 #pragma unroll
-          for (int j = 0; j < N; ++j) F[i][j] = 0.0f;
-      }
-
-      // tmp = V F
-      float tmp[NX][N];
+          for (int j = 0; j < N; ++j) {
+            float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < NX; ++i)
+            for (int k = 0; k < NX; ++k) s += V[k][i] * F[k][j];
+            tmp[i][j] = s;
+          }
+        // Q = C + F^T V F (symmetric: upper triangle, mirrored);
+        // q = C tau + c + F^T v
+        float Q[N][N], q[N];
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          float s = 0.0f;
+        for (int i = 0; i < N; ++i) {
 #pragma unroll
-          for (int k = 0; k < NX; ++k) s += V[k][i] * F[k][j];
-          tmp[i][j] = s;
+          for (int j = i; j < N; ++j) {
+            float s = 0.0f;
+#pragma unroll
+            for (int k = 0; k < NX; ++k) s += F[k][i] * tmp[k][j];
+            Q[i][j] = __ldg(&C[i * N + j]) + s;
+            Q[j][i] = Q[i][j];
+          }
+          float cb = 0.0f;
+#pragma unroll
+          for (int j = 0; j < N; ++j) cb += __ldg(&C[i * N + j]) * tau[j];
+          cb += __ldg(&c[i]);
+          float fv = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NX; ++k) fv += F[k][i] * v[k];
+          q[i] = cb + fv;
         }
-      // Q = C + F^T V F (symmetric: upper triangle, mirrored);
-      // q = C tau + c + F^T v
-      float Q[N][N], q[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-#pragma unroll
-        for (int j = i; j < N; ++j) {
-          float s = 0.0f;
-#pragma unroll
-          for (int k = 0; k < NX; ++k) s += F[k][i] * tmp[k][j];
-          Q[i][j] = __ldg(&C[i * N + j]) + s;
-          Q[j][i] = Q[i][j];
-        }
-        float cb = 0.0f;
-#pragma unroll
-        for (int j = 0; j < N; ++j) cb += __ldg(&C[i * N + j]) * tau[j];
-        cb += __ldg(&c[i]);
-        float fv = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NX; ++k) fv += F[k][i] * v[k];
-        q[i] = cb + fv;
-      }
 
-      if constexpr (NU == 1) {
         // exact closed-form 1-D box-QP in delta space
         const float ut = tau[NX];
         const float H = Q[NX][NX];
         const float qu = q[NX];
-        const float lb = a.lo[0] - ut, ub = a.hi[0] - ut;
+        const float lb = lo[0] - ut, ub = hi[0] - ut;
         const float kt = clip(-qu / H, lb, ub);
         const float g = H * kt + qu;
         const bool Ic = (kt <= lb && g > 0.0f) || (kt >= ub && g < 0.0f);
@@ -219,99 +270,33 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
           v[i] = q[i] + Q[i][NX] * kt + K[i] * qk;
         }
       } else {
-        // projected-Newton box-QP in delta space
-        float H[NU][NU], qu[NU], lb[NU], ub[NU], warm[NU];
-#pragma unroll
-        for (int r = 0; r < NU; ++r) {
-          qu[r] = q[NX + r];
-          lb[r] = a.lo[r] - tau[NX + r];
-          ub[r] = a.hi[r] - tau[NX + r];
-#pragma unroll
-          for (int s = 0; s < NU; ++s) H[r][s] = Q[NX + r][NX + s];
-        }
+        // V, Q, F in shared memory; the step is riccati_box_step
+        float warm[NU], K[NU][NX], kt[NU];
         if (t < T - 1) {
           // warm start with the next step's k of this sweep
 #pragma unroll
           for (int r = 0; r < NU; ++r) warm[r] = kg[(t + 1) * sU + r * Bp + b];
-        } else {
-          // clip(-inv(Quu + 1e-11 I) qu, lb, ub)
-          float Hr[NU][NU], Hri[NU][NU];
-#pragma unroll
-          for (int r = 0; r < NU; ++r)
-#pragma unroll
-            for (int s = 0; s < NU; ++s) Hr[r][s] = H[r][s] + (r == s ? kPnqpReg : 0.0f);
-          inv_small<NU>(Hr, Hri);
-          mv_small<NU>(Hri, qu, warm);
-#pragma unroll
-          for (int r = 0; r < NU; ++r) warm[r] = clip(-warm[r], lb[r], ub[r]);
         }
-        float kt[NU], If[NU], Hf[NU][NU], Hinv[NU][NU];
-        pnqp<NU>(H, qu, lb, ub, warm, a.pnqp_iter, kt, If, Hf);
-
-        // K = -inv(H_free) (Q_ux * If): active rows of Q_ux zeroed
-        inv_small<NU>(Hf, Hinv);
-        float K[NU][NX];
+        riccati_box_step<Env, NU>(env, t == T - 1, tau, C, c, lo, hi, warm, a.pnqp_iter, vote,
+                                  box_store + threadIdx.x, EX, v, K, kt);
 #pragma unroll
         for (int r = 0; r < NU; ++r) {
 #pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int m = 0; m < NU; ++m) s += Hinv[r][m] * (Q[NX + m][j] * If[m]);
-            K[r][j] = -s;
-            Kg[t * sK + (r * NX + j) * Bp + b] = K[r][j];
-          }
+          for (int j = 0; j < NX; ++j) Kg[t * sK + (r * NX + j) * Bp + b] = K[r][j];
           kg[t * sU + r * Bp + b] = kt[r];
-        }
-
-        // V' = Qxx + M + M^T + K^T (Quu K) with M = Qxu K (the last term
-        // symmetric: upper triangle, mirrored);
-        // v' = qx + Qxu k + K^T (qu + Quu k)
-        float QK[NU][NX], qk[NU];
-#pragma unroll
-        for (int r = 0; r < NU; ++r) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int m = 0; m < NU; ++m) s += Q[NX + r][NX + m] * K[m][j];
-            QK[r][j] = s;
-          }
-          float s = 0.0f;
-#pragma unroll
-          for (int m = 0; m < NU; ++m) s += Q[NX + r][NX + m] * kt[m];
-          qk[r] = qu[r] + s;
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            float mij = 0.0f, mji = 0.0f, kqk = 0.0f;
-            const int lo = i < j ? i : j, hi = i < j ? j : i;
-#pragma unroll
-            for (int r = 0; r < NU; ++r) {
-              mij += Q[i][NX + r] * K[r][j];
-              mji += Q[j][NX + r] * K[r][i];
-              kqk += K[r][lo] * QK[r][hi];
-            }
-            V[i][j] = Q[i][j] + mij + mji + kqk;
-          }
-          float qxk = 0.0f, kq = 0.0f;
-#pragma unroll
-          for (int r = 0; r < NU; ++r) {
-            qxk += Q[i][NX + r] * kt[r];
-            kq += K[r][i] * qk[r];
-          }
-          v[i] = q[i] + qxk + kq;
         }
       }
     }
 
-    // ---- 6) backtracking line search, recording the trial trajectory;
-    // the first trial always runs and its du2 is full_du_norm ----
+    // ---- 6) backtracking line search, recording the trial trajectory in
+    // the buffer that is neither the reference nor the best; the first
+    // trial always runs and its du2 is full_du_norm ----
+    const int trial = ref != 0 && best != 0 ? 0 : (ref != 1 && best != 1 ? 1 : 2);
+    float* xq = xbuf(trial);
+    float* uq = ubuf(trial);
     float alpha = 1.0f, cc = 0.0f, du2s = 0.0f;
     for (int i = 0; i < a.max_ls_iter; ++i) {
-      if (i == 0 || __syncthreads_or(cc > oc)) {
+      if (i == 0 || vote.any(cc > oc)) {
         float xt[NX];
 #pragma unroll
         for (int j = 0; j < NX; ++j) xt[j] = x0[j];
@@ -325,8 +310,7 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
 #pragma unroll
             for (int j = 0; j < NX; ++j)
               kdx += Kg[t * sK + (r * NX + j) * Bp + b] * (xt[j] - xr[t * sX + j * Bp + b]);
-            const float new_u =
-                clip(kdx + urt + alpha * kg[t * sU + r * Bp + b], a.lo[r], a.hi[r]);
+            const float new_u = clip(kdx + urt + alpha * kg[t * sU + r * Bp + b], lo[r], hi[r]);
             const float d = urt - new_u;
             if constexpr (NU == 1) {
               du2 += d * d;
@@ -355,19 +339,14 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
     }
     const float cur_du = sqrtf(du2s);
 
-    // ---- 7) accept the last executed trial (swap the buffers) and fold
-    // in best tracking with best_cost_eps ----
+    // ---- 7) accept the last executed trial (its buffer becomes the
+    // reference) and fold in best tracking with best_cost_eps ----
     const bool improved = cc <= bc + a.best_cost_eps;
-    float* s;
-    s = xr; xr = xq; xq = s;
-    s = ur; ur = uq; uq = s;
+    ref = trial;
+    xr = xq;
+    ur = uq;
     if (improved) {
-      for (int t = 0; t < T; ++t) {
-#pragma unroll
-        for (int j = 0; j < NX; ++j) a.bx[t * sX + j * Bp + b] = xr[t * sX + j * Bp + b];
-#pragma unroll
-        for (int r = 0; r < NU; ++r) a.bu[t * sU + r * Bp + b] = ur[t * sU + r * Bp + b];
-      }
+      best = ref;
       bc = cc;
       bdu = cur_du;
     }
@@ -375,51 +354,159 @@ __global__ void __launch_bounds__(1024) ilqr_fused_kernel(const Args a) {
 
     // ---- 8) per-tile stopping rule: max(du) < eps or no improvement for
     // not_improved_lim iterations ----
-    const int any_improved = __syncthreads_or(improved);
+    const int any_improved = vote.any(improved);
     nni = (it > 0 && any_improved) ? 0 : nni + 1;
-    const int all_small = __syncthreads_and(cur_du < a.eps);
+    const int all_small = vote.all(cur_du < a.eps);
     ++iters;
     if (all_small || nni > a.not_improved_lim) break;
   }
 
+  if (best >= 0) {
+    const float* xb = xbuf(best);
+    const float* ub = ubuf(best);
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) a.bx[t * sX + j * Bp + b] = xb[t * sX + j * Bp + b];
+#pragma unroll
+      for (int r = 0; r < NU; ++r) a.bu[t * sU + r * Bp + b] = ub[t * sU + r * Bp + b];
+    }
+  }
   a.bc[b] = bc;
   a.bdu[b] = bdu;
-  if (threadIdx.x == 0) a.iters[blockIdx.x] = iters;
+  const int tile = blockIdx.x / cluster.num_blocks();
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    a.iters[tile] = iters;
+    if (a.probe) {
+      a.probe[3 * tile] = vote.n;
+      a.probe[3 * tile + 1] = vote.cycles;
+      a.probe[3 * tile + 2] = clock64() - t_start;
+    }
+  }
+  if (a.smids && threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    a.smids[blockIdx.x] = (int)sm;
+  }
+  cluster.sync();  // no block leaves while a peer may still read its vote words
+}
+
+// The kernel of (Env, NU) for a tile of G blocks, with its launch shape.
+template <class Env, int NU, int EX>
+struct Launch {
+  static cudaError_t configure(int G, size_t smem) {
+    auto kernel = ilqr_fused_kernel<Env, NU, EX>;
+    cudaError_t e = cudaSuccess;
+    if (smem > 0)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess && G > 8)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }
+
+  static void config(int blocks, int G, size_t smem, cudaStream_t st, cudaLaunchConfig_t* cfg,
+                     cudaLaunchAttribute* attr) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = G;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(blocks);
+    cfg->blockDim = dim3(EX);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = st;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+  }
+
+  static cudaError_t run(const Args& a, int G, cudaStream_t st) {
+    const size_t smem = smem_bytes<Env, NU>(EX);
+    cudaError_t e = configure(G, smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(a.Bp / EX, G, smem, st, &cfg, &attr);
+    e = cudaLaunchKernelEx(&cfg, ilqr_fused_kernel<Env, NU, EX>, a);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+
+  // out: max active clusters, registers, local bytes a thread, static and
+  // dynamic shared bytes a block
+  static cudaError_t info(int G, int* out) {
+    const size_t smem = smem_bytes<Env, NU>(EX);
+    cudaError_t e = configure(G, smem);
+    if (e != cudaSuccess) return e;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    config(G, G, smem, nullptr, &cfg, &attr);
+    auto kernel = ilqr_fused_kernel<Env, NU, EX>;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, (const void*)kernel);
+    if (e != cudaSuccess) return e;
+    out[0] = clusters;
+    out[1] = fa.numRegs;
+    out[2] = (int)fa.localSizeBytes;
+    out[3] = (int)fa.sharedSizeBytes;
+    out[4] = (int)smem;
+    return cudaSuccess;
+  }
+};
+
+// Calls f(Launch<Env, NU, 1024 / G>{}) for the env and the cluster size G
+// in {8, 16}: blocks of 128 or 64 threads (the rocket's shared memory caps
+// a block at 128 examples; at 256 threads ptxas gave the pendulum 64
+// registers and a stack). Anything else is cudaErrorInvalidValue.
+template <int EX, class F>
+cudaError_t dispatch_env(int env, F f) {
+  switch (env) {
+    case ENV_CARTPOLE:
+      return f(Launch<Cartpole, 1, EX>{});
+    case ENV_PENDULUM:
+      return f(Launch<Pendulum, 1, EX>{});
+    case ENV_ROCKET:
+      return f(Launch<Rocket, 3, EX>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <class F>
+cudaError_t dispatch(int env, int G, F f) {
+  if (G == 8) return dispatch_env<kTile / 8>(env, f);
+  if (G == 16) return dispatch_env<kTile / 16>(env, f);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace dilqr
 
 // lo/hi: host arrays of kMaxNu floats (the env's bounds first, padded),
-// copied into the kernel's arguments.
+// copied into the kernel's arguments. cluster: the blocks of one
+// 1024-example tile (dispatch). probe, smids: null, or the per-tile vote
+// counts and clock cycles and the per-block SM ids, for measurement.
 extern "C" int dilqr_ilqr_fused(int env, int T, int Bp, int Tc, const float* params,
                                 const float* x_init, const float* Cs, const float* cs,
                                 const float* u_init, const float* lo, const float* hi,
                                 int lqr_iter, float eps, float ls_decay, int max_ls_iter,
                                 float best_cost_eps, int not_improved_lim, int pnqp_iter,
-                                float* work, float* bx, float* bu, float* bc, float* bdu,
-                                int* iters, void* stream) {
-  if (Bp <= 0 || Bp % 1024 != 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                                int cluster, float* work, float* bx, float* bu, float* bc,
+                                float* bdu, int* iters, long long* probe, int* smids,
+                                void* stream) {
+  if (Bp <= 0 || Bp % dilqr::kTile != 0 || T <= 0) return (int)cudaErrorInvalidValue;
   dilqr::Args a{T, Bp, Tc, params, x_init, Cs, cs, u_init, {}, {},
                 lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter, eps, ls_decay,
-                best_cost_eps, work, bx, bu, bc, bdu, iters};
+                best_cost_eps, work, bx, bu, bc, bdu, iters, probe, smids};
   for (int r = 0; r < dilqr::kMaxNu; ++r) {
     a.lo[r] = lo[r];
     a.hi[r] = hi[r];
   }
-  const dim3 grid(Bp / 1024), block(1024);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (env) {
-    case dilqr::ENV_CARTPOLE:
-      dilqr::ilqr_fused_kernel<dilqr::Cartpole, 1><<<grid, block, 0, st>>>(a);
-      break;
-    case dilqr::ENV_PENDULUM:
-      dilqr::ilqr_fused_kernel<dilqr::Pendulum, 1><<<grid, block, 0, st>>>(a);
-      break;
-    case dilqr::ENV_ROCKET:
-      dilqr::ilqr_fused_kernel<dilqr::Rocket, 3><<<grid, block, 0, st>>>(a);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)dilqr::dispatch(env, cluster, [&](auto l) { return l.run(a, cluster, st); });
+}
+
+// out[5]: cudaOccupancyMaxActiveClusters, registers, local bytes a thread,
+// static and dynamic shared bytes a block of the (env, cluster) kernel.
+extern "C" int dilqr_ilqr_fused_info(int env, int cluster, int* out) {
+  return (int)dilqr::dispatch(env, cluster, [&](auto l) { return l.info(cluster, out); });
 }

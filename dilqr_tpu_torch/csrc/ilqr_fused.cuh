@@ -1,7 +1,8 @@
 // Per-example math of the whole-solve iLQR kernel (ilqr_fused.cu): the env
-// steps and Jacobians in their kernel form, the quadratic objective, and
-// the small-matrix pieces of the multi-control box-QP (closed-form
-// inverses, the projected-Newton step and its tile-voting loop).
+// steps and Jacobians in their kernel form, the quadratic objective, the
+// tile vote, the small-matrix pieces of the multi-control box-QP
+// (closed-form inverses, the projected-Newton step and its tile-voting
+// loop) and the multi-control Riccati step over strided storage.
 //
 // The envs are the device counterparts of dilqr_tpu_torch/models/
 // cartpole.py, pendulum.py and rocket.py (`kernel_step`, `jac_lanes`): the
@@ -15,6 +16,7 @@
 #include <math.h>
 
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
 #define DILQR_HD __host__ __device__ __forceinline__
 #else
 #define DILQR_HD inline
@@ -43,10 +45,125 @@ DILQR_HD float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// a read through the read-only cache on the device (the cost: every thread
+// of a warp reads the same address)
+DILQR_HD float ldg_f(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// the most warps a block of the whole-solve kernel has (128 threads)
+constexpr int kMaxWarps = 4;
+
+// The tile-wide vote. On the device a tile is one thread-block cluster of
+// G blocks: each warp votes with __any_sync, lane 0 writes the warp's word
+// into its block's shared memory, one cluster barrier publishes every
+// word, and each lane ORs its share of the cluster's words through
+// distributed shared memory before a last warp vote. The words are
+// double-buffered by the vote count `n`: vote n+2 rewrites vote n's words
+// only after every thread has passed vote n+1's barrier, so one barrier a
+// vote is enough. Every thread of the cluster must reach every vote, in
+// the same order (the branches around a vote are cluster-uniform). Built
+// for the host, a tile is one example and the vote is the identity.
+// all(p) is !any(!p): a NaN comparison is false in both forms. `cycles`
+// sums the SM clock cycles spent in votes, the barrier's wait included.
+struct TileVote {
+  unsigned* words;  // [2 * kMaxWarps] in the block's shared memory; null on the host
+  int n;            // votes taken
+  long long cycles;
+
+  DILQR_HD int any(int p) {
+#ifdef __CUDA_ARCH__
+    namespace cg = cooperative_groups;
+    const long long t0 = clock64();
+    cg::cluster_group cluster = cg::this_cluster();
+    const int lane = threadIdx.x & 31;
+    const int nw = blockDim.x >> 5;
+    unsigned* w = words + (n & 1) * kMaxWarps;
+    ++n;
+    const unsigned mine = __any_sync(0xffffffffu, p);
+    if (lane == 0) w[threadIdx.x >> 5] = mine;
+    cluster.sync();
+    unsigned got = 0u;
+    const int total = nw * (int)cluster.num_blocks();
+    for (int l = lane; l < total; l += 32) got |= *cluster.map_shared_rank(w + l % nw, l / nw);
+    const int result = __any_sync(0xffffffffu, got != 0u);
+    cycles += clock64() - t0;
+    return result;
+#else
+    ++n;
+    return p;
+#endif
+  }
+
+  DILQR_HD int all(int p) { return !any(!p); }
+};
+
+// Entries of one example's matrices with a stride between consecutive
+// entries: on the device [entry][example] in shared memory (the stride is
+// the block's examples, so a warp's 32 examples hit 32 banks); on the host
+// any buffer.
+struct Strided {
+  float* p;
+  int stride;
+  DILQR_HD float& operator[](int e) const { return p[e * stride]; }
+};
+
+// a symmetric M x M matrix kept as its upper triangle, row-major
+template <int M>
+struct SymMat {
+  static constexpr int kSize = M * (M + 1) / 2;
+  Strided s;
+  static constexpr DILQR_HD int idx(int i, int j) {
+    return i <= j ? i * M - i * (i - 1) / 2 + (j - i) : j * M - j * (j - 1) / 2 + (i - j);
+  }
+  DILQR_HD float& operator()(int i, int j) const { return s[idx(i, j)]; }
+};
+
+// a dense R x C matrix, row-major, indexed D[i][j] as a 2-D array is
+template <int R, int C>
+struct DenseMat {
+  static constexpr int kSize = R * C;
+  Strided s;
+  struct Row {
+    float* p;
+    int stride;
+    DILQR_HD float& operator[](int j) const { return p[j * stride]; }
+  };
+  DILQR_HD Row operator[](int i) const { return {s.p + i * C * s.stride, s.stride}; }
+};
+
+// (cos x, sin x) of a float, evaluated in double and rounded once: x is
+// reduced by pi/2 in two parts with fused multiply-adds (the product with
+// the leading part exact), then the Taylor polynomials to degree 14 and 13
+// on |r| <= pi/4 (truncation below 1e-13). Within an ulp of cosf/sinf, and
+// unlike them it has no Payne-Hanek fallback for huge arguments, whose
+// word table and call put a stack frame (and, around the call, spills)
+// into every kernel that inlines it. Accurate for |x| < 1e15, where the
+// reduction's second part still holds; NaN for a NaN or infinite x.
+DILQR_HD void cos_sin(float xf, float* oc, float* os) {
+  const double x = xf;
+  const double j = rint(x * 0.63661977236758134);  // 2 / pi
+  const double r = fma(-j, 6.123233995736766e-17, fma(-j, 1.5707963267948966, x));
+  const double r2 = r * r;
+  const double sr = r * (1.0 + r2 * (-1.0 / 6 + r2 * (1.0 / 120 + r2 * (-1.0 / 5040
+                    + r2 * (1.0 / 362880 + r2 * (-1.0 / 39916800 + r2 * (1.0 / 6227020800.0)))))));
+  const double cr = 1.0 + r2 * (-0.5 + r2 * (1.0 / 24 + r2 * (-1.0 / 720 + r2 * (1.0 / 40320
+                    + r2 * (-1.0 / 3628800 + r2 * (1.0 / 479001600.0 + r2 * (-1.0 / 87178291200.0)))))));
+  const double m = j - 4.0 * floor(0.25 * j);  // the quadrant, 0..3 (NaN for NaN)
+  const double c = m == 0.0 ? cr : (m == 1.0 ? -sr : (m == 2.0 ? -cr : (m == 3.0 ? sr : r)));
+  const double s = m == 0.0 ? sr : (m == 1.0 ? cr : (m == 2.0 ? -sr : (m == 3.0 ? -cr : r)));
+  *oc = (float)c;
+  *os = (float)s;
+}
+
 // (cos, sin) of atan2(s, c) + delta without recovering the angle.
 DILQR_HD void rotate_cs(float c, float s, float delta, float* oc, float* os) {
-  const float cd = cosf(delta);
-  const float sd = sinf(delta);
+  float cd, sd;
+  cos_sin(delta, &cd, &sd);
   const float ct = c * cd - s * sd;
   const float st = s * cd + c * sd;
   const float nn = ct * ct + st * st;
@@ -112,8 +229,8 @@ struct Cartpole {
     const float xacc_u = ci_u - k * ta_u * c;
 
     const float delta = dt * w;
-    const float cd = cosf(delta);
-    const float sd = sinf(delta);
+    float cd, sd;
+    cos_sin(delta, &cd, &sd);
     const float ct = c * cd - s * sd;
     const float st = s * cd + c * sd;
     const float nn = ct * ct + st * st;
@@ -171,8 +288,8 @@ struct Pendulum {
     const float newdth = w + dt * (-3.0f * g / (2.0f * l) * (-s) + 3.0f * u / (m * (l * l)));
     const float delta = newdth * dt;
     const float d_s = dt * k_s, d_w = dt, d_u = dt * k_u;
-    const float cd = cosf(delta);
-    const float sd = sinf(delta);
+    float cd, sd;
+    cos_sin(delta, &cd, &sd);
     const float ct = c * cd - s * sd;
     const float st = s * cd + c * sd;
     const float nn = ct * ct + st * st;
@@ -266,13 +383,17 @@ struct Rocket {
     for (int i = 0; i < NX; ++i) xn[i] = xs[i] + dx[i] * kDtR;
   }
 
-  // D = [dx'/dx | dx'/du] of the un-clamped step, [13][16]
-  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + NU]) const {
+  // D = [dx'/dx | dx'/du] of the un-clamped step, [13][16]: a float[13][16]
+  // or a DenseMat<13, 16> (every entry is written, the zeros first)
+  template <class Out>
+  DILQR_HD void jac(const float* xs, const float* us, Out&& D) const {
     const float dt = kDtR;
     const float q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
     const float w0 = xs[10], w1 = xs[11], w2 = xs[12];
     const float T0 = us[0], T1 = us[1], T2 = us[2];
+#pragma unroll
     for (int i = 0; i < NX; ++i)
+#pragma unroll
       for (int j = 0; j < NX + NU; ++j) D[i][j] = 0.0f;
     float c[3][3];
     dcm(q0, q1, q2, q3, c);
@@ -288,15 +409,19 @@ struct Rocket {
         {-2.0f * q1, -2.0f * q0, 2.0f * q3, 2.0f * q2},
         {0.0f, -4.0f * q1, -4.0f * q2, 0.0f},
     };
+#pragma unroll
     for (int i = 0; i < 3; ++i) {  // r' = r + dt v
       D[i][i] = 1.0f;
       D[i][3 + i] = dt;
     }
+#pragma unroll
     for (int m = 0; m < 3; ++m) {  // v' = v + dt (R T / mass + g)
       const int i = 3 + m;
       D[i][i] = 1.0f;
+#pragma unroll
       for (int k = 0; k < 4; ++k)
         D[i][6 + k] = dt * (dc[m][k] * T0 + dc[3 + m][k] * T1 + dc[6 + m][k] * T2) / mass;
+#pragma unroll
       for (int j = 0; j < 3; ++j) D[i][13 + j] = dt * c[j][m] / mass;
     }
     const float h = 0.5f * dt;  // q' = q + 0.5 dt Omega(w) q
@@ -312,8 +437,11 @@ struct Rocket {
         {h * q3, h * q0, -h * q1},
         {-h * q2, h * q1, h * q0},
     };
+#pragma unroll
     for (int a = 0; a < 4; ++a) {
+#pragma unroll
       for (int b = 0; b < 4; ++b) D[6 + a][6 + b] = dqq[a][b] + (a == b ? 1.0f : 0.0f);
+#pragma unroll
       for (int b = 0; b < 3; ++b) D[6 + a][10 + b] = dqw[a][b];
     }
     const float kzy = Jz - Jy, kxz = Jx - Jz, kyx = Jy - Jx;  // w' = w + dt (torque - w x J w) / J
@@ -341,19 +469,6 @@ constexpr float kPnqpConv = 1e-4f;
 constexpr int kPnqpArmijoIter = 10;
 // examples that no longer step carry this armijo value (the reference quirk)
 constexpr float kPnqpSentinel = (float)(0.1 + 1e-6);
-
-// A tile-wide any(): on the device a block vote over the 1024-example
-// tile; built for the host, a tile is one example. Every thread of a block
-// must reach every call.
-struct TileVote {
-  DILQR_HD static int any(int p) {
-#ifdef __CUDA_ARCH__
-    return __syncthreads_or(p);
-#else
-    return p;
-#endif
-  }
-};
 
 // Explicit inverse of a small SPD-plus-ridge matrix, M <= 3: reciprocal,
 // Cramer, adjugate over the determinant (the JAX kernels' _inv_lanes,
@@ -439,10 +554,11 @@ DILQR_HD void pnqp_newton(const float H[M][M], const float* q, const float* lb,
 // example's armijo is <= 0.1 -- a NaN anywhere ends it, as a max does.
 // Returns x and the If/Hf of the last Newton step (taken at the iterate
 // before the last Armijo step, or at x0 when the loop does not run): the
-// Riccati step forms its gains from those.
+// Riccati step forms its gains from those. `vote` is the tile's (TileVote).
 template <int M>
 DILQR_HD void pnqp(const float H[M][M], const float* q, const float* lb, const float* ub,
-                   const float* x0, int n_iter, float* x, float* If, float Hf[M][M]) {
+                   const float* x0, int n_iter, TileVote& vote, float* x, float* If,
+                   float Hf[M][M]) {
   for (int i = 0; i < M; ++i) x[i] = clip(x0[i], lb[i], ub[i]);
   float g[M], dx[M];
   pnqp_newton<M>(H, q, lb, ub, x, g, If, Hf, dx);
@@ -451,7 +567,7 @@ DILQR_HD void pnqp(const float H[M][M], const float* q, const float* lb, const f
     float n2 = 0.0f;
     for (int i = 0; i < M; ++i) n2 += dx[i] * dx[i];
     const bool J = sqrtf(n2) >= kPnqpConv;
-    if (!TileVote::any(J)) break;  // the tile is done: x stays
+    if (!vote.any(J)) break;  // the tile is done: x stays
     const float ox = qp_obj<M>(H, q, x);
     float alpha = 1.0f, mx[M];
     for (int k = 0; k < kPnqpArmijoIter; ++k) {
@@ -460,7 +576,7 @@ DILQR_HD void pnqp(const float H[M][M], const float* q, const float* lb, const f
       for (int i = 0; i < M; ++i) den += g[i] * (x[i] - mx[i]);
       const float arm = J ? (ox - qp_obj<M>(H, q, mx)) / den : kPnqpSentinel;
       if (arm <= kPnqpGamma) alpha *= kPnqpDecay;
-      if (TileVote::any(!(arm <= kPnqpGamma))) break;
+      if (vote.any(!(arm <= kPnqpGamma))) break;
     }
     for (int i = 0; i < M; ++i) x[i] = mx[i];
   }
@@ -479,6 +595,192 @@ DILQR_HD float objective(const float* tau, const float* C, const float* c) {
     lin += c[i] * tau[i];
   }
   return 0.5f * quad + lin;
+}
+
+// ---- the Riccati step of the multi-control kernel (nu = 2, 3) ----
+// One example's V, Q and F sit in strided storage: on the device
+// [entry][example] in the block's shared memory, so none of them is in
+// local memory; v, q, the gains and one block of columns of V F are
+// registers. V and Q are kept as their upper triangles.
+
+// columns of V F formed together: each V entry is read once per block
+constexpr int kColBlock = 4;
+
+// the offsets (in entries) of V, Q and F in one example's storage
+template <class Env, int NU>
+struct BoxStepLayout {
+  static constexpr int NX = Env::NX;
+  static constexpr int N = NX + NU;
+  static constexpr int kV = 0;
+  static constexpr int kQ = kV + SymMat<NX>::kSize;
+  static constexpr int kF = kQ + SymMat<N>::kSize;
+  static constexpr int kFloats = kF + NX * N;
+};
+
+// One reverse Riccati step at tau = (x_t, u_t), the arithmetic of the JAX
+// kernel's step (ilqr_fused.py:1224-1384) for static bounds: F = jac(tau)
+// (at t = T-1, where V, v and F are zero, Q = C and q = C tau + c exactly),
+// Q = C + F^T (V F) and q = C tau + c + F^T v, the box-QP in delta space
+// warm-started with `warm` (k_{t+1}; at T-1 the clipped ridged Newton
+// point), the gains K = -inv(H_free) (Q_ux * If) and k, and the update
+// V' = Qxx + M + M^T + K^T Quu K (M = Qxu K), v' = qx + Qxu k + K^T (qu +
+// Quu k). V and v are read and overwritten; `store` holds V, Q, F with
+// `stride` between entries (BoxStepLayout); lo/hi are the static bounds.
+template <class Env, int NU>
+DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const float* C,
+                               const float* c, const float* lo, const float* hi,
+                               const float* warm, int pnqp_iter, TileVote& vote, float* store,
+                               int stride, float* v, float K[NU][Env::NX], float* kt) {
+  using L = BoxStepLayout<Env, NU>;
+  constexpr int NX = Env::NX;
+  constexpr int N = NX + NU;
+  const SymMat<NX> V{{store + L::kV * stride, stride}};
+  const SymMat<N> Q{{store + L::kQ * stride, stride}};
+  const DenseMat<NX, N> F{{store + L::kF * stride, stride}};
+
+  float q[N];  // C tau + c here, F^T v added below
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float cb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) cb += ldg_f(&C[i * N + j]) * tau[j];
+    q[i] = cb + ldg_f(&c[i]);
+  }
+  if (last) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = i; j < N; ++j) Q(i, j) = ldg_f(&C[i * N + j]);
+  } else {
+    env.jac(tau, tau + NX, F);
+#pragma unroll
+    for (int j0 = 0; j0 < N; j0 += kColBlock) {
+      float tmp[kColBlock][NX];  // columns j0.. of V F
+#pragma unroll
+      for (int jj = 0; jj < kColBlock; ++jj)
+#pragma unroll
+        for (int k = 0; k < NX; ++k) tmp[jj][k] = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) {
+        float f[kColBlock];
+#pragma unroll
+        for (int jj = 0; jj < kColBlock; ++jj) f[jj] = j0 + jj < N ? F[m][j0 + jj] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < NX; ++k) {
+          const float vmk = V(m, k);
+#pragma unroll
+          for (int jj = 0; jj < kColBlock; ++jj) tmp[jj][k] += vmk * f[jj];
+        }
+      }
+      // Q's entries (i, j) of these columns with i <= j, and F^T v for
+      // the rows i of this block
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if (i >= j0 + kColBlock) continue;
+        float fi[NX];
+#pragma unroll
+        for (int k = 0; k < NX; ++k) fi[k] = F[k][i];
+#pragma unroll
+        for (int jj = 0; jj < kColBlock; ++jj) {
+          const int j = j0 + jj;
+          if (j >= N || i > j) continue;
+          float s = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NX; ++k) s += fi[k] * tmp[jj][k];
+          Q(i, j) = ldg_f(&C[i * N + j]) + s;
+        }
+        if (i >= j0) {
+          float fv = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NX; ++k) fv += fi[k] * v[k];
+          q[i] += fv;
+        }
+      }
+    }
+  }
+
+  // the box-QP in delta space
+  float H[NU][NU], qu[NU], lb[NU], ub[NU], w[NU];
+#pragma unroll
+  for (int r = 0; r < NU; ++r) {
+    qu[r] = q[NX + r];
+    lb[r] = lo[r] - tau[NX + r];
+    ub[r] = hi[r] - tau[NX + r];
+#pragma unroll
+    for (int s = 0; s < NU; ++s) H[r][s] = Q(NX + r, NX + s);
+  }
+  if (!last) {
+#pragma unroll
+    for (int r = 0; r < NU; ++r) w[r] = warm[r];
+  } else {
+    // clip(-inv(Quu + 1e-11 I) qu, lb, ub)
+    float Hr[NU][NU], Hri[NU][NU];
+#pragma unroll
+    for (int r = 0; r < NU; ++r)
+#pragma unroll
+      for (int s = 0; s < NU; ++s) Hr[r][s] = H[r][s] + (r == s ? kPnqpReg : 0.0f);
+    inv_small<NU>(Hr, Hri);
+    mv_small<NU>(Hri, qu, w);
+#pragma unroll
+    for (int r = 0; r < NU; ++r) w[r] = clip(-w[r], lb[r], ub[r]);
+  }
+  float If[NU], Hf[NU][NU], Hinv[NU][NU];
+  pnqp<NU>(H, qu, lb, ub, w, pnqp_iter, vote, kt, If, Hf);
+
+  // K = -inv(H_free) (Q_ux * If): active rows of Q_ux zeroed
+  inv_small<NU>(Hf, Hinv);
+  float Qxu[NX][NU];
+#pragma unroll
+  for (int j = 0; j < NX; ++j)
+#pragma unroll
+    for (int r = 0; r < NU; ++r) Qxu[j][r] = Q(j, NX + r);
+#pragma unroll
+  for (int r = 0; r < NU; ++r)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NU; ++m) s += Hinv[r][m] * (Qxu[j][m] * If[m]);
+      K[r][j] = -s;
+    }
+
+  // the V/v update; V' on its upper triangle
+  float QK[NU][NX], qk[NU];
+#pragma unroll
+  for (int r = 0; r < NU; ++r) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NU; ++m) s += H[r][m] * K[m][j];
+      QK[r][j] = s;
+    }
+    float s = 0.0f;
+#pragma unroll
+    for (int m = 0; m < NU; ++m) s += H[r][m] * kt[m];
+    qk[r] = qu[r] + s;
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = i; j < NX; ++j) {
+      float mij = 0.0f, mji = 0.0f, kqk = 0.0f;
+#pragma unroll
+      for (int r = 0; r < NU; ++r) {
+        mij += Qxu[i][r] * K[r][j];
+        mji += Qxu[j][r] * K[r][i];
+        kqk += K[r][i] * QK[r][j];
+      }
+      V(i, j) = Q(i, j) + mij + mji + kqk;
+    }
+    float qxk = 0.0f, kq = 0.0f;
+#pragma unroll
+    for (int r = 0; r < NU; ++r) {
+      qxk += Qxu[i][r] * kt[r];
+      kq += K[r][i] * qk[r];
+    }
+    v[i] = q[i] + qxk + kq;
+  }
 }
 
 }  // namespace dilqr

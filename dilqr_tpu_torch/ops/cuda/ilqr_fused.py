@@ -18,6 +18,13 @@ per 1024-example tile, as the JAX kernel decides them (ilqr_fused.py:35-47,
 :570-678). The env steps and Jacobians are the kernel forms
 (``Dynamics.kernel_step`` / ``jac_lanes``).
 
+Launch geometry (``geometry``): one tile is one thread-block cluster of G
+blocks, 1024/G examples a block, one thread an example; the tile's
+decisions are cluster votes. G is 8 unless a caller measuring the kernel
+passes another (``cluster``); the result does not depend on it. A launch
+the card refuses raises: nothing falls back to another geometry or to the
+plain version.
+
 ``ilqr_fused`` launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; there is no fallback from one to the
 other.
@@ -26,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,7 +44,10 @@ from ..pnqp import ARMIJO_DECAY, CONV_TOL, GAMMA, MAX_ARMIJO_ITER, REG
 from . import build
 
 SOURCE = "ilqr_fused.cu"
-TILE = 1024  # examples per block: the JAX kernel's base tile
+TILE = 1024  # examples per tile: the JAX kernel's base tile
+# cluster sizes G (blocks a tile) csrc/ilqr_fused.cu instantiates
+CLUSTERS = (8, 16)
+DEFAULT_CLUSTER = 8
 # device_env -> (params, controls) the device code reads
 DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3)}
 MAX_NU = 3  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
@@ -97,6 +107,24 @@ def _padded(B: int) -> int:
     return -(-B // TILE) * TILE
 
 
+class Geometry(NamedTuple):
+    Bp: int        # the batch padded to whole tiles
+    tiles: int     # clusters (1024-example tiles)
+    cluster: int   # blocks a cluster, G
+    block: int     # examples (threads) a block, 1024 / G
+    blocks: int    # blocks in the launch
+
+
+def geometry(B: int, cluster: int = 0) -> Geometry:
+    """The kernel's launch shape for a batch of B; ``cluster`` 0 takes the
+    default G."""
+    G = cluster or DEFAULT_CLUSTER
+    if G not in CLUSTERS:
+        raise ValueError(f"ilqr_fused instantiates clusters of {CLUSTERS} blocks; got {G}")
+    Bp = _padded(B)
+    return Geometry(Bp, Bp // TILE, G, TILE // G, Bp // TILE * G)
+
+
 def _cost_arrays(cost_small, T: int, n: int, device):
     """Example-invariant cost as f32 (C [Tc, n, n], c [Tc, n]), Tc in {1, T}."""
     Cs, cs = (torch.as_tensor(a, device=device).to(torch.float32) for a in cost_small)
@@ -137,22 +165,42 @@ def _check_inputs(cfg, dyn, params, x_init, u_init, u_lower, u_upper):
 
 def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                x_init: torch.Tensor, cost_small, u_init: Optional[torch.Tensor] = None,
-               u_lower=None, u_upper=None):
+               u_lower=None, u_upper=None, cluster: int = 0):
     """Run the whole solve. x_init [B, nx]; cost_small the example-invariant
     (C, c); u_init [T, B, nu] time-major or None (zeros); u_lower/u_upper
     None, a scalar or [nu]. Returns time-major (x [T,B,nx], u [T,B,nu],
-    costs [B], full_du_norm [B], n_iter []).
+    costs [B], full_du_norm [B], n_iter []). ``cluster``: blocks a tile, 0
+    for the default (the result does not depend on it).
 
     CUDA tensors launch the kernel; CPU tensors take ilqr_fused_reference."""
     if not x_init.is_cuda:
         return ilqr_fused_reference(cfg, dyn, params, x_init, cost_small, u_init,
                                     u_lower=u_lower, u_upper=u_upper)
+    return _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster)[0]
+
+
+def ilqr_fused_probe(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
+                     x_init: torch.Tensor, cost_small, u_init: Optional[torch.Tensor] = None,
+                     u_lower=None, u_upper=None, cluster: int = 0):
+    """One launch of the kernel on CUDA tensors that also records what it
+    did: (ilqr_fused's outputs, per tile [tiles, 3] the votes it took, the
+    SM clock cycles its rank-0 thread 0 spent in them and in the whole
+    kernel, the SM each block ran on [blocks])."""
+    if not x_init.is_cuda:
+        raise ValueError("ilqr_fused_probe launches the kernel: x_init must be on the card")
+    return _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster,
+                   probe=True)
+
+
+def _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster,
+            probe=False):
     global LAUNCHES
     lo, hi = _check_inputs(cfg, dyn, params, x_init, u_init, u_lower, u_upper)
     T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
+    geo = geometry(B, cluster)
     n = nx + nu
     dev = x_init.device
-    Bp = _padded(B)
+    Bp = geo.Bp
     Cs, cs = _cost_arrays(cost_small, T, n, dev)
     Cs = Cs.reshape(Cs.shape[0], n * n).contiguous()
     cs = cs.contiguous()
@@ -164,12 +212,15 @@ def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
         u0[:, :, :B] = u_init.permute(0, 2, 1)
     p = params.to(torch.float32).contiguous()
 
-    work = torch.empty(T * (2 * nx + 3 * nu + nu * nx) * Bp, dtype=torch.float32, device=dev)
+    # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
+    work = torch.empty(T * (3 * (nx + nu) + nu * nx + nu) * Bp, dtype=torch.float32, device=dev)
     bx = torch.zeros(T, nx, Bp, dtype=torch.float32, device=dev)
     bu = torch.zeros(T, nu, Bp, dtype=torch.float32, device=dev)
     bc = torch.empty(Bp, dtype=torch.float32, device=dev)
     bdu = torch.empty(Bp, dtype=torch.float32, device=dev)
-    iters = torch.empty(Bp // TILE, dtype=torch.int32, device=dev)
+    iters = torch.empty(geo.tiles, dtype=torch.int32, device=dev)
+    stats = torch.zeros(geo.tiles, 3, dtype=torch.int64, device=dev) if probe else None
+    smids = torch.full((geo.blocks,), -1, dtype=torch.int32, device=dev) if probe else None
 
     fn = _entry()
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
@@ -181,21 +232,41 @@ def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                 Cs.data_ptr(), cs.data_ptr(), 0 if u0 is None else u0.data_ptr(),
                 lo_c, hi_c, cfg.lqr_iter, cfg.eps, cfg.linesearch_decay,
                 cfg.max_linesearch_iter, cfg.best_cost_eps, cfg.not_improved_lim,
-                cfg.pnqp_iter, work.data_ptr(), bx.data_ptr(), bu.data_ptr(), bc.data_ptr(),
-                bdu.data_ptr(), iters.data_ptr(), stream)
+                cfg.pnqp_iter, geo.cluster, work.data_ptr(), bx.data_ptr(), bu.data_ptr(),
+                bc.data_ptr(), bdu.data_ptr(), iters.data_ptr(),
+                0 if stats is None else stats.data_ptr(),
+                0 if smids is None else smids.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"ilqr_fused kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ilqr_fused kernel launch failed ({geo.tiles} clusters of "
+                           f"{geo.cluster} blocks of {geo.block} threads): CUDA error {rc}")
     LAUNCHES += 1
-    return (bx.permute(0, 2, 1)[:, :B], bu.permute(0, 2, 1)[:, :B], bc[:B], bdu[:B],
-            iters.max())
+    out = (bx.permute(0, 2, 1)[:, :B], bu.permute(0, 2, 1)[:, :B], bc[:B], bdu[:B],
+           iters.max())
+    return out, stats, smids
+
+
+def kernel_info(device_env: int, cluster: int = 0) -> dict:
+    """What the card says of one instantiation: the clusters of G blocks it
+    can hold at once (cudaOccupancyMaxActiveClusters), registers and local
+    bytes a thread, static and dynamic shared bytes a block."""
+    G = geometry(TILE, cluster).cluster
+    fn = build.load(SOURCE).dilqr_ilqr_fused_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(device_env, G, out)
+    if rc != 0:
+        raise RuntimeError(f"ilqr_fused_info (env {device_env}, cluster {G}): CUDA error {rc}")
+    keys = ("max_active_clusters", "registers", "local_bytes", "static_smem", "dynamic_smem")
+    return dict(zip(keys, out), cluster=G)
 
 
 def _entry():
     fn = build.load(SOURCE).dilqr_ilqr_fused
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I, F, F, I, F, I, I,
-                       P, P, P, P, P, P, P]
+        fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I, F, F, I, F, I, I, I,
+                       P, P, P, P, P, P, P, P, P]
         fn.restype = I
     return fn
 
@@ -250,6 +321,33 @@ def _pnqp_tiles(H, q, lb, ub, x0, n_iter: int, tile: int):
     return x, If, Hf
 
 
+def _q_terms(C, c, tau, F, V, v):
+    """Q = C + F^T (V F) and q = C tau + c + F^T v over the batch."""
+    FT = F.transpose(-1, -2)
+    return C + FT @ (V.transpose(-1, -2) @ F), tau @ C.T + c + (FT @ v[..., None])[..., 0]
+
+
+def _box_gains(Q, q, nx: int, ut, lo, hi, warm, n_iter: int, tile: int):
+    """The n_ctrl > 1 Riccati step's box-QP, gains and V/v update from Q
+    [Bp, n, n] and q [Bp, n] at the controls ut [Bp, nu], bounds lo/hi
+    [nu]: the per-tile box-QP in delta space warm-started with ``warm``
+    (k_{t+1}; None at T-1: the clipped ridged Newton point), K =
+    -inv(H_free) (Q_ux * If), V' = Qxx + M + M^T + K^T Quu K with M = Qxu K,
+    v' = qx + Qxu k + K^T (qu + Quu k). Returns (K, k, V', v')."""
+    Quu, qu = Q[:, nx:, nx:], q[:, nx:]
+    lb, ub = lo - ut, hi - ut
+    if warm is None:
+        eye = torch.eye(qu.shape[1], dtype=Q.dtype, device=Q.device)
+        warm = clamp(-(inv_small(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
+    kt, If, Hf = _pnqp_tiles(Quu, qu, lb, ub, warm, n_iter, tile)
+    Kt = -(inv_small(Hf) @ (Q[:, nx:, :nx] * If[:, :, None]))
+    M = Q[:, :nx, nx:] @ Kt
+    V = Q[:, :nx, :nx] + M + M.transpose(-1, -2) + Kt.transpose(-1, -2) @ (Quu @ Kt)
+    v = (q[:, :nx] + (Q[:, :nx, nx:] @ kt[..., None])[..., 0]
+         + (Kt.transpose(-1, -2) @ (qu + (Quu @ kt[..., None])[..., 0])[..., None])[..., 0])
+    return Kt, kt, V, v
+
+
 def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                          x_init: torch.Tensor, cost_small,
                          u_init: Optional[torch.Tensor] = None,
@@ -275,7 +373,6 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
         lo, hi = lo[0], hi[0]
     else:
         lo, hi = (torch.tensor(v, dtype=f32, device=dev) for v in (lo, hi))
-        eye = torch.eye(nu, dtype=f32, device=dev)
 
     x0 = torch.zeros(Bp, nx, dtype=f32, device=dev)
     x0[:B] = x_init
@@ -327,10 +424,7 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
             Ct = Cf(t)
             tau = torch.cat([xt, ut], -1)
             F = jac(xt, ut, p) if t < T - 1 else zF
-            cb = tau @ Ct.T + cf(t)
-            FT = F.transpose(-1, -2)
-            Q = Ct + FT @ (V.transpose(-1, -2) @ F)
-            q = cb + (FT @ v[..., None])[..., 0]
+            Q, q = _q_terms(Ct, cf(t), tau, F, V, v)
             if nu == 1:
                 # exact closed-form 1-D box-QP
                 H, qu, ut = Q[:, nx, nx], q[:, nx], ut[:, 0]
@@ -349,19 +443,8 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                 continue
             # the per-tile box-QP, warm-started with this sweep's k_{t+1}
             # (at T-1 with the clipped ridged Newton point)
-            Quu, qu = Q[:, nx:, nx:], q[:, nx:]
-            lb, ub = lo - ut, hi - ut
-            if t < T - 1:
-                warm = k[t + 1]
-            else:
-                warm = clamp(-(inv_small(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
-            kt, If, Hf = _pnqp_tiles(Quu, qu, lb, ub, warm, cfg.pnqp_iter, TILE)
-            Kt = -(inv_small(Hf) @ (Q[:, nx:, :nx] * If[:, :, None]))
-            M = Q[:, :nx, nx:] @ Kt
-            V = Q[:, :nx, :nx] + M + M.transpose(-1, -2) + Kt.transpose(-1, -2) @ (Quu @ Kt)
-            v = (q[:, :nx] + (Q[:, :nx, nx:] @ kt[..., None])[..., 0]
-                 + (Kt.transpose(-1, -2) @ (qu + (Quu @ kt[..., None])[..., 0])[..., None])[..., 0])
-            K[t], k[t] = Kt, kt
+            K[t], k[t], V, v = _box_gains(Q, q, nx, ut, lo, hi, k[t + 1] if t < T - 1 else None,
+                                          cfg.pnqp_iter, TILE)
 
         # 6) line search; the trial runs on every lane and is kept on the
         # lanes of tiles that run it

@@ -1,8 +1,9 @@
 """The kernels' per-example device code, built for the host.
 
-csrc/ilqr_fused.cuh holds the env steps, Jacobians, the objective and the
+csrc/ilqr_fused.cuh holds the env steps, Jacobians, the objective, the
 multi-control box-QP (closed-form inverses, the projected-Newton step and
-its loop), csrc/kkt_fused.cuh the whole per-example KKT VJP and
+its loop), the rocket's Riccati step over strided storage and cos_sin,
+csrc/kkt_fused.cuh the whole per-example KKT VJP and
 csrc/riccati_fused.cuh the per-example reverse Riccati, as
 __host__ __device__ functions; g++ compiles them here (no nvcc needed) into
 a small ctypes library. The env code is held against the port's Python
@@ -30,6 +31,7 @@ from dilqr_tpu_torch.models import cartpole, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
 from dilqr_tpu_torch.ops.cuda import riccati_fused
 from dilqr_tpu_torch.utils.batch import inv_small
+from rocket_bench_start import bench_start
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dilqr_tpu_torch", "csrc")
@@ -68,7 +70,8 @@ static void qp_run(int B, const float* H, const float* q, const float* lb, const
     for (int i = 0; i < M; ++i)
       for (int j = 0; j < M; ++j) Hb[i][j] = H[(b * M + i) * M + j];
     const int o = b * M;
-    pnqp<M>(Hb, q + o, lb + o, ub + o, x0 + o, n_iter, x + o, If + o, Hfb);
+    TileVote vote{nullptr, 0};
+    pnqp<M>(Hb, q + o, lb + o, ub + o, x0 + o, n_iter, vote, x + o, If + o, Hfb);
     inv_small<M>(Hb, Hib);
     obj[b] = qp_obj<M>(Hb, q + o, x0 + o);
     for (int i = 0; i < M; ++i)
@@ -85,6 +88,34 @@ extern "C" int qp_eval(int m, int B, const float* H, const float* q, const float
   else if (m == 3) qp_run<3>(B, H, q, lb, ub, x0, n_iter, x, If, Hf, Hinv, obj);
   else return 1;
   return 0;
+}
+extern "C" void cos_sin_eval(int n, const float* x, float* c, float* s) {
+  for (int i = 0; i < n; ++i) cos_sin(x[i], c + i, s + i);
+}
+extern "C" void box_layout(int* out) {
+  using L = BoxStepLayout<Rocket, 3>;
+  out[0] = L::kV;
+  out[1] = L::kQ;
+  out[2] = L::kF;
+  out[3] = L::kFloats;
+}
+// the rocket's Riccati step per example, each example its own tile; store
+// [kFloats, B] holds V's triangle (in, out), Q and F (out)
+extern "C" void box_step_host(int B, int last, const float* p, const float* tau, const float* C,
+                              const float* c, const float* lo, const float* hi,
+                              const float* warm, int n_iter, float* store, float* v, float* K,
+                              float* k, int* votes) {
+  Rocket env;
+  env.load(p);
+  for (int b = 0; b < B; ++b) {
+    TileVote vote{nullptr, 0};
+    float Kb[3][13];
+    riccati_box_step<Rocket, 3>(env, last != 0, tau + b * 16, C, c, lo, hi, warm + b * 3,
+                                n_iter, vote, store + b, B, v + b * 13, Kb, k + b * 3);
+    for (int r = 0; r < 3; ++r)
+      for (int j = 0; j < 13; ++j) K[(b * 3 + r) * 13 + j] = Kb[r][j];
+    votes[b] = vote.n;
+  }
 }
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
   return objective<6>(tau, C, c);
@@ -142,6 +173,12 @@ def lib(tmp_path_factory):
     L = ctypes.c_longlong
     lib.riccati_host.argtypes = [I, I, I, I, P, L, L, P, L, L, P, L, L, P, P, P, P]
     lib.riccati_host.restype = I
+    lib.cos_sin_eval.argtypes = [I, P, P, P]
+    lib.cos_sin_eval.restype = None
+    lib.box_layout.argtypes = [P]
+    lib.box_layout.restype = None
+    lib.box_step_host.argtypes = [I, I] + [P] * 7 + [I] + [P] * 5
+    lib.box_step_host.restype = None
     return lib
 
 
@@ -195,6 +232,31 @@ def test_device_rocket_code_matches_kernel_forms(lib):
     np.testing.assert_allclose(xn, want, atol=2e-6 * np.abs(want).max(), rtol=0)
     want = dyn.jac_lanes(tx, tu, tp).numpy()
     np.testing.assert_allclose(D, want, atol=2e-6 * np.abs(want).max(), rtol=0)
+
+
+def test_device_cos_sin_is_within_an_ulp(lib):
+    """cos_sin, the env code's (cos, sin), against numpy's float64 cos/sin
+    rounded to f32: within one ulp everywhere (the double evaluation rounds
+    once, so nearly always the same float), on the angles the envs meet,
+    near multiples of pi/2, out to 1e5; NaN for NaN and +-inf."""
+    rng = np.random.RandomState(3)
+    k = np.arange(-64, 65)
+    x = np.concatenate([rng.uniform(-4, 4, 20000), rng.uniform(-1e5, 1e5, 5000),
+                        k * np.pi / 2, k * np.pi / 2 + 1e-6, k * np.pi / 4,
+                        [0.0, -0.0, 1e-30, 1e-8, 1e5]]).astype(np.float32)
+    c = np.zeros_like(x)
+    s = np.zeros_like(x)
+    lib.cos_sin_eval(len(x), _ptr(x), _ptr(c), _ptr(s))
+    for got, fn in ((c, np.cos), (s, np.sin)):
+        want = fn(x.astype(np.float64))
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        err = np.abs(got.astype(np.float64) - want)
+        assert (err <= ulp).all(), (err / ulp).max()
+        assert (got == want.astype(np.float32)).mean() > 0.999
+    bad = np.array([np.nan, np.inf, -np.inf], np.float32)
+    c, s = np.zeros(3, np.float32), np.zeros(3, np.float32)
+    lib.cos_sin_eval(3, _ptr(bad), _ptr(c), _ptr(s))
+    assert np.isnan(c).all() and np.isnan(s).all()
 
 
 def _qp_problem(m, B, seed):
@@ -312,3 +374,86 @@ def test_device_riccati_code_matches_plain_version(lib, nx, mode):
     if mode == "box":
         at = (np.abs(k - lb.numpy()) < 1e-6) | (np.abs(k - ub.numpy()) < 1e-6)
         assert 0.1 < at.mean() < 0.9
+
+
+SEED = 11
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
+@pytest.mark.parametrize("bounds", ["box", "tight"])
+def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
+    """riccati_box_step, the rocket's Riccati step as the CUDA kernel runs
+    it over [entry][example] storage (V and Q as triangles, F dense, Q
+    formed four columns of V F at a time), against the plain version's step
+    (ilqr_fused._q_terms and _box_gains, each example its own tile) at f32:
+    the Jacobian at bench-like states, a random SPD cost-to-go, the +-20
+    box and the tight +-(8, 0.1, 0.1), a step with its k_{t+1} warm start
+    and the last step (V = 0, F = 0, the ridged Newton warm start).
+    Tolerance 1e-4 relative to each output's largest entry: the two sum in
+    other orders, and the box-QP's Newton and Armijo steps and the gains'
+    inverse of H_free carry that rounding along. The seed is one without a
+    rounding fork at the box-QP's 1e-4 Newton exit: at seed 7 (tight, step)
+    one example of 48 stops a Newton step apart in the two versions, its k
+    2.6e-3 off while the other 47 agree to 6e-8 (measured)."""
+    dyn = rocket.make()
+    nx, nu, n = 13, 3, 16
+    B = 48
+    rng = np.random.RandomState(SEED + 2 * last + (bounds == "tight"))
+    x = bench_start(B, 5)
+    u = np.stack([10.0 + rng.randn(B), 0.05 * rng.randn(B), 0.05 * rng.randn(B)], 1)
+    tau = np.ascontiguousarray(np.concatenate([x, u], 1), np.float32)
+    u = tau[:, 13:]
+    hi = np.array([20.0, 20.0, 20.0] if bounds == "box" else [8.0, 0.1, 0.1], np.float32)
+    lo = -hi
+    q, p = (a.numpy() for a in rocket.get_true_obj())
+    C = np.ascontiguousarray(np.diag(q), np.float32)
+    c = np.ascontiguousarray(p, np.float32)
+    params = rocket.default_params().numpy()
+    if last:
+        V = np.zeros((B, nx, nx), np.float32)
+        v = np.zeros((B, nx), np.float32)
+    else:
+        A = rng.randn(B, nx, nx)
+        V = (A @ A.transpose(0, 2, 1) + np.eye(nx)).astype(np.float32)
+        v = (3.0 * rng.randn(B, nx)).astype(np.float32)
+    warm = np.clip(0.3 * rng.randn(B, nu), lo - u, hi - u).astype(np.float32)
+
+    layout = np.zeros(4, np.int32)
+    lib.box_layout(_ptr(layout))
+    kV, kQ, kF, kFloats = (int(a) for a in layout)
+    iu = np.triu_indices(nx)
+    store = np.zeros((kFloats, B), np.float32)
+    store[kV:kV + len(iu[0])] = V[:, iu[0], iu[1]].T
+    v_dev = v.copy()
+    K = np.zeros((B, nu, nx), np.float32)
+    k = np.zeros((B, nu), np.float32)
+    votes = np.zeros(B, np.int32)
+    lib.box_step_host(B, int(last), _ptr(params), _ptr(tau), _ptr(C), _ptr(c), _ptr(lo),
+                      _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v_dev), _ptr(K), _ptr(k),
+                      _ptr(votes))
+
+    t = {name: torch.from_numpy(a) for name, a in
+         (("tau", tau), ("C", C), ("c", c), ("V", V), ("v", v), ("warm", warm))}
+    tx, tu = t["tau"][:, :nx], t["tau"][:, nx:]
+    F = (torch.zeros(B, nx, n) if last
+         else dyn.jac_lanes(tx, tu, torch.from_numpy(params)))
+    Q, qv = ilqr_fused._q_terms(t["C"], t["c"], t["tau"], F, t["V"], t["v"])
+    wK, wk, wV, wv = ilqr_fused._box_gains(Q, qv, nx, tu, torch.from_numpy(lo),
+                                           torch.from_numpy(hi), None if last else t["warm"],
+                                           20, 1)
+    iq = np.triu_indices(n)
+    got = {"F": store[kF:kF + nx * n].T.reshape(B, nx, n),
+           "Q": store[kQ:kQ + len(iq[0])].T, "K": K, "k": k,
+           "V": store[kV:kV + len(iu[0])].T, "v": v_dev}
+    want = {"F": F.numpy(), "Q": Q.numpy()[:, iq[0], iq[1]], "K": wK.numpy(), "k": wk.numpy(),
+            "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    for name in got:
+        w = want[name]
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=1e-4 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
+    # the Newton loop ran (one vote at least a step) and, with the tight
+    # bounds, controls end at a bound
+    assert votes.min() >= 1
+    if bounds == "tight" and not last:
+        at = (np.abs(k - (lo - u)) < 1e-6) | (np.abs(k - (hi - u)) < 1e-6)
+        assert at.mean() > 0.1, at.mean()

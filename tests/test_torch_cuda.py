@@ -92,6 +92,103 @@ def test_rocket_kernel_matches_plain_version(dev, bounds):
         assert min(d["active_share"]) > 0.2, d
 
 
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("env", ["cartpole", "pendulum"])
+def test_kernel_result_does_not_depend_on_the_cluster(dev, env):
+    """Clusters of 8 and 16 blocks give the same bits of x, u, costs, du
+    and n_iter at eps > 0 on a three-tile batch whose tiles stop at
+    different iterations (each tile's votes do the work), and each agrees
+    with the plain version at test_kernel_matches_plain_version's
+    tolerances."""
+    mod = {"cartpole": cartpole, "pendulum": pendulum}[env]
+    dyn, params = mod.make(), mod.default_params(device=dev)
+    q, p = mod.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(3)
+    # tile 0 near (cartpole: at) the goal, tile 1 swing-ups, tile 2 ragged
+    near = 0.3 * torch.randn(1024, generator=gen) if env == "pendulum" else torch.zeros(1024)
+    th = torch.cat([near, 2.8 + 0.3 * torch.rand(1024, generator=gen),
+                    4.0 * torch.rand(6, generator=gen) - 2.0])
+    z = torch.zeros_like(th)
+    x0 = (torch.stack([z, z, th.cos(), th.sin(), z], 1) if env == "cartpole"
+          else torch.stack([th.cos(), th.sin(), z], 1)).to(dev)
+    cfg = P.ILQRConfig(n_state=dyn.n_state, n_ctrl=1, T=12, lqr_iter=10, eps=1e-3,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    args = (cfg, dyn, params, x0, (torch.diag(q), p), None, dyn.lower, dyn.upper)
+    outs, iters = {}, {}
+    for G in fused.CLUSTERS:
+        outs[G], stats, _ = fused.ilqr_fused_probe(*args, cluster=G)
+        iters[G] = stats[:, 0].tolist()
+    assert all(_same_bits(outs[G], outs[8]) for G in outs), iters
+    r = fused.ilqr_fused_reference(*args)
+    assert int(outs[8][4]) == int(r[4])
+    torch.testing.assert_close(outs[8][2], r[2], rtol=1e-4, atol=1e-5)
+    assert (outs[8][1] - r[1]).abs().max().item() <= 2e-2
+    assert (outs[8][0] - r[0]).abs().max().item() <= 1e-2
+    # the tiles took different numbers of votes: they stopped apart
+    assert len(set(iters[8])) > 1, iters
+
+
+def test_rocket_result_does_not_depend_on_the_cluster(dev):
+    """The rocket at bounds +-(8, 0.1, 0.1), where the box-QP's Newton and
+    Armijo votes decide: clusters of 8 and 16 blocks (128 and 64 examples a
+    block in shared memory) give the same bits, and agree with the plain
+    version as test_rocket_kernel_matches_plain_version holds it."""
+    dyn, params = rocket.make(), rocket.default_params(device=dev)
+    q, p = rocket.get_true_obj(device=dev)
+    B, T = 1030, 20
+    x0 = torch.from_numpy(bench_start(B, 6)).to(dev)
+    hi = torch.tensor([8.0, 0.1, 0.1], device=dev)
+    cfg = P.ILQRConfig(n_state=13, n_ctrl=3, T=T, lqr_iter=15, eps=1e-3,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    args = (cfg, dyn, params, x0, (torch.diag(q), p), None, -hi, hi)
+    outs, stats = {}, {}
+    for G in fused.CLUSTERS:
+        outs[G], stats[G], _ = fused.ilqr_fused_probe(*args, cluster=G)
+    assert _same_bits(outs[8], outs[16])
+    assert torch.equal(stats[8][:, 0], stats[16][:, 0])  # the same votes
+    # the box-QP votes inside every Riccati step: more than T votes a tile
+    assert stats[8][:, 0].min().item() > cfg.T
+    r = fused.ilqr_fused_reference(*args)
+    k = outs[8]
+    assert int(k[4]) == int(r[4])
+    torch.testing.assert_close(k[2], r[2], rtol=1e-4, atol=1e-5)
+    assert (k[1] - r[1]).abs().max().item() <= 2e-2
+    d = distances(k, r, -hi, hi, cfg.eps)
+    assert d["converged"] > B // 2 and max(d["u_max_converged"]) <= 2e-3, d
+    assert max(d["active_mismatch"]) <= 1e-3 * T * B, d
+    assert min(d["active_share"]) > 0.2, d
+
+
+def test_cluster_launch_geometry(dev):
+    """An uninstantiated cluster size raises before any launch; a launch
+    spreads each tile over its cluster's blocks (every block reports an
+    SM); the card can hold at least one cluster of each instantiation, and
+    none uses local memory."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    x0 = torch.zeros(4096, 5, device=dev)
+    x0[:, 2] = -1.0
+    cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=10, lqr_iter=3, eps=1e-4, backprop=False)
+    args = (cfg, dyn, params, x0, (torch.diag(q), p), None, -100.0, 100.0)
+    before = fused.LAUNCHES
+    with pytest.raises(ValueError, match="clusters"):
+        fused.ilqr_fused(*args, cluster=32)
+    assert fused.LAUNCHES == before
+    _, _, smids = fused.ilqr_fused_probe(*args)
+    assert fused.LAUNCHES == before + 1
+    assert smids.shape == (32,) and smids.min().item() >= 0
+    for env in (0, 1, 2):
+        for G in fused.CLUSTERS:
+            info = fused.kernel_info(env, G)
+            assert info["max_active_clusters"] >= 1, (env, info)
+            assert info["local_bytes"] == 0, (env, info)
+
+
 def test_rocket_solve_dispatches_to_the_kernel(dev):
     """MPC with the rocket's [3] bounds and a warm start goes through the
     kernel once; backend="cuda" refuses the uncovered normalize_quat=True."""

@@ -190,3 +190,23 @@ def test_cpu_tensors_take_the_plain_version():
                    cfg=dataclasses.replace(cfg, n_state=3))
     assert cov(dyn=tpend.make(), params=tpend.default_params(),
                cfg=dataclasses.replace(cfg, n_state=3))
+
+
+@pytest.mark.parametrize("B,cluster,want", [
+    (1030, 0, (2048, 2, 8, 128, 16)),      # ragged: padded to 2 tiles, the default G
+    (1030, 16, (2048, 2, 16, 64, 32)),
+    (4096, 8, (4096, 4, 8, 128, 32)),
+    (1024, 0, (1024, 1, 8, 128, 8)),
+    (135168, 16, (135168, 132, 16, 64, 2112)),
+])
+def test_launch_geometry(B, cluster, want):
+    """One 1024-example tile is one cluster of G blocks of 1024/G threads."""
+    assert tuple(fused.geometry(B, cluster)) == want
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 32, 1024])
+def test_launch_geometry_refuses_uninstantiated_clusters(cluster):
+    """Cluster sizes the kernel has no instantiation for raise before a
+    launch (the rocket's shared memory caps a block at 128 examples)."""
+    with pytest.raises(ValueError, match="clusters"):
+        fused.geometry(1024, cluster)
