@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero before the last line:
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
      KKT VJP, the reverse Riccati), and print the build seconds and the
-     ptxas report, with each whole-solve instantiation's registers, stack
-     and spills; a stack or a spill in an n_ctrl == 1 instantiation fails;
+     ptxas report, with each whole-solve and KKT instantiation's registers,
+     stack and spills; a stack or a spill in a whole-solve n_ctrl == 1
+     instantiation, or in the KKT instantiations the main paths run (8
+     lanes for one control, 16 for three), fails;
   3. hold each kernel against its plain PyTorch version on the card, on the
      same inputs, at the shapes of the main paths: the whole-solve kernel on
      the cartpole bench problem and three more, and on the rocket (13
@@ -18,8 +20,12 @@ Phases, in order; any failure exits non-zero before the last line:
      (its active sets compared per control and per step); and the same
      bits from every cluster size the kernel instantiates (8 and 16 blocks
      a tile) on the cartpole bench case and the rocket's active-bound case;
-     the KKT-VJP kernel, in its full and "Ff" forms, on the cartpole bench
-     solution, four random shapes and the rocket bench solution;
+     the KKT-VJP kernel's whole call (one launch, the dF/df/dC assembly
+     in it), in its full and "Ff" forms, on the cartpole bench solution,
+     five random shapes, the rocket bench solution and, with a generator of
+     their own, the shapes JAX's whole gate brought ((6,1), (16,1), (15,2),
+     (14,3)), and the same bits from other block sizes and the global
+     store;
      then (appended, with a generator of its own) the Riccati kernel in its
      free, box, zero and delta_u modes for n_state 3..6, and the learned
      MLP cartpole model's solve with and without it;
@@ -36,13 +42,15 @@ Phases, in order; any failure exits non-zero before the last line:
      (imempc) for 2 epochs on data/cartpole.npz, the IFT gradient of
      bench.py's rocket loss at B=1024 and of the learned model's weights;
      the Riccati kernel's other modes -- the unboxed and the u_zero_I
-     learned-model solve, the slew-rate cartpole in receding_horizon and
-     its IFT gradient;
+     learned-model solve, the slew-rate cartpole in receding_horizon -- and
+     the slew-rate IFT gradient, whose backward is the KKT kernel at (6,1);
   5. time the kernels (CUDA events, warm-up, median; the whole-solve kernel
      at each cluster size), print each whole-solve instantiation's
      cudaOccupancyMaxActiveClusters, the clusters of a launch, the SMs its
-     blocks ran on and the votes a tile took with their clock share, the IFT forward and
-     backward, the train step and the learned-model solve with and without
+     blocks ran on and the votes a tile took with their clock share, the
+     KKT kernel's "Ff" and full calls at cartpole B=4096, the rocket's
+     (13,3), the learned model's (5,1) and the slew rate's (6,1) at B=1024
+     beside their bounds, the IFT forward and backward, the train step and the learned-model solve with and without
      the Riccati kernel, and print one JSON line with each kernel's
      numbers. The learned-model and slew-rate paths of phase 4 and their
      times run last, after the earlier paths' times, which thus keep
@@ -161,18 +169,17 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
     return max(ex_u.max().item(), ex_x.max().item()), k_out, r_out
 
 
-def ptxas_entries(report: str):
+def ptxas_entries(report: str, entry: str, what: str):
     """(instantiation, registers, stack bytes, spill store bytes, spill load
-    bytes) of each kernel in an nvcc -Xptxas -v report of ilqr_fused.cu; the
-    instantiation as Env<Env, NU, block threads>."""
+    bytes) of each kernel in an nvcc -Xptxas -v report whose mangled name
+    matches ``entry``; the instantiation as <its template arguments>."""
     import re
 
     out, name, stack, st, ld = [], None, 0, 0, 0
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_ZN5dilqr17ilqr_fused_kernelINS_\d+(\w+?)E"
-                      r"Li(\d+)ELi(\d+)EEEv", line)
+        m = re.search(r"Compiling entry function '" + entry, line)
         if m:
-            name = f"<{m.group(1)}, {m.group(2)}, {m.group(3)}>"
+            name = f"<{', '.join(m.groups())}>"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -184,8 +191,17 @@ def ptxas_entries(report: str):
             out.append((name, int(m.group(1)), stack, st, ld))
             name = None
     if not out:
-        fail("no whole-solve kernel in the ptxas report")
+        fail(f"no {what} kernel in the ptxas report")
     return out
+
+
+# the whole-solve kernel as <Env, NU, block threads>; the KKT kernel as
+# <NU, team lanes>
+ILQR_ENTRY = r"_ZN5dilqr17ilqr_fused_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)EEEv"
+KKT_ENTRY = r"_ZN5dilqr16kkt_fused_kernelILi(\d+)ELi(\d+)EEEv"
+# the KKT instantiations a main path runs: (5,1) and (6,1) at 8 lanes, the
+# rocket's (13,3) at 16
+KKT_MAIN = ("<1, 8>", "<3, 16>")
 
 
 def same_bits(torch, fused, name, k_out, args):
@@ -268,11 +284,21 @@ def main():
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "error")):
                 print(f"ptxas[{src}]: {line.strip()}", flush=True)
-    for name, regs, stack, st, ld in ptxas_entries(reports[fused.SOURCE]):
+    for name, regs, stack, st, ld in ptxas_entries(reports[fused.SOURCE], ILQR_ENTRY,
+                                                   "whole-solve"):
         print(f"ptxas ilqr_fused {name}: {regs} registers, {stack} bytes stack, {st}/{ld} bytes "
               f"spill stores/loads", flush=True)
         if name.split("<")[1].split(",")[1].strip() == "1" and (stack or st or ld):
             fail(f"ilqr_fused {name} (n_ctrl 1) has a stack frame or spills")
+    kkt_seen = set()
+    for name, regs, stack, st, ld in ptxas_entries(reports[kkt.SOURCE], KKT_ENTRY, "KKT-VJP"):
+        print(f"ptxas kkt_fused <n_ctrl, lanes> {name}: {regs} registers, {stack} bytes stack, "
+              f"{st}/{ld} bytes spill stores/loads", flush=True)
+        kkt_seen.add(name)
+        if name in KKT_MAIN and (stack or st or ld):
+            fail(f"kkt_fused {name} (a main path's) has a stack frame or spills")
+    if not kkt_seen.issuperset(KKT_MAIN):
+        fail(f"kkt_fused: the ptxas report lacks {set(KKT_MAIN) - kkt_seen}")
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -357,7 +383,7 @@ def main():
     if min(d["active_share"]) < 0.2:
         fail(f"{name}: a control is at a bound in under 20% of its entries: {d['active_share']}")
 
-    kkt_err, kkt_ops = check_kkt(torch, dev, gen, kkt, [
+    kkt_err, kkt_ops, kkt_rocket = check_kkt(torch, dev, gen, kkt, [
         ("cartpole bench solution", cp_dyn, cp_params, bench_cfg, cartpole_x0(4096),
          (torch.diag(cp_q), cp_p)),
         ("rocket bench solution", r_dyn, r_params, r_cfg,
@@ -540,20 +566,10 @@ def main():
     })
     del out
 
-    # the KKT-VJP kernel on the bench problem's solution (phase 3 (a))
-    ops, r = kkt_ops
-    k_ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, r), 3, 21)
-    full_ms, _ = cuda_ms(lambda: kkt.assemble(ops, *kkt.kkt_fused(ops, r)), 3, 21)
-    kp_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, r), 1, 5)
-    k_flops, k_bytes = kkt_work(ops)
-    k_bound = max(k_flops / FP32_PEAK, k_bytes / HBM_RATE) * 1e3
-    k_by = "operations" if k_flops / FP32_PEAK >= k_bytes / HBM_RATE else "bytes"
-    print(f"time kkt_fused cartpole B=4096 T={T}: {k_ms:.4f} ms median of {len(runs)} "
-          f"({', '.join(f'{x:.4f}' for x in runs)}); with the dF/dC assembly {full_ms:.4f} ms; "
-          f"plain version {kp_ms:.3f} ms [{card}]", flush=True)
-    print(f"bound kkt_fused B=4096 T={T}: {k_flops:.4e} FLOP, {k_bytes} bytes -> "
-          f"{k_bound:.5f} ms ({k_by}); launches per IFT backward {train['kkt_per_ift']}; "
-          f"no single PyTorch call computes a KKT VJP, so library_ms is null", flush=True)
+    # the KKT-VJP kernel: the bench problem's solution (phase 3 (a)), the
+    # rocket's (phase 3 (e)) and two random problems from their own generator
+    kt = kkt_times(torch, kkt, card, kkt_ops, kkt_rocket, train, rk,
+                   torch.Generator(device="cpu").manual_seed(SEED + 6))
     print(f"time IFT forward+backward B=4096 (host clock, synchronized, median of 3): "
           f"{train['ift_ms']:.2f} ms with detach_unconverged, {train['ift_ms_all']:.2f} ms "
           f"without [{card}]", flush=True)
@@ -564,9 +580,7 @@ def main():
         "source": "dilqr_tpu_torch/csrc/kkt_fused.cu",
         "replaces": "dilqr_tpu/ops/pallas/kkt_fused.py:173",
         "launches": launches["kkt_fused"] + rk["launches"]["kkt_fused"],
-        "max_abs_err": kkt_err,
-        "ms": k_ms, "plain_ms": kp_ms, "bound_ms": k_bound, "bound_by": k_by,
-        "library_ms": None,
+        "max_abs_err": kkt_err, **kt, "library_ms": None,
     }
     rows.append(kkt_row)
 
@@ -637,14 +651,19 @@ KKT_FIELDS = ("dx_init", "dC", "dc", "dF", "df")
 
 
 def check_kkt(torch, dev, gen, kkt, solutions):
-    """Phase 3 for the KKT-VJP kernel: kernel against kkt_fused_reference
-    on the same operands, assembled in the full and the "Ff" form, per
-    field max|kernel - plain| <= 1e-4 max|plain| + 1e-5 (f32 recursions
-    in another summation order, FMA contraction). ``solutions`` lists
-    (label, dyn, params, cfg, x0, cost_small) problems whose solution gives
-    the operands; the first is the bench problem, the others run after the
-    random shapes. Returns (the largest absolute error on the bench
-    problem, its (operands, cotangent))."""
+    """Phase 3 for the KKT-VJP kernel: the kernel's whole call (one launch:
+    the recursions and the dF/df/dC assembly) against kkt_fused_reference on
+    the same operands and cotangent, in the full and the "Ff" form, per
+    output max|kernel - plain| <= 1e-4 max|plain| + 1e-5 (f32 recursions in
+    another summation order, FMA contraction). ``solutions`` lists (label,
+    dyn, params, cfg, x0, cost_small) problems whose solution gives the
+    operands; the first is the bench problem, the others run after the
+    random shapes (a)-(d). Then, with a generator of their own, the shapes
+    JAX's whole gate brought: (6,1), (16,1), (15,2), (14,3), masked, at a
+    ragged B. The bench problem and the rocket's give the same bits with
+    blocks of 64 and 256 threads and with K/k/dtau in the global store.
+    Returns (the largest absolute error on the bench problem, its (operands,
+    g_x, g_u), the rocket solution's)."""
     import dataclasses
 
     import dilqr_tpu_torch as P
@@ -668,39 +687,48 @@ def check_kkt(torch, dev, gen, kkt, solutions):
     # (a) the bench problem, random cotangents
     cases = [solution_ops(*solutions[0])]
 
-    def random_ops(nx, nu, T, B):
+    def random_ops(g, nx, nu, T, B):
         n = nx + nu
-        A = torch.randn(T, B, n, n, generator=gen)
+        A = torch.randn(T, B, n, n, generator=g)
         C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
         # a contracting F keeps the T-step recursions' values of order one
-        F = (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=gen)
-        parts = (C, torch.randn(T, B, n, generator=gen), F, torch.randn(T, B, nx, generator=gen),
-                 torch.randn(T, B, nu, generator=gen), torch.rand(T, B, nu, generator=gen) < 0.3)
+        F = (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=g)
+        parts = (C, torch.randn(T, B, n, generator=g), F, torch.randn(T, B, nx, generator=g),
+                 torch.randn(T, B, nu, generator=g), torch.rand(T, B, nu, generator=g) < 0.3)
         return kkt.prepare(nx, nu, *(a.to(dev) for a in parts))
 
     for nu_ in (1, 2, 3):  # (b)
-        cases.append((f"nx=4 nu={nu_} masked B=1030 T=20", random_ops(4, nu_, 20, 1030)))
-    cases.append(("nx=13 nu=3 masked B=1030 T=20", random_ops(13, 3, 20, 1030)))  # (c)
+        cases.append((f"nx=4 nu={nu_} masked B=1030 T=20", random_ops(gen, 4, nu_, 20, 1030)))
+    cases.append(("nx=13 nu=3 masked B=1030 T=20", random_ops(gen, 13, 3, 20, 1030)))  # (c)
     cases.append(("cartpole shape nx=5 nu=1 masked B=1030 T=200",
-                  random_ops(5, 1, 200, 1030)))  # (d)
+                  random_ops(gen, 5, 1, 200, 1030)))  # (d)
     cases += [solution_ops(*sol) for sol in solutions[1:]]  # (e)
+    n_gen = len(cases)
+    wgen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    for nx_, nu_ in ((6, 1), (16, 1), (15, 2), (14, 3)):  # JAX's whole gate
+        cases.append((f"nx={nx_} nu={nu_} masked B=1030 T=20", random_ops(wgen, nx_, nu_, 20, 1030)))
 
-    main = None
-    for name, ops in cases:
-        Tc, Bc = ops.C.shape[0], ops.C.shape[2]
-        r = torch.randn(Tc, ops.n_state + ops.n_ctrl, Bc, generator=gen).to(dev)
-        before = kkt.LAUNCHES
-        got = kkt.kkt_fused(ops, r)
-        torch.cuda.synchronize()
-        if kkt.LAUNCHES != before + 1:
-            fail(f"kkt {name}: the kernel did not launch")
-        want = kkt.kkt_fused_reference(ops, r)
+    main, rocket_case = None, None
+    for i, (name, ops) in enumerate(cases):
+        # the cotangent as the earlier slices drew it, [T, n, B], from the
+        # generator of the case
+        r = torch.randn(ops.T, ops.n_state + ops.n_ctrl, ops.B,
+                        generator=gen if i < n_gen else wgen).to(dev)
+        gx = r[:, :ops.n_state].permute(0, 2, 1).contiguous()
+        gu = r[:, ops.n_state:].permute(0, 2, 1).contiguous()
         worst = 0.0
         for full in (True, False):
+            before = kkt.LAUNCHES
+            got = kkt.kkt_fused(ops, gx, gu, full)
+            torch.cuda.synchronize()
+            if kkt.LAUNCHES != before + 1:
+                fail(f"kkt {name}: not one launch for the call")
+            want = kkt.kkt_fused_reference(ops, gx, gu, full)
             figs = []
-            for field, a, b in zip(KKT_FIELDS, kkt.assemble(ops, *got, full=full),
-                                   kkt.assemble(ops, *want, full=full)):
+            for field, a, b in zip(KKT_FIELDS, got, want):
                 if b is None:
+                    if a is not None:
+                        fail(f"kkt {name}: {field} in Ff mode")
                     continue
                 if not torch.isfinite(a).all():
                     fail(f"kkt {name}: non-finite {field}")
@@ -710,31 +738,107 @@ def check_kkt(torch, dev, gen, kkt, solutions):
                 if err > 1e-4 * scale + 1e-5:
                     fail(f"kkt {name} ({'full' if full else 'Ff'}): {field} off by {err:.3e} "
                          f"at scale {scale:.3e}")
+            p = kkt.plan(ops)
             print(f"parity kkt {name} {'full' if full else 'Ff'}: max|kernel - plain| / "
-                  f"max|plain|: {', '.join(figs)}", flush=True)
+                  f"max|plain|: {', '.join(figs)} [{p['L']} lanes, {p['teams']} teams a block, "
+                  f"{p['smem']} shared bytes, K/k/dtau {'global' if p['global'] else 'shared'}]",
+                  flush=True)
+        if main is None or name.startswith("rocket"):
+            ref = kkt.kkt_fused(ops, gx, gu, True)
+            for block in kkt.BLOCKS:
+                for store in ("auto", "global"):
+                    out = kkt.kkt_fused(ops, gx, gu, True, block=block, store=store)
+                    if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+                        fail(f"kkt {name}: blocks of {block} threads, store {store}, change the "
+                             "result")
+            print(f"parity kkt {name}: blocks of {kkt.BLOCKS} threads, K/k/dtau in shared "
+                  f"memory and in the global store give the same bits", flush=True)
         if main is None:
-            main = (worst, (ops, r))
-    return main
+            main = (worst, (ops, gx, gu))
+        elif name.startswith("rocket"):
+            rocket_case = (ops, gx, gu)
+    return main[0], main[1], rocket_case
 
 
-def kkt_work(ops):
-    """(FLOP, bytes) of one KKT VJP from its shapes. FLOP per example and
-    step: the Riccati step (V F, F^T V F on the triangle, q, the gains and
-    the V/v update), the rollout step and the two adjoint steps. Bytes:
-    every input read once (C triangle, F, r, mask, adjoint offset), every
-    output written once (dtau, lam, dlam) and the K/k scratch written and
-    read back once."""
-    nx, nu = ops.n_state, ops.n_ctrl
+def kkt_work(ops, full: bool):
+    """(FLOP, bytes) of one KKT-VJP call from its shapes. FLOP per example
+    and step: the Riccati step (V F, F^T V F on the triangle, q, the gains
+    and the V/v update), the rollout step, the two adjoint steps and the
+    assembly (dF 3 an entry, dC 4 an entry and dc). Bytes: what the call
+    must move -- every input read once (C's triangle, F's T-1 slabs, the
+    cotangent, the mask, the adjoint offset, tau) and every output written
+    once (dF, df; in full mode also dC, dc, dx_init); no scratch."""
+    nx, nu, T, B = ops.n_state, ops.n_ctrl, ops.T, ops.B
     n = nx + nu
-    T, B = ops.C.shape[0], ops.C.shape[2]
     tri = n * (n + 1) // 2
     gains = 2 + 2 * nx if nu == 1 else 2 * nu * nu * (nx + 1) + {2: 6, 3: 30}[nu]
     ric = (2 * nx * nx * n + 2 * nx * tri + tri + 2 * nx * n + n + 3 * nu * nu + gains
            + 2 * nu * nu * (nx + 1) + 8 * nu * nx * nx + 6 * nu * nx + 3 * nx * nx + 3 * nx)
     roll = nu * (2 * nx + 2) + 2 * nx * n
     adj = 4 * nx * nx + 2 * nx * n + 3 * nx
-    floats = T * (tri + nx * n + n + nu + nx) + T * (n + 2 * nx) + 2 * T * (nu * nx + nu)
-    return B * T * (ric + roll + adj), 4 * B * floats
+    flops = T * (ric + roll + adj) + (T - 1) * 3 * nx * n + (T * (4 * n * n + n) if full else 0)
+    reads = T * (tri + n + nu + nx + n) + (T - 1) * nx * n
+    writes = (T - 1) * (nx * n + nx) + ((T * (n * n + n) + nx) if full else 0)
+    return B * flops, 4 * B * (reads + writes)
+
+
+def kkt_times(torch, kkt, card, bench, rocket_case, train, rk, gen):
+    """Phase 5 for the KKT-VJP kernel: its "Ff" call (what each GMRES
+    matvec runs) and its full call (the final VJP), CUDA events, at the
+    cartpole bench solution (B=4096, the main path), the rocket bench
+    solution (13,3) at B=1024, and random operands (from ``gen``) at the
+    learned model's (5,1) and the slew rate's (6,1), B=1024; each call
+    timed with CUDA events around it (host gaps included) and, from the
+    profiler, the kernel alone; each beside its bound (kkt_work) and the
+    plain version's Ff call. Returns the JSON row's numbers: the bench Ff
+    call's."""
+    dev = bench[0].slab.device
+
+    def random_case(nx, nu, B):
+        T, n = 20, nx + nu
+        A = torch.randn(T, B, n, n, generator=gen)
+        C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+        parts = (C, torch.randn(T, B, n, generator=gen),
+                 (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=gen),
+                 torch.randn(T, B, nx, generator=gen), torch.randn(T, B, nu, generator=gen),
+                 torch.rand(T, B, nu, generator=gen) < 0.3)
+        ops = kkt.prepare(nx, nu, *(a.to(dev) for a in parts))
+        return (ops, torch.randn(T, B, nx, generator=gen).to(dev),
+                torch.randn(T, B, nu, generator=gen).to(dev))
+
+    shapes = [("cartpole (5,1) B=4096", bench), ("rocket (13,3) B=1024", rocket_case),
+              ("learned model (5,1) B=1024", random_case(5, 1, 1024)),
+              ("slew rate (6,1) B=1024", random_case(6, 1, 1024))]
+    main = None
+    for label, (ops, gx, gu) in shapes:
+        ff_ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, False), 3, 21)
+        full_ms, _ = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, True), 3, 21)
+        ff_dev, n_ff = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, False), "kkt_fused_kernel")
+        full_dev, n_full = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, True), "kkt_fused_kernel")
+        plain_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, gx, gu, False), 1, 5)
+        bounds = []
+        for full in (False, True):
+            flops, bytes_ = kkt_work(ops, full)
+            bound = max(flops / FP32_PEAK, bytes_ / HBM_RATE) * 1e3
+            by = "operations" if flops / FP32_PEAK >= bytes_ / HBM_RATE else "bytes"
+            bounds.append((flops, bytes_, bound, by))
+        p = kkt.plan(ops)
+        print(f"time kkt_fused {label} T={ops.T}: Ff call {ff_ms:.4f} ms median of {len(runs)} "
+              f"({', '.join(f'{x:.4f}' for x in runs)}), full call {full_ms:.4f} ms; the "
+              f"kernel alone (profiler, mean of the {n_ff} and {n_full} launches it recorded "
+              f"of 20) Ff {ff_dev:.4f} ms, full {full_dev:.4f} ms; plain version (Ff) "
+              f"{plain_ms:.3f} ms; {p['L']} lanes, "
+              f"{p['teams']} teams a block, {p['smem']} shared bytes a block [{card}]", flush=True)
+        print(f"bound kkt_fused {label}: Ff {bounds[0][0]:.4e} FLOP, {bounds[0][1]} bytes -> "
+              f"{bounds[0][2]:.5f} ms ({bounds[0][3]}); full {bounds[1][0]:.4e} FLOP, "
+              f"{bounds[1][1]} bytes -> {bounds[1][2]:.5f} ms ({bounds[1][3]})", flush=True)
+        if main is None:
+            main = {"ms": ff_ms, "plain_ms": plain_ms, "bound_ms": bounds[0][2],
+                    "bound_by": bounds[0][3]}
+    print(f"kkt_fused launches per IFT backward: cartpole {train['kkt_per_ift']}, rocket "
+          f"{rk['kkt_per_ift']}; no single PyTorch call computes a KKT VJP, so library_ms is "
+          f"null", flush=True)
+    return main
 
 
 def rocket_paths(torch, P, dev, kernels, dyn, params, cs, cfg, gen):
@@ -1011,6 +1115,44 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
     }
 
 
+def device_events(prof):
+    """The device's own activities in a torch.profiler trace: kernels and
+    copies, without the host operators and ranges the profiler also gives
+    device time."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
+
+
+def busy_ms(device):
+    """Milliseconds the device was busy: the union of the activities'
+    intervals."""
+    busy, end = 0.0, -math.inf
+    for s, t in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    return busy / 1e3
+
+
+def kernel_ms(torch, fn, name: str, calls: int = 20):
+    """The mean device time of the launches of kernel ``name`` in ``calls``
+    calls of fn under torch.profiler (the kernel alone, without host gaps),
+    and how many launches the trace recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    runs = [e.time_range.end - e.time_range.start for e in device_events(prof) if name in e.name]
+    return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs)
+
+
 def profile_step(torch, label, fn):
     """Where one call's time goes: torch.profiler over one warm call, the
     wall time under the profiler, the device's busy time and idle share,
@@ -1032,15 +1174,8 @@ def profile_step(torch, label, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
-    events = prof.events()
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
-    busy, end = 0.0, -math.inf
-    for s, t in sorted((e.time_range.start, e.time_range.end) for e in device):
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    busy /= 1e3
+    device = device_events(prof)
+    busy = busy_ms(device)
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
@@ -1224,9 +1359,9 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
     (c) the other modes on real paths: the unboxed learned-model solve
         (free), the same with a u_zero_I mask (zero; the whole-solve kernel
         refuses u_zero_I), the slew-rate cartpole (n_state 6, box) in
-        receding_horizon for 3 steps, and its IFT gradient, whose KKT
-        backward's auxiliary LQR takes the zero mode ((6,1) is not a KKT
-        kernel shape).
+        receding_horizon for 3 steps, and its IFT gradient, whose backward
+        is the KKT kernel at (6,1), within rtol 1e-3 of the plain
+        backward's.
     Returns the summed launches and the inputs phase 5 times."""
     import dataclasses
 
@@ -1331,16 +1466,16 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
         (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
         return g, res.n_iter
 
-    label = "(c) zero mode in the backward: slew-rate cartpole IFT grad B=1024"
+    label = "(c) the slew-rate cartpole IFT grad B=1024, the KKT kernel at (6,1) in the backward"
     (g, n_iter), got = run(label, lambda: slew_grad(c_slew_ift),
-                           {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None})
+                           {"ilqr_fused": 0, "kkt_fused": None, "riccati_fused": None})
     g_ref, _ = slew_grad(dataclasses.replace(c_slew_ift, backward_backend="torch"))
     err = (g - g_ref).abs().max().item()
-    print(f"{label}: grad params {g.tolist()}, Riccati launches {got['riccati_fused']} "
-          f"(forward n_iter {int(n_iter)}), abs. diff to the plain backward {err:.2e}",
-          flush=True)
-    if got["riccati_fused"] <= int(n_iter) or not torch.isfinite(g).all():
-        fail(f"{label}: no Riccati launch in the backward, or a non-finite gradient")
+    print(f"{label}: grad params {g.tolist()}, KKT launches {got['kkt_fused']}, Riccati "
+          f"launches {got['riccati_fused']} (forward n_iter {int(n_iter)}), abs. diff to the "
+          f"plain backward {err:.2e}", flush=True)
+    if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
+        fail(f"{label}: a non-finite or zero gradient")
     if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
         fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
     print(f"learned-model and slew-rate path launches: {total}", flush=True)

@@ -28,12 +28,14 @@ def receding_horizon(
     n_steps: int,
     u_lower=None,
     u_upper=None,
-    env_step=None,         # optional true plant: (x, u, params) -> x'
+    env_step=None,         # optional true plant: (x [nx], u [nu], params) -> x' [nx]
     env_params=None,
 ) -> EpisodeResult:
     """Run ``n_steps`` of closed-loop MPC. ``env_step`` defaults to the
     model dynamics (perfect-model control); pass the true plant for
-    model-mismatch experiments."""
+    model-mismatch experiments. The plant is applied per example, as the
+    JAX package vmaps it: ``env_step(x [nx], u [nu], params)``, mapped over
+    the batch by ``torch.func.vmap`` with ``params`` shared."""
     B = x_init.shape[0]
     plant = env_step if env_step is not None else dyn.step
     plant_params = env_params if env_params is not None else params
@@ -49,7 +51,7 @@ def receding_horizon(
         xs.append(x)
         us.append(a)
         costs.append(res.costs)
-        x = plant(x, a, plant_params)
+        x = torch.func.vmap(lambda xi, ai: plant(xi, ai, plant_params))(x, a)
         prev_a = a
     xs.append(x)
     return EpisodeResult(torch.stack(xs, 1), torch.stack(us, 1), torch.stack(costs, 1))
@@ -57,9 +59,12 @@ def receding_horizon(
 
 def open_loop_rollout(step_fn, params, x_init, us):
     """Execute a fixed control plan on a plant with no feedback.
-    ``x_init`` [B, nx]; ``us`` [B, K, nu]. Returns the visited states
-    [B, K+1, nx] including the start."""
+    ``step_fn(x [nx], u [nu], params) -> x'``, applied per example
+    (``torch.func.vmap``, ``params`` shared); ``x_init`` [B, nx]; ``us``
+    [B, K, nu]. Returns the visited states [B, K+1, nx] including the
+    start."""
+    step = torch.func.vmap(lambda xi, ui: step_fn(xi, ui, params))
     xs = [x_init]
     for k in range(us.shape[1]):
-        xs.append(step_fn(xs[-1], us[:, k], params))
+        xs.append(step(xs[-1], us[:, k]))
     return torch.stack(xs, 1)

@@ -84,8 +84,10 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
     and dx_init.
 
     Dispatch on ``backend`` (``cfg.backward_backend or cfg.backend``):
-      * "auto": the CUDA kernel (ops/cuda/kkt_fused.py) for CUDA f32 tensors
-        in a covered shape, the plain scans below otherwise;
+      * "auto": the CUDA kernel (ops/cuda/kkt_fused.py, one launch a call,
+        the dF/df/dC assembly in it) for CUDA f32 tensors in a covered
+        shape -- the shapes JAX's kernel gate admits -- the plain scans
+        below otherwise;
       * "cuda": the kernel; raises for CPU tensors or an uncovered shape;
       * "torch": the plain scans.
     The plain scans' auxiliary Riccati gets the same backend, so an

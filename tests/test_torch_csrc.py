@@ -3,7 +3,8 @@
 csrc/ilqr_fused.cuh holds the env steps, Jacobians, the objective, the
 multi-control box-QP (closed-form inverses, the projected-Newton step and
 its loop), the rocket's Riccati step over strided storage and cos_sin,
-csrc/kkt_fused.cuh the whole per-example KKT VJP and
+csrc/kkt_fused.cuh the whole per-example KKT VJP of a lane team (its
+phases run lane by lane here) and
 csrc/riccati_fused.cuh the per-example reverse Riccati, as
 __host__ __device__ functions; g++ compiles them here (no nvcc needed) into
 a small ctypes library. The env code is held against the port's Python
@@ -37,6 +38,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dilqr_tpu_torch", "csrc")
 
 SHIM = r"""
+#include <vector>
 #include "ilqr_fused.cuh"
 #include "kkt_fused.cuh"
 #include "riccati_fused.cuh"
@@ -120,16 +122,24 @@ extern "C" void box_step_host(int B, int last, const float* p, const float* tau,
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
   return objective<6>(tau, C, c);
 }
-extern "C" int kkt_host(int nx, int nu, int T, int B, const float* C, const float* F,
-                        const float* r, const float* uz, const float* lb, float* dtau,
-                        float* lam, float* dlam, float* K, float* k) {
-  const KktArgs a{T, B, C, F, r, uz, lb, dtau, lam, dlam, K, k};
-#define CASE(X_, U_) \
-  if (nx == X_ && nu == U_) { for (int b = 0; b < B; ++b) kkt_example<X_, U_>(a, b); return 0; }
-  DILQR_KKT_SHAPES(CASE)
-  return 1;
+// the KKT VJP of each example on the host: the team's lanes run each
+// phase in turn; global_store puts K, k and dtau in `store` [T, B, KS]
+extern "C" int kkt_host(int nx, int nu, int T, int B, int global_store, const float* slab,
+                        const float* gx, const float* gu, float* dF, float* df, float* dxi,
+                        float* dC, float* dc, float* store) {
+  return kkt_dispatch(nx, nu, [&](auto s) {
+    constexpr int NU = decltype(s)::NU, L = decltype(s)::L;
+    const KktLayout y = kkt_layout<NU, L>(nx, T, global_store == 0);
+    const KktArgs a{T, B, slab, gx, (long long)B * nx, nx, gu, (long long)B * NU, NU,
+                    dF, df, dxi, dC, dc, global_store ? store : nullptr};
+    std::vector<float> team(y.team);
+    for (int b = 0; b < B; ++b) {
+      HostTeam<NU, L> tm;
+      kkt_example<NU, L>(a, y, b, team.data(), tm);
+    }
+    return L;
+  });
 }
-#undef CASE
 extern "C" int riccati_host(int nx, int mode, int T, int B, const float* C, long long sCt,
                             long long sCb, const float* c, long long sct, long long scb,
                             const float* F, long long sFt, long long sFb, const float* lb,
@@ -166,7 +176,7 @@ def lib(tmp_path_factory):
     lib.env_eval.restype = None
     lib.objective6.argtypes = [P, P, P]
     lib.objective6.restype = ctypes.c_float
-    lib.kkt_host.argtypes = [I, I, I, I] + [P] * 10
+    lib.kkt_host.argtypes = [I, I, I, I, I] + [P] * 9
     lib.kkt_host.restype = I
     lib.qp_eval.argtypes = [I, I] + [P] * 5 + [I] + [P] * 5
     lib.qp_eval.restype = I
@@ -312,11 +322,15 @@ def test_device_objective_matches_torch(lib):
     assert abs(got - float(want)) <= 2e-6 * max(1.0, abs(float(want)))
 
 
-@pytest.mark.parametrize("nx,nu", kkt_fused.SHAPES)
+@pytest.mark.parametrize("nx,nu", [(3, 1), (4, 1), (5, 1), (4, 2), (4, 3), (13, 3), (6, 1),
+                                   (14, 3), (16, 1)])
 def test_device_kkt_code_matches_plain_version(lib, nx, nu):
-    """kkt_example, the code the CUDA kernel runs per example, against
-    kkt_fused_reference on the same operands: every instantiated shape,
-    half the controls frozen at random."""
+    """kkt_example, the code each lane team of the CUDA kernel runs, built
+    for the host (the team's lanes run each phase in turn) against
+    kkt_fused_reference on the same operands, in full mode: all five
+    outputs, half the controls frozen at random; team sizes 4 to 32 (L >=
+    n_state + n_ctrl). K, k and dtau in the team's memory and in the global
+    store give the same bits."""
     T, B, n = 7, 6, nx + nu
     rng = np.random.RandomState(nx * 10 + nu)
     A = rng.randn(T, B, n, n)
@@ -326,15 +340,22 @@ def test_device_kkt_code_matches_plain_version(lib, nx, nu):
                             f32(0.3 * rng.randn(T - 1, B, nx, n)), f32(rng.randn(T, B, nx)),
                             f32(rng.randn(T, B, nu)),
                             torch.from_numpy(rng.rand(T, B, nu) < 0.5))
-    r = f32(rng.randn(T, n, B))
-    want = kkt_fused.kkt_fused_reference(ops, r)
-    outs = [np.zeros((T, k, B), np.float32) for k in (n, nx, nx, nu * nx, nu)]
-    ins = [np.ascontiguousarray(a.numpy()) for a in (ops.C, ops.F, r, ops.uz, ops.lb)]
-    rc = lib.kkt_host(nx, nu, T, B, *[_ptr(a) for a in ins + outs])
-    assert rc == 0
-    for name, got, w in zip(("dtau", "lam", "dlam"), outs[:3], want):
+    gx, gu = f32(rng.randn(T, B, nx)), f32(rng.randn(T, B, nu))
+    want = kkt_fused.kkt_fused_reference(ops, gx, gu, True)
+    slab = np.ascontiguousarray(ops.slab.numpy())
+    outs = {}
+    for global_store in (0, 1):
+        got = [np.zeros(s, np.float32) for s in ((B, nx), (T, B, n, n), (T, B, n),
+                                                  (T - 1, B, nx, n), (T - 1, B, nx))]
+        store = np.zeros(T * B * (nu * nx + nu + 32), np.float32)
+        L = lib.kkt_host(nx, nu, T, B, global_store, _ptr(slab), _ptr(gx.numpy()), _ptr(gu.numpy()),
+                         *[_ptr(a) for a in got[3:] + got[:3]], _ptr(store))
+        assert L == max(4, 1 << (n - 1).bit_length())
+        outs[global_store] = got
+    for name, a, b, w in zip(("dx_init", "dC", "dc", "dF", "df"), outs[0], outs[1], want):
         w = w.numpy()
-        np.testing.assert_allclose(got, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()),
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_allclose(a, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()),
                                    err_msg=name)
 
 

@@ -226,32 +226,90 @@ def test_solve_dispatches_to_the_kernel(dev):
     assert fused.LAUNCHES == before + 1 and out[0].is_cuda
 
 
-@pytest.mark.parametrize("nx,nu,T,B", [(4, 1, 6, 1030), (4, 2, 6, 1030), (4, 3, 6, 1030),
-                                       (13, 3, 20, 1030), (5, 1, 200, 1030), (3, 1, 20, 33)])
-def test_kkt_kernel_matches_plain_version(dev, nx, nu, T, B):
-    """The KKT-VJP kernel against kkt_fused_reference on the same operands,
-    half the controls frozen; per field max|kernel - plain| <= 1e-4
-    max|plain| + 1e-5 (f32 recursions, FMA contraction)."""
-    gen = torch.Generator().manual_seed(nx * 100 + nu * 10 + T)
+def _kkt_problem(dev, nx, nu, T, B, seed):
+    """Operands from random SPD costs, a contracting F (the T-step
+    recursions' values stay of order one), half the controls frozen; and a
+    cotangent."""
+    gen = torch.Generator().manual_seed(seed)
     n = nx + nu
     A = torch.randn(T, B, n, n, generator=gen)
     C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
-    # a contracting F keeps the T-step recursions' values of order one
     F = (0.5 / n ** 0.5) * torch.randn(T - 1, B, nx, n, generator=gen)
     ops = kkt_fused.prepare(nx, nu, *(a.to(dev) for a in (
         C, torch.randn(T, B, n, generator=gen), F, torch.randn(T, B, nx, generator=gen),
         torch.randn(T, B, nu, generator=gen), torch.rand(T, B, nu, generator=gen) < 0.5)))
-    r = torch.randn(T, n, B, generator=gen).to(dev)
-    before = kkt_fused.LAUNCHES
-    got = kkt_fused.kkt_fused(ops, r)
-    torch.cuda.synchronize()
-    assert kkt_fused.LAUNCHES == before + 1
-    want = kkt_fused.kkt_fused_reference(ops, r)
+    return ops, torch.randn(T, B, nx, generator=gen).to(dev), torch.randn(T, B, nu, generator=gen).to(dev)
+
+
+@pytest.mark.parametrize("nx,nu,T,B", [(4, 1, 6, 1030), (4, 2, 6, 1030), (4, 3, 6, 1030),
+                                       (13, 3, 20, 1030), (5, 1, 200, 1030), (3, 1, 20, 33),
+                                       (6, 1, 20, 1030), (16, 1, 20, 1030), (15, 2, 20, 1030),
+                                       (14, 3, 20, 33)])
+def test_kkt_kernel_matches_plain_version(dev, nx, nu, T, B):
+    """The KKT-VJP kernel's whole call (one launch: the recursions and the
+    dF/df/dC assembly) against kkt_fused_reference on the same operands, in
+    full and "Ff" mode; per output max|kernel - plain| <= 1e-4 max|plain| +
+    1e-5 (f32 recursions, FMA contraction). The shapes JAX's gate admits at
+    its edges, ragged batches, and T=200, whose K/k/dtau outgrow shared
+    memory."""
+    ops, gx, gu = _kkt_problem(dev, nx, nu, T, B, nx * 100 + nu * 10 + T)
     for full in (True, False):
-        for g, w in zip(kkt_fused.assemble(ops, *got, full=full),
-                        kkt_fused.assemble(ops, *want, full=full)):
-            if w is not None:
-                assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+        before = kkt_fused.LAUNCHES
+        got = kkt_fused.kkt_fused(ops, gx, gu, full)
+        torch.cuda.synchronize()
+        assert kkt_fused.LAUNCHES == before + 1
+        want = kkt_fused.kkt_fused_reference(ops, gx, gu, full)
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            assert torch.isfinite(g).all()
+            assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("nx,nu", [(5, 1), (13, 3)])
+def test_kkt_kernel_bits_do_not_depend_on_the_launch(dev, nx, nu):
+    """Blocks of 64, 128 and 256 threads (2 to 64 teams a block), and K/k/
+    dtau in the global store instead of shared memory, give the bits of
+    the default launch: each example's arithmetic depends on its team size
+    alone."""
+    ops, gx, gu = _kkt_problem(dev, nx, nu, 20, 1030, 7 + nx)
+    ref = kkt_fused.kkt_fused(ops, gx, gu, True)
+    assert not kkt_fused.plan(ops)["global"]
+    for block in kkt_fused.BLOCKS:
+        for store in ("auto", "global"):
+            out = kkt_fused.kkt_fused(ops, gx, gu, True, block=block, store=store)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref)), (block, store)
+
+
+def test_slew_rate_ift_gradient_launches_the_kkt_kernel(dev):
+    """The slew-rate cartpole (n_state 6, n_ctrl 1): its IFT backward now
+    goes through the KKT kernel at (6,1) and agrees with the plain
+    backward (backward_backend="torch", no KKT launch) on the same forward
+    solution, max-norm rtol 1e-3 (f32 recursions; GMRES may stop one
+    iteration apart)."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(4)
+    th = 3.0 + 0.1 * torch.randn(256, generator=gen)
+    z = torch.zeros(256)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    grads = {}
+    for bb in ("auto", "torch"):
+        cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=20, lqr_iter=10, eps=1e-4,
+                           linesearch_decay=0.5, max_linesearch_iter=2, exit_unconverged=False,
+                           detach_unconverged=False, backward_mode=P.BackwardMode.IFT,
+                           slew_rate_penalty=1.0, backward_backend=bb)
+        pr = params.clone().requires_grad_(True)
+        before = kkt_fused.LAUNCHES
+        res = P.solve(cfg, x0, P.QuadCost(torch.diag(q), p), dyn, params=pr,
+                      u_lower=-100.0, u_upper=100.0)
+        (grads[bb],) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        torch.cuda.synchronize()
+        assert (kkt_fused.LAUNCHES > before) == (bb == "auto")
+    assert torch.isfinite(grads["auto"]).all() and grads["auto"].abs().max().item() > 0.0
+    torch.testing.assert_close(grads["auto"], grads["torch"], rtol=1e-3,
+                               atol=1e-3 * grads["torch"].abs().max().item())
 
 
 @pytest.mark.parametrize("mode", ["IFT", "KKT"])

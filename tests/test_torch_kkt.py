@@ -1,6 +1,7 @@
-"""The port's module-KKT VJP: the plain version of the CUDA kernel
-(ops/cuda/kkt_fused.kkt_fused_reference) against the JAX Pallas kernel in
-interpret mode, resident and stream, in f32; the plain recursions
+"""The port's module-KKT VJP: the plain version of the CUDA kernel's whole
+call (ops/cuda/kkt_fused.kkt_fused_reference, the assembly folded in)
+against the JAX Pallas kernel in interpret mode, resident and stream, in
+f32, at the shapes JAX's gate admits (covered equals that gate); the plain recursions
 (diff/kkt.make_kkt_vjp(backend="torch")) against JAX's XLA path at f64; the
 "Ff" mode, linearity, dispatch, and the reference's KKT goldens.
 
@@ -16,7 +17,7 @@ import torch
 
 import dilqr_tpu as J
 from dilqr_tpu.diff.kkt import make_kkt_vjp as j_make_kkt_vjp
-from dilqr_tpu.ops.pallas.kkt_fused import make_kkt_vjp_pallas
+from dilqr_tpu.ops.pallas.kkt_fused import kkt_fused_supported, make_kkt_vjp_pallas
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.diff.kkt import kkt_vjp, make_kkt_vjp
@@ -80,6 +81,31 @@ def test_reference_matches_jax_kernel(nu, masked, mode):
     _compare(_cpu_call(arrs, uz, nx, nu), want, atol=5e-5)
 
 
+@pytest.mark.parametrize("nx,nu", [(6, 1), (16, 1), (14, 3)])
+def test_reference_matches_jax_kernel_widened_shapes(nx, nu):
+    """The shapes the kernel gained with JAX's whole gate -- the slew-rate
+    cartpole's (6,1) and the widest n_state for one and three controls --
+    masked, against JAX's Pallas kernel in interpret mode in the variant
+    JAX picks itself; atol 5e-5, 2e-4 at n_state >= 13."""
+    T, B = 4, 3
+    arrs, uz = _problem(20 + nx, T, B, nx, nu, masked=True)
+    C, c, F, x, u, gx, gu = (jnp.asarray(a) for a in arrs)
+    want = make_kkt_vjp_pallas(nx, nu, C, c, F, x, u, u_zero_I=jnp.asarray(uz),
+                               interpret=True)(gx, gu, True)
+    _compare(_cpu_call(arrs, uz, nx, nu), want, atol=2e-4 if nx >= 13 else 5e-5)
+
+
+def test_covered_equals_jax_gate():
+    """covered admits exactly what JAX's kkt_fused_supported admits over
+    n_state 1..20, n_ctrl 1..4, T in {1, 2, 20, 200} and both float types."""
+    for T in (1, 2, 20, 200):
+        for nx in range(1, 21):
+            for nu in range(1, 5):
+                for jt, tt in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+                    assert kkt_fused.covered(T, nx, nu, tt) == kkt_fused_supported(T, nx, nu, jt), \
+                        (T, nx, nu, tt)
+
+
 def test_reference_matches_jax_stream_rocket_shape():
     """nx=13, nu=3: the shape JAX routes to the stream kernel."""
     T, B, nx, nu = 6, 3, 13, 3
@@ -138,7 +164,12 @@ def test_dispatch_and_coverage():
     assert kkt_fused.covered(200, 13, 3, torch.float32)
     assert not kkt_fused.covered(20, 5, 1, torch.float64)
     assert not kkt_fused.covered(1, 5, 1, torch.float32)
-    assert not kkt_fused.covered(20, 6, 1, torch.float32)
+    # the shapes JAX's gate refuses (test_covered_equals_jax_gate holds the
+    # whole grid): past its n_state limit for each n_ctrl, and n_ctrl 4
+    assert kkt_fused.covered(20, 6, 1, torch.float32)
+    assert not kkt_fused.covered(20, 17, 1, torch.float32)
+    assert not kkt_fused.covered(20, 15, 3, torch.float32)
+    assert not kkt_fused.covered(20, 4, 4, torch.float32)
     assert not kkt_fused.covered(20, 5, 1, torch.float32, parallel=True)
     # "auto" on CPU tensors takes the plain recursions, the same map
     before = kkt_fused.LAUNCHES
