@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero before the last line:
      ptxas report, with each whole-solve and KKT instantiation's registers,
      stack and spills; a stack or a spill in a whole-solve n_ctrl == 1
      instantiation, or in the KKT instantiations the main paths run (8
-     lanes for one control, 16 for three), fails;
+     lanes for one control, 16 for three), or in any of the Riccati
+     kernel's 21 instantiations (lane teams of 4, 8, 16, 32, n_state 5 and
+     6 compiled in at 8 lanes, and the looped form, each in three modes),
+     fails;
   3. hold each kernel against its plain PyTorch version on the card, on the
      same inputs, at the shapes of the main paths: the whole-solve kernel on
      the cartpole bench problem and three more, and on the rocket (13
@@ -27,8 +30,12 @@ Phases, in order; any failure exits non-zero before the last line:
      (14,3)), and the same bits from other block sizes and the global
      store;
      then (appended, with a generator of its own) the Riccati kernel in its
-     free, box, zero and delta_u modes for n_state 3..6, and the learned
-     MLP cartpole model's solve with and without it;
+     free, box, zero and delta_u modes for n_state 1..9, 12, 16, 24, 31, 48
+     (the looped form) and one size whose team memory lies in device
+     memory, on C expanded, a bound tensor, a transposed C view and T = 1
+     and 2, with the same bits from every block size and team store (see
+     check_riccati), and the learned MLP cartpole model's solve with and
+     without it;
   4. drive the main paths through their entry points, every launch counter
      set to 0 just before each and read just after:
      serving -- MPC.solve (what MPC.__call__ runs) on cartpole at B=4096
@@ -50,8 +57,11 @@ Phases, in order; any failure exits non-zero before the last line:
      blocks ran on and the votes a tile took with their clock share, the
      KKT kernel's "Ff" and full calls at cartpole B=4096, the rocket's
      (13,3), the learned model's (5,1) and the slew rate's (6,1) at B=1024
-     beside their bounds, the IFT forward and backward, the train step and the learned-model solve with and without
-     the Riccati kernel, and print one JSON line with each kernel's
+     beside their bounds, the IFT forward and backward, the train step, the
+     Riccati call and the kernel alone at n_state 5 (B=4096 and 1024, C
+     full and expanded) and 6 (B=1024) beside their bounds with the device
+     operations a call, and the learned-model solve with and without the
+     Riccati kernel, and print one JSON line with each kernel's
      numbers. The learned-model and slew-rate paths of phase 4 and their
      times run last, after the earlier paths' times, which thus keep
      their earlier order;
@@ -202,6 +212,11 @@ KKT_ENTRY = r"_ZN5dilqr16kkt_fused_kernelILi(\d+)ELi(\d+)EEEv"
 # the KKT instantiations a main path runs: (5,1) and (6,1) at 8 lanes, the
 # rocket's (13,3) at 16
 KKT_MAIN = ("<1, 8>", "<3, 16>")
+# the Riccati kernel as <team lanes, mode, compile-time n_state (0: any)>
+# and its looped form as <mode> (modes 0 free, 1 box, 2 zero)
+RICCATI_ENTRY = r"_ZN5dilqr20riccati_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EEEv"
+RICCATI_KERNELS = 21  # lanes 4, 8, 16, 32 and n_state 5, 6 at 8 lanes, looped; x 3 modes
+RICCATI_LOOPED_ENTRY = r"_ZN5dilqr21riccati_looped_kernelILi(\d+)EEEv"
 
 
 def same_bits(torch, fused, name, k_out, args):
@@ -299,6 +314,18 @@ def main():
             fail(f"kkt_fused {name} (a main path's) has a stack frame or spills")
     if not kkt_seen.issuperset(KKT_MAIN):
         fail(f"kkt_fused: the ptxas report lacks {set(KKT_MAIN) - kkt_seen}")
+    ric_seen = 0
+    for entry, what in ((RICCATI_ENTRY, "<lanes, mode, n_state>"),
+                        (RICCATI_LOOPED_ENTRY, "looped <mode>")):
+        for name, regs, stack, st, ld in ptxas_entries(reports[ric.SOURCE], entry, "Riccati"):
+            print(f"ptxas riccati_fused {what} {name}: {regs} registers, {stack} bytes stack, "
+                  f"{st}/{ld} bytes spill stores/loads", flush=True)
+            ric_seen += 1
+            if stack or st or ld:
+                fail(f"riccati_fused {what} {name} has a stack frame or spills")
+    if ric_seen != RICCATI_KERNELS:
+        fail(f"riccati_fused: {ric_seen} instantiations in the ptxas report, want "
+             f"{RICCATI_KERNELS}")
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -813,8 +840,10 @@ def kkt_times(torch, kkt, card, bench, rocket_case, train, rk, gen):
     for label, (ops, gx, gu) in shapes:
         ff_ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, False), 3, 21)
         full_ms, _ = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, True), 3, 21)
-        ff_dev, n_ff = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, False), "kkt_fused_kernel")
-        full_dev, n_full = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, True), "kkt_fused_kernel")
+        ff_dev, n_ff, _ = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, False),
+                                    "kkt_fused_kernel")
+        full_dev, n_full, _ = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, True),
+                                        "kkt_fused_kernel")
         plain_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, gx, gu, False), 1, 5)
         bounds = []
         for full in (False, True):
@@ -1140,7 +1169,8 @@ def busy_ms(device):
 def kernel_ms(torch, fn, name: str, calls: int = 20):
     """The mean device time of the launches of kernel ``name`` in ``calls``
     calls of fn under torch.profiler (the kernel alone, without host gaps),
-    and how many launches the trace recorded."""
+    how many launches the trace recorded, and the names of the other device
+    activities it recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1149,8 +1179,10 @@ def kernel_ms(torch, fn, name: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    runs = [e.time_range.end - e.time_range.start for e in device_events(prof) if name in e.name]
-    return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs)
+    device = device_events(prof)
+    runs = [e.time_range.end - e.time_range.start for e in device if name in e.name]
+    others = sorted({e.name for e in device if name not in e.name})
+    return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs), others
 
 
 def profile_step(torch, label, fn):
@@ -1201,12 +1233,15 @@ def cartpole_start(torch, gen, B, dev):
 def riccati_problem(torch, gen, T, B, nx, dev):
     """Random symmetric problems in the JAX kernel test's form
     (tests/test_pallas_kernels.py:15-23), with the control iterate at unit
-    scale (about a third of the +-1 box gains at a bound) and a zero mask."""
+    scale (about a third of the +-1 box gains at a bound) and a zero mask;
+    F's scale falls as 1/sqrt(n_state) past 8 states, so that V stays of
+    order one over the horizon."""
     n = nx + 1
     A = torch.randn(T, B, n, n, generator=gen)
     C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
+    f_scale = 0.3 / max(1.0, (nx / 8) ** 0.5)
     parts = (C, torch.randn(T, B, n, generator=gen),
-             0.3 * torch.randn(T - 1, B, nx, n, generator=gen),
+             f_scale * torch.randn(T - 1, B, nx, n, generator=gen),
              torch.randn(T, B, 1, generator=gen), torch.rand(T, B, 1, generator=gen) < 0.3)
     return [a.to(dev) for a in parts]
 
@@ -1216,56 +1251,94 @@ BOX = {"u_lower": -1.0, "u_upper": 1.0}
 
 def check_riccati(torch, dev, gen, ric):
     """Phase 3 for the Riccati kernel: kernel against
-    riccati_fused_reference on a ragged batch, B=1030, T=20, for nx in
-    3..6, in the modes free, box (+-1, test_pallas_kernels.py:31), zero (a
-    random mask) and box with delta_u=0.2. Tolerance max|kernel - plain| <=
-    2e-6 + 1e-5 max|plain| on K and k: JAX holds its kernel to 2e-6
-    (test_pallas_kernels.py:34-35), and nvcc's FMA contraction moves a
+    riccati_fused_reference on a ragged batch, B=1030, T=20, for n_state
+    1..9, 12, 16, 24, 31 (lane teams of 4 to 32), 48 (the looped form, its
+    team memory in shared memory) and the first size from 64 on whose team
+    memory riccati_fused.plan puts in device memory, in the modes free, box
+    (+-1, test_pallas_kernels.py:31), zero (a random mask) and box with
+    delta_u=0.2. Then the inputs as callers hand them, at n_state 5, 12 and
+    48 in box with delta_u and zero mode: C expanded from one matrix (T and
+    B strides 0), a [T,B,1] lower-bound tensor, C as a transposed [B,T]
+    view (core/solver.py), and T = 1 and T = 2. Tolerance max|kernel -
+    plain| <= 2e-6 + 1e-5 max|plain| on K and k: JAX holds its kernel to
+    2e-6 (test_pallas_kernels.py:34-35), and nvcc's FMA contraction moves a
     20-step recursion by a few ulp of its largest values. In the box modes
-    more than 10% of the gains must sit at a bound. The kernel takes no
-    per-block decision: blocks of 32 and 256 threads must give the bits of
-    the default 64. Returns the largest absolute error at nx=5, box, the
-    learned cartpole model's shape."""
+    more than 10% of the gains must sit at a bound. Teams take no decision
+    together: every block size, and the device-memory team store of the
+    looped form, must give the bits of the default launch. Returns the
+    largest absolute error at nx=5, box, the learned cartpole model's shape."""
     T, B = 20, 1030
+    nx_global = next(nx for nx in range(64, 512) if ric.plan(nx, B)["global"])
     main = None
-    for nx in (3, 4, 5, 6):
+
+    def held(label, nx, C, c, F, u, kw):
+        before = ric.LAUNCHES
+        K, k = ric.riccati_fused(nx, C, c, F, u, **kw)
+        torch.cuda.synchronize()
+        if ric.LAUNCHES != before + 1:
+            fail(f"{label}: the kernel did not launch")
+        figs, worst = [], 0.0
+        for name, a, b in zip(("K", "k"), (K, k), ric.riccati_fused_reference(nx, C, c, F, u,
+                                                                             **kw)):
+            if not torch.isfinite(a).all():
+                fail(f"{label}: non-finite {name}")
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            figs.append(f"{name} {err:.2e}/{scale:.2e}")
+            worst = max(worst, err)
+            if err > 2e-6 + 1e-5 * scale:
+                fail(f"{label}: {name} off by {err:.3e} at scale {scale:.3e}")
+        extra = ""
+        if "u_lower" in kw:
+            _, lb, ub = ric._operands(C, u, kw["u_lower"], kw["u_upper"], None,
+                                      kw.get("delta_u"))
+            share = (((k[..., 0] - lb).abs() <= 1e-6)
+                     | ((k[..., 0] - ub).abs() <= 1e-6)).float().mean().item()
+            extra = f", active share {share:.3f}"
+            if share <= 0.1:
+                fail(f"{label}: only {share:.3f} of the gains at a bound")
+        print(f"parity {label}: max|kernel - plain| / max|plain|: {', '.join(figs)}{extra}",
+              flush=True)
+        return (K, k), worst
+
+    def same_launch_bits(label, nx, args, kw, ref):
+        p = ric.plan(nx, B)
+        launches = [(b, "auto") for b in ric.BLOCKS]
+        if p["looped"]:
+            launches += [(b, "global") for b in ric.BLOCKS]
+        for block, store in launches:
+            out = ric.riccati_fused(nx, *args, block=block, store=store, **kw)
+            if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+                fail(f"{label}: block {block}, store {store} change the result")
+        print(f"parity {label}: {len(launches)} launches ({ric.BLOCKS} threads a block"
+              f"{', shared and device-memory team store' if p['looped'] else ''}) give the bits "
+              f"of the default; plan {p}", flush=True)
+
+    for nx in list(range(1, 10)) + [12, 16, 24, 31, 48, nx_global]:
         C, c, F, u, uz = riccati_problem(torch, gen, T, B, nx, dev)
         for mode, kw in (("free", {}), ("box", BOX), ("zero", {"u_zero_I": uz}),
                          ("box delta_u=0.2", dict(BOX, delta_u=0.2))):
             label = f"riccati nx={nx} {mode} B={B} T={T}"
-            before = ric.LAUNCHES
-            K, k = ric.riccati_fused(nx, C, c, F, u, **kw)
-            torch.cuda.synchronize()
-            if ric.LAUNCHES != before + 1:
-                fail(f"{label}: the kernel did not launch")
-            figs, worst = [], 0.0
-            for name, a, b in zip(("K", "k"), (K, k), ric.riccati_fused_reference(nx, C, c, F, u,
-                                                                                 **kw)):
-                if not torch.isfinite(a).all():
-                    fail(f"{label}: non-finite {name}")
-                err, scale = (a - b).abs().max().item(), b.abs().max().item()
-                figs.append(f"{name} {err:.2e}/{scale:.2e}")
-                worst = max(worst, err)
-                if err > 2e-6 + 1e-5 * scale:
-                    fail(f"{label}: {name} off by {err:.3e} at scale {scale:.3e}")
-            extra = ""
-            if "box" in mode:
-                _, lb, ub = ric._operands(C, u, -1.0, 1.0, None, kw.get("delta_u"))
-                share = (((k[..., 0] - lb).abs() <= 1e-6)
-                         | ((k[..., 0] - ub).abs() <= 1e-6)).float().mean().item()
-                extra = f", active share {share:.3f}"
-                if share <= 0.1:
-                    fail(f"{label}: only {share:.3f} of the gains at a bound")
-            print(f"parity {label}: max|kernel - plain| / max|plain|: {', '.join(figs)}{extra}",
-                  flush=True)
-            if nx == 5 and mode == "box":
-                main = worst
-                for block in (32, 256):
-                    K2, k2 = ric.riccati_fused(nx, C, c, F, u, block=block, **kw)
-                    if not (torch.equal(K2, K) and torch.equal(k2, k)):
-                        fail(f"{label}: blocks of {block} threads change the result")
-                print(f"parity {label}: blocks of 32 and 256 threads give the bits of 64",
-                      flush=True)
+            out, worst = held(label, nx, C, c, F, u, kw)
+            if mode == "box" and nx in (5, 31, 48, nx_global):
+                same_launch_bits(label, nx, (C, c, F, u), kw, out)
+                if nx == 5:
+                    main = worst
+    for nx in (5, 12, 48):
+        for form in ("C expanded", "bound tensor", "C transposed view", "T=1", "T=2"):
+            Tf = {"T=1": 1, "T=2": 2}.get(form, T)
+            C, c, F, u, uz = riccati_problem(torch, gen, Tf, B, nx, dev)
+            if form == "C expanded":
+                C = C[0, 0].expand_as(C)
+            elif form == "C transposed view":
+                C = C.transpose(0, 1).contiguous().transpose(0, 1)
+            box = dict(BOX, delta_u=0.2)
+            if form == "bound tensor":
+                box["u_lower"] = -1.0 - 0.1 * torch.rand(Tf, B, 1, generator=gen).to(dev)
+            for mode, kw in (("box delta_u=0.2", box), ("zero", {"u_zero_I": uz})):
+                label = f"riccati nx={nx} {form} {mode} B={B} T={Tf}"
+                out, _ = held(label, nx, C, c, F, u, kw)
+                if form == "C expanded" and mode != "zero":
+                    same_launch_bits(label, nx, (C, c, F, u), kw, out)
     return main
 
 
@@ -1483,50 +1556,79 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
             "grad": grad}
 
 
-def riccati_work(T, B, nx):
+def riccati_work(T, B, nx, c_expanded=False):
     """(FLOP, bytes) of one riccati_fused call in box mode from its shapes,
     counted from csrc/riccati_fused.cuh. FLOP per example and step t < T-1:
     the column products V F (N NX (2 NX - 1)), Q's triangle (TRI 2 NX), q
     (N 2 NX), the box gains (2 NX + 8), the V triangle update (7 per entry)
     and v (5 NX + 2); at t = T-1 only the gains and the update. Bytes: the
-    function's inputs read once -- C [T,B,n,n], c [T,B,n], F [T-1,B,nx,n],
-    u [T,B,1] -- and its outputs K [T,B,1,nx], k [T,B,1] written once."""
+    function's inputs read once -- C [T,B,n,n] (one [n,n] matrix when it is
+    expanded from one), c [T,B,n], F [T-1,B,nx,n], u [T,B,1] -- and its
+    outputs K [T,B,1,nx], k [T,B,1] written once."""
     n = nx + 1
     tri = n * (n + 1) // 2
     gains_update = (2 * nx + 8) + 7 * nx * (nx + 1) // 2 + 5 * nx + 2
     step = n * nx * (2 * nx - 1) + tri * 2 * nx + n * 2 * nx + gains_update
     flops = B * ((T - 1) * step + gains_update)
-    floats = T * (n * n + n + 1 + nx + 1) + (T - 1) * nx * n
-    return flops, 4 * B * floats
+    floats = B * (T * (n + 1 + nx + 1) + (T - 1) * nx * n) + (n * n if c_expanded
+                                                            else B * T * n * n)
+    return flops, 4 * floats
 
 
 def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err):
-    """Phase 5 for the Riccati kernel: its time at the learned-model path's
-    shape (T=20, B=4096, nx=5, box, CUDA events), its plain version's, the
-    bound; the learned-model MPC.solve end to end with backend "auto" and
-    "torch" in turns (host clock, synchronized, median of 5 each): what the
-    kernel takes off the plain loop; the IFT step; a profile of one solve.
-    Returns the JSON row."""
-    T, B, nx = cfg.T, 4096, 5
-    C, c, F, u, _ = riccati_problem(torch, gen, T, B, nx, dev)
-    ms, runs = cuda_ms(lambda: ric.riccati_fused(nx, C, c, F, u, **BOX), 5, 21)
-    plain_ms, _ = cuda_ms(lambda: ric.riccati_fused_reference(nx, C, c, F, u, **BOX), 2, 7)
-    # the same with the path's example-invariant C, read through stride 0
-    Cx = C[0, 0].expand(T, B, nx + 1, nx + 1)
-    x_ms, _ = cuda_ms(lambda: ric.riccati_fused(nx, Cx, c, F, u, **BOX), 5, 21)
-    flops, bytes_ = riccati_work(T, B, nx)
-    bound_ms = max(flops / FP32_PEAK, bytes_ / HBM_RATE) * 1e3
-    bound_by = "operations" if flops / FP32_PEAK >= bytes_ / HBM_RATE else "bytes"
-    print(f"time riccati_fused B={B} T={T} nx={nx} box: {ms:.4f} ms median of {len(runs)} "
-          f"({', '.join(f'{r:.4f}' for r in runs)}); with C expanded from one matrix "
-          f"{x_ms:.4f} ms; plain version {plain_ms:.3f} ms [{card}]", flush=True)
-    print(f"bound riccati_fused B={B} T={T} nx={nx}: {flops:.4e} FLOP, {bytes_} bytes -> "
-          f"{bound_ms:.5f} ms ({bound_by}); no single PyTorch call computes a Riccati "
-          f"recursion, so library_ms is null", flush=True)
-    # 20 calls, one learned-model solve's worth: a single 0.15 ms call left
-    # the profiler with no device activity
-    profile_step(torch, f"riccati_fused wrapper x20 B={B} T={T} nx={nx} box",
-                 lambda: [ric.riccati_fused(nx, C, c, F, u, **BOX) for _ in range(20)])
+    """Phase 5 for the Riccati kernel: at the learned-model path's shape
+    (T=20, nx=5, box) at B=4096 and B=1024, with C full and C expanded from
+    one matrix (the path's example-invariant cost), and at the slew-rate
+    shape (nx=6, box, B=1024): the call by CUDA events (host gaps included),
+    the kernel alone (the mean of the launches the profiler recorded of 20),
+    the bound (riccati_work, an expanded C counted once) and the device
+    operations a call, which must be the one kernel launch; the plain
+    version at B=4096; then the learned-model MPC.solve end to end with
+    backend "auto" and "torch" in turns (host clock, synchronized, median
+    of 5 each), a profile of one solve, and the IFT step. Returns the JSON
+    row (the B=4096, C full call)."""
+    T = cfg.T
+    row = None
+    for nx, B in ((5, 4096), (5, 1024), (6, 1024)):
+        C, c, F, u, _ = riccati_problem(torch, gen, T, B, nx, dev)
+        forms = [("C full", C)] + ([("C expanded", C[0, 0].expand_as(C))] if nx == 5 else [])
+        for form, Cf in forms:
+            def call():
+                return ric.riccati_fused(nx, Cf, c, F, u, **BOX)
+
+            ms, runs = cuda_ms(call, 5, 21)
+            k_ms, seen, others = kernel_ms(torch, call, "riccati_fused_kernel")
+            if others:
+                fail(f"riccati_fused nx={nx} B={B} {form}: other device operations {others}")
+            flops, bytes_ = riccati_work(T, B, nx, form == "C expanded")
+            bound_ms = max(flops / FP32_PEAK, bytes_ / HBM_RATE) * 1e3
+            bound_by = "operations" if flops / FP32_PEAK >= bytes_ / HBM_RATE else "bytes"
+            p = ric.plan(nx, B)
+            print(f"time riccati_fused B={B} T={T} nx={nx} box {form}: call {ms:.4f} ms median "
+                  f"of {len(runs)} ({', '.join(f'{r:.4f}' for r in runs)}); the kernel alone "
+                  f"{k_ms:.4f} ms (profiler, mean of the {seen} launches it recorded of 20); "
+                  f"device operations a call: {1 if seen else 'not seen'} (no other device "
+                  f"activity recorded); {p['L']} lanes, {p['teams']} teams a block, "
+                  f"{p['smem']} shared bytes a block [{card}]", flush=True)
+            print(f"bound riccati_fused B={B} T={T} nx={nx} box {form}: {flops:.4e} FLOP, "
+                  f"{bytes_} bytes -> {bound_ms:.5f} ms ({bound_by})", flush=True)
+            if row is None:
+                plain_ms, _ = cuda_ms(lambda: ric.riccati_fused_reference(nx, C, c, F, u, **BOX),
+                                      2, 7)
+                print(f"time riccati_fused_reference (plain) B={B} T={T} nx={nx} box: "
+                      f"{plain_ms:.3f} ms; no single PyTorch call computes a Riccati "
+                      f"recursion, so library_ms is null [{card}]", flush=True)
+                row = {
+                    "name": "riccati_fused", "route": "cuda",
+                    "source": "dilqr_tpu_torch/csrc/riccati_fused.cu",
+                    "replaces": "dilqr_tpu/ops/pallas/riccati_fused.py:57",
+                    "launches": mp["launches"]["riccati_fused"], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None,
+                }
+                # 20 calls, one learned-model solve's worth
+                profile_step(torch, f"riccati_fused wrapper x20 B={B} T={T} nx={nx} box",
+                             lambda: [call() for _ in range(20)])
 
     mpcs = {backend: P.MPC(5, 1, T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
                            linesearch_decay=cfg.linesearch_decay,
@@ -1564,14 +1666,7 @@ def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err
         ts.append((time.perf_counter() - t1) * 1e3)
     print(f"time learned-model IFT forward+backward B=1024 (host clock, synchronized, median "
           f"of 3): {statistics.median(ts):.2f} ms [{card}]", flush=True)
-    return {
-        "name": "riccati_fused", "route": "cuda",
-        "source": "dilqr_tpu_torch/csrc/riccati_fused.cu",
-        "replaces": "dilqr_tpu/ops/pallas/riccati_fused.py:57",
-        "launches": mp["launches"]["riccati_fused"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    }
+    return row
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

@@ -56,7 +56,7 @@ __global__ void __launch_bounds__(256, 1) kkt_fused_kernel(const KktArgs a, cons
   const int team = threadIdx.x / L;
   const int b = blockIdx.x * (blockDim.x / L) + team;
   if (b >= a.B) return;  // the whole team leaves together
-  DeviceTeam<NU, L> tm{(int)(threadIdx.x & (L - 1)), {}};
+  DeviceTeam<KktLane<NU, L>, L> tm{(int)(threadIdx.x & (L - 1)), {}};
   kkt_example<NU, L>(a, y, b, smem + (size_t)team * y.team, tm);
 }
 

@@ -156,10 +156,12 @@ struct KktLane {
 // same phases in the same order (T, n_state and n_ctrl are the launch's),
 // a team past the batch's end has exited, and a constant full mask is one
 // instruction where a per-team mask costs a match-and-reduce sequence.
-template <int NU, int L>
+// `Lane` is what a lane keeps from phase to phase. The reverse Riccati
+// kernel (riccati_fused.cuh) runs its phases on the same teams.
+template <class Lane, int L>
 struct DeviceTeam {
   int lane;
-  KktLane<NU, L> R;
+  Lane R;
 
   template <class Fn>
   DILQR_HD void phase(Fn&& f) {
@@ -200,9 +202,9 @@ struct DeviceTeam {
 };
 
 // The team on the host: lanes 0..L-1 of a phase run in turn.
-template <int NU, int L>
+template <class Lane, int L>
 struct HostTeam {
-  KktLane<NU, L> R[L];
+  Lane R[L];
 
   template <class Fn>
   void phase(Fn&& f) {

@@ -19,18 +19,21 @@ t = T-1, Q = C and q = c exactly (V_T = 0); in zero mode k divides by the
 unmasked Quu while K uses Quu (1 - I) + 1e-8 I; in box mode the active set
 is a bound with the gradient pointing outward and H_free = Quu If + 1e-11.
 
-The wrapper folds delta_u into the delta-space bounds and carries the mask
-as a float, as ``lqr_backward_pallas`` does (:205-216). The kernel reads
-C [T,B,n,n], c [T,B,n] and F [T-1,B,nx,n] where they lie, through their
-time and batch strides (an expanded, example-invariant C is read without a
-copy), and writes K [T,B,1,nx] and k [T,B,1]. CUDA tensors launch the
-kernel; CPU tensors take ``riccati_fused_reference``; there is no fallback
-from one to the other.
+The kernel reads C [T,B,n,n], c [T,B,n] and F [T-1,B,nx,n] where they lie,
+through their time and batch strides (an expanded, example-invariant C is
+read once, without a copy), forms the box mode's delta-space bounds itself
+from u, the bounds (numbers, [1] or [T,B,1] tensors) and delta_u, and reads
+the u_zero_I mask as bytes, so a call is one launch and nothing else on the
+device; it writes K [T,B,1,nx] and k [T,B,1]. An example is a team of lanes
+(``plan``). CUDA tensors launch the kernel; CPU tensors take
+``riccati_fused_reference``; there is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+import threading
+from typing import Dict, Optional
 
 import torch
 
@@ -38,8 +41,9 @@ from ...utils.batch import clamp
 from . import build
 
 SOURCE = "riccati_fused.cu"
-MAX_NX = 8  # csrc/riccati_fused.cu instantiates n_state 1..8
 MODES = {"free": 0, "box": 1, "zero": 2}  # kMode* in csrc/riccati_fused.cuh
+BLOCK = 128              # threads a block by default
+BLOCKS = (64, 128, 256)  # the block sizes the kernel takes; the bits do not change
 
 # kernel launches made by riccati_fused (the plain version does not count)
 LAUNCHES = 0
@@ -47,24 +51,24 @@ LAUNCHES = 0
 
 def covered(n_state: int, n_ctrl: int, dtype, u_zero_I, qp_solver: str, boxed: bool,
             f=None) -> bool:
-    """True when the kernel computes this configuration (counterpart of
-    ``pallas_supported`` plus the f-is-None gate of ops/riccati.py:135):
-    one control, f32, the closed-form QP, the u_zero_I mask only without a
-    box, no f, and an instantiated 1 <= n_state <= 8."""
+    """True when the kernel computes this configuration -- JAX's gate,
+    ``pallas_supported`` plus the f-is-None test of ops/riccati.py:135: one
+    control, f32, the closed-form QP, the u_zero_I mask only without a box,
+    no f; any n_state >= 1."""
     return (
         n_ctrl == 1
         and dtype == torch.float32
         and qp_solver == "auto"
         and (u_zero_I is None or not boxed)
         and f is None
-        and 1 <= n_state <= MAX_NX
+        and n_state >= 1
     )
 
 
 def _operands(C, u, u_lower, u_upper, u_zero_I, delta_u):
-    """(mode, lb [T,B], ub [T,B]). Box: the delta-space bounds lower - u,
-    upper - u, folded with delta_u; zero: lb carries the mask as a float;
-    free: both zero."""
+    """(mode, lb [T,B], ub [T,B]) for the plain version. Box: the
+    delta-space bounds lower - u, upper - u, folded with delta_u; zero: lb
+    carries the mask as a float; free: both zero."""
     T, B = C.shape[0], C.shape[1]
     dt, dev = C.dtype, C.device
     if u_lower is not None:
@@ -82,54 +86,162 @@ def _operands(C, u, u_lower, u_upper, u_zero_I, delta_u):
     return "free", z, z
 
 
+def _bound(v, T: int, B: int, like: torch.Tensor):
+    """A bound as the kernel takes it: (the tensor it is read from, (pointer,
+    T stride, B stride), number); a number passes by value (null pointer), a
+    tensor (scalar, [1] or broadcastable to [T,B,1]) is read through its
+    strides. The caller keeps the tensor until the launch."""
+    if isinstance(v, (int, float)):
+        return None, (0, 0, 0), float(v)
+    v = torch.as_tensor(v)
+    if v.dtype != torch.float32 or v.device != like.device:
+        v = v.to(like.device, torch.float32)
+    v = v.expand(T, B, 1)
+    return v, (v.data_ptr(), v.stride(0), v.stride(1)), 0.0
+
+
+_TLS = threading.local()
+
+
+def _packed():
+    """This thread's argument arrays of dilqr_riccati_fused (csrc/
+    riccati_fused.cu): 30 integers and 3 floats, and their addresses."""
+    buf = getattr(_TLS, "buf", None)
+    if buf is None:
+        ia, fa = (ctypes.c_longlong * 30)(), (ctypes.c_double * 3)()
+        buf = _TLS.buf = (ia, fa, ctypes.addressof(ia), ctypes.addressof(fa))
+    return buf
+
+
 def riccati_fused(n_state: int, C, c, F, u, u_lower=None, u_upper=None,
-                  u_zero_I: Optional[torch.Tensor] = None, delta_u=None, block: int = 0):
+                  u_zero_I: Optional[torch.Tensor] = None, delta_u=None, block: int = BLOCK,
+                  store: str = "auto"):
     """The reverse Riccati for one control. C [T,B,n,n] (symmetric), c
-    [T,B,n], F [T-1,B,nx,n], u [T,B,1]; u_lower/u_upper a scalar,
-    [1] or [T,B,1] (box mode), or u_zero_I [T,B,1] bool (zero mode).
-    Returns (K [T,B,1,nx], k [T,B,1]). ``block``: threads a block, 0 for the
-    kernel's default (the result does not depend on it). CUDA tensors
-    launch the kernel; CPU tensors take riccati_fused_reference."""
+    [T,B,n], F [T-1,B,nx,n], u [T,B,1]; u_lower/u_upper a number, [1] or
+    [T,B,1] (box mode), or u_zero_I [T,B,1] bool (zero mode). Returns
+    (K [T,B,1,nx], k [T,B,1]). CUDA tensors launch the kernel, one launch;
+    CPU tensors take riccati_fused_reference. ``block`` (threads a block)
+    and ``store="global"`` (the looped form's team memory in device memory
+    whatever its size) change the launch, never the bits; the card tests
+    and chip_smoke.py use them."""
     if not C.is_cuda:
         return riccati_fused_reference(n_state, C, c, F, u, u_lower, u_upper, u_zero_I, delta_u)
     global LAUNCHES
     T, B = C.shape[0], C.shape[1]
     nx, n = n_state, n_state + 1
-    mode, lb, ub = _operands(C, u, u_lower, u_upper, u_zero_I, delta_u)
-    if not covered(nx, 1, C.dtype, u_zero_I, "auto", u_lower is not None):
-        raise ValueError(f"riccati_fused covers f32 and 1 <= n_state <= {MAX_NX}; got "
-                         f"n_state={nx}, {C.dtype}")
-    if tuple(C.shape) != (T, B, n, n) or tuple(c.shape) != (T, B, n) \
-            or tuple(F.shape) != (T - 1, B, nx, n):
+    boxed = u_lower is not None
+    if not covered(nx, 1, C.dtype, u_zero_I, "auto", boxed):
+        raise ValueError(f"riccati_fused covers f32, one control and n_state >= 1, the mask "
+                         f"only without a box; got n_state={nx}, {C.dtype}")
+    if C.shape != (T, B, n, n) or c.shape != (T, B, n) or F.shape != (T - 1, B, nx, n):
         raise ValueError(f"C must be [T,B,{n},{n}], c [T,B,{n}] and F [T-1,B,{nx},{n}]; got "
                          f"{tuple(C.shape)}, {tuple(c.shape)}, {tuple(F.shape)}")
-    for name, t in (("C", C), ("c", c), ("F", F), ("lb", lb), ("ub", ub)):
-        if t.device != C.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {t.device} {t.dtype}, C on {C.device}")
+    dev = C.device
+    if c.device != dev or F.device != dev or c.dtype != C.dtype or F.dtype != C.dtype:
+        raise ValueError(f"c, F must be float32 on {dev}; got {c.dtype} {c.device}, "
+                         f"{F.dtype} {F.device}")
     # the kernel walks the small dims densely and the T and B dims by stride
-    C = C if C.stride()[2:] == (n, 1) else C.contiguous()
-    c = c if c.stride(2) == 1 else c.contiguous()
-    F = F if F.stride()[2:] == (n, 1) else F.contiguous()
-    K = torch.empty(T, B, 1, nx, dtype=torch.float32, device=C.device)
-    k = torch.empty(T, B, 1, dtype=torch.float32, device=C.device)
-    fn = _entry()
-    with torch.cuda.device(C.device):
-        stream = torch.cuda.current_stream(C.device).cuda_stream
-        rc = fn(nx, MODES[mode], T, B, block, C.data_ptr(), C.stride(0), C.stride(1),
-                c.data_ptr(), c.stride(0), c.stride(1), F.data_ptr(), F.stride(0), F.stride(1),
-                lb.data_ptr(), ub.data_ptr(), K.data_ptr(), k.data_ptr(), stream)
+    sC, sc, sF = C.stride(), c.stride(), F.stride()
+    if sC[3] != 1 or sC[2] != n:
+        C = C.contiguous()
+        sC = C.stride()
+    if sc[2] != 1:
+        c = c.contiguous()
+        sc = c.stride()
+    if sF[3] != 1 or sF[2] != n:
+        F = F.contiguous()
+        sF = F.stride()
+    if store not in ("auto", "global"):
+        raise ValueError("store must be 'auto' or 'global'")
+    p = _plan(nx, block, store == "global")
+    K = torch.empty(T, B, 1, nx, dtype=torch.float32, device=dev)
+    k = torch.empty(T, B, 1, dtype=torch.float32, device=dev)
+    # tensors the kernel reads or writes that no caller holds: kept until the
+    # launch, so that no allocation in between can take their memory
+    scratch = lo = hi = None
+    if p["global"]:
+        teams = -(-B // p["teams"]) * p["teams"]
+        scratch = torch.empty(teams * p["team"], dtype=torch.float32, device=dev)
+    # box: u and the bounds (pointer and strides, or a number); zero: the mask
+    mode, box, zero, lo_v, hi_v, du = MODES["free"], (0,) * 9, (0, 0, 0), 0.0, 0.0, math.inf
+    if boxed:
+        if u.shape != (T, B, 1) or u.dtype != torch.float32 or u.device != dev:
+            raise ValueError(f"u must be a float32 [{T}, {B}, 1] tensor on {dev}")
+        su = u.stride()
+        lo, lo_arg, lo_v = _bound(u_lower, T, B, C)
+        hi, hi_arg, hi_v = _bound(u_upper, T, B, C)
+        mode, box = MODES["box"], (u.data_ptr(), su[0], su[1], *lo_arg, *hi_arg)
+        if delta_u is not None:
+            du = float(delta_u)
+    elif u_zero_I is not None:
+        if u_zero_I.dtype != torch.bool or u_zero_I.device != dev:
+            raise ValueError(f"u_zero_I must be a bool tensor on {dev}")
+        mask = u_zero_I.expand(T, B, 1)
+        mode, zero = MODES["zero"], (mask.data_ptr(), mask.stride(0), mask.stride(1))
+    ia, fa, pia, pfa = _packed()
+    ia[:] = (nx, mode, T, B, block, int(store == "global"), C.data_ptr(), sC[0], sC[1],
+             c.data_ptr(), sc[0], sc[1], F.data_ptr(), sF[0], sF[1], *box, *zero,
+             K.data_ptr(), k.data_ptr(), 0 if scratch is None else scratch.data_ptr())
+    fa[:] = (lo_v, hi_v, du)
+    fn = _entry("dilqr_riccati_fused")
+    if dev.index == torch.cuda.current_device():
+        rc = fn(pia, pfa, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(pia, pfa, torch._C._cuda_getCurrentRawStream(dev.index))
+    del scratch, lo, hi
     if rc != 0:
         raise RuntimeError(f"riccati_fused kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return K, k
 
 
-def _entry():
-    fn = build.load(SOURCE).dilqr_riccati_fused
-    if fn.argtypes is None:
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I, I, I, I, I, P, L, L, P, L, L, P, L, L, P, P, P, P, P]
+_PLANS: Dict[tuple, dict] = {}
+
+
+def _plan(nx: int, block: int, force_global: bool) -> dict:
+    key = (nx, block, force_global)
+    p = _PLANS.get(key)
+    if p is None:
+        if block not in BLOCKS:
+            raise ValueError(f"block must be one of {BLOCKS}")
+        out = (ctypes.c_int * 6)()
+        if _entry("dilqr_riccati_plan")(nx, block, int(force_global), out) != 0:
+            raise ValueError(f"riccati_fused has no launch plan for n_state {nx}, block {block}"
+                             + (", store 'global' (the team form keeps nothing there)"
+                                if force_global else ""))
+        p = _PLANS[key] = dict(zip(("L", "teams", "smem", "global", "team", "looped"),
+                                   (int(v) for v in out)))
+    return p
+
+
+def plan(n_state: int, B: int, block: int = BLOCK, store: str = "auto") -> dict:
+    """The launch plan of a call at this n_state and batch (csrc/
+    riccati_fused.cuh riccati_plan): "L" lanes a team (a power of two >=
+    n_state + 1; 32 in the looped form past 32), "teams" a block, "smem"
+    shared bytes a block, "global" 1 when the looped form's team memory is
+    the device-memory scratch, "team" its floats a team, "looped", and
+    "scratch" the scratch's floats for B examples (0 in shared memory)."""
+    if store not in ("auto", "global"):
+        raise ValueError("store must be 'auto' or 'global'")
+    if store not in ("auto", "global"):
+        raise ValueError("store must be 'auto' or 'global'")
+    p = dict(_plan(n_state, block, store == "global"))
+    p["scratch"] = -(-B // p["teams"]) * p["teams"] * p["team"] if p["global"] else 0
+    return p
+
+
+_ENTRIES: Dict[str, object] = {}
+
+
+def _entry(name: str):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(build.load(SOURCE), name)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [I, I, I, P] if name == "dilqr_riccati_plan" else [P, P, P]
         fn.restype = I
+        _ENTRIES[name] = fn
     return fn
 
 

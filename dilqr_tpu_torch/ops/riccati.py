@@ -19,7 +19,7 @@ and the cost-to-go update.
 ``lqr_backward`` sends what the JAX package sends to its fused Pallas
 Riccati kernel (ops/riccati.py:135-163 there) to the hand-written CUDA
 kernel ``ops/cuda/riccati_fused.py``: one control, f32, the closed-form QP,
-no f, 1 <= n_state <= 8, on CUDA tensors, with nothing to differentiate.
+no f, any n_state, on CUDA tensors, with nothing to differentiate.
 
 Shapes (time-major): C [T,B,n,n], c [T,B,n], F [T-1,B,nx,n], f [T-1,B,nx]
 or None. Returns K [T,B,nu,nx], k [T,B,nu] ordered t=0..T-1.

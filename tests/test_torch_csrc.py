@@ -20,6 +20,7 @@ evaluation order; 1e-5 relative for the inverses and the box-QP, whose
 Newton steps carry that rounding along; 1e-5 relative to the largest output
 for the KKT VJP and the Riccati, whose T-step recursions do too."""
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -134,28 +135,63 @@ extern "C" int kkt_host(int nx, int nu, int T, int B, int global_store, const fl
                     dF, df, dxi, dC, dc, global_store ? store : nullptr};
     std::vector<float> team(y.team);
     for (int b = 0; b < B; ++b) {
-      HostTeam<NU, L> tm;
+      HostTeam<KktLane<NU, L>, L> tm;
       kkt_example<NU, L>(a, y, b, team.data(), tm);
     }
     return L;
   });
 }
-extern "C" int riccati_host(int nx, int mode, int T, int B, const float* C, long long sCt,
-                            long long sCb, const float* c, long long sct, long long scb,
-                            const float* F, long long sFt, long long sFb, const float* lb,
-                            const float* ub, float* K, float* k) {
-  const RiccatiArgs a{T, B, C, sCt, sCb, c, sct, scb, F, sFt, sFb, lb, ub, K, k};
-#define CASE(X_)                                                   \
-  if (nx == X_) {                                                  \
-    for (int b = 0; b < B; ++b) {                                  \
-      if (mode == kModeFree) riccati_example<X_, kModeFree>(a, b); \
-      else if (mode == kModeBox) riccati_example<X_, kModeBox>(a, b); \
-      else riccati_example<X_, kModeZero>(a, b);                   \
-    }                                                              \
-    return 0;                                                      \
+template <int L, int NXC, int MODE>
+static void ric_run(const RiccatiArgs& a, const int* p) {
+  // one block's shared memory at a time, teams in turn, as the card runs them
+  const RiccatiLayout y = riccati_layout(a.nx);
+  const int teams = p[1];
+  for (int g0 = 0; g0 < a.B; g0 += teams) {
+    std::vector<float> smem(p[2] / 4 + 4);
+    if constexpr (L == 0) {
+      for (int e = 0; e < teams; ++e) {
+        const int g = g0 + e;
+        HostTeam<RicLane<kRicMaxLanes>, kRicMaxLanes> tm;
+        float* ts = a.scratch ? a.scratch + (size_t)g * y.team : smem.data() + (size_t)e * y.team;
+        riccati_looped<MODE>(a, y, g < a.B ? g : a.B - 1, g < a.B, ts, tm);
+      }
+    } else {
+      if (a.sCt == 0 && a.sCb == 0) ric_block_C<L>(a, smem.data(), 0, 1);
+      for (int e = 0; e < teams; ++e) {
+        const int g = g0 + e;
+        HostTeam<RicLane<L>, L> tm;
+        riccati_team<L, MODE, NXC>(a, y, g < a.B ? g : a.B - 1, g < a.B, smem.data(),
+                              smem.data() + y.block + (size_t)e * y.team, tm);
+      }
+    }
   }
-  DILQR_RICCATI_NX(CASE)
-  return 1;
+}
+extern "C" int riccati_plan_host(int nx, int block, int force_global, int* out) {
+  return riccati_plan(nx, block, force_global, out);
+}
+// the kernel's C interface, run on the host; returns the lanes a team
+extern "C" int riccati_host(int nx, int mode, int T, int B, int block, int force_global,
+                            const float* C, long long sCt, long long sCb,
+                            const float* c, long long sct, long long scb,
+                            const float* F, long long sFt, long long sFb,
+                            const float* u, long long sut, long long sub,
+                            const float* lo, long long slt, long long slb, float lo_v,
+                            const float* hi, long long sht, long long shb, float hi_v, float du,
+                            const unsigned char* uz, long long szt, long long szb,
+                            float* K, float* k) {
+  int p[6];
+  if (riccati_plan(nx, block, force_global, p)) return -1;
+  std::vector<float> scratch(p[3] ? (size_t)((B + p[1] - 1) / p[1] * p[1]) * p[4] : 0);
+  const RiccatiArgs a{T,  B,   nx,   C,   sCt, sCb, c,  sct, scb, F,  sFt,
+                      sFb, u,  sut,  sub, lo,  slt, slb, lo_v, hi, sht, shb,
+                      hi_v, du, uz,  szt, szb, K,   k,  p[3] ? scratch.data() : nullptr};
+  return riccati_dispatch(nx, [&](auto s) {
+    constexpr int L = decltype(s)::L, NXC = decltype(s)::NXC;
+    if (mode == kModeFree) ric_run<L, NXC, kModeFree>(a, p);
+    else if (mode == kModeBox) ric_run<L, NXC, kModeBox>(a, p);
+    else ric_run<L, NXC, kModeZero>(a, p);
+    return p[0];
+  });
 }
 """
 
@@ -181,8 +217,12 @@ def lib(tmp_path_factory):
     lib.qp_eval.argtypes = [I, I] + [P] * 5 + [I] + [P] * 5
     lib.qp_eval.restype = I
     L = ctypes.c_longlong
-    lib.riccati_host.argtypes = [I, I, I, I, P, L, L, P, L, L, P, L, L, P, P, P, P]
+    F32 = ctypes.c_float
+    lib.riccati_host.argtypes = ([I] * 6 + [P, L, L] * 4 + [P, L, L, F32] * 2
+                                 + [F32, P, L, L, P, P])
     lib.riccati_host.restype = I
+    lib.riccati_plan_host.argtypes = [I, I, I, P]
+    lib.riccati_plan_host.restype = I
     lib.cos_sin_eval.argtypes = [I, P, P, P]
     lib.cos_sin_eval.restype = None
     lib.box_layout.argtypes = [P]
@@ -359,14 +399,46 @@ def test_device_kkt_code_matches_plain_version(lib, nx, nu):
                                    err_msg=name)
 
 
+def _riccati_host(lib, nx, T, B, C, c, F, u, kw, block=128, force_global=0):
+    """riccati_host (the kernel's C interface run on the host) on torch CPU
+    tensors; returns (lanes a team, K [T,B,nx], k [T,B])."""
+    mode = "box" if "u_lower" in kw else "zero" if "u_zero_I" in kw else "free"
+
+    def bound(v):
+        if isinstance(v, float):
+            return None, 0, 0, v
+        v = v.expand(T, B, 1)
+        return v.data_ptr(), v.stride(0), v.stride(1), 0.0
+
+    lo, hi = (bound(kw[k]) if k in kw else (None, 0, 0, 0.0) for k in ("u_lower", "u_upper"))
+    mask = kw["u_zero_I"].expand(T, B, 1) if "u_zero_I" in kw else None
+    K = np.zeros((T, B, nx), np.float32)
+    k = np.zeros((T, B), np.float32)
+    L = lib.riccati_host(nx, riccati_fused.MODES[mode], T, B, block, force_global,
+                         C.data_ptr(), C.stride(0), C.stride(1),
+                         c.data_ptr(), c.stride(0), c.stride(1),
+                         F.data_ptr(), F.stride(0), F.stride(1),
+                         u.data_ptr(), u.stride(0), u.stride(1), *lo, *hi,
+                         float(kw.get("delta_u", math.inf)),
+                         None if mask is None else mask.data_ptr(),
+                         0 if mask is None else mask.stride(0),
+                         0 if mask is None else mask.stride(1), _ptr(K), _ptr(k))
+    return L, K, k
+
+
 @pytest.mark.parametrize("mode", list(riccati_fused.MODES))
-@pytest.mark.parametrize("nx", range(1, riccati_fused.MAX_NX + 1))
+@pytest.mark.parametrize("nx", list(range(1, 9)) + [9, 16, 31, 40])
 def test_device_riccati_code_matches_plain_version(lib, nx, mode):
-    """riccati_example, the code the CUDA kernel runs per example, against
-    riccati_fused_reference: every instantiated n_state in every mode, a
-    tight box (about half the gains at a bound) and a random mask; odd
-    n_state read C expanded from one [n, n] matrix (T and B strides 0),
-    as an example-invariant cost reaches the kernel."""
+    """The code each lane team of the CUDA kernel runs (riccati_team; past
+    n_state 31 the looped form, riccati_looped), built for the host with its
+    lanes run phase by phase, against riccati_fused_reference: n_state 1..8
+    and 9, 16, 31 and 40 (looped) in every mode, a tight box (about half the
+    gains at a bound) and a random mask; odd n_state read C expanded from
+    one [n, n] matrix (T and B strides 0), as an example-invariant cost
+    reaches the kernel. From n_state 9 on the box mode takes a [T, B, 1]
+    lower bound and delta_u, folded in the kernel; a ragged batch of 7
+    examples leaves part of a block's teams idle. Other block sizes, and the
+    looped form's device-memory store, give the same bits."""
     T, B, n = 9, 7, nx + 1
     rng = np.random.RandomState(100 * nx + riccati_fused.MODES[mode])
     A = rng.randn(T, B, n, n)
@@ -374,27 +446,53 @@ def test_device_riccati_code_matches_plain_version(lib, nx, mode):
     if nx % 2:
         C = C[0, 0].expand(T, B, n, n)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
-    c, F, u = f32(rng.randn(T, B, n)), f32(0.3 * rng.randn(T - 1, B, nx, n)), f32(rng.randn(T, B, 1))
+    c = f32(rng.randn(T, B, n))
+    F = f32((0.3 / max(1.0, (nx / 8) ** 0.5)) * rng.randn(T - 1, B, nx, n))
+    u = f32(rng.randn(T, B, 1))
     kw = {"free": {}, "box": dict(u_lower=-0.3, u_upper=0.3),
           "zero": dict(u_zero_I=torch.from_numpy(rng.rand(T, B, 1) < 0.5))}[mode]
+    if mode == "box" and nx >= 9:
+        kw = dict(u_lower=f32(-0.3 - 0.1 * rng.rand(T, B, 1)), u_upper=0.3, delta_u=1.0)
     want_K, want_k = riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw)
-    _, lb, ub = riccati_fused._operands(C, u, kw.get("u_lower"), kw.get("u_upper"),
-                                        kw.get("u_zero_I"), None)
-    K = np.zeros((T, B, nx), np.float32)
-    k = np.zeros((T, B), np.float32)
-    keep = [C, c, F, lb, ub]  # the pointers below stay valid while these live
-    rc = lib.riccati_host(nx, riccati_fused.MODES[mode], T, B,
-                          C.data_ptr(), C.stride(0), C.stride(1),
-                          c.data_ptr(), c.stride(0), c.stride(1),
-                          F.data_ptr(), F.stride(0), F.stride(1),
-                          lb.data_ptr(), ub.data_ptr(), _ptr(K), _ptr(k))
-    assert rc == 0 and len(keep) == 5
+    L, K, k = _riccati_host(lib, nx, T, B, C, c, F, u, kw)
+    assert L == (32 if nx + 1 > 32 else max(4, 1 << nx.bit_length()))
     for got, w in ((K, want_K[:, :, 0]), (k, want_k[..., 0])):
         w = w.numpy()
         np.testing.assert_allclose(got, w, rtol=0, atol=1e-5 * max(1.0, np.abs(w).max()))
     if mode == "box":
+        _, lb, ub = riccati_fused._operands(C, u, kw["u_lower"], kw["u_upper"], None,
+                                            kw.get("delta_u"))
         at = (np.abs(k - lb.numpy()) < 1e-6) | (np.abs(k - ub.numpy()) < 1e-6)
         assert 0.1 < at.mean() < 0.9
+    for block, glob in ((64, 0), (256, 0)) + (((128, 1),) if nx + 1 > 32 else ()):
+        _, K2, k2 = _riccati_host(lib, nx, T, B, C, c, F, u, kw, block, glob)
+        np.testing.assert_array_equal(K2, K)
+        np.testing.assert_array_equal(k2, k)
+
+
+def test_riccati_plan(lib):
+    """The launch plan (riccati_plan, what the card's wrapper reads): the
+    team's lanes, its teams a block, where the looped form's team memory
+    lives, and the block sizes and stores each form refuses."""
+    def plan(nx, block=128, glob=0):
+        out = (ctypes.c_int * 6)()
+        rc = lib.riccati_plan_host(nx, block, glob, out)
+        return None if rc else dict(zip(("L", "teams", "smem", "global", "team", "looped"), out))
+
+    for nx, L in ((1, 4), (3, 4), (5, 8), (6, 8), (7, 8), (15, 16), (16, 32), (31, 32)):
+        p = plan(nx)
+        assert (p["L"], p["teams"], p["global"], p["looped"]) == (L, 128 // L, 0, 0)
+        assert p["smem"] <= 232448 and p["team"] % 8 == 4
+        assert plan(nx, 256)["smem"] <= 232448
+        assert plan(nx, 128, 1) is None  # the team form keeps nothing in device memory
+    p = plan(48)
+    assert (p["L"], p["teams"], p["global"], p["looped"]) == (32, 4, 0, 1)
+    assert 0 < p["smem"] <= 232448 // 2
+    p = plan(64)
+    assert (p["global"], p["smem"], p["looped"]) == (1, 0, 1)
+    assert plan(64, 64)["global"] == 0  # two teams fit
+    assert plan(48, 128, 1)["global"] == 1
+    assert plan(5, 96) is not None and plan(5, 100) is None and plan(0) is None
 
 
 SEED = 11

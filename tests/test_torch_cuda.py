@@ -344,37 +344,149 @@ def test_gradient_through_both_kernels(dev, mode):
 def _riccati_problem(gen, T, B, nx, dev):
     """tests/test_pallas_kernels.py:15-23's random symmetric problems, with
     the control iterate at unit scale: about a third of the box gains at a
-    bound."""
+    bound. F's scale falls as 1/sqrt(n_state) past 8 states, so that V stays
+    of order one over the horizon."""
     n = nx + 1
     A = torch.randn(T, B, n, n, generator=gen)
     C = A @ A.transpose(-1, -2) + 2.0 * torch.eye(n)
-    parts = (C, torch.randn(T, B, n, generator=gen), 0.3 * torch.randn(T - 1, B, nx, n, generator=gen),
+    f_scale = 0.3 / max(1.0, (nx / 8) ** 0.5)
+    parts = (C, torch.randn(T, B, n, generator=gen),
+             f_scale * torch.randn(T - 1, B, nx, n, generator=gen),
              torch.randn(T, B, 1, generator=gen), torch.rand(T, B, 1, generator=gen) < 0.3)
     return [a.to(dev) for a in parts]
 
 
-@pytest.mark.parametrize("mode", ["free", "box", "zero", "delta_u"])
-@pytest.mark.parametrize("nx", [3, 4, 5, 6])
+RICCATI_MODES = {"free": {}, "box": dict(u_lower=-1.0, u_upper=1.0), "zero": None,
+                 "delta_u": dict(u_lower=-1.0, u_upper=1.0, delta_u=0.2)}
+
+
+def _riccati_kw(mode, uz):
+    return {"u_zero_I": uz} if mode == "zero" else RICCATI_MODES[mode]
+
+
+def _riccati_close(got, want, label=""):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all(), label
+        err = (g - w).abs().max().item()
+        assert err <= 2e-6 + 1e-5 * w.abs().max().item(), (label, err)
+
+
+@pytest.mark.parametrize("mode", list(RICCATI_MODES))
+@pytest.mark.parametrize("nx", list(range(1, 10)) + [12, 16, 24, 31, 48])
 def test_riccati_kernel_matches_plain_version(dev, nx, mode):
     """The Riccati kernel against riccati_fused_reference on a ragged batch:
     max|kernel - plain| <= 2e-6 + 1e-5 max|plain| on K and k (JAX's 2e-6,
-    plus FMA contraction over T=20 steps); and the same result, bit for
-    bit, at other block sizes (the kernel takes no per-block decision)."""
+    plus FMA contraction over T=20 steps), more than 10% of the box gains at
+    a bound; n_state 1..9, 12, 16, 24, 31 (lane teams of 4 to 32) and 48
+    (the looped form)."""
     gen = torch.Generator().manual_seed(10 * nx + len(mode))
     C, c, F, u, uz = _riccati_problem(gen, 20, 1030, nx, dev)
-    kw = {"free": {}, "box": dict(u_lower=-1.0, u_upper=1.0), "zero": dict(u_zero_I=uz),
-          "delta_u": dict(u_lower=-1.0, u_upper=1.0, delta_u=0.2)}[mode]
+    kw = _riccati_kw(mode, uz)
     before = riccati_fused.LAUNCHES
     K, k = riccati_fused.riccati_fused(nx, C, c, F, u, **kw)
     torch.cuda.synchronize()
     assert riccati_fused.LAUNCHES == before + 1
-    wK, wk = riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw)
-    for got, want in ((K, wK), (k, wk)):
-        assert torch.isfinite(got).all()
-        assert (got - want).abs().max().item() <= 2e-6 + 1e-5 * want.abs().max().item()
-    for block in (32, 256):
-        K2, k2 = riccati_fused.riccati_fused(nx, C, c, F, u, block=block, **kw)
-        assert torch.equal(K2, K) and torch.equal(k2, k)
+    _riccati_close((K, k), riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw))
+    if "u_lower" in kw:
+        _, lb, ub = riccati_fused._operands(C, u, -1.0, 1.0, None, kw.get("delta_u"))
+        at = ((k[..., 0] - lb).abs() <= 1e-6) | ((k[..., 0] - ub).abs() <= 1e-6)
+        assert at.float().mean().item() > 0.1
+
+
+@pytest.mark.parametrize("form", ["C expanded", "C transposed view", "bound tensor", "T=1",
+                                  "T=2"])
+def test_riccati_kernel_input_forms(dev, form):
+    """The inputs as the callers hand them: C expanded from one matrix (T
+    and B strides 0, read once a block), C a [B,T]-major view transposed to
+    [T,B] (core/solver.py), a [T,B,1] lower bound tensor beside a number,
+    and the shortest horizons (T=1 has no F), in box mode with delta_u and
+    in zero mode, at n_state 5 and 12, B=1030."""
+    for nx in (5, 12):
+        T = {"T=1": 1, "T=2": 2}.get(form, 20)
+        gen = torch.Generator().manual_seed(nx + len(form))
+        C, c, F, u, uz = _riccati_problem(gen, T, 1030, nx, dev)
+        if form == "C expanded":
+            C = C[0, 0].expand_as(C)
+        elif form == "C transposed view":
+            C = C.transpose(0, 1).contiguous().transpose(0, 1)
+        for kw in (dict(u_lower=-1.0, u_upper=1.0, delta_u=0.5), {"u_zero_I": uz}):
+            if form == "bound tensor" and "u_lower" in kw:
+                kw = dict(kw, u_lower=-1.0 - 0.1 * torch.rand(T, 1030, 1, generator=gen).to(dev))
+            got = riccati_fused.riccati_fused(nx, C, c, F, u, **kw)
+            _riccati_close(got, riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw),
+                           (form, nx, list(kw)))
+
+
+@pytest.mark.parametrize("nx", [5, 31, 48, 64])
+def test_riccati_kernel_bits_do_not_depend_on_the_launch(dev, nx):
+    """Teams take no decision together, so every block size (and, for the
+    looped form past 31 states, the device-memory team store) gives the
+    bits of the default launch; n_state 64 keeps its team memory in device
+    memory at the default block (riccati_fused.plan)."""
+    gen = torch.Generator().manual_seed(nx)
+    C, c, F, u, _ = _riccati_problem(gen, 20, 1030, nx, dev)
+    kw = dict(u_lower=-1.0, u_upper=1.0)
+    ref = riccati_fused.riccati_fused(nx, C, c, F, u, **kw)
+    p = riccati_fused.plan(nx, 1030)
+    assert p["looped"] == (nx > 31) and p["global"] == (nx == 64)
+    launches = [(b, "auto") for b in riccati_fused.BLOCKS]
+    if p["looped"]:
+        launches += [(b, "global") for b in riccati_fused.BLOCKS]
+    for block, store in launches:
+        got = riccati_fused.riccati_fused(nx, C, c, F, u, block=block, store=store, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (block, store)
+    if nx == 64:
+        _riccati_close(ref, riccati_fused.riccati_fused_reference(nx, C, c, F, u, **kw))
+
+
+def test_riccati_call_is_one_device_operation(dev):
+    """A call, box bounds and delta_u folded in the kernel, makes exactly one
+    device operation: the kernel (torch.profiler, over 5 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(3)
+    C, c, F, u, uz = _riccati_problem(gen, 20, 1024, 5, dev)
+    Cx = C[0, 0].expand_as(C)
+    for kw in (dict(u_lower=-1.0, u_upper=1.0, delta_u=0.2), {"u_zero_I": uz}, {}):
+        riccati_fused.riccati_fused(5, Cx, c, F, u, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                riccati_fused.riccati_fused(5, Cx, c, F, u, **kw)
+            torch.cuda.synchronize()
+        # the device's own activities: the profiler also gives host operators
+        # device time, under the host operator's name
+        events = prof.events()
+        host = {e.name for e in events if e.device_type == DeviceType.CPU}
+        names = [e.name for e in events if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False) and e.name not in host]
+        assert names and all("riccati" in x for x in names), names
+
+
+def test_kkt_backward_of_17_states_launches_the_riccati_kernel(dev):
+    """n_state 17, one control: past the KKT kernel's gate (16), so the KKT
+    VJP takes the plain scans, whose auxiliary LQR (u_zero_I mask, free of
+    bounds) now launches the Riccati kernel; against backend "torch"."""
+    from dilqr_tpu_torch.diff.kkt import make_kkt_vjp
+
+    nx, T, B = 17, 8, 300
+    gen = torch.Generator().manual_seed(17)
+    C, c, F, u, uz = _riccati_problem(gen, T, B, nx, dev)
+    x = torch.randn(T, B, nx, generator=gen).to(dev)
+    gx = torch.randn(T, B, nx, generator=gen).to(dev)
+    gu = torch.randn(T, B, 1, generator=gen).to(dev)
+    out = {}
+    for backend in ("auto", "torch"):
+        before = (riccati_fused.LAUNCHES, kkt_fused.LAUNCHES)
+        vjp = make_kkt_vjp(nx, 1, C, c, F, x, u, u_zero_I=uz, backend=backend)
+        out[backend] = vjp(gx, gu)
+        torch.cuda.synchronize()
+        assert kkt_fused.LAUNCHES == before[1]
+        assert (riccati_fused.LAUNCHES - before[0] > 0) == (backend == "auto")
+    for name in ("dx_init", "dC", "dc", "dF", "df"):
+        a, b = getattr(out["auto"], name), getattr(out["torch"], name)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-6)
 
 
 def test_mlp_solve_launches_the_riccati_kernel_per_iteration(dev):

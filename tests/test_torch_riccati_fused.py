@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from dilqr_tpu.ops.pallas.riccati_fused import pallas_supported
 from dilqr_tpu.ops.riccati import lqr_backward as j_lqr_backward
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.core import ilqr as t_ilqr
@@ -72,6 +73,27 @@ def test_reference_matches_jax_pallas_kernel(shape, mode):
         assert at_bound.any() and not at_bound.all()
 
 
+@pytest.mark.parametrize("mode", ["box", "zero"])
+@pytest.mark.parametrize("nx", [9, 16])
+def test_reference_matches_jax_pallas_kernel_past_eight_states(nx, mode):
+    """n_state 9 and 16, which the kernel now covers as JAX's gate does:
+    the plain version against JAX's Pallas kernel in interpret mode, box
+    (+-1, a [T,B,1] lower bound) and zero modes, atol 2e-6 as above."""
+    T, B = 3, 2
+    C, c, F, u, uz = _problem(4, T, B, nx)
+    kw = _mode_kw(mode, uz)
+    if mode == "box":
+        kw["u_lower"] = np.full((T, B, 1), -1.0, np.float32)
+    want = j_lqr_backward(nx, 1, jnp.asarray(C), jnp.asarray(c), jnp.asarray(F), None,
+                          jnp.asarray(u), backend="pallas",
+                          **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                             for k, v in kw.items()})
+    args, tkw = _torch_args(C, c, F, u, kw)
+    K, k = rf.riccati_fused(nx, *args, **tkw)
+    np.testing.assert_allclose(K.numpy(), np.asarray(want.K), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(k.numpy(), np.asarray(want.k), atol=2e-6, rtol=0)
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("shape", SHAPES + [(20, 33, 8), (1, 4, 1)])
 def test_reference_matches_plain_recursion(shape, mode):
@@ -91,13 +113,33 @@ def test_covered_table():
     mask = torch.zeros(3, 2, 1, dtype=torch.bool)
     assert rf.covered(5, 1, f32, None, "auto", True)
     assert rf.covered(1, 1, f32, None, "auto", False) and rf.covered(8, 1, f32, mask, "auto", False)
-    assert not rf.covered(9, 1, f32, None, "auto", True)  # NX past the instantiations
+    assert rf.covered(9, 1, f32, None, "auto", True)  # any n_state, as JAX's gate
+    assert rf.covered(40, 1, f32, mask, "auto", False)
     assert not rf.covered(0, 1, f32, None, "auto", True)
     assert not rf.covered(5, 2, f32, None, "auto", True)  # one control only
     assert not rf.covered(5, 1, f64, None, "auto", True)
     assert not rf.covered(5, 1, f32, None, "pnqp", True)
     assert not rf.covered(5, 1, f32, mask, "auto", True)  # the mask only without a box
     assert not rf.covered(5, 1, f32, None, "auto", False, f=torch.zeros(2, 2, 5))
+
+
+def test_covered_equals_jax_gate():
+    """covered admits exactly what JAX sends to its Pallas kernel --
+    pallas_supported and f is None (dilqr_tpu/ops/riccati.py:135-152) --
+    over n_state 1..40, n_ctrl 1..3, both float types, mask on and off,
+    both QP solvers, boxed or not, and f given or not."""
+    mask = torch.zeros(3, 2, 1, dtype=torch.bool)
+    f = torch.zeros(2, 2, 5)
+    for nx in range(1, 41):
+        for nu in (1, 2, 3):
+            for jt, tt in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+                for uz in (None, mask):
+                    for qp in ("auto", "pnqp"):
+                        for boxed in (False, True):
+                            for ff in (None, f):
+                                want = pallas_supported(nu, jt, uz, qp, boxed) and ff is None
+                                got = rf.covered(nx, nu, tt, uz, qp, boxed, ff)
+                                assert got == want, (nx, nu, tt, uz is None, qp, boxed, ff)
 
 
 def test_dispatch_on_cpu():
