@@ -65,7 +65,16 @@ Phases, in order; any failure exits non-zero before the last line:
      numbers. The learned-model and slew-rate paths of phase 4 and their
      times run last, after the earlier paths' times, which thus keep
      their earlier order;
-  6. print the nvidia-smi line, then the result line
+  6. the associative-scan Riccati, the LSTM policy and the utilities (see
+     parallel_paths): plqr_backward and plqr_solve against the sequential
+     recursion on CUDA tensors at the bench width, with a u_zero_I mask,
+     the rocket width and T=512, at f64 and f32, with both paths' times;
+     the cartpole IFT gradient at B=4096 with riccati_parallel (no KKT
+     launch) against the default; the unboxed learned-model solve with
+     riccati_parallel (no Riccati launch) against the Riccati kernel;
+     ILExp mode 'nn' for 2 epochs on data/cartpole.npz; numdiff.grad at
+     f64 against the cartpole's analytic Jacobian; the verbose table;
+  7. print the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -101,6 +110,36 @@ def card_line() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, reps: int = 3, warmup: bool = True):
+    """Median milliseconds of fn() by the host clock, synchronized before
+    and after each run, after one warm-up run."""
+    import torch
+
+    if warmup:
+        fn()
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(ts)
+
+
+def host_ms_in_turns(fns, rounds: int = 3):
+    """Median host-clock milliseconds of each of two calls, timed in turns
+    (a b b a, a b b a, ...) after one warm-up run of each, so that a slow
+    stretch of the host falls on both."""
+    (na, fa), (nb, fb) = fns.items()
+    fa(), fb()
+    ts = {na: [], nb: []}
+    for _ in range(rounds):
+        for name in (na, nb, nb, na):
+            ts[name].append(host_ms(fns[name], reps=1, warmup=False))
+    return {name: (statistics.median(v), v) for name, v in ts.items()}
 
 
 def cuda_ms(fn, warmup: int, reps: int):
@@ -668,6 +707,10 @@ def main():
     kkt_row["launches"] += mp["launches"]["kkt_fused"]
     rows.append(riccati_times(torch, P, dev, mgen, ric, card, bench_cfg, mlp_dyn, mlp_params,
                               mlp_cost, mp, ric_err))
+
+    # ---- 6) the associative-scan Riccati, the LSTM policy, the utilities ----
+    parallel_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p, bench_cfg,
+                   mlp_dyn, mlp_params)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -819,6 +862,8 @@ def kkt_times(torch, kkt, card, bench, rocket_case, train, rk, gen):
     profiler, the kernel alone; each beside its bound (kkt_work) and the
     plain version's Ff call. Returns the JSON row's numbers: the bench Ff
     call's."""
+    from dilqr_tpu_torch.utils.profiling import kernel_ms
+
     dev = bench[0].slab.device
 
     def random_case(nx, nu, B):
@@ -840,9 +885,9 @@ def kkt_times(torch, kkt, card, bench, rocket_case, train, rk, gen):
     for label, (ops, gx, gu) in shapes:
         ff_ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, False), 3, 21)
         full_ms, _ = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, True), 3, 21)
-        ff_dev, n_ff, _ = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, False),
+        ff_dev, n_ff, _ = kernel_ms(lambda: kkt.kkt_fused(ops, gx, gu, False),
                                     "kkt_fused_kernel")
-        full_dev, n_full, _ = kernel_ms(torch, lambda: kkt.kkt_fused(ops, gx, gu, True),
+        full_dev, n_full, _ = kernel_ms(lambda: kkt.kkt_fused(ops, gx, gu, True),
                                         "kkt_fused_kernel")
         plain_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, gx, gu, False), 1, 5)
         bounds = []
@@ -1122,17 +1167,6 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
         fail("(iv) ILExp: non-finite losses or no checkpoint")
 
     # times: IFT forward + backward, the train step (host clock, synchronized)
-    def host_ms(fn, reps=3):
-        fn()
-        ts = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t1) * 1e3)
-        return statistics.median(ts)
-
     profile_step(torch, "IFT forward+backward B=4096 detach_unconverged=True",
                  lambda: grad(ift[True][0]))
     return {
@@ -1142,47 +1176,6 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
         "ift_ms_all": host_ms(lambda: grad(ift[False][0])),
         "step_ms": host_ms(lambda: step(leaves0, rmsprop_init(leaves0))),
     }
-
-
-def device_events(prof):
-    """The device's own activities in a torch.profiler trace: kernels and
-    copies, without the host operators and ranges the profiler also gives
-    device time."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    return [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
-
-
-def busy_ms(device):
-    """Milliseconds the device was busy: the union of the activities'
-    intervals."""
-    busy, end = 0.0, -math.inf
-    for s, t in sorted((e.time_range.start, e.time_range.end) for e in device):
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    return busy / 1e3
-
-
-def kernel_ms(torch, fn, name: str, calls: int = 20):
-    """The mean device time of the launches of kernel ``name`` in ``calls``
-    calls of fn under torch.profiler (the kernel alone, without host gaps),
-    how many launches the trace recorded, and the names of the other device
-    activities it recorded."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    device = device_events(prof)
-    runs = [e.time_range.end - e.time_range.start for e in device if name in e.name]
-    others = sorted({e.name for e in device if name not in e.name})
-    return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs), others
 
 
 def profile_step(torch, label, fn):
@@ -1198,6 +1191,8 @@ def profile_step(torch, label, fn):
     Reports, never fails: nothing else relies on the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dilqr_tpu_torch.utils.profiling import busy_ms, device_events
 
     fn()
     torch.cuda.synchronize()
@@ -1587,6 +1582,8 @@ def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err
     backend "auto" and "torch" in turns (host clock, synchronized, median
     of 5 each), a profile of one solve, and the IFT step. Returns the JSON
     row (the B=4096, C full call)."""
+    from dilqr_tpu_torch.utils.profiling import kernel_ms
+
     T = cfg.T
     row = None
     for nx, B in ((5, 4096), (5, 1024), (6, 1024)):
@@ -1597,7 +1594,7 @@ def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err
                 return ric.riccati_fused(nx, Cf, c, F, u, **BOX)
 
             ms, runs = cuda_ms(call, 5, 21)
-            k_ms, seen, others = kernel_ms(torch, call, "riccati_fused_kernel")
+            k_ms, seen, others = kernel_ms(call, "riccati_fused_kernel")
             if others:
                 fail(f"riccati_fused nx={nx} B={B} {form}: other device operations {others}")
             flops, bytes_ = riccati_work(T, B, nx, form == "C expanded")
@@ -1667,6 +1664,251 @@ def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err
     print(f"time learned-model IFT forward+backward B=1024 (host clock, synchronized, median "
           f"of 3): {statistics.median(ts):.2f} ms [{card}]", flush=True)
     return row
+
+
+def lqr_problem(torch, gen, T, B, nx, nu, dev, dtype):
+    """tests/test_parallel_riccati.py's well-conditioned random LQR problem
+    (C = A A^T + 3 I, F_x = I + 0.08 N, F_u = 0.4 N, f = 0.2 N), with a
+    random u_zero_I mask (30% frozen)."""
+    n = nx + nu
+    A = torch.randn(T, B, n, n, generator=gen, dtype=torch.float64)
+    Fx = torch.eye(nx, dtype=torch.float64) + 0.08 * torch.randn(
+        T - 1, B, nx, nx, generator=gen, dtype=torch.float64)
+    parts = (A @ A.transpose(-1, -2) + 3.0 * torch.eye(n, dtype=torch.float64),
+             torch.randn(T, B, n, generator=gen, dtype=torch.float64),
+             torch.cat([Fx, 0.4 * torch.randn(T - 1, B, nx, nu, generator=gen,
+                                              dtype=torch.float64)], -1),
+             0.2 * torch.randn(T - 1, B, nx, generator=gen, dtype=torch.float64),
+             torch.randn(B, nx, generator=gen, dtype=torch.float64))
+    mask = (torch.rand(T, B, nu, generator=gen) < 0.3).to(dev)
+    return [a.to(dev, dtype) for a in parts], mask
+
+
+def print_turns(card, label, turns):
+    figs = [f"{name} {ms:.2f} ms ({', '.join(f'{t:.2f}' for t in runs)})"
+            for name, (ms, runs) in turns.items()]
+    print(f"time {label} (host clock, synchronized, in turns a b b a x3, medians of 6): "
+          f"{'; '.join(figs)} [{card}]", flush=True)
+
+
+# phase 6 (a)'s f32 bar: JAX holds the f32 scan to 5e-4 of the sequential
+# recursion at T=128 (tests/test_parallel_riccati.py:54-64), on gains of
+# order one; here 5e-4 of the largest |entry| (at least 1), for K, k and x
+PLQR_F32_BAR = 5e-4
+
+
+def parallel_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p, cfg, mlp_dyn,
+                   mlp_params):
+    """Phase 6, the associative-scan Riccati, the LSTM policy and the
+    utilities on the card; every check raises through fail():
+    (a) plqr_backward and plqr_solve against the plain sequential
+        lqr_backward(backend="torch") and a closed-loop rollout on CUDA
+        tensors at the bench width (T=20, B=4096, (5,1)), the same with a
+        u_zero_I mask, the rocket width (13,3) (the combine's linalg.solve
+        branch) and the long horizon JAX validated (T=512, B=64, (4,2)):
+        K, k and x within 1e-10 at f64 and PLQR_F32_BAR at f32; both paths'
+        times at f32 (CUDA events, warm-up, median) at the bench width and
+        at T=512;
+    (b) the cartpole IFT gradient at B=4096 with riccati_parallel=True, the
+        backward's auxiliary solve and adjoints as scans: no KKT launch,
+        within rtol 1e-3 of the default gradient through the KKT kernel;
+        both host-clock times;
+    (c) the unboxed learned-model solve at B=4096 with riccati_parallel:
+        the plain loop with the scan backward, no Riccati launch, held
+        against the same solve through the Riccati kernel after 2
+        iterations (mlp_parity's bars);
+    (d) ILExp mode 'nn' (the LSTM policy, width 256, Adam) for 2 epochs on
+        data/cartpole.npz: finite losses, train_losses.csv and best.ckpt;
+        the time an epoch;
+    (e) numdiff.grad on the card at f64 against the cartpole's analytic
+        jac_lanes and torch.func.jacfwd;
+    (f) a verbose=1 solve prints one header and one row an iteration.
+    Launches are counted per path, every counter zeroed before it."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    from dilqr_tpu_torch.il.exp import ILExp
+    from dilqr_tpu_torch.ops.parallel_riccati import plqr_backward, plqr_solve
+    from dilqr_tpu_torch.ops.riccati import lqr_backward
+    from dilqr_tpu_torch.utils import logging as tlog
+    from dilqr_tpu_torch.utils import numdiff
+
+    total = {name: 0 for name in kernels}
+    none = dict.fromkeys(kernels, 0)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"phase 6 {label}", fn, want)
+
+    def sequential(nx, nu, C, c, F, f, x0, uz):
+        ric = lqr_backward(nx, nu, C, c, F, f, torch.zeros_like(c[..., nx:]), u_zero_I=uz,
+                           backend="torch")
+        x, xs, us = x0, [], []
+        for t in range(C.shape[0]):
+            u = torch.einsum("bux,bx->bu", ric.K[t], x) + ric.k[t]
+            xs.append(x)
+            us.append(u)
+            if t < C.shape[0] - 1:
+                x = torch.einsum("bij,bj->bi", F[t], torch.cat([x, u], -1)) + f[t]
+        return ric.K, ric.k, torch.stack(xs), torch.stack(us)
+
+    # (a)
+    cases = [("bench width", 20, 4096, 5, 1, False), ("bench width, u_zero_I", 20, 4096, 5, 1, True),
+             ("rocket width", 20, 1024, 13, 3, False), ("long horizon", 512, 64, 4, 2, False)]
+    for label, T, B, nx, nu, masked in cases:
+        for dtype in (torch.float64, torch.float32):
+            (C, c, F, f, x0), mask = lqr_problem(torch, gen, T, B, nx, nu, dev, dtype)
+            uz = mask if masked else None
+            name = f"(a) plqr {label} T={T} B={B} ({nx},{nu}) {str(dtype)[6:]}"
+            (K, k), _ = run(name + " backward", lambda: plqr_backward(nx, nu, C, c, F, f, uz),
+                            none)
+            res, _ = run(name + " solve", lambda: plqr_solve(nx, nu, C, c, F, f, x0, uz), none)
+            rK, rk, rx, ru = sequential(nx, nu, C, c, F, f, x0, uz)
+            errs = []
+            for what, got, want in (("K", K, rK), ("k", k, rk), ("x", res.x, rx),
+                                    ("solve K", res.K, rK), ("u", res.u, ru)):
+                err = (got - want).abs().max().item()
+                bar = 1e-10 if dtype == torch.float64 else PLQR_F32_BAR * max(
+                    1.0, want.abs().max().item())
+                errs.append(f"{what} {err:.2e}")
+                if not (err <= bar):
+                    fail(f"{name}: {what} differs from the sequential path by {err:.3e} "
+                         f"(bar {bar:.1e})")
+            if masked and (K[mask].abs().max().item() != 0.0 or res.u[mask].abs().max().item()
+                           != 0.0):
+                fail(f"{name}: a frozen control has a nonzero gain or value")
+            print(f"{name}: max |parallel - sequential| {', '.join(errs)}", flush=True)
+        if masked:
+            continue
+        # times at f32 (the last problem drawn): the scan against the
+        # sequential recursion, the backward alone and the whole solve
+        figs = []
+        for what, fn in (("plqr_backward", lambda: plqr_backward(nx, nu, C, c, F, f)),
+                         ("lqr_backward torch", lambda: lqr_backward(
+                             nx, nu, C, c, F, f, torch.zeros_like(c[..., nx:]), backend="torch")),
+                         ("plqr_solve", lambda: plqr_solve(nx, nu, C, c, F, f, x0)),
+                         ("sequential solve", lambda: sequential(nx, nu, C, c, F, f, x0, None))):
+            ms, runs = cuda_ms(fn, 2, 7)
+            figs.append(f"{what} {ms:.3f} ms ({', '.join(f'{r:.3f}' for r in runs)})")
+        print(f"time (a) {label} T={T} B={B} ({nx},{nu}) f32, median of 7: {'; '.join(figs)} "
+              f"[{card}]", flush=True)
+
+    # (b)
+    x0 = cartpole_start(torch, gen, 4096, dev)
+    cost = P.QuadCost(torch.diag(cp_q), cp_p)
+    c_ift = dataclasses.replace(cfg, backprop=True, detach_unconverged=False,
+                                backward_mode=P.BackwardMode.IFT)
+
+    def grad(c):
+        pr = cp_params.clone().requires_grad_(True)
+        res = P.solve(c, x0, cost, cp_dyn, params=pr, u_lower=cp_dyn.lower, u_upper=cp_dyn.upper)
+        (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        return g
+
+    c_par = dataclasses.replace(c_ift, riccati_parallel=True)
+    label = "(b) IFT grad B=4096 riccati_parallel=True"
+    g_par, _ = run(label, lambda: grad(c_par), {"ilqr_fused": 1, "kkt_fused": 0,
+                                                "riccati_fused": 0})
+    g_ref, got = run("(b) IFT grad B=4096, the default (the KKT kernel)", lambda: grad(c_ift),
+                     {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
+    err = (g_par - g_ref).abs().max().item() / g_ref.abs().max().item()
+    print(f"{label}: grad params {g_par.tolist()}, the default's {g_ref.tolist()} "
+          f"({got['kkt_fused']} KKT launches), max-norm rel. diff {err:.2e}", flush=True)
+    if not torch.isfinite(g_par).all() or err > 1e-3:
+        fail(f"{label}: the gradient differs from the default's by {err:.3e}")
+    print_turns(card, "(b) IFT forward+backward B=4096", host_ms_in_turns(
+        {"riccati_parallel": lambda: grad(c_par), "the default": lambda: grad(c_ift)}))
+
+    # (c)
+    xm = cartpole_start(torch, gen, 4096, dev)
+    B = xm.shape[0]
+
+    def mlp_solve(c):
+        return P.solve(c, xm, cost, mlp_dyn, params=mlp_params)
+
+    c2 = dataclasses.replace(cfg, lqr_iter=2)
+    label = "(c) learned-model solve, no box, B=4096, riccati_parallel=True"
+    par, _ = run(label + " lqr_iter=2", lambda: mlp_solve(dataclasses.replace(
+        c2, riccati_parallel=True)), none)
+    ker, got = run("(c) the same through the Riccati kernel", lambda: mlp_solve(c2),
+                   {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None})
+    if got["riccati_fused"] != int(ker.n_iter):
+        fail(f"(c): {got['riccati_fused']} Riccati launches for {int(ker.n_iter)} iterations")
+    cost_rel = (par.costs - ker.costs).abs() / ker.costs.abs().clamp(min=1e-6)
+    du = (par.u - ker.u).abs().max().item()
+    print(f"{label}: after 2 iterations, against the kernel: cost rel max "
+          f"{cost_rel.max().item():.2e} (past 1e-4: {int((cost_rel > 1e-4).sum())}/{B}), u max "
+          f"{du:.2e}, n_iter {int(par.n_iter)} vs {int(ker.n_iter)}", flush=True)
+    if (int(par.n_iter) != int(ker.n_iter) or not torch.isfinite(par.costs).all()
+            or cost_rel.max().item() > 1e-2 or int((cost_rel > 1e-4).sum()) > 0.01 * B
+            or du > 2e-2):
+        fail(f"{label}: past mlp_parity's bars after 2 iterations")
+    c20_par = dataclasses.replace(cfg, riccati_parallel=True)
+    print_turns(card, f"(c) learned-model solve, no box, B=4096, lqr_iter={cfg.lqr_iter}",
+                host_ms_in_turns({"riccati_parallel": lambda: mlp_solve(c20_par),
+                                  "the Riccati kernel": lambda: mlp_solve(cfg)}))
+
+    # (d)
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "cartpole.npz")
+    with tempfile.TemporaryDirectory() as work:
+        exp = ILExp.from_cli(["--env", "cartpole", "--data", data, "--mode", "nn", "--n_epoch",
+                              "2", "--n_batch", "32", "--n_train", "100", "--work", work],
+                             device="cuda")
+        t1 = time.perf_counter()
+        best, _ = run("(d) ILExp nn cartpole 2 epochs", lambda: exp.run(verbose=False), none)
+        epoch_ms = (time.perf_counter() - t1) * 1e3 / 2
+        with open(os.path.join(exp.save, "train_losses.csv")) as fh:
+            rows = [list(map(float, line.split(","))) for line in fh.read().splitlines()[1:]]
+        ok = os.path.exists(os.path.join(exp.save, "best.ckpt"))
+    on_card = all(v.is_cuda for v in exp.params.values())
+    print(f"(d) ILExp nn: LSTM width {exp.lstm.n_hidden}, {len(rows)} steps, train losses "
+          f"{[r[1] for r in rows]}, best val loss {best:.6f}, parameters on the card {on_card}",
+          flush=True)
+    if not (ok and on_card and rows and math.isfinite(best)
+            and all(math.isfinite(v) for r in rows for v in r)):
+        fail("(d) ILExp nn: non-finite losses, no checkpoint or parameters off the card")
+    print(f"time (d) ILExp nn cartpole: {epoch_ms:.1f} ms an epoch ({len(rows) // 2} steps of "
+          f"32 and the validation and test losses; host clock, the first 2 epochs) [{card}]",
+          flush=True)
+
+    # (e)
+    xe = cartpole_start(torch, gen, 4096, dev).double()
+    ue = (10.0 * torch.randn(4096, 1, generator=gen, dtype=torch.float64)).to(dev)
+    pe = cp_params.double()
+    xu = torch.cat([xe, ue], -1)
+    step = cp_dyn.step_unclamped
+    nd = torch.stack([numdiff.grad(lambda v, i=i: step(v[:, :5], v[:, 5:], pe)[:, i], xu)
+                      for i in range(5)], 1)
+    exact = cp_dyn.jac_lanes(xe, ue, pe)
+    jf = torch.func.vmap(torch.func.jacfwd(lambda v: step(v[:5], v[5:], pe)))(xu)
+    e_lanes = (nd - exact).abs().max().item()
+    e_jf = (nd - jf).abs().max().item()
+    bar = 1e-6 * max(1.0, exact.abs().max().item())
+    print(f"(e) numdiff.grad of the cartpole step at f64, B=4096: max |numdiff - jac_lanes| "
+          f"{e_lanes:.2e}, max |numdiff - jacfwd| {e_jf:.2e} (bar {bar:.1e}), on the card "
+          f"{nd.is_cuda}", flush=True)
+    if not (nd.is_cuda and e_lanes <= bar and e_jf <= bar):
+        fail("(e) numdiff.grad disagrees with the analytic Jacobian")
+
+    # (f)
+    tlog._seen_tables.discard("ilqr")
+    buf = io.StringIO()
+    c_verbose = dataclasses.replace(cfg, lqr_iter=5, eps=0.0, verbose=1, backend="torch")
+    with contextlib.redirect_stdout(buf):
+        res, _ = run("(f) verbose solve", lambda: P.solve(
+            c_verbose, x0[:1024], cost, cp_dyn, params=cp_params, u_lower=cp_dyn.lower,
+            u_upper=cp_dyn.upper), none)
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    table = [ln for ln in lines if ln.startswith("| ")]
+    heads = [ln for ln in table if ln == "| du_max | iter | mean_alpha | mean_cost |"]
+    if len(heads) != 1 or table[0] != heads[0] or len(table) != 1 + int(res.n_iter):
+        fail(f"(f) verbose solve: {len(heads)} header(s) and {len(table) - len(heads)} rows for "
+             f"{int(res.n_iter)} iterations")
+    print(f"phase 6 launches: {total}", flush=True)
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

@@ -2,12 +2,15 @@
 
 A second package beside the JAX one, with the same module layout: the
 batched box-constrained iLQR (with the slew-rate penalty), its KKT, IFT and
-UNROLL backwards, the envs and the learned MLP model, the MPC wrapper, the
-closed-loop driver and the imitation-learning trainer, with the JAX
-package's four TPU kernels hand-written in CUDA for Hopper (csrc/: the
-whole-solve iLQR, the KKT VJP, the reverse Riccati). Entry points run on
-the tensors' device: CUDA tensors take a kernel where the configuration is
-covered, CPU tensors the plain PyTorch versions.
+UNROLL backwards, the associative-scan Riccati (``riccati_parallel``,
+ops/parallel_riccati.py), the envs and the learned MLP model, the MPC
+wrapper, the closed-loop driver and the imitation-learning trainer with its
+LSTM policy (il/lstm.py), the utilities (utils/: logging, numdiff,
+profiling, optim, checkpoint), with the JAX package's four TPU kernels
+hand-written in CUDA for Hopper (csrc/: the whole-solve iLQR, the KKT VJP,
+the reverse Riccati). Entry points run on the tensors' device: CUDA
+tensors take a kernel where the configuration is covered, CPU tensors the
+plain PyTorch versions.
 
 Public API:
     ILQRConfig, solve            functional batched solver
@@ -19,6 +22,7 @@ Public API:
     models.nn_dynamics           the learned MLP model
     models.{affine,ctrl_passthrough}  affine dynamics, the slew-rate wrapper
     convert.from_numpy           JAX-side parameters and data -> tensors
+    il.exp.ILExp, il.lstm        the trainer (modes nn, empc, imempc, sysid)
 """
 
 from . import models

@@ -27,6 +27,7 @@ from ..ops.riccati import lqr_backward
 from ..ops.rollout import get_traj, lqr_forward
 from ..types import GradMethod, ILQRConfig, LinDx, QuadCost
 from ..utils.batch import bmv
+from ..utils.logging import table_log
 from .linearize import approximate_cost, linearize_dynamics
 
 
@@ -150,9 +151,12 @@ def ilqr_loop(
             cfg, cost, dyn, params, x_init, x, u, u_lower=u_lower,
             u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u)
         if cfg.verbose >= 1:
-            print(f"ilqr iter {i}: mean cost {float(out.costs.mean()):.6g} "
-                  f"|du|max {float(out.full_du_norm.max()):.3e} "
-                  f"mean alpha {float(out.mean_alphas):.3g}")
+            # the reference's per-iteration table (mpc.py:287-297), with the
+            # columns in JAX's order: jax.debug.callback hands its keyword
+            # arguments back sorted by name
+            table_log("ilqr", [(k, float(v), "{:.4e}") for k, v in (
+                ("du_max", out.full_du_norm.max()), ("iter", i),
+                ("mean_alpha", out.mean_alphas), ("mean_cost", out.costs.mean()))])
         improved = out.costs <= bc + cfg.best_cost_eps
         bx = torch.where(improved[None, :, None], new_x, bx)
         bu = torch.where(improved[None, :, None], new_u, bu)

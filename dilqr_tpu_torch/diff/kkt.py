@@ -22,8 +22,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.cuda import kkt_fused
+from ..ops.parallel_riccati import _associative_scan, plqr_solve
 from ..ops.riccati import lqr_backward
-from ..utils.batch import bger, bmv, btr
+from ..utils.batch import bger, bmm, bmv, btr
 
 
 class KKTGrads(NamedTuple):
@@ -41,11 +42,18 @@ def lqr_solve_linear(n_state: int, n_ctrl: int, C, F, r,
     s.t. dx_{t+1} = F_t dtau_t, dx_0 = 0, du = 0 on u_zero_I. Linear in r.
     Returns (dx [T,B,nx], du [T,B,nu]). ``backend`` goes to lqr_backward,
     whose Riccati kernel takes the free and u_zero_I modes; ``parallel``
-    raises NotImplementedError there."""
+    solves by associative scans instead (ops/parallel_riccati.plqr_solve),
+    the gains and the rollout both of O(log T) depth."""
     T, B = C.shape[0], C.shape[1]
+    if parallel:
+        res = plqr_solve(n_state, n_ctrl, C, -r, F, None,
+                         torch.zeros(B, n_state, dtype=C.dtype, device=C.device), u_zero_I)
+        du = res.u if u_zero_I is None else torch.where(u_zero_I, torch.zeros_like(res.u),
+                                                        res.u)
+        return res.x, du
     ric = lqr_backward(n_state, n_ctrl, C, -r, F, None,
                        u=torch.zeros(T, B, n_ctrl, dtype=C.dtype, device=C.device),
-                       u_zero_I=u_zero_I, backend=backend, parallel=parallel)
+                       u_zero_I=u_zero_I, backend=backend)
     dx_t = torch.zeros(B, n_state, dtype=C.dtype, device=C.device)
     dxs, dus = [], []
     for t in range(T):
@@ -59,11 +67,27 @@ def lqr_solve_linear(n_state: int, n_ctrl: int, C, F, r,
     return torch.stack(dxs), torch.stack(dus)
 
 
-def _adjoint_scan(n_state: int, C, F, x, u, cvec):
+def _adjoint_scan(n_state: int, C, F, x, u, cvec, parallel: bool = False):
     """Reverse recursion lam_t = C_xx x_t + C_xu u_t + cvec_t[:nx]
-    + F_x_t^T lam_{t+1} (sequential)."""
+    + F_x_t^T lam_{t+1}.
+
+    parallel: the recursion as an affine-map suffix product
+    lam_t = (f_t o f_{t+1} o ... o f_{T-1})(0) with f_t(y) = M_t y + b_t,
+    M_t = F_x_t^T (zero at t = T-1), an associative scan of O(log T)
+    depth."""
     nx = n_state
     T = C.shape[0]
+    if parallel:
+        Fx = btr(F[..., :nx])
+        M = torch.cat([Fx, torch.zeros_like(Fx[:1])], 0)
+        b = bmv(C[..., :nx, :nx], x) + bmv(C[..., :nx, nx:], u) + cvec[..., :nx]
+
+        def comb(e1, e2):
+            # e1 earlier in time, e2 the accumulated future segment
+            (M1, b1), (M2, b2) = e1, e2
+            return bmm(M1, M2), bmv(M1, b2) + b1
+
+        return _associative_scan(lambda a, b_: comb(b_, a), (M, b), reverse=True)[1]
     lams = [None] * T
     lam = None
     for t in range(T - 1, -1, -1):
@@ -92,16 +116,13 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
       * "torch": the plain scans.
     The plain scans' auxiliary Riccati gets the same backend, so an
     uncovered shape's "auto" still takes the CUDA Riccati kernel there.
-    ``parallel`` (cfg.riccati_parallel) raises NotImplementedError."""
-    if parallel:
-        raise NotImplementedError(
-            "riccati_parallel (the associative-scan Riccati and adjoints, "
-            "dilqr_tpu/ops/parallel_riccati.py) is not ported yet: see "
-            "ROADMAP.md, queue A item 8")
+    ``parallel`` (cfg.riccati_parallel) takes precedence over the kernel,
+    as in JAX: the auxiliary solve and both adjoint recursions run as
+    associative scans of O(log T) depth, whatever the backend."""
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"backward backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
     T = C.shape[0]
-    if backend != "torch":
+    if backend != "torch" and not parallel:
         ok = kkt_fused.covered(T, n_state, n_ctrl, C.dtype)
         if backend == "cuda":
             if not C.is_cuda:
@@ -120,18 +141,19 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
             return vjp_fused
 
     tau = torch.cat([x, u], -1)
-    lams = _adjoint_scan(n_state, C, F, x, u, c)  # invariant in the cotangent
+    lams = _adjoint_scan(n_state, C, F, x, u, c, parallel)  # invariant in the cotangent
 
     def vjp_plain(g_x, g_u, wants: str = "full") -> KKTGrads:
         r = torch.cat([g_x, g_u], -1)
-        dx, du = lqr_solve_linear(n_state, n_ctrl, C, F, r, u_zero_I, backend=backend)
+        dx, du = lqr_solve_linear(n_state, n_ctrl, C, F, r, u_zero_I, backend=backend,
+                                  parallel=parallel)
         dtau = torch.cat([dx, du], -1)
         if wants == "full":
             dC = -0.5 * (bger(dtau, tau) + bger(tau, dtau))
             dc = -dtau
         else:
             dC = dc = None
-        dlams = _adjoint_scan(n_state, C, F, dx, du, -r)
+        dlams = _adjoint_scan(n_state, C, F, dx, du, -r, parallel)
         dF = -(bger(dlams[1:], tau[:-1]) + bger(lams[1:], dtau[:-1]))
         df = -dlams[1:] if with_f else torch.zeros_like(dlams[1:])
         return KKTGrads(-dlams[0] if wants == "full" else None, dC, dc, dF, df)

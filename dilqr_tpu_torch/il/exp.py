@@ -1,21 +1,22 @@
 """Imitation-learning / system-identification trainer (counterpart of
 ``dilqr_tpu/il/exp.py``):
 
- * modes 'empc' / 'imempc' (imitation through the differentiable MPC) and
-   'sysid' (next-state prediction loss); 'nn' (the LSTM policy) needs
-   il/lstm.py, which is not ported yet;
+ * modes 'nn' (LSTM behavioral cloning, il/lstm.py, with the reference's
+   decode-from-cell-state quirk), 'empc' / 'imempc' (imitation through
+   the differentiable MPC) and 'sysid' (next-state prediction loss);
  * learnable cost q = sigmoid(q_logit), p = sqrt(q) * p_hat, with
    round-robin q/p updates every 10 epochs;
  * learnable dynamics params from the reference's mis-specified inits;
- * RMSprop(lr=1e-2, decay=0.5) with eps inside the square root
-   (utils/optim.py, optax's rule);
+ * RMSprop(lr=1e-2, decay=0.5) with eps inside the square root, and
+   Adam(1e-4) in mode 'nn' (utils/optim.py, optax's rules);
  * a per-example warm-start store, reset every 50 epochs;
  * CSV logs (train_losses.csv, val_test_losses.csv, dx_hist.csv,
    cost_hist.csv) and best-validation checkpointing (utils/checkpoint.py).
 
 The trainer runs on its env's device (ILEnv.device, default "cuda"); its
-parameters are a dict of tensors and one step is functional: train_step
-returns new parameters and optimizer state.
+parameters are a dict of tensors (in mode 'nn' the policy's parameters by
+name, applied with ``torch.func.functional_call``) and one step is
+functional: train_step returns new parameters and optimizer state.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..utils import checkpoint as ckpt
-from ..utils.optim import rmsprop_init, rmsprop_update
+from ..utils.optim import adam_init, adam_update, rmsprop_init, rmsprop_update
 from .env import ILEnv
+from .lstm import LSTMPolicy
 
 RESTART_WARMSTART_EVERY = 50  # il_exp.py:86
 COST_ROUND_ROBIN = 10  # il_exp.py:290
@@ -66,10 +69,6 @@ class ILExp:
     def __post_init__(self):
         if self.mode not in ("nn", "empc", "imempc", "sysid"):
             raise ValueError(f"mode must be nn, empc, imempc or sysid, got {self.mode!r}")
-        if self.mode == "nn":
-            raise NotImplementedError(
-                "mode 'nn' needs the LSTM policy (dilqr_tpu/il/lstm.py), which is not "
-                "ported yet: see ROADMAP.md, queue A item 7")
         if self.mode in ("empc", "imempc") and not (self.learn_cost or self.learn_dx):
             raise ValueError(f"mode {self.mode!r} needs learn_cost or learn_dx")
         if self.mode == "sysid":
@@ -86,6 +85,13 @@ class ILExp:
         dx = self.env.true_dx
         self.n_state, self.n_ctrl, self.T = dx.n_state, dx.n_ctrl, self.env.mpc_T
         self.params: Dict[str, torch.Tensor] = {}
+        if self.mode == "nn":
+            self.lstm = LSTMPolicy(self.n_state, self.n_ctrl, self.T,
+                                   generator=torch.Generator().manual_seed(self.seed),
+                                   device=self.env.device, dtype=self.env.dtype)
+            self.params = {k: v.detach() for k, v in self.lstm.named_parameters()}
+            self.opt_state = adam_init(self.params)
+            return
         if self.learn_cost:
             self.params["q_logit"] = torch.zeros_like(self.env.true_q)
             self.params["p_hat"] = torch.zeros_like(self.env.true_p)
@@ -106,7 +112,10 @@ class ILExp:
 
     def _losses(self, params, xinits, xs, us, warmstart):
         """im_loss (il_exp.py:346) and sysid_loss (il_exp.py:348-357); also
-        returns the new warm-start controls."""
+        returns the new warm-start controls (None in mode 'nn')."""
+        if self.mode == "nn":
+            pred_u = torch.func.functional_call(self.lstm, params, (xinits,))
+            return {"im_loss": ((us - pred_u) ** 2).mean()}, None
         q, p = self._cost_qp(params)
         dxp = self._dx_params(params)
         _, nom_u = self.env.mpc(dxp, xinits, q, p, u_init=warmstart)
@@ -132,6 +141,9 @@ class ILExp:
         """One optimizer step; returns (params, opt_state, losses, new warm
         start)."""
         g, losses, new_ws = self.grads(params, xinits, xs, us, warmstart)
+        if self.mode == "nn":
+            params, opt_state = adam_update(params, g, opt_state, lr=1e-4)
+            return params, opt_state, losses, new_ws
         if self.learn_cost:
             # round-robin: alternate q / p updates (il_exp.py:375-381)
             g["p_hat"] = g["p_hat"] * (0.0 if update_q else 1.0)
@@ -174,7 +186,7 @@ class ILExp:
         for epoch in range(self.n_epoch):
             if epoch > 0 and epoch % COST_ROUND_ROBIN == 0:
                 update_q = not update_q
-            if epoch % RESTART_WARMSTART_EVERY == 0:
+            if self.mode != "nn" and epoch % RESTART_WARMSTART_EVERY == 0:
                 ws = {k: torch.zeros_like(v) for k, v in ws.items()}
             perm = rng.permutation(n)
             for j in range(n_train_batch):
@@ -182,8 +194,9 @@ class ILExp:
                                       device=env.device)
                 self.params, self.opt_state, losses, new_ws = self.train_step(
                     self.params, self.opt_state, tr_xinit[idx], tr_xs[idx], tr_us[idx],
-                    ws["train"][idx], update_q)
-                ws["train"][idx] = new_ws
+                    ws["train"][idx] if self.mode != "nn" else None, update_q)
+                if new_ws is not None:
+                    ws["train"][idx] = new_ws
                 row = [epoch + j / n_train_batch, float(losses["im_loss"])]
                 if self.learn_dx:
                     row.append(float(losses["sysid_loss"]))
@@ -218,14 +231,20 @@ class ILExp:
         """Load a best.ckpt (params and optimizer state onto the env's
         device; the warm starts are returned for the caller's loop)."""
         state = ckpt.load(path or os.path.join(self.save, "best.ckpt"))
-        to = lambda d: {k: v.to(self.env.device) for k, v in d.items()}  # noqa: E731
+        to = lambda d: pytree.tree_map(  # noqa: E731
+            lambda v: v.to(self.env.device) if isinstance(v, torch.Tensor) else v, d)
         self.params, self.opt_state = to(state["params"]), to(state["opt_state"])
         return state
 
     def dataset_loss(self, data, warmstart):
         """Mean imitation loss over a dataset (il_exp.py:442-504); returns
-        (loss, the predicted controls as the next warm start)."""
+        (loss, the next warm start: the predicted controls, or in mode 'nn'
+        the given one)."""
         xinits, _, us = self._split(data)
+        if self.mode == "nn":
+            with torch.no_grad():
+                pred_u = torch.func.functional_call(self.lstm, self.params, (xinits,))
+            return float(((us - pred_u) ** 2).mean()), warmstart
         q, p = self._cost_qp(self.params)
         _, pred_u = self.env.mpc(self._dx_params(self.params), xinits, q, p,
                                  u_init=warmstart, backprop=False)

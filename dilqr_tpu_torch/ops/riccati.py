@@ -19,7 +19,9 @@ and the cost-to-go update.
 ``lqr_backward`` sends what the JAX package sends to its fused Pallas
 Riccati kernel (ops/riccati.py:135-163 there) to the hand-written CUDA
 kernel ``ops/cuda/riccati_fused.py``: one control, f32, the closed-form QP,
-no f, any n_state, on CUDA tensors, with nothing to differentiate.
+no f, any n_state, on CUDA tensors, with nothing to differentiate. With
+``parallel`` an unboxed solve takes the associative-scan Riccati
+(``ops/parallel_riccati.py``) instead.
 
 Shapes (time-major): C [T,B,n,n], c [T,B,n], F [T-1,B,nx,n], f [T-1,B,nx]
 or None. Returns K [T,B,nu,nx], k [T,B,nu] ordered t=0..T-1.
@@ -33,6 +35,7 @@ import torch
 from ..types import BACKENDS
 from ..utils.batch import bger, bmm, bmv, btr, clamp, solve_psd
 from .cuda import riccati_fused as fused
+from .parallel_riccati import plqr_backward
 from .pnqp import pnqp
 
 
@@ -113,18 +116,20 @@ def lqr_backward(
     CUDA tensors when ``riccati_fused.covered`` holds and no input needs a
     gradient (the kernel has no autograd rule, as the Pallas kernel has
     none); "cuda" must take it and raises where it cannot; "torch" runs
-    the recursion below."""
+    the recursion below. ``parallel`` sends an unboxed solve to the
+    associative scan (``ops/parallel_riccati.plqr_backward``) before the
+    kernel is considered, as JAX does; a boxed solve ignores it."""
     T, B = C.shape[0], C.shape[1]
     nx, nu = n_state, n_ctrl
     boxed = u_lower is not None
-    if parallel and not boxed:
-        raise NotImplementedError(
-            "riccati_parallel (the associative-scan Riccati, "
-            "dilqr_tpu/ops/parallel_riccati.py) is not ported yet: see "
-            "ROADMAP.md, queue A item 8"
-        )
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if parallel and not boxed:
+        # the associative-scan Riccati (ops/parallel_riccati.py): O(log T)
+        # depth, exact for the unconstrained recursion and for u_zero_I;
+        # box-constrained solves keep the recursion below
+        K, k = plqr_backward(nx, nu, C, c, F, f, u_zero_I)
+        return RiccatiResult(K, k, 0)
     if backend != "torch" and _use_kernel(backend, nx, nu, C, c, F, f, u, u_lower, u_upper,
                                           u_zero_I, qp_solver):
         K, k = fused.riccati_fused(nx, C, c, F, u, u_lower=u_lower, u_upper=u_upper,

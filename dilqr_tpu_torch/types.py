@@ -83,8 +83,11 @@ class ILQRConfig:
     ``backward_backend`` selects the KKT-VJP backend of the KKT and IFT
     backwards, with the same three values (``None``: follow ``backend``):
     the hand-written CUDA kernel (``ops/cuda/kkt_fused.covered``), forced,
-    or the plain PyTorch recursions. ``riccati_parallel`` is kept for the
-    surface; the parallel Riccati is not ported yet.
+    or the plain PyTorch recursions. ``riccati_parallel`` sends the plain
+    loop's unboxed Riccati backward and the KKT backward's auxiliary solve
+    and adjoint recursions to associative scans of O(log T) depth
+    (``ops/parallel_riccati.py``), ahead of the Riccati and KKT kernels;
+    the whole-solve kernel does not look at it, as JAX's gate does not.
     """
 
     n_state: int

@@ -521,3 +521,99 @@ def test_mlp_solve_launches_the_riccati_kernel_per_iteration(dev):
     assert int(a.n_iter) == int(b.n_iter) == 2
     torch.testing.assert_close(a.costs, b.costs, rtol=1e-4, atol=0)
     assert (a.u - b.u).abs().max().item() <= 2e-2
+
+
+def _lqr_problem(gen, T, B, nx, nu, dev, dtype=torch.float64):
+    """tests/test_parallel_riccati.py's well-conditioned random LQR problem."""
+    n = nx + nu
+    A = torch.randn(T, B, n, n, generator=gen, dtype=dtype)
+    C = A @ A.transpose(-1, -2) + 3.0 * torch.eye(n, dtype=dtype)
+    Fx = torch.eye(nx, dtype=dtype) + 0.08 * torch.randn(T - 1, B, nx, nx, generator=gen,
+                                                         dtype=dtype)
+    Fu = 0.4 * torch.randn(T - 1, B, nx, nu, generator=gen, dtype=dtype)
+    parts = (C, torch.randn(T, B, n, generator=gen, dtype=dtype), torch.cat([Fx, Fu], -1),
+             0.2 * torch.randn(T - 1, B, nx, generator=gen, dtype=dtype),
+             torch.randn(B, nx, generator=gen, dtype=dtype),
+             torch.rand(T, B, nu, generator=gen) < 0.3)
+    return [a.to(dev) for a in parts]
+
+
+@pytest.mark.parametrize("T,B,nx,nu,masked", [(20, 256, 5, 1, False), (20, 256, 5, 1, True),
+                                              (20, 64, 13, 3, False), (512, 8, 4, 2, False)])
+def test_parallel_riccati_matches_sequential_on_the_card(dev, T, B, nx, nu, masked):
+    """plqr_backward and plqr_solve on CUDA tensors against the plain
+    sequential recursion (backend "torch") and its open-loop rollout, at
+    f64 within 1e-10 (tests/test_parallel_riccati.py's bar): the bench
+    width, a u_zero_I mask, the rocket width (the combine's linalg.solve
+    branch) and the long horizon JAX validated. No kernel launches."""
+    from dilqr_tpu_torch.ops.parallel_riccati import plqr_backward, plqr_solve
+    from dilqr_tpu_torch.ops.riccati import lqr_backward
+    from dilqr_tpu_torch.ops.rollout import get_traj
+
+    C, c, F, f, x0, uz = _lqr_problem(torch.Generator().manual_seed(6), T, B, nx, nu, dev)
+    uz = uz if masked else None
+    before = riccati_fused.LAUNCHES
+    K, k = plqr_backward(nx, nu, C, c, F, f, uz)
+    ref = lqr_backward(nx, nu, C, c, F, f, torch.zeros(T, B, nu, dtype=C.dtype, device=dev),
+                       u_zero_I=uz, backend="torch")
+    assert K.is_cuda and riccati_fused.LAUNCHES == before
+    torch.testing.assert_close(K, ref.K, rtol=0, atol=1e-10)
+    torch.testing.assert_close(k, ref.k, rtol=0, atol=1e-10)
+    res = plqr_solve(nx, nu, C, c, F, f, x0, uz)
+    x_ref = get_traj(T, res.u, x0, P.LinDx(F, f))
+    torch.testing.assert_close(res.x, x_ref, rtol=0, atol=1e-10)
+
+
+def test_riccati_parallel_ift_gradient_skips_the_kkt_kernel(dev):
+    """riccati_parallel=True: the cartpole IFT backward's auxiliary solve
+    and adjoints are associative scans, so no KKT launch; the forward
+    still takes the whole-solve kernel (its gate does not look at the
+    flag). Against the default gradient through the KKT kernel, max-norm
+    rtol 1e-3 (f32 recursions; GMRES may stop one iteration apart)."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(7)
+    th = 3.0 + 0.1 * torch.randn(512, generator=gen)
+    z = torch.zeros(512)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    grads = {}
+    for par in (False, True):
+        cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=20, lqr_iter=20, eps=1e-4,
+                           linesearch_decay=0.5, max_linesearch_iter=2, exit_unconverged=False,
+                           detach_unconverged=False, backward_mode=P.BackwardMode.IFT,
+                           riccati_parallel=par)
+        pr = params.clone().requires_grad_(True)
+        before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+        res = P.solve(cfg, x0, P.QuadCost(torch.diag(q), p), dyn, params=pr,
+                      u_lower=-100.0, u_upper=100.0)
+        (grads[par],) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before[0] + 1
+        assert (kkt_fused.LAUNCHES > before[1]) == (not par)
+    assert torch.isfinite(grads[True]).all()
+    torch.testing.assert_close(grads[True], grads[False], rtol=1e-3,
+                               atol=1e-3 * grads[False].abs().max().item())
+
+
+def test_lstm_policy_on_the_card_matches_the_cpu(dev):
+    """The mode-'nn' policy at the reference width (256) on the card
+    against the same weights on the CPU at f32: controls within 1e-5 and
+    parameter gradients within 1e-4 of their largest entry (the same
+    products, summed in another order)."""
+    from dilqr_tpu_torch.il.lstm import LSTMPolicy
+
+    gen = torch.Generator().manual_seed(8)
+    cpu = LSTMPolicy(5, 1, 20, generator=gen)
+    card = LSTMPolicy(5, 1, 20, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(64, 5, generator=gen)
+    w = torch.randn(64, 20, 1, generator=gen)
+    u_cpu, u_card = cpu(x), card(x.to(dev))
+    assert u_card.is_cuda and u_card.shape == (64, 20, 1)
+    err = (u_card.cpu() - u_cpu).abs().max().item()
+    assert err <= 1e-5 * max(1.0, u_cpu.abs().max().item()), err
+    (u_cpu * w).sum().backward()
+    (u_card * w.to(dev)).sum().backward()
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        err = (b.grad.cpu() - a.grad).abs().max().item()
+        assert err <= 1e-4 * a.grad.abs().max().item(), (name, err)

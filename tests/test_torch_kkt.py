@@ -156,8 +156,12 @@ def test_dispatch_and_coverage():
     (C, c, F, x, u, gx, gu), _ = _port(arrs, uz)
     with pytest.raises(ValueError, match="CUDA tensors"):
         make_kkt_vjp(5, 1, C, c, F, x, u, backend="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_kkt_vjp(5, 1, C, c, F, x, u, parallel=True)
+    # parallel (the associative scans) takes precedence over the kernel, as
+    # in JAX, and computes the sequential recursions' map: f32, 5e-5
+    par = kkt_vjp(5, 1, C, c, F, x, u, gx, gu, parallel=True)
+    seq = kkt_vjp(5, 1, C, c, F, x, u, gx, gu, backend="torch")
+    for name in FIELDS:
+        torch.testing.assert_close(getattr(par, name), getattr(seq, name), rtol=0, atol=5e-5)
     with pytest.raises(ValueError, match="backend"):
         make_kkt_vjp(5, 1, C, c, F, x, u, backend="pallas")
     assert kkt_fused.covered(20, 5, 1, torch.float32)

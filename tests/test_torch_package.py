@@ -30,7 +30,11 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "dilqr_tpu" or m.startswith("dilqr_tpu.")]
 print(len(names), bad)
-assert len(names) >= 34, names
+assert len(names) >= 39, names
+new = {"dilqr_tpu_torch.ops.parallel_riccati", "dilqr_tpu_torch.il.lstm",
+       "dilqr_tpu_torch.utils.logging", "dilqr_tpu_torch.utils.numdiff",
+       "dilqr_tpu_torch.utils.profiling"}
+assert new <= set(names), new - set(names)
 assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -75,9 +79,15 @@ def test_backprop_on_cpu_tensors_launches_no_kernel(mode):
 
 
 def test_unported_options_raise():
+    """riccati_parallel solves (unboxed: the associative-scan backward; f32,
+    the sequential solve's costs to 1e-5 relative); a backend the port does
+    not have raises."""
     cfg, x0, cost, dyn, params = _problem(riccati_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.solve(cfg, x0, cost, dyn, params=params)
+    res = P.solve(cfg, x0, cost, dyn, params=params)
+    seq = P.solve(dataclasses.replace(cfg, riccati_parallel=False), x0, cost, dyn,
+                  params=params)
+    assert torch.isfinite(res.u).all()
+    torch.testing.assert_close(res.costs, seq.costs, rtol=1e-5, atol=0)
     with pytest.raises(ValueError, match="backend"):
         P.ILQRConfig(n_state=5, n_ctrl=1, T=4, backend="pallas")
 
