@@ -9,12 +9,13 @@ Phases, in order; any failure exits non-zero before the last line:
      one nvcc per source, all started together (the whole-solve iLQR, the
      KKT VJP, the reverse Riccati), and print the build seconds and the
      ptxas report, with each whole-solve and KKT instantiation's registers,
-     stack and spills; a stack or a spill in a whole-solve n_ctrl == 1
-     instantiation, or in the KKT instantiations the main paths run (8
-     lanes for one control, 16 for three), or in any of the Riccati
-     kernel's 21 instantiations (lane teams of 4, 8, 16, 32, n_state 5 and
-     6 compiled in at 8 lanes, and the looped form, each in three modes),
-     fails;
+     stack and spills; a whole-solve instantiation missing (17: the envs
+     and their slew-rate wrappers by cost form and block size) fails, and
+     a stack or a spill fails in a whole-solve n_ctrl == 1 instantiation,
+     in the KKT instantiations the main paths run (8 lanes for one
+     control, 16 for three) or in any of the Riccati kernel's 21
+     instantiations (lane teams of 4, 8, 16, 32, n_state 5 and 6 compiled
+     in at 8 lanes, and the looped form, each in three modes);
   3. hold each kernel against its plain PyTorch version on the card, on the
      same inputs, at the shapes of the main paths: the whole-solve kernel on
      the cartpole bench problem and three more, and on the rocket (13
@@ -49,8 +50,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (imempc) for 2 epochs on data/cartpole.npz, the IFT gradient of
      bench.py's rocket loss at B=1024 and of the learned model's weights;
      the Riccati kernel's other modes -- the unboxed and the u_zero_I
-     learned-model solve, the slew-rate cartpole in receding_horizon -- and
-     the slew-rate IFT gradient, whose backward is the KKT kernel at (6,1);
+     learned-model solve -- and the slew-rate cartpole in receding_horizon
+     and its IFT gradient, whose forward is the whole-solve kernel
+     (Passthrough<Cartpole>) and whose backward the KKT kernel at (6,1);
   5. time the kernels (CUDA events, warm-up, median; the whole-solve kernel
      at each cluster size), print each whole-solve instantiation's
      cudaOccupancyMaxActiveClusters, the clusters of a launch, the SMs its
@@ -74,7 +76,17 @@ Phases, in order; any failure exits non-zero before the last line:
      riccati_parallel (no Riccati launch) against the Riccati kernel;
      ILExp mode 'nn' for 2 epochs on data/cartpole.npz; numdiff.grad at
      f64 against the cartpole's analytic Jacobian; the verbose table;
-  7. print the nvidia-smi line, then the result line
+  7. the whole-solve kernel's MPC variants and the slew rate (see
+     variant_paths): each variant -- a per-example cost, per-time and
+     per-example bounds, u_zero_I boxed and unboxed, delta_u, the slew
+     rate on cartpole, the pendulum and the rocket (Passthrough<Env>) --
+     against its plain version at full width and the same bits at every
+     cluster size; the serving paths with these options (MPC.solve,
+     receding_horizon) and the slew-rate IFT gradient through their entry
+     points, one whole-solve launch a solve and no Riccati launch; each
+     path's time against backend="torch" in turns, and the device idle
+     share of one profiled slew-rate step;
+  8. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -88,6 +100,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -180,7 +193,8 @@ def drive(torch, kernels, total, label, fn, want=None):
     return out, got
 
 
-def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
+def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi,
+           converged_only=False, **kw):
     """The whole-solve kernel against its plain version on the same inputs.
     Tolerances (f32). n_iter must be equal. Per-example costs must agree to
     rtol 1e-4 on at least 99% of the examples and to 1e-2 on all: an
@@ -192,11 +206,17 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
     1e-2 between two equally converged optima (docs/DESIGN.md:103-107); the
     examples past the CPU tests' 2e-3 are counted and printed. Returns (the
     largest |kernel - plain| of x and u, the kernel's output, the plain
-    version's output)."""
-    k_out = fused.ilqr_fused(cfg, dyn, params, x0, cost_small, u0, lo, hi)
+    version's output). kw: the variants (u_zero_I, delta_u), passed to both.
+    converged_only: the x and u bounds hold on the examples converged in
+    both versions (du < eps); an example still iterating when lqr_iter ends
+    may pass them (ROADMAP C: f32 rounding alone moves such an example's u
+    by up to ~1e-1), which is counted and printed (``parity.past``)."""
+    k_out = fused.ilqr_fused(cfg, dyn, params, x0, cost_small, u0, lo, hi, **kw)
     torch.cuda.synchronize()
-    r_out = fused.ilqr_fused_reference(cfg, dyn, params, x0, cost_small, u0, lo, hi)
+    t1 = time.perf_counter()
+    r_out = fused.ilqr_fused_reference(cfg, dyn, params, x0, cost_small, u0, lo, hi, **kw)
     torch.cuda.synchronize()
+    parity.plain_ms = (time.perf_counter() - t1) * 1e3
     kx, ku, kc, kdu, kn = k_out
     rx, ru, rc, rdu, rn = r_out
     if not (torch.isfinite(kc).all() and torch.isfinite(ku).all()):
@@ -213,7 +233,20 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi):
         fail(f"{name}: costs disagree past their tolerance")
     if int(kn) != int(rn):
         fail(f"{name}: n_iter {int(kn)} (kernel) != {int(rn)} (plain)")
-    if ex_x.max().item() > 1e-2 or ex_u.max().item() > 2e-2:
+    past = (ex_x > 1e-2) | (ex_u > 2e-2)
+    parity.past = past
+    if converged_only:
+        conv = (kdu < cfg.eps) & (rdu < cfg.eps)
+        if bool((past & conv).any()):
+            fail(f"{name}: x or u past its bound (1e-2, 2e-2) on a converged example")
+        if bool(past.any()):
+            print(f"parity {name}: {int(past.sum())} examples past (1e-2, 2e-2), none of them "
+                  f"converged in both (u max {ex_u[past].max().item():.2e}); on the "
+                  f"{int(conv.sum())} converged in both: u max "
+                  f"{ex_u[conv].max().item() if bool(conv.any()) else 0.0:.2e}", flush=True)
+        ok = conv if bool(past.any()) else torch.ones_like(conv)
+        return max(ex_u[ok].max().item(), ex_x[ok].max().item()), k_out, r_out
+    if bool(past.any()):
         fail(f"{name}: x or u past its bound (1e-2, 2e-2)")
     return max(ex_u.max().item(), ex_x.max().item()), k_out, r_out
 
@@ -246,7 +279,13 @@ def ptxas_entries(report: str, entry: str, what: str):
 
 # the whole-solve kernel as <Env, NU, block threads>; the KKT kernel as
 # <NU, team lanes>
-ILQR_ENTRY = r"_ZN5dilqr17ilqr_fused_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)EEEv"
+ILQR_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)INS_\d+(\w+?)ELi(\d+)"
+              r"ELi(\d+)ELb(\d)E(?:Li\d+E)?EEv")
+# <Env, NU, block threads, per-example cost>: cartpole, pendulum and the
+# rocket with either cost form and their slew-rate wrappers with the
+# per-example one, at 128 and 64 threads a block, but the rocket's wrapper
+# at 64 only (its shared memory)
+ILQR_KERNELS = 17
 KKT_ENTRY = r"_ZN5dilqr16kkt_fused_kernelILi(\d+)ELi(\d+)EEEv"
 # the KKT instantiations a main path runs: (5,1) and (6,1) at 8 lanes, the
 # rocket's (13,3) at 16
@@ -258,17 +297,18 @@ RICCATI_KERNELS = 21  # lanes 4, 8, 16, 32 and n_state 5, 6 at 8 lanes, looped; 
 RICCATI_LOOPED_ENTRY = r"_ZN5dilqr21riccati_looped_kernelILi(\d+)EEEv"
 
 
-def same_bits(torch, fused, name, k_out, args):
-    """The kernel's output at every other cluster size it instantiates
-    must be the bits of the default's: the per-example arithmetic and the
-    tile's votes do not depend on how a tile is cut into blocks."""
-    for G in fused.CLUSTERS:
-        if G == fused.DEFAULT_CLUSTER:
-            continue
-        out = fused.ilqr_fused(*args, cluster=G)
+def same_bits(torch, fused, name, k_out, args, **kw):
+    """The kernel's output at every cluster size the env's instantiation
+    has must be the bits of the default's (``k_out``): the per-example
+    arithmetic and the tile's votes do not depend on how a tile is cut into
+    blocks. An env with one cluster size is launched again at it: the same
+    bits twice. kw: the variants, as parity's."""
+    sizes = fused.clusters(args[1].device_env)
+    for G in sizes:
+        out = fused.ilqr_fused(*args, **kw, cluster=G)
         if not all(torch.equal(a, b) for a, b in zip(out, k_out)):
             fail(f"{name}: clusters of {G} blocks change the result")
-    print(f"parity {name}: clusters of {fused.CLUSTERS} blocks give the same bits", flush=True)
+    print(f"parity {name}: clusters of {sizes} blocks give the same bits", flush=True)
 
 
 def cluster_report(torch, fused, card, label, args, ms):
@@ -338,12 +378,18 @@ def main():
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "error")):
                 print(f"ptxas[{src}]: {line.strip()}", flush=True)
+    ilqr_seen = set()
     for name, regs, stack, st, ld in ptxas_entries(reports[fused.SOURCE], ILQR_ENTRY,
                                                    "whole-solve"):
+        name = re.sub(r"PassthroughINS_\d+(\w+?)EE,", r"Passthrough<\1>,", name)
         print(f"ptxas ilqr_fused {name}: {regs} registers, {stack} bytes stack, {st}/{ld} bytes "
               f"spill stores/loads", flush=True)
-        if name.split("<")[1].split(",")[1].strip() == "1" and (stack or st or ld):
+        ilqr_seen.add(name)
+        if re.search(r", (\d+), \d+, \d>$", name).group(1) == "1" and (stack or st or ld):
             fail(f"ilqr_fused {name} (n_ctrl 1) has a stack frame or spills")
+    if len(ilqr_seen) != ILQR_KERNELS:
+        fail(f"ilqr_fused: {len(ilqr_seen)} instantiations in the ptxas report, want "
+             f"{ILQR_KERNELS}")
     kkt_seen = set()
     for name, regs, stack, st, ld in ptxas_entries(reports[kkt.SOURCE], KKT_ENTRY, "KKT-VJP"):
         print(f"ptxas kkt_fused <n_ctrl, lanes> {name}: {regs} registers, {stack} bytes stack, "
@@ -578,10 +624,13 @@ def main():
     cluster_report(torch, fused, card, "cartpole B=4096",
                    (bench_cfg, cp_dyn, cp_params, cartpole_start(torch, cgen, 4096, dev), cs, None,
                     -100.0, 100.0), t_kernel[4096])
-    for env, label in ((0, "cartpole"), (1, "pendulum"), (2, "rocket")):
-        for G in fused.CLUSTERS:
-            info = fused.kernel_info(env, G)
-            print(f"occupancy ilqr_fused {label} G={G}: cudaOccupancyMaxActiveClusters "
+    for env, label in ((0, "cartpole"), (1, "pendulum"), (2, "rocket"), (3, "cartpole slew"),
+                       (4, "pendulum slew"), (5, "rocket slew")):
+        for G, lanes in ((G, lanes) for G in fused.clusters(env) for lanes in (False, True)
+                         if lanes or env not in fused.LANES_ONLY):
+            info = fused.kernel_info(env, G, lanes)
+            print(f"occupancy ilqr_fused {label} G={G}{' per-example cost' if lanes else ''}: "
+                  f"cudaOccupancyMaxActiveClusters "
                   f"{info['max_active_clusters']}, {info['registers']} registers, "
                   f"{info['local_bytes']} local bytes, shared {info['static_smem']} + "
                   f"{info['dynamic_smem']} bytes a block", flush=True)
@@ -711,6 +760,21 @@ def main():
     # ---- 6) the associative-scan Riccati, the LSTM policy, the utilities ----
     parallel_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p, bench_cfg,
                    mlp_dyn, mlp_params)
+
+    # ---- 7) the whole-solve kernel's MPC variants and the slew rate ----
+    vgen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    v_launches, v_err, variants, v_paths = variant_paths(
+        torch, P, dev, kernels, card, fused,
+        (bench_cfg, r_cfg, cfg_for(pd_dyn, 3, T, 10, 1e-3)),
+        {"cartpole": (cp_dyn, cp_params, cp_q, cp_p), "pendulum": (pd_dyn, pd_params, pd_q, pd_p),
+         "rocket": (r_dyn, r_params, r_q, r_p)}, vgen)
+    rows[0]["launches"] += v_launches["ilqr_fused"]
+    rows[0]["max_abs_err_variants"] = v_err
+    rows[0]["variants"] = variants
+    rows[0]["variant_paths"] = v_paths
+    kkt_row["launches"] += v_launches["kkt_fused"]
+
+    # ---- 8) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1425,10 +1489,12 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
         kernel n_iter times in the forward), finite and nonzero, and within
         rtol 1e-3 of the plain backward's on the same forward;
     (c) the other modes on real paths: the unboxed learned-model solve
-        (free), the same with a u_zero_I mask (zero; the whole-solve kernel
-        refuses u_zero_I), the slew-rate cartpole (n_state 6, box) in
-        receding_horizon for 3 steps, and its IFT gradient, whose backward
-        is the KKT kernel at (6,1), within rtol 1e-3 of the plain
+        (free), the same with a u_zero_I mask (zero; the learned model has
+        no device code, so it stays on the plain loop); and the slew-rate
+        cartpole (n_state 6) in receding_horizon for 3 steps, now one
+        whole-solve launch a step and no Riccati launch, and its IFT
+        gradient, whose forward is the whole-solve kernel and whose
+        backward is the KKT kernel at (6,1), within rtol 1e-3 of the plain
         backward's.
     Returns the summed launches and the inputs phase 5 times."""
     import dataclasses
@@ -1515,13 +1581,16 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
     if res.u[mask].abs().max().item() != 0.0:
         fail(f"{label}: a masked control is not zero")
 
-    # (c) the slew-rate cartpole: box mode at n_state 6, then its gradient
+    # (c) the slew-rate cartpole (n_state 6), a solve a step on the
+    # whole-solve kernel (Passthrough<Cartpole>) and none of the Riccati
+    # kernel's, then its gradient
     c_slew = dataclasses.replace(cfg, slew_rate_penalty=1.0)
-    label = "(c) box mode at n_state 6: slew-rate cartpole receding_horizon B=1024 x3 steps"
+    label = "(c) slew-rate cartpole receding_horizon B=1024 x3 steps, the whole-solve kernel"
     ep, got = run(label, lambda: receding_horizon(c_slew, cp_dyn, cp_params,
-                                                  P.QuadCost(*cost), x1024, 3, **box), serve)
-    if got["riccati_fused"] < 3 or ep.xs.shape != (1024, 4, 5) or not torch.isfinite(ep.xs).all():
-        fail(f"{label}: bad closed-loop states or {got['riccati_fused']} launches")
+                                                  P.QuadCost(*cost), x1024, 3, **box),
+                  {"ilqr_fused": 3, "kkt_fused": 0, "riccati_fused": 0})
+    if ep.xs.shape != (1024, 4, 5) or not torch.isfinite(ep.xs).all():
+        fail(f"{label}: bad closed-loop states")
     du = (ep.us[:, 1:] - ep.us[:, :-1]).abs().mean().item()
     print(f"{label}: mean |u_t - u_(t-1)| {du:.4f}, mean |u| {ep.us.abs().mean().item():.4f}",
           flush=True)
@@ -1534,13 +1603,14 @@ def mlp_paths(torch, P, dev, kernels, cfg, dyn, params, cost, cp_dyn, cp_params,
         (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
         return g, res.n_iter
 
-    label = "(c) the slew-rate cartpole IFT grad B=1024, the KKT kernel at (6,1) in the backward"
+    label = ("(c) the slew-rate cartpole IFT grad B=1024, the whole-solve kernel forward, the "
+             "KKT kernel at (6,1) in the backward")
     (g, n_iter), got = run(label, lambda: slew_grad(c_slew_ift),
-                           {"ilqr_fused": 0, "kkt_fused": None, "riccati_fused": None})
+                           {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
     g_ref, _ = slew_grad(dataclasses.replace(c_slew_ift, backward_backend="torch"))
     err = (g - g_ref).abs().max().item()
-    print(f"{label}: grad params {g.tolist()}, KKT launches {got['kkt_fused']}, Riccati "
-          f"launches {got['riccati_fused']} (forward n_iter {int(n_iter)}), abs. diff to the "
+    print(f"{label}: grad params {g.tolist()}, KKT launches {got['kkt_fused']}, whole-solve "
+          f"launches {got['ilqr_fused']} (forward n_iter {int(n_iter)}), abs. diff to the "
           f"plain backward {err:.2e}", flush=True)
     if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
         fail(f"{label}: a non-finite or zero gradient")
@@ -1909,6 +1979,322 @@ def parallel_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p, 
         fail(f"(f) verbose solve: {len(heads)} header(s) and {len(table) - len(heads)} rows for "
              f"{int(res.n_iter)} iterations")
     print(f"phase 6 launches: {total}", flush=True)
+
+
+def variant_work(cfg, B, cost, lo, hi, u0, kw):
+    """Bytes of one whole-solve call with the MPC variants, each input read
+    once and each output written once: x_init, the cost (the per-example
+    form [T, B, n*n] and [T, B, n], or one [n,n] and [n]), per-time and
+    per-example bounds [T, B, nu] each, the mask as bytes, the warm start,
+    x, u, costs, du."""
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    n = nx + nu
+    C = cost[0]
+    by = 4 * B * nx + 4 * (C.numel() + cost[1].numel())
+    by += sum(4 * T * B * nu for v in (lo, hi) if hasattr(v, "dim") and v.dim() == 3)
+    by += T * B * nu if kw.get("u_zero_I") is not None else 0
+    by += 4 * T * B * nu if u0 is not None else 0
+    return by + 4 * (T * B * n + 2 * B)
+
+
+def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
+    """Phase 7: the whole-solve kernel's MPC variants and the slew rate
+    (Passthrough<Env> in csrc/ilqr_fused.cuh), at full width: cartpole
+    B=4096 and the rocket B=1024, T=20, bench.py's starts and costs.
+    (a) parity: the kernel against its plain version on the same CUDA
+        inputs (parity's tolerances, the x and u bounds on the examples
+        converged in both, with a witness -- the plain version from starts
+        one ulp away -- where an unconverged example passes them; for the
+        rocket also rocket_checks'), the same bits at every cluster size the
+        instantiation has, for a per-example cost (weights scaled in [1,
+        1.5] per step and example), per-time and per-example bounds that
+        bind, a u_zero_I mask over about 35% of the entries with the box
+        and without it (the masked u exactly 0 in both versions), delta_u =
+        0.4 (the rocket warm-started at hover and run for 30 iterations:
+        in steps of 0.4 none of its examples converges in 15), and the slew
+        rate (penalty 1.0) on cartpole,
+        the pendulum (B=1030) and the rocket;
+    (b) the paths through their entry points, every counter zeroed before
+        each and read after: MPC.solve with slew_rate_penalty=1.0 on
+        cartpole B=4096 and the rocket B=1024, receding_horizon with it
+        (B=1024; cartpole 5 steps, the rocket 3), each solve one
+        whole-solve launch and no Riccati launch; MPC.solve on cartpole
+        B=4096 with u_zero_I and delta_u, and with a per-example cost and
+        per-time bounds; the slew-rate cartpole's IFT gradient at B=4096
+        (forward: one whole-solve launch; backward: the KKT kernel);
+    (c) each (b) serving path's host time against the same call with
+        backend="torch" (the plain loop), in turns (a b b a, once: the
+        plain loop takes seconds a call), and the
+        device idle share of one profiled slew-rate receding_horizon step.
+    Returns (the launches of (b), the largest |kernel - plain| of (a)'s x
+    and u, the variants' figures and the paths' figures for the JSON
+    line)."""
+    import dataclasses
+
+    from dilqr_tpu_torch.control import receding_horizon
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+    from dilqr_tpu_torch.models import rocket
+
+    bench_cfg, r_cfg, pd_cfg = cfgs
+    T = bench_cfg.T
+    cp_dyn, cp_params, cp_q, cp_p = envs["cartpole"]
+    pd_dyn, pd_params, pd_q, pd_p = envs["pendulum"]
+    r_dyn, r_params, r_q, r_p = envs["rocket"]
+    r_lo, r_hi = r_dyn.lower.to(dev), r_dyn.upper.to(dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen).to(dev)
+
+    def per_example(q, p, B):
+        w = 1.0 + 0.5 * rand(T, B, 1)
+        n = q.shape[0]
+        return (torch.diag(q).expand(T, B, n, n) * w[..., None]).contiguous(), \
+            (p.expand(T, B, n) * w).contiguous()
+
+    # ---- (a) parity ----
+    variants, worst = [], 0.0
+    problems = (
+        ("cartpole B=4096", bench_cfg, cp_dyn, cp_params, cp_q, cp_p,
+         cartpole_start(torch, gen, 4096, dev), -100.0, 100.0),
+        ("rocket B=1024", r_cfg, r_dyn, r_params, r_q, r_p,
+         rocket.bench_start(1024, gen, device=dev), r_lo, r_hi),
+    )
+    for env, cfg, dyn, params, q, p, x0, lo, hi in problems:
+        B, nu = x0.shape[0], cfg.n_ctrl
+        small = (torch.diag(q), p)
+        if nu == 1:  # the bench solution's |u| is below 1.4
+            hi_t = 0.1 + 0.5 * rand(T, B, 1)
+        else:
+            hi_t = torch.stack([8.0 + 2.0 * rand(T, B), 0.05 + 0.1 * rand(T, B),
+                                0.05 + 0.1 * rand(T, B)], -1)
+        mask = rand(T, B, nu) < 0.35
+        hover = None if nu == 1 else torch.tensor([10.0, 0.0, 0.0], device=dev).expand(
+            T, B, 3).contiguous()
+        # the rocket's trust-region case runs 30 iterations: in steps of 0.4
+        # its examples converge after some 25
+        du_cfg = cfg if nu == 1 else dataclasses.replace(cfg, lqr_iter=30)
+        cases = [
+            ("per-example cost", cfg, per_example(q, p, B), None, lo, hi, {}),
+            ("per-time and per-example bounds", cfg, small, None, -hi_t, hi_t, {}),
+            ("u_zero_I 35%, boxed", cfg, small, None, lo, hi, {"u_zero_I": mask}),
+            ("u_zero_I 35%, unboxed", cfg, small, None, None, None, {"u_zero_I": mask}),
+            (f"delta_u 0.4, lqr_iter {du_cfg.lqr_iter}", du_cfg, small, hover, lo, hi,
+             {"delta_u": 0.4}),
+        ]
+        for what, c_cfg, cost, u0, lo_c, hi_c, kw in cases:
+            label = f"phase 7 (a) {env} T={T} {what}"
+            variants.append(variant_case(torch, fused, card, label, c_cfg, dyn, params, x0,
+                                         cost, u0, lo_c, hi_c, kw))
+            worst = max(worst, variants[-1]["max_abs_err"])
+            if what.startswith("per-time"):
+                k_u = variants[-1]["u"]
+                share = ((k_u.abs() - hi_t).abs() < 1e-6).float().mean().item()
+                print(f"{label}: share of controls at their bound {share:.3f}", flush=True)
+                if share < 0.02:
+                    fail(f"{label}: the bounds do not bind ({share:.3f} of the controls)")
+            if what.startswith("delta_u"):
+                k_u = variants[-1]["u"]
+                start = 0.0 if u0 is None else u0
+                reach = (k_u - start).abs().max().item()
+                n_iter = variants[-1]["n_iter"]
+                print(f"{label}: largest |u - u_init| {reach:.4f} after {n_iter} iterations "
+                      f"(at most {n_iter} x 0.4)", flush=True)
+                if reach > 0.4 * n_iter + 1e-4:
+                    fail(f"{label}: u moved past n_iter x delta_u")
+    slews = (
+        ("cartpole B=4096", bench_cfg, cp_dyn, cp_params, cp_q, cp_p,
+         cartpole_start(torch, gen, 4096, dev), -100.0, 100.0),
+        ("pendulum B=1030", pd_cfg, pd_dyn, pd_params, pd_q, pd_p,
+         torch.stack([(th := -1.5 + 3.0 * torch.rand(1030, generator=gen)).cos(), th.sin(),
+                      0.5 * torch.randn(1030, generator=gen)], 1).to(dev),
+         pd_dyn.lower, pd_dyn.upper),
+        ("rocket B=1024", r_cfg, r_dyn, r_params, r_q, r_p,
+         rocket.bench_start(1024, gen, device=dev), r_lo, r_hi),
+    )
+    for env, cfg, dyn, params, q, p, x0, lo, hi in slews:
+        B = x0.shape[0]
+        cost = canonicalize_cost(P.QuadCost(torch.diag(q), p), T, B, cfg.n_state + cfg.n_ctrl)
+        a_cfg, a_cost, a_dyn, a_params, a_x0 = augment_slew_rate(
+            dataclasses.replace(cfg, slew_rate_penalty=1.0), cost, dyn, params, x0, None)
+        label = f"phase 7 (a) slew rate 1.0 {env} T={T} (n_state {a_cfg.n_state})"
+        variants.append(variant_case(torch, fused, card, label, a_cfg, a_dyn, a_params, a_x0,
+                                     (a_cost.C, a_cost.c), None, lo, hi, {}))
+        worst = max(worst, variants[-1]["max_abs_err"])
+    for v in variants:
+        del v["u"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the entry points ----
+    total = {name: 0 for name in kernels}
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"phase 7 (b) {label}", fn, want)
+
+    def check(label, res, B, nx, nu, bound):
+        if res.x.shape != (B, T, nx) or res.u.shape != (B, T, nu):
+            fail(f"{label}: shapes {tuple(res.x.shape)}, {tuple(res.u.shape)}")
+        if not (torch.isfinite(res.costs).all() and torch.isfinite(res.x).all()):
+            fail(f"{label}: non-finite output")
+        if bound is not None and (res.u.abs() - bound).max().item() > 1e-5:
+            fail(f"{label}: controls outside the box")
+        print(f"{label}: n_iter {int(res.n_iter)}, mean cost {res.costs.mean().item():.4f}, "
+              f"converged share {res.converged.float().mean().item():.4f}", flush=True)
+
+    cp_cost = P.QuadCost(torch.diag(cp_q), cp_p)
+    r_cost = P.QuadCost(torch.diag(r_q), r_p)
+    cp_kw = dict(lqr_iter=20, eps=1e-4, linesearch_decay=0.5, max_linesearch_iter=2,
+                 backprop=False, exit_unconverged=False)
+    r_kw = dict(lqr_iter=r_cfg.lqr_iter, eps=r_cfg.eps, linesearch_decay=r_cfg.linesearch_decay,
+                max_linesearch_iter=r_cfg.max_linesearch_iter, backprop=False,
+                exit_unconverged=False)
+    x4096 = cartpole_start(torch, gen, 4096, dev)
+    x1024 = cartpole_start(torch, gen, 1024, dev)
+    xr = rocket.bench_start(1024, gen, device=dev)
+    mask = (torch.rand(4096, T, 1, generator=gen) < 0.35).to(dev)
+    C_b, c_b = per_example(cp_q, cp_p, 4096)
+    lanes_cost = P.QuadCost(C_b.transpose(0, 1), c_b.transpose(0, 1))  # batch-major
+    hi_time = (0.2 + 0.6 * torch.rand(T, 1, generator=gen)).to(dev)  # [T, nu], binding
+
+    # name -> (call(backend), B, nx, nu, box, launches a call, steps a call)
+    paths = {
+        "MPC.solve slew rate cartpole B=4096": (
+            lambda be: P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, slew_rate_penalty=1.0,
+                             backend=be, **cp_kw).solve(x4096, cp_cost, cp_dyn,
+                                                        params=cp_params),
+            4096, 5, 1, 100.0, 1),
+        "MPC.solve slew rate rocket B=1024": (
+            lambda be: P.MPC(13, 3, T, u_lower=r_lo, u_upper=r_hi, slew_rate_penalty=1.0,
+                             backend=be, **r_kw).solve(xr, r_cost, r_dyn, params=r_params),
+            1024, 13, 3, 20.0, 1),
+        "receding_horizon slew rate cartpole B=1024 x5 steps": (
+            lambda be: receding_horizon(
+                dataclasses.replace(bench_cfg, slew_rate_penalty=1.0, backend=be), cp_dyn,
+                cp_params, cp_cost, x1024, 5, u_lower=-100.0, u_upper=100.0),
+            1024, 5, 1, 100.0, 5),
+        "receding_horizon slew rate rocket B=1024 x3 steps": (
+            lambda be: receding_horizon(
+                dataclasses.replace(r_cfg, slew_rate_penalty=1.0, backend=be), r_dyn,
+                r_params, r_cost, xr, 3, u_lower=r_lo, u_upper=r_hi),
+            1024, 13, 3, 20.0, 3),
+        "MPC.solve cartpole B=4096 u_zero_I 35% and delta_u 0.4": (
+            lambda be: P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, u_zero_I=mask,
+                             delta_u=0.4, backend=be, **cp_kw).solve(
+                x4096, cp_cost, cp_dyn, params=cp_params),
+            4096, 5, 1, 100.0, 1),
+        "MPC.solve cartpole B=4096 per-example cost, per-time bounds": (
+            lambda be: P.MPC(5, 1, T, u_lower=-hi_time, u_upper=hi_time, backend=be,
+                             **cp_kw).solve(x4096, lanes_cost, cp_dyn, params=cp_params),
+            4096, 5, 1, None, 1),
+    }
+    for label, (call, B, nx, nu, box, n) in paths.items():
+        out, _ = run(label, lambda: call("auto"), {**one, "ilqr_fused": n})
+        if label.startswith("receding_horizon"):
+            if out.xs.shape != (B, n + 1, nx) or not torch.isfinite(out.xs).all():
+                fail(f"{label}: bad closed-loop states")
+            if out.us.abs().max().item() > box + 1e-5:
+                fail(f"{label}: actions outside the box")
+            du = (out.us[:, 1:] - out.us[:, :-1]).abs().mean().item()
+            print(f"{label}: mean |u_t - u_(t-1)| {du:.4f}, mean |u| "
+                  f"{out.us.abs().mean().item():.4f}", flush=True)
+            continue
+        check(f"phase 7 (b) {label}", out, B, nx, nu, box)
+        if "u_zero_I" in label:
+            if out.u[mask].abs().max().item() != 0.0:
+                fail(f"{label}: a masked control is not zero")
+        if "per-time" in label:
+            if (out.u.abs() - hi_time[None]).max().item() > 1e-5:
+                fail(f"{label}: controls outside their per-time bounds")
+
+    # the slew-rate IFT gradient: the whole-solve kernel forward, the KKT
+    # kernel at (6,1) in the backward, within rtol 1e-3 of the plain backward
+    c_ift = dataclasses.replace(bench_cfg, slew_rate_penalty=1.0, backprop=True,
+                                detach_unconverged=False, backward_mode=P.BackwardMode.IFT)
+
+    def slew_grad(c):
+        pr = cp_params.clone().requires_grad_(True)
+        res = P.solve(c, x4096, cp_cost, cp_dyn, params=pr, u_lower=-100.0, u_upper=100.0)
+        (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        return g
+
+    label = "slew-rate cartpole IFT grad B=4096"
+    g, _ = run(label, lambda: slew_grad(c_ift),
+               {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
+    g_ref = slew_grad(dataclasses.replace(c_ift, backward_backend="torch"))
+    err = (g - g_ref).abs().max().item()
+    print(f"phase 7 (b) {label}: grad params {g.tolist()}, abs. diff to the plain backward "
+          f"{err:.2e}", flush=True)
+    if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
+        fail(f"{label}: a non-finite or zero gradient")
+    if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
+        fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+    print(f"phase 7 (b) launches: {total}", flush=True)
+
+    # ---- (c) times: the kernel path against the plain loop, in turns ----
+    figures = []
+    for label, (call, B, nx, nu, box, n) in paths.items():
+        if label.startswith("receding_horizon slew rate rocket"):
+            continue  # driven in (b); its solves are the rocket MPC.solve's
+        # one round (a b b a): the plain loop takes seconds a call, and the
+        # script's time limit is fixed
+        got = host_ms_in_turns({"kernel": lambda: call("auto"),
+                                "plain loop": lambda: call("torch")}, rounds=1)
+        (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
+        per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
+        print(f"time phase 7 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
+              f"{t_ms:.3f} ms with backend='torch' (host clock, synchronized, median of "
+              f"{len(k_runs)} in turns: {', '.join(f'{r:.3f}' for r in k_runs)} / "
+              f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        figures.append({"name": label, "launches": n, "ms": k_ms, "torch_ms": t_ms})
+    call = paths["receding_horizon slew rate cartpole B=1024 x5 steps"][0]
+    c_one = dataclasses.replace(bench_cfg, slew_rate_penalty=1.0)
+    profile_step(torch, "phase 7 slew-rate receding_horizon step cartpole B=1024",
+                 lambda: receding_horizon(c_one, cp_dyn, cp_params, cp_cost, x1024, 1,
+                                          u_lower=-100.0, u_upper=100.0))
+    return total, worst, variants, figures
+
+
+def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, hi, kw):
+    """One (a) case of phase 7: parity, the same bits at every cluster
+    size, rocket_checks for three controls, the masked u exactly 0, and the
+    kernel's time (CUDA events, median of 5) beside the plain version's
+    (one run, host clock) and the byte bound. Returns the JSON figures and
+    the kernel's u."""
+    err, k_out, r_out = parity(torch, fused, label, dyn, params, cfg, x0, cost, u0, lo, hi,
+                               converged_only=True, **kw)
+    plain_ms = parity.plain_ms
+    past = parity.past
+    if bool(past.any()):
+        # the witness: the plain version itself, from starts one ulp away
+        nudged = fused.ilqr_fused_reference(cfg, dyn, params, torch.nextafter(
+            x0, torch.full_like(x0, float("inf"))), cost, u0, lo, hi, **kw)
+        moved = (nudged[1] - r_out[1]).abs().amax(dim=(0, 2))
+        print(f"parity {label}: the plain version from starts 1 ulp away moves u by up to "
+              f"{moved.max().item():.2e} ({int((moved > 2e-2).sum())} examples past 2e-2; on "
+              f"the kernel's {int(past.sum())}: up to {moved[past].max().item():.2e})",
+              flush=True)
+    same_bits(torch, fused, label, k_out, (cfg, dyn, params, x0, cost, u0, lo, hi), **kw)
+    nu = cfg.n_ctrl
+    if nu == 3:
+        inf = torch.full((3,), float("inf"), device=x0.device)
+        rocket_checks(label, cfg, k_out, r_out, -inf if lo is None else lo,
+                      inf if hi is None else hi)
+    mask = kw.get("u_zero_I")
+    if mask is not None:
+        if k_out[1][mask].abs().max().item() != 0.0 or r_out[1][mask].abs().max().item() != 0.0:
+            fail(f"{label}: a masked control is not exactly zero")
+        print(f"{label}: {mask.float().mean().item():.3f} of the controls masked, all exactly 0",
+              flush=True)
+    ms, runs = cuda_ms(lambda: fused.ilqr_fused(cfg, dyn, params, x0, cost, u0, lo, hi, **kw),
+                       1, 5)
+    bytes_ = variant_work(cfg, x0.shape[0], cost, lo, hi, u0, kw)
+    bound = bytes_ / HBM_RATE * 1e3
+    print(f"time {label}: {ms:.3f} ms median of {len(runs)} "
+          f"({', '.join(f'{r:.3f}' for r in runs)}); plain version {plain_ms:.1f} ms (one run, "
+          f"host clock); {bytes_} bytes -> byte bound {bound:.4f} ms [{card}]", flush=True)
+    return {"name": label.replace("phase 7 (a) ", ""), "ms": ms, "plain_ms": plain_ms,
+            "byte_bound_ms": bound, "max_abs_err": err, "n_iter": int(k_out[4]), "u": k_out[1]}
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

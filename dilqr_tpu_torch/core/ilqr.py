@@ -127,10 +127,13 @@ def ilqr_loop(
     to be zeros. Both are hints for the kernel."""
     if use_kernel(cfg, cost, dyn, params, x_init, u_zero_I, delta_u,
                   cost_small, u_lower, u_upper):
+        # the user's example-invariant cost where there is one, else the
+        # per-example [T, B, ...] pair
         return ILQRInternal(*fused.ilqr_fused(
-            cfg, dyn, params, x_init, cost_small,
+            cfg, dyn, params, x_init,
+            cost_small if cost_small is not None else (cost.C, cost.c),
             None if u_init_zero else u_init,
-            u_lower=u_lower, u_upper=u_upper,
+            u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
         ))
 
     T, B = cfg.T, x_init.shape[0]

@@ -2,14 +2,27 @@
 //
 // Replaces the Pallas TPU kernel `_ilqr_kernel` in
 // dilqr_tpu/ops/pallas/ilqr_fused.py (called through `ilqr_fused`), for the
-// configurations the port runs: static per-control bounds, an
-// example-invariant cost ([n,n] or [T,n,n]), a zero or given warm start,
-// the env's hand-derived Jacobian, f32, and
-//  * n_ctrl == 1 (cartpole, simple pendulum): the closed-form 1-D box-QP;
-//  * n_ctrl == 3 (the rocket): the in-kernel projected-Newton box-QP
-//    (`_pnqp_lanes`) with its closed-form inverses (`_inv_lanes`), warm
-//    started with k_{t+1} (at t = T-1 with the clipped ridged Newton point),
-//    and gains K = -inv(H_free) (Q_ux * If) from its last Newton step.
+// configurations the port runs: the env's hand-derived Jacobian, f32, a
+// zero or given warm start, and
+//  * n_ctrl == 1 (cartpole, simple pendulum and their slew-rate wrappers):
+//    the closed-form 1-D box-QP;
+//  * n_ctrl == 3 (the rocket and its slew-rate wrapper): the in-kernel
+//    projected-Newton box-QP (`_pnqp_lanes`) with its closed-form inverses
+//    (`_inv_lanes`), warm started with k_{t+1} (at t = T-1 with the clipped
+//    ridged Newton point), and gains K = -inv(H_free) (Q_ux * If) from its
+//    last Newton step.
+// The MPC variants are JAX's, as data: an example-invariant cost ([Tc, n*n]
+// read at compile-time offsets) or a per-example one ([T, n*n, Bp], a
+// template flag: the address arithmetic of the other form would cost the
+// rocket its registers); static per-control bounds or per-time and
+// per-example ones ([T, NU, Bp]); a u_zero_I mask (zeroed before the trial
+// clamp; in an unboxed solve the Riccati's free-subspace gains instead of
+// the box-QP, :1313-1334); a static delta_u (the QP bounds intersected
+// with +-delta_u, the trial clamp widened around the iterate, :1307-1311,
+// :1404-1408). Each is one pointer or value in Args, the same for the whole
+// launch, so no warp diverges on it. The slew-rate state (u_{t-1}, x) is
+// the env wrapper Passthrough<Env> (ilqr_fused.cuh), whose Jacobian is
+// built from the env's.
 //
 // Design. One thread per example. The JAX kernel takes its decisions per
 // 1024-example tile -- the line search's any(cost worsened), the
@@ -33,15 +46,19 @@
 // B=135168 the scratch outgrows the L2, and a copy an iteration was a fifth
 // of its traffic). The cost is read through the read-only cache.
 //  * n_ctrl == 1: the cost-to-go V, v, Q and the Jacobian F of one step are
-//    registers; a block of 128 (or 64) threads lets a thread hold 255, so
-//    nothing spills.
+//    registers; a block of 128 (or 64) threads lets a thread hold 255, but
+//    ptxas trades a few bytes of spill for occupancy where it can, so the
+//    order in which Q is formed is chosen per env (kColumnwiseQ) and x_init
+//    is re-read at each sweep: no n_ctrl == 1 instantiation spills.
 //  * n_ctrl == 3: the rocket's V (13x13), Q (16x16) and F (13x16) would
 //    not fit in registers; they live in dynamic shared memory as triangles
 //    (V, Q) and a dense F, [entry][example], 1740 bytes an example: 128
 //    examples a block (G = 8) take 222,720 of the 232,448 bytes a block may
-//    have, 64 (G = 16) half that. Q is formed four columns of V F at a time,
-//    so each V entry is read once a column block. riccati_box_step in the
-//    header is that step, built with g++ in the tests.
+//    have, 64 (G = 16) half that. The slew-rate rocket (16 states) takes
+//    2,520 bytes an example, so it runs at G = 16 only. Q is formed four
+//    columns of V F at a time, so each V entry is read once a column
+//    block. riccati_box_step in the header is that step, built with g++ in
+//    the tests.
 //
 // What bounds it. The work is a long sequential recursion per example
 // (T steps x lqr_iter iterations x Riccati + line search) with little data:
@@ -70,13 +87,21 @@ namespace dilqr {
 constexpr int kTile = 1024;  // examples a tile: the JAX kernel's base tile
 
 struct Args {
-  int T, Bp, Tc;
+  int T, Bp;
+  int Tc;               // example-invariant cost: 1 or T steps
   const float* params;  // [P]
   const float* x_init;  // [NX, Bp]
-  const float* Cs;      // [Tc, N*N]
-  const float* cs;      // [Tc, N]
+  const float* C;       // [Tc, N*N] or, per example, [T, N*N, Bp]
+  const float* c;       // [Tc, N] or, per example, [T, N, Bp]
   const float* u_init;  // [T, NU, Bp] or null (zeros)
   float lo[kMaxNu], hi[kMaxNu];  // static per-control bounds, +-inf for none
+  const float* lb;      // [T, NU, Bp] per-time and per-example bounds, or
+  const float* ub;      // null: the static lo/hi
+  const unsigned char* uz;  // [T, NU, Bp] the u_zero_I mask, or null
+  int uz_free;          // 1: unboxed (u_lower None) with a mask: the Riccati
+                        // takes the free subspace, not the box-QP
+  int has_du;           // 1: the static delta_u trust region du
+  float du;
   int lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter;
   float eps, ls_decay, best_cost_eps;
   float* work;  // scratch: 3 x [T, NX + NU, Bp] trajectories, then K [T, NU*NX, Bp], k [T, NU, Bp]
@@ -97,8 +122,11 @@ constexpr size_t smem_bytes(int EX) {
   return NU == 1 ? 0 : sizeof(float) * BoxStepLayout<Env, NU>::kFloats * EX;
 }
 
-template <class Env, int NU, int EX>
-__global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
+// The solve of one example (one thread). LANES: the per-example cost
+// (entries Bp apart), else the example-invariant one (adjacent entries,
+// compile-time offsets).
+template <class Env, int NU, int EX, bool LANES>
+__device__ __forceinline__ void ilqr_solve(const Args& a) {
   static_assert(NU == Env::NU, "the env's control count");
   static_assert(EX % 32 == 0 && EX <= 32 * kMaxWarps, "whole warps, at most kMaxWarps");
   constexpr int NX = Env::NX;
@@ -117,16 +145,18 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
 
   Env env;
   env.load(a.params);
-  float lo[NU], hi[NU];
+  // this example's bounds at step t: static, or per step and example
+  auto bounds_at = [&](int t, float* lo, float* hi) {
 #pragma unroll
-  for (int r = 0; r < NU; ++r) {
-    lo[r] = a.lo[r];
-    hi[r] = a.hi[r];
-  }
+    for (int r = 0; r < NU; ++r) {
+      lo[r] = a.lb ? a.lb[t * sU + r * Bp + b] : a.lo[r];
+      hi[r] = a.ub ? a.ub[t * sU + r * Bp + b] : a.hi[r];
+    }
+  };
 
-  float x0[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x0[i] = a.x_init[i * Bp + b];
+  // x_init is read where a sweep starts, not held in registers across
+  // the iterations
+  const float* x0 = a.x_init + b;
 
   // three trajectory buffers, each x [T, NX, Bp] then u [T, NU, Bp]: the
   // reference, the trial and the best iterate. An accepted trial becomes
@@ -141,15 +171,23 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
   float* Kg = a.work + 3 * sTraj;  // feedback gains
   float* kg = Kg + T * sK;         // feedforward gains
 
-  auto Cat = [&](int t) { return a.Cs + (size_t)(a.Tc > 1 ? t : 0) * N * N; };
-  auto cat = [&](int t) { return a.cs + (size_t)(a.Tc > 1 ? t : 0) * N; };
+  // step t's cost of this example (CostView): the example-invariant form's
+  // entries are adjacent, the per-example form's Bp apart
+  auto cost_at = [&](int t) {
+    if constexpr (LANES) {
+      return CostView{a.C + (size_t)t * N * N * Bp + b, a.c + (size_t)t * N * Bp + b, Bp};
+    } else {
+      const int tc = a.Tc > 1 ? t : 0;
+      return CostView{a.C + (size_t)tc * N * N, a.c + (size_t)tc * N, 1};
+    }
+  };
 
   // ---- 1) initial open-loop rollout and objective ----
   float oc = 0.0f;
   {
     float xt[NX];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xt[i] = x0[i];
+    for (int i = 0; i < NX; ++i) xt[i] = x0[i * Bp];
     for (int t = 0; t < T; ++t) {
       float tau[N];
 #pragma unroll
@@ -163,7 +201,7 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
         ur[t * sU + j * Bp + b] = ut;
         tau[NX + j] = ut;
       }
-      oc += objective<N>(tau, Cat(t), cat(t));
+      oc += objective<N>(tau, cost_at(t));
       float xn[NX];
       env.step(xt, tau + NX, xn);
 #pragma unroll
@@ -194,8 +232,9 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
       for (int i = 0; i < NX; ++i) tau[i] = xr[t * sX + i * Bp + b];
 #pragma unroll
       for (int j = 0; j < NU; ++j) tau[NX + j] = ur[t * sU + j * Bp + b];
-      const float* C = Cat(t);
-      const float* c = cat(t);
+      const CostView cost = cost_at(t);
+      float lo[NU], hi[NU];
+      bounds_at(t, lo, hi);
 
       if constexpr (NU == 1) {
         float F[NX][N];
@@ -208,50 +247,95 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
             for (int j = 0; j < N; ++j) F[i][j] = 0.0f;
         }
 
-        // tmp = V F
-        float tmp[NX][N];
-#pragma unroll
-        for (int i = 0; i < NX; ++i)
-#pragma unroll
-          for (int j = 0; j < N; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) s += V[k][i] * F[k][j];
-            tmp[i][j] = s;
-          }
-        // Q = C + F^T V F (symmetric: upper triangle, mirrored);
-        // q = C tau + c + F^T v
-        float Q[N][N], q[N];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-#pragma unroll
-          for (int j = i; j < N; ++j) {
-            float s = 0.0f;
-#pragma unroll
-            for (int k = 0; k < NX; ++k) s += F[k][i] * tmp[k][j];
-            Q[i][j] = __ldg(&C[i * N + j]) + s;
-            Q[j][i] = Q[i][j];
-          }
+        // q_i = (C tau + c)_i + (F^T v)_i
+        auto q_entry = [&](int i) {
           float cb = 0.0f;
 #pragma unroll
-          for (int j = 0; j < N; ++j) cb += __ldg(&C[i * N + j]) * tau[j];
-          cb += __ldg(&c[i]);
+          for (int j = 0; j < N; ++j) cb += cost.Ce(i * N + j) * tau[j];
+          cb += cost.ce(i);
           float fv = 0.0f;
 #pragma unroll
           for (int k = 0; k < NX; ++k) fv += F[k][i] * v[k];
-          q[i] = cb + fv;
+          return cb + fv;
+        };
+        // Q = C + F^T V F (symmetric: upper triangle, mirrored). Both
+        // orders sum each entry alike (the same bits); ptxas keeps the
+        // slew-rate wrappers in registers with V F formed a column at a
+        // time, the other envs with the whole of V F first (measured:
+        // either the other way spills 8 bytes).
+        float Q[N][N], q[N];
+        if constexpr (Env::kColumnwiseQ) {
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            float tj[NX];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+              float s = 0.0f;
+#pragma unroll
+              for (int k = 0; k < NX; ++k) s += V[k][i] * F[k][j];
+              tj[i] = s;
+            }
+#pragma unroll
+            for (int i = 0; i <= j; ++i) {
+              float s = 0.0f;
+#pragma unroll
+              for (int k = 0; k < NX; ++k) s += F[k][i] * tj[k];
+              Q[i][j] = cost.Ce(i * N + j) + s;
+              Q[j][i] = Q[i][j];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < N; ++i) q[i] = q_entry(i);
+        } else {
+          float tmp[NX][N];  // V F
+#pragma unroll
+          for (int i = 0; i < NX; ++i)
+#pragma unroll
+            for (int j = 0; j < N; ++j) {
+              float s = 0.0f;
+#pragma unroll
+              for (int k = 0; k < NX; ++k) s += V[k][i] * F[k][j];
+              tmp[i][j] = s;
+            }
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+#pragma unroll
+            for (int j = i; j < N; ++j) {
+              float s = 0.0f;
+#pragma unroll
+              for (int k = 0; k < NX; ++k) s += F[k][i] * tmp[k][j];
+              Q[i][j] = cost.Ce(i * N + j) + s;
+              Q[j][i] = Q[i][j];
+            }
+            q[i] = q_entry(i);
+          }
         }
 
-        // exact closed-form 1-D box-QP in delta space
         const float ut = tau[NX];
         const float H = Q[NX][NX];
         const float qu = q[NX];
-        const float lb = lo[0] - ut, ub = hi[0] - ut;
-        const float kt = clip(-qu / H, lb, ub);
-        const float g = H * kt + qu;
-        const bool Ic = (kt <= lb && g > 0.0f) || (kt >= ub && g < 0.0f);
-        const float If = Ic ? 0.0f : 1.0f;
-        const float Hinv = 1.0f / (H * If + 1e-11f);
+        float kt, If, Hinv;
+        if (a.uz_free) {
+          // the free subspace of an unboxed masked solve; k divides by
+          // the unmasked Quu (the reference's quirk, :1328-1331)
+          const float Iz = a.uz[t * sU + b] ? 1.0f : 0.0f;
+          If = 1.0f - Iz;
+          kt = -(qu * If) / H;
+          Hinv = 1.0f / (H * If * If + 1e-8f * Iz);
+        } else {
+          // exact closed-form 1-D box-QP in delta space, the bounds
+          // intersected with +-delta_u
+          float lb = lo[0] - ut, ub = hi[0] - ut;
+          if (a.has_du) {
+            lb = maximum(lb, -a.du);
+            ub = minimum(ub, a.du);
+          }
+          kt = clip(-qu / H, lb, ub);
+          const float g = H * kt + qu;
+          const bool Ic = (kt <= lb && g > 0.0f) || (kt >= ub && g < 0.0f);
+          If = Ic ? 0.0f : 1.0f;
+          Hinv = 1.0f / (H * If + 1e-11f);
+        }
         float K[NX];
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
@@ -277,8 +361,13 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
 #pragma unroll
           for (int r = 0; r < NU; ++r) warm[r] = kg[(t + 1) * sU + r * Bp + b];
         }
-        riccati_box_step<Env, NU>(env, t == T - 1, tau, C, c, lo, hi, warm, a.pnqp_iter, vote,
-                                  box_store + threadIdx.x, EX, v, K, kt);
+        StepVariant<NU> var{a.has_du, a.du, a.uz_free, {}};
+        if (a.uz_free) {
+#pragma unroll
+          for (int r = 0; r < NU; ++r) var.Iz[r] = a.uz[t * sU + r * Bp + b] ? 1.0f : 0.0f;
+        }
+        riccati_box_step<Env, NU>(env, t == T - 1, tau, cost, lo, hi, var, warm, a.pnqp_iter,
+                                  vote, box_store + threadIdx.x, EX, v, K, kt);
 #pragma unroll
         for (int r = 0; r < NU; ++r) {
 #pragma unroll
@@ -299,10 +388,11 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
       if (i == 0 || vote.any(cc > oc)) {
         float xt[NX];
 #pragma unroll
-        for (int j = 0; j < NX; ++j) xt[j] = x0[j];
+        for (int j = 0; j < NX; ++j) xt[j] = x0[j * Bp];
         float cost = 0.0f, du2 = 0.0f;
         for (int t = 0; t < T; ++t) {
-          float tau[N], dsq = 0.0f;
+          float tau[N], dsq = 0.0f, lo[NU], hi[NU];
+          bounds_at(t, lo, hi);
 #pragma unroll
           for (int r = 0; r < NU; ++r) {
             const float urt = ur[t * sU + r * Bp + b];
@@ -310,7 +400,15 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
 #pragma unroll
             for (int j = 0; j < NX; ++j)
               kdx += Kg[t * sK + (r * NX + j) * Bp + b] * (xt[j] - xr[t * sX + j * Bp + b]);
-            const float new_u = clip(kdx + urt + alpha * kg[t * sU + r * Bp + b], lo[r], hi[r]);
+            float new_u = kdx + urt + alpha * kg[t * sU + r * Bp + b];
+            // masked coordinates zeroed before the clamp (:1399-1402)
+            if (a.uz) new_u = new_u * (1.0f - (a.uz[t * sU + r * Bp + b] ? 1.0f : 0.0f));
+            if (a.has_du) {
+              // the clamp widened around the current iterate (:1404-1408)
+              new_u = clip_ordered(new_u, maximum(urt - a.du, lo[r]), minimum(urt + a.du, hi[r]));
+            } else {
+              new_u = clip(new_u, lo[r], hi[r]);
+            }
             const float d = urt - new_u;
             if constexpr (NU == 1) {
               du2 += d * d;
@@ -326,7 +424,7 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
             xq[t * sX + j * Bp + b] = xt[j];
             tau[j] = xt[j];
           }
-          cost += objective<N>(tau, Cat(t), cat(t));
+          cost += objective<N>(tau, cost_at(t));
           float xn[NX];
           env.step(xt, tau + NX, xn);
 #pragma unroll
@@ -390,11 +488,43 @@ __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
   cluster.sync();  // no block leaves while a peer may still read its vote words
 }
 
-// The kernel of (Env, NU) for a tile of G blocks, with its launch shape.
-template <class Env, int NU, int EX>
+// The kernel, with the registers ptxas chooses.
+template <class Env, int NU, int EX, bool LANES>
+__global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
+  ilqr_solve<Env, NU, EX, LANES>(a);
+}
+
+// The kernel for at least MINB blocks an SM: ptxas then uses the registers
+// that leaves instead of trading a spill for more blocks.
+template <class Env, int NU, int EX, bool LANES, int MINB>
+__global__ void __launch_bounds__(EX, MINB) ilqr_fused_kernel_mb(const Args a) {
+  ilqr_solve<Env, NU, EX, LANES>(a);
+}
+
+// Blocks of 128 threads an SM to state to ptxas, 0 for none: the
+// instantiations whose default allocation spills (measured with
+// -Xptxas -v; chip_smoke.py's phase 2 fails on a spill at n_ctrl == 1).
+template <class Env, bool LANES>
+constexpr int kMinBlocks128 = 0;
+template <>
+constexpr int kMinBlocks128<Pendulum, false> = 6;
+
+template <class Env, int NU, int EX, bool LANES>
+constexpr auto kernel_of() {
+  constexpr int mb = kMinBlocks128<Env, LANES> * 128 / EX;
+  if constexpr (mb > 0) {
+    return ilqr_fused_kernel_mb<Env, NU, EX, LANES, mb>;
+  } else {
+    return ilqr_fused_kernel<Env, NU, EX, LANES>;
+  }
+}
+
+// The kernel of (Env, NU, cost form) for a tile of G blocks, with its
+// launch shape.
+template <class Env, int NU, int EX, bool LANES>
 struct Launch {
   static cudaError_t configure(int G, size_t smem) {
-    auto kernel = ilqr_fused_kernel<Env, NU, EX>;
+    auto kernel = kernel_of<Env, NU, EX, LANES>();
     cudaError_t e = cudaSuccess;
     if (smem > 0)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -425,7 +555,7 @@ struct Launch {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(a.Bp / EX, G, smem, st, &cfg, &attr);
-    e = cudaLaunchKernelEx(&cfg, ilqr_fused_kernel<Env, NU, EX>, a);
+    e = cudaLaunchKernelEx(&cfg, kernel_of<Env, NU, EX, LANES>(), a);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
 
@@ -438,7 +568,7 @@ struct Launch {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(G, G, smem, nullptr, &cfg, &attr);
-    auto kernel = ilqr_fused_kernel<Env, NU, EX>;
+    auto kernel = kernel_of<Env, NU, EX, LANES>();
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
     if (e != cudaSuccess) return e;
@@ -454,59 +584,103 @@ struct Launch {
   }
 };
 
-// Calls f(Launch<Env, NU, 1024 / G>{}) for the env and the cluster size G
-// in {8, 16}: blocks of 128 or 64 threads (the rocket's shared memory caps
-// a block at 128 examples; at 256 threads ptxas gave the pendulum 64
-// registers and a stack). Anything else is cudaErrorInvalidValue.
+constexpr size_t kMaxSmem = 232448;  // dynamic shared bytes a Hopper block may have
+
+// f(Launch<Env, NU, EX, LANES>{}) where a block of EX examples fits the
+// shared memory, else cudaErrorInvalidValue (no such instantiation)
+template <class Env, int NU, int EX, bool LANES, class F>
+cudaError_t launch_if_fits(F f) {
+  if constexpr (smem_bytes<Env, NU>(EX) <= kMaxSmem) {
+    return f(Launch<Env, NU, EX, LANES>{});
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// the env's instantiations for both cost forms
+template <class Env, int NU, int EX, class F>
+cudaError_t launch_either(int lanes, F f) {
+  return lanes ? launch_if_fits<Env, NU, EX, true>(f) : launch_if_fits<Env, NU, EX, false>(f);
+}
+
+// Calls f(Launch<Env, NU, 1024 / G, LANES>{}) for the env, the cost form
+// and the cluster size G in {8, 16}: blocks of 128 or 64 threads (the
+// rocket's shared memory caps a block at 128 examples, its slew-rate
+// wrapper's (NX = 16: 2,520 bytes an example) at 64, so that one has G =
+// 16 only; at 256 threads ptxas gave the pendulum 64 registers and a
+// stack). The slew-rate wrappers take the per-example cost only (the
+// wrapper expands an example-invariant one). Anything else is
+// cudaErrorInvalidValue.
 template <int EX, class F>
-cudaError_t dispatch_env(int env, F f) {
+cudaError_t dispatch_env(int env, int lanes, F f) {
   switch (env) {
     case ENV_CARTPOLE:
-      return f(Launch<Cartpole, 1, EX>{});
+      return launch_either<Cartpole, 1, EX>(lanes, f);
     case ENV_PENDULUM:
-      return f(Launch<Pendulum, 1, EX>{});
+      return launch_either<Pendulum, 1, EX>(lanes, f);
     case ENV_ROCKET:
-      return f(Launch<Rocket, 3, EX>{});
+      return launch_either<Rocket, 3, EX>(lanes, f);
+    case ENV_CARTPOLE_SLEW:
+      return lanes ? launch_if_fits<Passthrough<Cartpole>, 1, EX, true>(f)
+                   : cudaErrorInvalidValue;
+    case ENV_PENDULUM_SLEW:
+      return lanes ? launch_if_fits<Passthrough<Pendulum>, 1, EX, true>(f)
+                   : cudaErrorInvalidValue;
+    case ENV_ROCKET_SLEW:
+      return lanes ? launch_if_fits<Passthrough<Rocket>, 3, EX, true>(f)
+                   : cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <class F>
-cudaError_t dispatch(int env, int G, F f) {
-  if (G == 8) return dispatch_env<kTile / 8>(env, f);
-  if (G == 16) return dispatch_env<kTile / 16>(env, f);
+cudaError_t dispatch(int env, int lanes, int G, F f) {
+  if (G == 8) return dispatch_env<kTile / 8>(env, lanes, f);
+  if (G == 16) return dispatch_env<kTile / 16>(env, lanes, f);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace dilqr
 
-// lo/hi: host arrays of kMaxNu floats (the env's bounds first, padded),
-// copied into the kernel's arguments. cluster: the blocks of one
+// cost_lanes: 0 for the example-invariant cost C [Tc, N*N], c [Tc, N]; 1
+// for the per-example C [T, N*N, Bp], c [T, N, Bp]. lo/hi: host arrays of
+// kMaxNu floats (the env's bounds first, padded), copied into the kernel's
+// arguments; lb/ub: [T, NU, Bp] per-time and per-example bounds, or null
+// for lo/hi. uz: the u_zero_I mask [T, NU, Bp] as bytes, or null;
+// uz_free: the solve is unboxed (its Riccati takes the mask's free
+// subspace). has_du/du: the static delta_u. cluster: the blocks of one
 // 1024-example tile (dispatch). probe, smids: null, or the per-tile vote
 // counts and clock cycles and the per-block SM ids, for measurement.
-extern "C" int dilqr_ilqr_fused(int env, int T, int Bp, int Tc, const float* params,
-                                const float* x_init, const float* Cs, const float* cs,
-                                const float* u_init, const float* lo, const float* hi,
+extern "C" int dilqr_ilqr_fused(int env, int T, int Bp, int cost_lanes, int Tc,
+                                const float* params, const float* x_init, const float* C,
+                                const float* c, const float* u_init, const float* lo,
+                                const float* hi, const float* lb, const float* ub,
+                                const unsigned char* uz, int uz_free, int has_du, float du,
                                 int lqr_iter, float eps, float ls_decay, int max_ls_iter,
                                 float best_cost_eps, int not_improved_lim, int pnqp_iter,
                                 int cluster, float* work, float* bx, float* bu, float* bc,
                                 float* bdu, int* iters, long long* probe, int* smids,
                                 void* stream) {
   if (Bp <= 0 || Bp % dilqr::kTile != 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  dilqr::Args a{T, Bp, Tc, params, x_init, Cs, cs, u_init, {}, {},
-                lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter, eps, ls_decay,
-                best_cost_eps, work, bx, bu, bc, bdu, iters, probe, smids};
+  if ((lb == nullptr) != (ub == nullptr) || (uz_free && uz == nullptr))
+    return (int)cudaErrorInvalidValue;
+  dilqr::Args a{T, Bp, Tc, params, x_init, C, c, u_init, {}, {}, lb, ub, uz,
+                uz_free, has_du, du, lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter, eps,
+                ls_decay, best_cost_eps, work, bx, bu, bc, bdu, iters, probe, smids};
   for (int r = 0; r < dilqr::kMaxNu; ++r) {
     a.lo[r] = lo[r];
     a.hi[r] = hi[r];
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)dilqr::dispatch(env, cluster, [&](auto l) { return l.run(a, cluster, st); });
+  return (int)dilqr::dispatch(env, cost_lanes, cluster,
+                              [&](auto l) { return l.run(a, cluster, st); });
 }
 
 // out[5]: cudaOccupancyMaxActiveClusters, registers, local bytes a thread,
-// static and dynamic shared bytes a block of the (env, cluster) kernel.
-extern "C" int dilqr_ilqr_fused_info(int env, int cluster, int* out) {
-  return (int)dilqr::dispatch(env, cluster, [&](auto l) { return l.info(cluster, out); });
+// static and dynamic shared bytes a block of the (env, cost form, cluster)
+// kernel.
+extern "C" int dilqr_ilqr_fused_info(int env, int cost_lanes, int cluster, int* out) {
+  return (int)dilqr::dispatch(env, cost_lanes, cluster,
+                              [&](auto l) { return l.info(cluster, out); });
 }

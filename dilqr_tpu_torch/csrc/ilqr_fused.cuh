@@ -26,8 +26,16 @@ namespace dilqr {
 
 constexpr float kDt = 0.05f;
 
-// ids shared with the Python side (models/*.py DEVICE_ENV)
-enum EnvId { ENV_CARTPOLE = 0, ENV_PENDULUM = 1, ENV_ROCKET = 2 };
+// ids shared with the Python side (models/*.py DEVICE_ENV; the
+// slew-rate wrappers Passthrough<Env> in models/ctrl_passthrough.py)
+enum EnvId {
+  ENV_CARTPOLE = 0,
+  ENV_PENDULUM = 1,
+  ENV_ROCKET = 2,
+  ENV_CARTPOLE_SLEW = 3,
+  ENV_PENDULUM_SLEW = 4,
+  ENV_ROCKET_SLEW = 5,
+};
 
 // the most controls any env with device code has (the rocket's 3)
 constexpr int kMaxNu = 3;
@@ -43,6 +51,20 @@ DILQR_HD float rsqrt_f(float v) {
 // jnp.clip / torch.clamp semantics: NaN propagates
 DILQR_HD float clip(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// jnp.maximum / jnp.minimum: a NaN in either argument propagates
+DILQR_HD float maximum(float a, float b) {
+  return a != a ? a : (a > b ? a : b);
+}
+DILQR_HD float minimum(float a, float b) {
+  return a != a ? a : (a < b ? a : b);
+}
+
+// jnp.clip as min(max(v, lo), hi): hi when lo > hi (the delta_u clamp
+// around an iterate that lies outside the box)
+DILQR_HD float clip_ordered(float v, float lo, float hi) {
+  return minimum(maximum(v, lo), hi);
 }
 
 // a read through the read-only cache on the device (the cost: every thread
@@ -180,6 +202,7 @@ struct Cartpole {
   static constexpr int NX = 5;
   static constexpr int NU = 1;
   static constexpr int NP = 4;
+  static constexpr bool kColumnwiseQ = false;  // see the n_ctrl == 1 step in ilqr_fused.cu
   float g, mc, mp, l;
 
   DILQR_HD void load(const float* p) {
@@ -204,8 +227,10 @@ struct Cartpole {
     xn[4] = w + kDt * th_acc;
   }
 
-  // D = [dx'/dx | dx'/du] of the un-clamped step, [5][6]
-  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + 1]) const {
+  // D = [dx'/dx | dx'/du] of the un-clamped step, [5][6]: a float[5][6] or
+  // any view indexed D[i][j] (every entry is written)
+  template <class Out>
+  DILQR_HD void jac(const float* xs, const float* us, Out&& D) const {
     const float u = us[0];
     const float tm = mp + mc;
     const float pml = mp * l;
@@ -261,6 +286,7 @@ struct Pendulum {
   static constexpr int NX = 3;
   static constexpr int NU = 1;
   static constexpr int NP = 3;
+  static constexpr bool kColumnwiseQ = false;
   float g, m, l;
 
   DILQR_HD void load(const float* p) {
@@ -278,8 +304,10 @@ struct Pendulum {
     xn[2] = newdth;
   }
 
-  // D = [dx'/dx | dx'/du] of the un-clamped step, [3][4]
-  DILQR_HD void jac(const float* xs, const float* us, float D[NX][NX + 1]) const {
+  // D = [dx'/dx | dx'/du] of the un-clamped step, [3][4]: a float[3][4] or
+  // any view indexed D[i][j] (every entry is written)
+  template <class Out>
+  DILQR_HD void jac(const float* xs, const float* us, Out&& D) const {
     const float u = us[0];
     const float dt = kDt;
     const float c = xs[0], s = xs[1], w = xs[2];
@@ -325,6 +353,7 @@ struct Rocket {
   static constexpr int NX = 13;
   static constexpr int NU = 3;
   static constexpr int NP = 5;
+  static constexpr bool kColumnwiseQ = false;
   static constexpr float kDtR = 0.1f;
   float Jx, Jy, Jz, mass, l;
 
@@ -459,6 +488,60 @@ struct Rocket {
   }
 };
 
+// Views that shift a matrix's indices: row i of ShiftRows is row i + R of
+// the underlying D, column j is column j + R. The slew-rate wrapper writes
+// its base env's Jacobian through one into the lower-right block.
+template <class Row, int R>
+struct ShiftCols {
+  Row row;
+  DILQR_HD float& operator[](int j) const { return row[j + R]; }
+};
+template <class Out, int R>
+struct ShiftRows {
+  Out& D;
+  DILQR_HD auto operator[](int i) const {
+    return ShiftCols<decltype(D[0]), R>{D[i + R]};
+  }
+};
+
+// The slew-rate augmented state (u_{t-1}, x) of an env (counterpart of
+// models/ctrl_passthrough.py): the step is (u, step(x, u)); the Jacobian
+// over ((u_{t-1}, x), u) has rows [0 | 0 | I] for the u_{t-1} block and
+// [0 | Fx | Fu] below, from the env's hand-derived one. The JAX kernel
+// forms this matrix with a jvp sweep (lin_at); the entries agree up to the
+// rounding of the env's Jacobian against its jvp.
+template <class Env>
+struct Passthrough {
+  static constexpr int NU = Env::NU;
+  static constexpr int NX = NU + Env::NX;
+  static constexpr int NP = Env::NP;
+  static constexpr bool kColumnwiseQ = true;
+  Env env;
+
+  DILQR_HD void load(const float* p) { env.load(p); }
+
+  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
+#pragma unroll
+    for (int r = 0; r < NU; ++r) xn[r] = us[r];
+    env.step(xs + NU, us, xn + NU);
+  }
+
+  template <class Out>
+  DILQR_HD void jac(const float* xs, const float* us, Out&& D) const {
+#pragma unroll
+    for (int r = 0; r < NU; ++r)
+#pragma unroll
+      for (int j = 0; j < NX + NU; ++j) D[r][j] = j == NX + r ? 1.0f : 0.0f;
+#pragma unroll
+    for (int i = NU; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NU; ++j) D[i][j] = 0.0f;
+    // the env's [Fx | Fu] at rows and columns NU..: x's columns follow
+    // u_{t-1}'s, and u's follow x's
+    env.jac(xs + NU, us, ShiftRows<Out, NU>{D});
+  }
+};
+
 // ---- the multi-control box-QP of the Riccati step (nu = 2, 3) ----
 // Counterparts of _inv_lanes and _pnqp_lanes in dilqr_tpu/ops/pallas/
 // ilqr_fused.py, with its constants.
@@ -582,20 +665,45 @@ DILQR_HD void pnqp(const float H[M][M], const float* q, const float* lb, const f
   }
 }
 
-// 0.5 tau^T C tau + c^T tau for tau = (x, u); C row-major [N*N], c [N]
+// One step's cost of one example: C row-major [N*N] and c [N], their
+// entries `stride` apart -- 1 for the example-invariant cost, the padded
+// batch for the per-example one ([T, N*N, Bp], each example its own
+// column). Read through the read-only cache.
+struct CostView {
+  const float* C;
+  const float* c;
+  int stride;
+  DILQR_HD float Ce(int e) const { return ldg_f(C + (size_t)e * stride); }
+  DILQR_HD float ce(int i) const { return ldg_f(c + (size_t)i * stride); }
+};
+
+// 0.5 tau^T C tau + c^T tau for tau = (x, u)
 template <int N>
-DILQR_HD float objective(const float* tau, const float* C, const float* c) {
+DILQR_HD float objective(const float* tau, const CostView& cost) {
   float quad = 0.0f, lin = 0.0f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float ct = 0.0f;
 #pragma unroll
-    for (int j = 0; j < N; ++j) ct += C[i * N + j] * tau[j];
+    for (int j = 0; j < N; ++j) ct += cost.Ce(i * N + j) * tau[j];
     quad += tau[i] * ct;
-    lin += c[i] * tau[i];
+    lin += cost.ce(i) * tau[i];
   }
   return 0.5f * quad + lin;
 }
+
+// The step's variants, each the same for the whole launch: the bounds'
+// delta_u trust region (has_du), and the u_zero_I mask of an unboxed
+// solve (masked, with the step's mask Iz as 0/1 floats), whose gains come
+// from the free subspace instead of the box-QP. Held by value: a pointer
+// chosen at run time would put the mask in local memory.
+template <int NU>
+struct StepVariant {
+  int has_du;
+  float du;
+  int masked;
+  float Iz[NU];
+};
 
 // ---- the Riccati step of the multi-control kernel (nu = 2, 3) ----
 // One example's V, Q and F sit in strided storage: on the device
@@ -618,17 +726,20 @@ struct BoxStepLayout {
 };
 
 // One reverse Riccati step at tau = (x_t, u_t), the arithmetic of the JAX
-// kernel's step (ilqr_fused.py:1224-1384) for static bounds: F = jac(tau)
-// (at t = T-1, where V, v and F are zero, Q = C and q = C tau + c exactly),
-// Q = C + F^T (V F) and q = C tau + c + F^T v, the box-QP in delta space
-// warm-started with `warm` (k_{t+1}; at T-1 the clipped ridged Newton
-// point), the gains K = -inv(H_free) (Q_ux * If) and k, and the update
-// V' = Qxx + M + M^T + K^T Quu K (M = Qxu K), v' = qx + Qxu k + K^T (qu +
-// Quu k). V and v are read and overwritten; `store` holds V, Q, F with
-// `stride` between entries (BoxStepLayout); lo/hi are the static bounds.
+// kernel's step (ilqr_fused.py:1224-1384): F = jac(tau) (at t = T-1, where
+// V, v and F are zero, Q = C and q = C tau + c exactly), Q = C + F^T (V F)
+// and q = C tau + c + F^T v, the box-QP in delta space (bounds lo - u, hi
+// - u, intersected with +-delta_u) warm-started with `warm` (k_{t+1}; at
+// T-1 the clipped ridged Newton point), the gains K = -inv(H_free) (Q_ux *
+// If) and k, and the update V' = Qxx + M + M^T + K^T Quu K (M = Qxu K), v'
+// = qx + Qxu k + K^T (qu + Quu k). An unboxed solve with a u_zero_I mask
+// (var.masked) takes the free subspace instead (:1313-1334): If = 1 - Iz,
+// H_free = Quu * If If^T + 1e-8 diag(Iz), k = -inv(H_free) (qu * If), and
+// no box-QP. V and v are read and overwritten; `store` holds V, Q, F with
+// `stride` between entries (BoxStepLayout); lo/hi are this step's bounds.
 template <class Env, int NU>
-DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const float* C,
-                               const float* c, const float* lo, const float* hi,
+DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const CostView& cost,
+                               const float* lo, const float* hi, const StepVariant<NU>& var,
                                const float* warm, int pnqp_iter, TileVote& vote, float* store,
                                int stride, float* v, float K[NU][Env::NX], float* kt) {
   using L = BoxStepLayout<Env, NU>;
@@ -643,14 +754,14 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
   for (int i = 0; i < N; ++i) {
     float cb = 0.0f;
 #pragma unroll
-    for (int j = 0; j < N; ++j) cb += ldg_f(&C[i * N + j]) * tau[j];
-    q[i] = cb + ldg_f(&c[i]);
+    for (int j = 0; j < N; ++j) cb += cost.Ce(i * N + j) * tau[j];
+    q[i] = cb + cost.ce(i);
   }
   if (last) {
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = i; j < N; ++j) Q(i, j) = ldg_f(&C[i * N + j]);
+      for (int j = i; j < N; ++j) Q(i, j) = cost.Ce(i * N + j);
   } else {
     env.jac(tau, tau + NX, F);
 #pragma unroll
@@ -687,7 +798,7 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
           float s = 0.0f;
 #pragma unroll
           for (int k = 0; k < NX; ++k) s += fi[k] * tmp[jj][k];
-          Q(i, j) = ldg_f(&C[i * N + j]) + s;
+          Q(i, j) = cost.Ce(i * N + j) + s;
         }
         if (i >= j0) {
           float fv = 0.0f;
@@ -706,29 +817,52 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
     qu[r] = q[NX + r];
     lb[r] = lo[r] - tau[NX + r];
     ub[r] = hi[r] - tau[NX + r];
+    if (var.has_du) {  // the trust region intersected into the QP bounds
+      lb[r] = maximum(lb[r], -var.du);
+      ub[r] = minimum(ub[r], var.du);
+    }
 #pragma unroll
     for (int s = 0; s < NU; ++s) H[r][s] = Q(NX + r, NX + s);
   }
-  if (!last) {
+  float If[NU], Hf[NU][NU], Hinv[NU][NU];
+  if (var.masked) {
+    // the free subspace of an unboxed masked solve; no box-QP, no vote
+    float qf[NU];
 #pragma unroll
-    for (int r = 0; r < NU; ++r) w[r] = warm[r];
-  } else {
-    // clip(-inv(Quu + 1e-11 I) qu, lb, ub)
-    float Hr[NU][NU], Hri[NU][NU];
+    for (int r = 0; r < NU; ++r) {
+      If[r] = 1.0f - var.Iz[r];
+      qf[r] = qu[r] * If[r];
+    }
 #pragma unroll
     for (int r = 0; r < NU; ++r)
 #pragma unroll
-      for (int s = 0; s < NU; ++s) Hr[r][s] = H[r][s] + (r == s ? kPnqpReg : 0.0f);
-    inv_small<NU>(Hr, Hri);
-    mv_small<NU>(Hri, qu, w);
+      for (int s = 0; s < NU; ++s)
+        Hf[r][s] = H[r][s] * If[r] * If[s] + (r == s ? 1e-8f * var.Iz[r] : 0.0f);
+    inv_small<NU>(Hf, Hinv);
+    mv_small<NU>(Hinv, qf, kt);
 #pragma unroll
-    for (int r = 0; r < NU; ++r) w[r] = clip(-w[r], lb[r], ub[r]);
+    for (int r = 0; r < NU; ++r) kt[r] = -kt[r];
+  } else {
+    if (!last) {
+#pragma unroll
+      for (int r = 0; r < NU; ++r) w[r] = warm[r];
+    } else {
+      // clip(-inv(Quu + 1e-11 I) qu, lb, ub)
+      float Hr[NU][NU], Hri[NU][NU];
+#pragma unroll
+      for (int r = 0; r < NU; ++r)
+#pragma unroll
+        for (int s = 0; s < NU; ++s) Hr[r][s] = H[r][s] + (r == s ? kPnqpReg : 0.0f);
+      inv_small<NU>(Hr, Hri);
+      mv_small<NU>(Hri, qu, w);
+#pragma unroll
+      for (int r = 0; r < NU; ++r) w[r] = clip(-w[r], lb[r], ub[r]);
+    }
+    pnqp<NU>(H, qu, lb, ub, w, pnqp_iter, vote, kt, If, Hf);
+    inv_small<NU>(Hf, Hinv);
   }
-  float If[NU], Hf[NU][NU], Hinv[NU][NU];
-  pnqp<NU>(H, qu, lb, ub, w, pnqp_iter, vote, kt, If, Hf);
 
   // K = -inv(H_free) (Q_ux * If): active rows of Q_ux zeroed
-  inv_small<NU>(Hf, Hinv);
   float Qxu[NX][NU];
 #pragma unroll
   for (int j = 0; j < NX; ++j)

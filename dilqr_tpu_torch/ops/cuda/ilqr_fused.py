@@ -3,27 +3,39 @@ CUDA kernel ``csrc/ilqr_fused.cu`` and its plain PyTorch version.
 
 Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
 the Pallas kernel ``_ilqr_kernel``) for the configurations ``covered``
-admits: static per-control bounds, an example-invariant QuadCost
-([n,n]+[n] or [T,n,n]+[T,n]), a zero or given warm start,
-GradMethod.ANALYTIC with the env's hand-derived Jacobian, f32, and an env
-with device code: cartpole and the simple pendulum (n_ctrl == 1, the
-closed-form 1-D box-QP) and the rocket (n_ctrl == 3, the in-kernel
-projected-Newton box-QP).
+admits: GradMethod.ANALYTIC with the env's hand-derived Jacobian, f32, an
+env with device code -- cartpole and the simple pendulum (n_ctrl == 1, the
+closed-form 1-D box-QP), the rocket (n_ctrl == 3, the in-kernel
+projected-Newton box-QP) and the slew-rate wrapper of each
+(``models/ctrl_passthrough``) -- and, as data, a QuadCost that is
+example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
+([T,B,n,n]+[T,B,n], "the lanes cost"), bounds that are static (None, a
+number or [nu]) or per time and example (anything that broadcasts to
+[T,B,nu]), a u_zero_I mask [T,B,nu], a static scalar delta_u, and a zero
+or given warm start.
 
 Semantics, shared by the kernel and ``ilqr_fused_reference``: the batch is
-zero-padded to a multiple of 1024 with the real cost, and the line search's
-any(cost worsened), the not-improved reset's any(improved), the stopping
-rule's max(du) < eps and the box-QP's Newton and Armijo exits are decided
-per 1024-example tile, as the JAX kernel decides them (ilqr_fused.py:35-47,
-:570-678). The env steps and Jacobians are the kernel forms
-(``Dynamics.kernel_step`` / ``jac_lanes``).
+zero-padded to a multiple of 1024 (the lanes cost's padded examples get the
+identity C, a tensor bound's padded entries are 0, as JAX pads them), and
+the line search's any(cost worsened), the not-improved reset's
+any(improved), the stopping rule's max(du) < eps and the box-QP's Newton
+and Armijo exits are decided per 1024-example tile, as the JAX kernel
+decides them (ilqr_fused.py:35-47, :570-678). The env steps and Jacobians
+are the kernel forms (``Dynamics.kernel_step`` / ``jac_lanes``). The
+variants' arithmetic is JAX's: delta_u intersects the QP bounds with
++-delta_u and widens the trial clamp around the current iterate
+(:1307-1311, :1404-1408); a mask zeroes its coordinates before the trial
+clamp (:1399-1402), and an unboxed (u_lower None) masked solve takes the
+free-subspace gains with 1e-8 on frozen diagonals instead of the box-QP
+(:1313-1334).
 
 Launch geometry (``geometry``): one tile is one thread-block cluster of G
 blocks, 1024/G examples a block, one thread an example; the tile's
 decisions are cluster votes. G is 8 unless a caller measuring the kernel
-passes another (``cluster``); the result does not depend on it. A launch
-the card refuses raises: nothing falls back to another geometry or to the
-plain version.
+passes another (``cluster``), or 16 for the rocket's slew-rate wrapper,
+whose shared memory admits 64 examples a block; the result does not depend
+on G. A launch the card refuses raises: nothing falls back to another
+geometry or to the plain version.
 
 ``ilqr_fused`` launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; there is no fallback from one to the
@@ -48,8 +60,15 @@ TILE = 1024  # examples per tile: the JAX kernel's base tile
 # cluster sizes G (blocks a tile) csrc/ilqr_fused.cu instantiates
 CLUSTERS = (8, 16)
 DEFAULT_CLUSTER = 8
-# device_env -> (params, controls) the device code reads
-DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3)}
+# device_env -> (params, controls) the device code reads: cartpole,
+# pendulum, rocket, then Passthrough<> of each (the slew-rate state)
+DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3), 3: (4, 1), 4: (3, 1), 5: (5, 3)}
+# the instantiations with fewer cluster sizes: Passthrough<Rocket> (16
+# states) needs 2,520 shared bytes an example, so 64 examples a block
+ENV_CLUSTERS = {5: (16,)}
+# the slew-rate wrappers are instantiated for the per-example cost only:
+# ``prepare`` expands an example-invariant cost for them
+LANES_ONLY = (3, 4, 5)
 MAX_NU = 3  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
 
 # kernel launches made by ilqr_fused (the plain version does not count)
@@ -61,11 +80,20 @@ def _bound_is_static(v, nu: int) -> bool:
             or (isinstance(v, torch.Tensor) and (v.dim() == 0 or tuple(v.shape) == (nu,))))
 
 
+def _bound_is_lanes(v, T: int, nu: int) -> bool:
+    """A tensor bound that broadcasts to [T, B, nu] for some B."""
+    if not isinstance(v, torch.Tensor) or v.dim() > 3 or not v.is_floating_point():
+        return False
+    shape = (1,) * (3 - v.dim()) + tuple(v.shape)
+    return shape[0] in (1, T) and shape[2] in (1, nu)
+
+
 def static_bounds(u_lower, u_upper, nu: int) -> Optional[Tuple[Tuple[float, ...], ...]]:
     """Per-control (lo, hi) tuples of floats for example- and
     time-invariant bounds (None | scalar | [nu] tensor), with one host read
     for the tensors among them; None = the bounds vary over time or
-    examples and the kernel does not take them. A missing bound is +-inf."""
+    examples and the kernel takes them as [T, nu, Bp] inputs. A missing
+    bound is +-inf."""
     if not (_bound_is_static(u_lower, nu) and _bound_is_static(u_upper, nu)):
         return None
     dev = next((v.device for v in (u_lower, u_upper) if isinstance(v, torch.Tensor)), "cpu")
@@ -76,31 +104,47 @@ def static_bounds(u_lower, u_upper, nu: int) -> Optional[Tuple[Tuple[float, ...]
     return tuple(lo), tuple(hi)
 
 
+def static_scalar(v) -> Optional[float]:
+    """A number or a 0-d tensor as a float (one host read); None otherwise
+    (JAX's _static_scalar, :253-260)."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    if isinstance(v, torch.Tensor) and v.dim() == 0:
+        return float(v)
+    return None
+
+
 def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             u_lower, u_upper) -> bool:
     """True when the configuration is one the kernel computes (counterpart
-    of ``fused_supported`` plus ``lane_compatible`` for this subset)."""
+    of ``fused_supported`` plus ``lane_compatible`` for the envs with
+    device code). ``cost_small`` None means the per-example cost."""
+    nu = cfg.n_ctrl
     return (
         isinstance(dyn, Dynamics)
         and dyn.device_env in DEVICE_ENVS
         and dyn.jacobian is None
-        and cfg.n_ctrl == dyn.n_ctrl == DEVICE_ENVS[dyn.device_env][1]
+        and nu == dyn.n_ctrl == DEVICE_ENVS[dyn.device_env][1]
         and cfg.n_state == dyn.n_state
         and cfg.grad_method is GradMethod.ANALYTIC
         and cfg.qp_solver == "auto"
         and not cfg.unroll
         and cfg.verbose < 1
-        and cfg.slew_rate_penalty is None
         and dtype == torch.float32
-        and cost_small is not None
-        and u_zero_I is None
-        and delta_u is None
-        and _bound_is_static(u_lower, cfg.n_ctrl)
-        and _bound_is_static(u_upper, cfg.n_ctrl)
+        and (delta_u is None or static_scalar(delta_u) is not None)
+        and (u_zero_I is None or (isinstance(u_zero_I, torch.Tensor) and u_zero_I.dim() == 3
+                                  and u_zero_I.shape[0] == cfg.T and u_zero_I.shape[2] == nu))
+        and all(_bound_is_static(v, nu) or _bound_is_lanes(v, cfg.T, nu)
+                for v in (u_lower, u_upper))
         and isinstance(params, torch.Tensor)
         and params.dim() == 1
         and params.shape[0] == DEVICE_ENVS[dyn.device_env][0]
     )
+
+
+def clusters(device_env: int) -> Tuple[int, ...]:
+    """The cluster sizes the env's instantiation has."""
+    return ENV_CLUSTERS.get(device_env, CLUSTERS)
 
 
 def _padded(B: int) -> int:
@@ -115,101 +159,184 @@ class Geometry(NamedTuple):
     blocks: int    # blocks in the launch
 
 
-def geometry(B: int, cluster: int = 0) -> Geometry:
+def geometry(B: int, cluster: int = 0, device_env: int = 0) -> Geometry:
     """The kernel's launch shape for a batch of B; ``cluster`` 0 takes the
-    default G."""
-    G = cluster or DEFAULT_CLUSTER
-    if G not in CLUSTERS:
-        raise ValueError(f"ilqr_fused instantiates clusters of {CLUSTERS} blocks; got {G}")
+    env's default G (its smallest instantiated one)."""
+    sizes = clusters(device_env)
+    G = cluster or min(DEFAULT_CLUSTER, *sizes) if DEFAULT_CLUSTER in sizes or not cluster \
+        else cluster
+    G = cluster or (DEFAULT_CLUSTER if DEFAULT_CLUSTER in sizes else sizes[0])
+    if G not in sizes:
+        raise ValueError(f"ilqr_fused instantiates clusters of {sizes} blocks for env "
+                         f"{device_env}; got {G}")
     Bp = _padded(B)
     return Geometry(Bp, Bp // TILE, G, TILE // G, Bp // TILE * G)
 
 
-def _cost_arrays(cost_small, T: int, n: int, device):
-    """Example-invariant cost as f32 (C [Tc, n, n], c [Tc, n]), Tc in {1, T}."""
-    Cs, cs = (torch.as_tensor(a, device=device).to(torch.float32) for a in cost_small)
-    if Cs.dim() == 2:
-        Cs, cs = Cs[None], cs[None]
-    if Cs.shape[1:] != (n, n) or cs.shape[1:] != (n,) or Cs.shape[0] not in (1, T) \
-            or cs.shape[0] != Cs.shape[0]:
+class Inputs(NamedTuple):
+    """The solve's data in the kernel's layout, the batch padded to Bp
+    (the last axis of every per-example array)."""
+    x_init: torch.Tensor              # [nx, Bp]
+    u_init: Optional[torch.Tensor]    # [T, nu, Bp] or None (zeros)
+    lanes: bool                       # the per-example cost
+    C: torch.Tensor                   # [Tc, n*n] or [T, n*n, Bp]
+    c: torch.Tensor                   # [Tc, n] or [T, n, Bp]
+    lo: Tuple[float, ...]             # static bounds ([nu] each) or
+    hi: Tuple[float, ...]             # None beside lb/ub
+    lb: Optional[torch.Tensor]        # [T, nu, Bp] per-time and per-example
+    ub: Optional[torch.Tensor]        # bounds, or None
+    uz: Optional[torch.Tensor]        # [T, nu, Bp] uint8 mask, or None
+    uz_free: bool                     # unboxed (u_lower None) and masked
+    du: Optional[float]               # the static delta_u
+
+
+def _lanes(a: torch.Tensor, B: int, Bp: int, fill: float = 0.0) -> torch.Tensor:
+    """[T, B, *small] -> [T, prod(small), Bp] (the batch last, padded with
+    ``fill``)."""
+    T = a.shape[0]
+    out = torch.full((T, a[0, 0].numel(), Bp), fill, dtype=a.dtype, device=a.device)
+    out[:, :, :B] = a.reshape(T, B, -1).permute(0, 2, 1)
+    return out
+
+
+def _cost_inputs(cost, T: int, B: int, Bp: int, n: int, device, lanes_only: bool = False):
+    """(lanes, C, c) from ``cost``: the example-invariant (C [n,n] or
+    [T,n,n], c [n] or [T,n]) as (False, [Tc, n*n], [Tc, n]), or the
+    per-example (C [T,B,n,n], c [T,B,n]) as (True, [T, n*n, Bp], [T, n,
+    Bp]) with the identity C on the padded examples (JAX's
+    pad_cost_identity: a positive Quu there). ``lanes_only``: an
+    example-invariant cost too comes as (True, ...), every example and
+    padded example its C and c, so the function is the same."""
+    C, c = (torch.as_tensor(a, device=device).to(torch.float32) for a in cost)
+    if lanes_only and C.dim() < 4:
+        lanes, C, c = _cost_inputs(cost, T, B, Bp, n, device)
+        C = C.expand(T, n * n) if C.shape[0] == 1 else C
+        c = c.expand(T, n) if c.shape[0] == 1 else c
+        return True, C[:, :, None].expand(T, n * n, Bp).contiguous(), \
+            c[:, :, None].expand(T, n, Bp).contiguous()
+    if C.dim() == 4:
+        if C.shape != (T, B, n, n) or c.shape != (T, B, n):
+            raise ValueError(f"a per-example cost must be ([T,B,n,n], [T,B,n]) with T={T}, "
+                             f"B={B}, n={n}; got {tuple(C.shape)}, {tuple(c.shape)}")
+        Cl = _lanes(C, B, Bp)
+        Cl[:, torch.arange(n) * (n + 1), B:] = 1.0
+        return True, Cl, _lanes(c, B, Bp)
+    if C.dim() == 2:
+        C, c = C[None], c[None]
+    if C.shape[1:] != (n, n) or c.shape[1:] != (n,) or C.shape[0] not in (1, T) \
+            or c.shape[0] != C.shape[0]:
         raise ValueError(
-            f"cost_small must be ([n,n], [n]) or ([T,n,n], [T,n]) with n={n}, "
-            f"T={T}; got {tuple(Cs.shape)}, {tuple(cs.shape)}")
-    return Cs, cs
+            f"cost must be ([n,n], [n]), ([T,n,n], [T,n]) or ([T,B,n,n], [T,B,n]) with "
+            f"n={n}, T={T}; got {tuple(C.shape)}, {tuple(c.shape)}")
+    return False, C.reshape(C.shape[0], n * n).contiguous(), c.contiguous()
 
 
-def _check_inputs(cfg, dyn, params, x_init, u_init, u_lower, u_upper):
-    """Validates the inputs; returns the static bounds."""
+def _expand_bound(v, T: int, B: int, Bp: int, nu: int, sign: float, device) -> torch.Tensor:
+    """A bound as [T, nu, Bp] (JAX's expand_bound): None is sign*inf and a
+    number fills every entry, the padded ones too; a tensor broadcasts to
+    [T, B, nu] and its padded entries are 0."""
+    if v is None or not isinstance(v, torch.Tensor) or v.dim() == 0:
+        val = sign * math.inf if v is None else float(v)
+        return torch.full((T, nu, Bp), val, dtype=torch.float32, device=device)
+    v = v.to(device=device, dtype=torch.float32)
+    return _lanes(v.expand(T, B, nu), B, Bp)
+
+
+def prepare(cfg: ILQRConfig, dyn: Dynamics, params, x_init, cost, u_init, u_lower, u_upper,
+            u_zero_I, delta_u, Bp: int) -> Inputs:
+    """Validates the inputs and lays them out for the kernel (the lanes
+    transpose, once a solve)."""
     if dyn.device_env not in DEVICE_ENVS or cfg.n_ctrl != DEVICE_ENVS[dyn.device_env][1]:
-        raise ValueError("ilqr_fused covers cartpole, the simple pendulum (n_ctrl == 1) "
-                         "and the rocket with normalize_quat=False (n_ctrl == 3)")
+        raise ValueError("ilqr_fused covers cartpole, the simple pendulum (n_ctrl == 1), "
+                         "the rocket with normalize_quat=False (n_ctrl == 3) and their "
+                         "slew-rate wrappers")
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
     n_params = DEVICE_ENVS[dyn.device_env][0]
     if x_init.dtype != torch.float32:
         raise ValueError(f"ilqr_fused is f32 only, got {x_init.dtype}")
-    if x_init.dim() != 2 or x_init.shape[1] != cfg.n_state:
-        raise ValueError(f"x_init must be [B, {cfg.n_state}], got {tuple(x_init.shape)}")
+    if x_init.dim() != 2 or x_init.shape[1] != nx:
+        raise ValueError(f"x_init must be [B, {nx}], got {tuple(x_init.shape)}")
     if params.dim() != 1 or params.shape[0] != n_params:
         raise ValueError(f"params must be [{n_params}], got {tuple(params.shape)}")
-    nu = cfg.n_ctrl
-    if u_init is not None and tuple(u_init.shape) != (cfg.T, x_init.shape[0], nu):
+    B = x_init.shape[0]
+    if u_init is not None and tuple(u_init.shape) != (T, B, nu):
         raise ValueError(f"u_init must be [T, B, {nu}], got {tuple(u_init.shape)}")
-    for name, t in (("params", params), ("u_init", u_init)):
+    if u_zero_I is not None and tuple(u_zero_I.shape) != (T, B, nu):
+        raise ValueError(f"u_zero_I must be [T, B, {nu}], got {tuple(u_zero_I.shape)}")
+    for name, t in (("params", params), ("u_init", u_init), ("u_zero_I", u_zero_I)):
         if t is not None and t.device != x_init.device:
             raise ValueError(f"{name} is on {t.device}, x_init on {x_init.device}")
+    du = None
+    if delta_u is not None:
+        du = static_scalar(delta_u)
+        if du is None:
+            raise ValueError("ilqr_fused takes a static scalar delta_u (a number or a 0-d "
+                             f"tensor), got {type(delta_u).__name__}")
+    dev = x_init.device
+    lanes, C, c = _cost_inputs(cost, T, B, Bp, nx + nu, dev,
+                               lanes_only=dyn.device_env in LANES_ONLY)
     bounds = static_bounds(u_lower, u_upper, nu)
+    lb = ub = None
     if bounds is None:
-        raise ValueError("ilqr_fused takes example- and time-invariant bounds only "
-                         f"(None, a scalar or [{nu}])")
-    return bounds
+        for v in (u_lower, u_upper):
+            if not (_bound_is_static(v, nu) or _bound_is_lanes(v, T, nu)):
+                raise ValueError(f"a bound must be None, a number, [{nu}] or broadcast to "
+                                 f"[T, B, {nu}]; got {tuple(v.shape)}")
+        lb = _expand_bound(u_lower, T, B, Bp, nu, -1.0, dev)
+        ub = _expand_bound(u_upper, T, B, Bp, nu, 1.0, dev)
+        bounds = ((0.0,) * nu, (0.0,) * nu)
+    xi = torch.zeros(nx, Bp, dtype=torch.float32, device=dev)
+    xi[:, :B] = x_init.T
+    u0 = None if u_init is None else _lanes(u_init.to(torch.float32), B, Bp)
+    uz = None if u_zero_I is None else _lanes(u_zero_I.to(torch.uint8), B, Bp)
+    return Inputs(xi, u0, lanes, C, c, bounds[0], bounds[1], lb, ub, uz,
+                  uz is not None and u_lower is None, du)
 
 
 def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-               x_init: torch.Tensor, cost_small, u_init: Optional[torch.Tensor] = None,
-               u_lower=None, u_upper=None, cluster: int = 0):
-    """Run the whole solve. x_init [B, nx]; cost_small the example-invariant
-    (C, c); u_init [T, B, nu] time-major or None (zeros); u_lower/u_upper
-    None, a scalar or [nu]. Returns time-major (x [T,B,nx], u [T,B,nu],
+               x_init: torch.Tensor, cost, u_init: Optional[torch.Tensor] = None,
+               u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
+               delta_u=None, cluster: int = 0):
+    """Run the whole solve. x_init [B, nx]; cost the pair (C, c), either
+    example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
+    ([T,B,n,n]+[T,B,n]); u_init [T, B, nu] time-major or None (zeros);
+    u_lower/u_upper None, a number, [nu] or anything that broadcasts to
+    [T, B, nu]; u_zero_I a [T, B, nu] bool mask or None; delta_u None, a
+    number or a 0-d tensor. Returns time-major (x [T,B,nx], u [T,B,nu],
     costs [B], full_du_norm [B], n_iter []). ``cluster``: blocks a tile, 0
     for the default (the result does not depend on it).
 
     CUDA tensors launch the kernel; CPU tensors take ilqr_fused_reference."""
     if not x_init.is_cuda:
-        return ilqr_fused_reference(cfg, dyn, params, x_init, cost_small, u_init,
-                                    u_lower=u_lower, u_upper=u_upper)
-    return _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster)[0]
+        return ilqr_fused_reference(cfg, dyn, params, x_init, cost, u_init, u_lower=u_lower,
+                                    u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u)
+    return _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I,
+                   delta_u, cluster)[0]
 
 
 def ilqr_fused_probe(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-                     x_init: torch.Tensor, cost_small, u_init: Optional[torch.Tensor] = None,
-                     u_lower=None, u_upper=None, cluster: int = 0):
+                     x_init: torch.Tensor, cost, u_init: Optional[torch.Tensor] = None,
+                     u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
+                     delta_u=None, cluster: int = 0):
     """One launch of the kernel on CUDA tensors that also records what it
     did: (ilqr_fused's outputs, per tile [tiles, 3] the votes it took, the
     SM clock cycles its rank-0 thread 0 spent in them and in the whole
     kernel, the SM each block ran on [blocks])."""
     if not x_init.is_cuda:
         raise ValueError("ilqr_fused_probe launches the kernel: x_init must be on the card")
-    return _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster,
-                   probe=True)
+    return _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I,
+                   delta_u, cluster, probe=True)
 
 
-def _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, cluster,
-            probe=False):
+def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
+            cluster, probe=False):
     global LAUNCHES
-    lo, hi = _check_inputs(cfg, dyn, params, x_init, u_init, u_lower, u_upper)
     T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
-    geo = geometry(B, cluster)
-    n = nx + nu
-    dev = x_init.device
+    geo = geometry(B, cluster, dyn.device_env)
     Bp = geo.Bp
-    Cs, cs = _cost_arrays(cost_small, T, n, dev)
-    Cs = Cs.reshape(Cs.shape[0], n * n).contiguous()
-    cs = cs.contiguous()
-    xi = torch.zeros(nx, Bp, dtype=torch.float32, device=dev)
-    xi[:, :B] = x_init.T
-    u0 = None
-    if u_init is not None:
-        u0 = torch.zeros(T, nu, Bp, dtype=torch.float32, device=dev)
-        u0[:, :, :B] = u_init.permute(0, 2, 1)
+    inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
+                  Bp)
+    dev = x_init.device
     p = params.to(torch.float32).contiguous()
 
     # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
@@ -222,20 +349,23 @@ def _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, clus
     stats = torch.zeros(geo.tiles, 3, dtype=torch.int64, device=dev) if probe else None
     smids = torch.full((geo.blocks,), -1, dtype=torch.int32, device=dev) if probe else None
 
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     fn = _entry()
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
     pad = (0.0,) * (MAX_NU - nu)
-    lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (lo, hi))
+    lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(dyn.device_env, T, Bp, Cs.shape[0], p.data_ptr(), xi.data_ptr(),
-                Cs.data_ptr(), cs.data_ptr(), 0 if u0 is None else u0.data_ptr(),
-                lo_c, hi_c, cfg.lqr_iter, cfg.eps, cfg.linesearch_decay,
-                cfg.max_linesearch_iter, cfg.best_cost_eps, cfg.not_improved_lim,
-                cfg.pnqp_iter, geo.cluster, work.data_ptr(), bx.data_ptr(), bu.data_ptr(),
-                bc.data_ptr(), bdu.data_ptr(), iters.data_ptr(),
-                0 if stats is None else stats.data_ptr(),
-                0 if smids is None else smids.data_ptr(), stream)
+        rc = fn(dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr(),
+                inp.x_init.data_ptr(), inp.C.data_ptr(), inp.c.data_ptr(), ptr(inp.u_init),
+                lo_c, hi_c, ptr(inp.lb), ptr(inp.ub), ptr(inp.uz), int(inp.uz_free),
+                int(inp.du is not None), 0.0 if inp.du is None else inp.du,
+                cfg.lqr_iter, cfg.eps, cfg.linesearch_decay, cfg.max_linesearch_iter,
+                cfg.best_cost_eps, cfg.not_improved_lim, cfg.pnqp_iter, geo.cluster,
+                work.data_ptr(), bx.data_ptr(), bu.data_ptr(), bc.data_ptr(), bdu.data_ptr(),
+                iters.data_ptr(), ptr(stats), ptr(smids), stream)
     if rc != 0:
         raise RuntimeError(f"ilqr_fused kernel launch failed ({geo.tiles} clusters of "
                            f"{geo.cluster} blocks of {geo.block} threads): CUDA error {rc}")
@@ -245,28 +375,31 @@ def _launch(cfg, dyn, params, x_init, cost_small, u_init, u_lower, u_upper, clus
     return out, stats, smids
 
 
-def kernel_info(device_env: int, cluster: int = 0) -> dict:
-    """What the card says of one instantiation: the clusters of G blocks it
-    can hold at once (cudaOccupancyMaxActiveClusters), registers and local
-    bytes a thread, static and dynamic shared bytes a block."""
-    G = geometry(TILE, cluster).cluster
+def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False) -> dict:
+    """What the card says of one instantiation (``lanes``: the per-example
+    cost's; the slew-rate wrappers have no other): the clusters of G blocks
+    it can hold at once (cudaOccupancyMaxActiveClusters), registers and
+    local bytes a thread, static and dynamic shared bytes a block."""
+    G = geometry(TILE, cluster, device_env).cluster
+    lanes = lanes or device_env in LANES_ONLY
     fn = build.load(SOURCE).dilqr_ilqr_fused_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
-    rc = fn(device_env, G, out)
+    rc = fn(device_env, int(lanes), G, out)
     if rc != 0:
-        raise RuntimeError(f"ilqr_fused_info (env {device_env}, cluster {G}): CUDA error {rc}")
+        raise RuntimeError(f"ilqr_fused_info (env {device_env}, lanes {lanes}, cluster {G}): "
+                           f"CUDA error {rc}")
     keys = ("max_active_clusters", "registers", "local_bytes", "static_smem", "dynamic_smem")
-    return dict(zip(keys, out), cluster=G)
+    return dict(zip(keys, out), cluster=G, lanes=lanes)
 
 
 def _entry():
     fn = build.load(SOURCE).dilqr_ilqr_fused
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I, F, F, I, F, I, I, I,
-                       P, P, P, P, P, P, P, P, P]
+        fn.argtypes = [I, I, I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, F,
+                       I, F, F, I, F, I, I, I, P, P, P, P, P, P, P, P, P]
         fn.restype = I
     return fn
 
@@ -322,63 +455,124 @@ def _pnqp_tiles(H, q, lb, ub, x0, n_iter: int, tile: int):
 
 
 def _q_terms(C, c, tau, F, V, v):
-    """Q = C + F^T (V F) and q = C tau + c + F^T v over the batch."""
+    """Q = C + F^T (V F) and q = C tau + c + F^T v over the batch (C [n,n]
+    or [Bp,n,n])."""
     FT = F.transpose(-1, -2)
-    return C + FT @ (V.transpose(-1, -2) @ F), tau @ C.T + c + (FT @ v[..., None])[..., 0]
+    Ctau = tau @ C.T if C.dim() == 2 else (C @ tau[..., None])[..., 0]
+    return C + FT @ (V.transpose(-1, -2) @ F), Ctau + c + (FT @ v[..., None])[..., 0]
 
 
-def _box_gains(Q, q, nx: int, ut, lo, hi, warm, n_iter: int, tile: int):
-    """The n_ctrl > 1 Riccati step's box-QP, gains and V/v update from Q
-    [Bp, n, n] and q [Bp, n] at the controls ut [Bp, nu], bounds lo/hi
-    [nu]: the per-tile box-QP in delta space warm-started with ``warm``
-    (k_{t+1}; None at T-1: the clipped ridged Newton point), K =
-    -inv(H_free) (Q_ux * If), V' = Qxx + M + M^T + K^T Quu K with M = Qxu K,
-    v' = qx + Qxu k + K^T (qu + Quu k). Returns (K, k, V', v')."""
+def _update(Q, q, nx: int, Kt, kt):
+    """V' = Qxx + M + M^T + K^T Quu K with M = Qxu K, v' = qx + Qxu k +
+    K^T (qu + Quu k), from Q [Bp, n, n], q [Bp, n] and the gains."""
     Quu, qu = Q[:, nx:, nx:], q[:, nx:]
-    lb, ub = lo - ut, hi - ut
-    if warm is None:
-        eye = torch.eye(qu.shape[1], dtype=Q.dtype, device=Q.device)
-        warm = clamp(-(inv_small(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
-    kt, If, Hf = _pnqp_tiles(Quu, qu, lb, ub, warm, n_iter, tile)
-    Kt = -(inv_small(Hf) @ (Q[:, nx:, :nx] * If[:, :, None]))
     M = Q[:, :nx, nx:] @ Kt
     V = Q[:, :nx, :nx] + M + M.transpose(-1, -2) + Kt.transpose(-1, -2) @ (Quu @ Kt)
     v = (q[:, :nx] + (Q[:, :nx, nx:] @ kt[..., None])[..., 0]
          + (Kt.transpose(-1, -2) @ (qu + (Quu @ kt[..., None])[..., 0])[..., None])[..., 0])
-    return Kt, kt, V, v
+    return V, v
+
+
+def _box_gains(Q, q, nx: int, lb, ub, warm, n_iter: int, tile: int):
+    """The n_ctrl > 1 box-QP and gains from Q [Bp, n, n] and q [Bp, n] with
+    the delta-space bounds lb/ub [Bp, nu]: the per-tile box-QP warm-started
+    with ``warm`` (k_{t+1}; None at T-1: the clipped ridged Newton point),
+    K = -inv(H_free) (Q_ux * If). Returns (K, k)."""
+    Quu, qu = Q[:, nx:, nx:], q[:, nx:]
+    if warm is None:
+        eye = torch.eye(qu.shape[1], dtype=Q.dtype, device=Q.device)
+        warm = clamp(-(inv_small(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
+    kt, If, Hf = _pnqp_tiles(Quu, qu, lb, ub, warm, n_iter, tile)
+    return -(inv_small(Hf) @ (Q[:, nx:, :nx] * If[:, :, None])), kt
+
+
+def _free_gains(Q, q, nx: int, Iz):
+    """The gains of an unboxed solve with a u_zero_I mask Iz [Bp, nu] (0/1):
+    If = 1 - Iz, H_free = Quu * If If^T + 1e-8 diag(Iz), k = -inv(H_free)
+    (qu * If) -- for n_ctrl == 1 the reference's -(qu * If) / Quu -- and
+    K = -inv(H_free) (Q_ux * If) (JAX :1313-1334). Returns (K, k)."""
+    Quu, qu = Q[:, nx:, nx:], q[:, nx:]
+    If = 1.0 - Iz
+    Hf = Quu * If[:, :, None] * If[:, None, :] + 1e-8 * torch.diag_embed(Iz)
+    Hinv = inv_small(Hf)
+    if Iz.shape[1] == 1:
+        kt = -(qu * If) / Quu[:, :, 0]
+    else:
+        kt = -(Hinv @ (qu * If)[..., None])[..., 0]
+    return -(Hinv @ (Q[:, nx:, :nx] * If[:, :, None])), kt
+
+
+def riccati_step(Q, q, nx: int, ut, lo, hi, warm, n_iter: int, tile: int, du=None, Iz=None):
+    """One Riccati step's gains and V/v update from Q [Bp, n, n], q [Bp, n]
+    at the controls ut [Bp, nu], the kernel's arithmetic: the delta-space
+    bounds lo - ut, hi - ut (lo/hi [nu] or [Bp, nu]) intersected with
+    +-du, then the exact closed-form 1-D box-QP for n_ctrl == 1 or the
+    per-tile box-QP (warm-started with ``warm``, None at T-1) otherwise; or,
+    with a mask Iz [Bp, nu] (an unboxed masked solve), the free-subspace
+    gains. Returns (K [Bp, nu, nx], k [Bp, nu], V', v')."""
+    if Iz is not None:
+        K, k = _free_gains(Q, q, nx, Iz)
+        return (K, k) + _update(Q, q, nx, K, k)
+    lb, ub = lo - ut, hi - ut
+    if du is not None:
+        lb = torch.maximum(lb, torch.tensor(-du, dtype=lb.dtype, device=lb.device))
+        ub = torch.minimum(ub, torch.tensor(du, dtype=ub.dtype, device=ub.device))
+    if ut.shape[1] == 1:
+        # exact closed-form 1-D box-QP
+        H, qu = Q[:, nx:, nx], q[:, nx:]
+        k = clamp(-qu / H, lb, ub)
+        g = H * k + qu
+        Ic = ((k <= lb) & (g > 0.0)) | ((k >= ub) & (g < 0.0))
+        If = torch.where(Ic, 0.0, 1.0).to(Q.dtype)
+        Hinv = 1.0 / (H * If + 1e-11)
+        K = -(Hinv[:, :, None] * (Q[:, nx:, :nx] * If[:, :, None]))
+    else:
+        K, k = _box_gains(Q, q, nx, lb, ub, warm, n_iter, tile)
+    return (K, k) + _update(Q, q, nx, K, k)
 
 
 def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-                         x_init: torch.Tensor, cost_small,
+                         x_init: torch.Tensor, cost,
                          u_init: Optional[torch.Tensor] = None,
-                         u_lower=None, u_upper=None):
+                         u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
+                         delta_u=None):
     """The kernel's function in plain PyTorch, on the tensors' own device:
     the same padding, per-tile decisions, kernel-form step and Jacobian,
     Riccati arithmetic (the closed-form QP for n_ctrl == 1, the per-tile
-    box-QP with explicit inverses and the kernel's warm start otherwise)
-    and accept/best-tracking order. Same arguments and returns as
+    box-QP with explicit inverses and the kernel's warm start otherwise,
+    the free-subspace gains of an unboxed masked solve), the variants'
+    bounds and accept/best-tracking order. Same arguments and returns as
     ilqr_fused."""
-    lo, hi = _check_inputs(cfg, dyn, params, x_init, u_init, u_lower, u_upper)
     T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
     n = nx + nu
     f32, dev = torch.float32, x_init.device
     Bp = _padded(B)
     G = Bp // TILE
-    Cs, cs = _cost_arrays(cost_small, T, n, dev)
-    Cf = (lambda t: Cs[0]) if Cs.shape[0] == 1 else (lambda t: Cs[t])
-    cf = (lambda t: cs[0]) if cs.shape[0] == 1 else (lambda t: cs[t])
+    inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
+                  Bp)
+    if inp.lanes:  # [T, Bp, n, n] and [T, Bp, n]
+        Cl = inp.C.permute(0, 2, 1).reshape(T, Bp, n, n)
+        cl = inp.c.permute(0, 2, 1)
+        Cf, cf = (lambda t: Cl[t]), (lambda t: cl[t])
+    else:
+        Cs, cs = inp.C.reshape(-1, n, n), inp.c
+        Cf = (lambda t: Cs[0]) if Cs.shape[0] == 1 else (lambda t: Cs[t])
+        cf = (lambda t: cs[0]) if cs.shape[0] == 1 else (lambda t: cs[t])
+    if inp.lb is None:  # static, [nu] each
+        lo_s, hi_s = (torch.tensor(v, dtype=f32, device=dev) for v in (inp.lo, inp.hi))
+        bounds = lambda t: (lo_s, hi_s)  # noqa: E731
+    else:  # [T, Bp, nu]
+        lbs, ubs = (a.permute(0, 2, 1) for a in (inp.lb, inp.ub))
+        bounds = lambda t: (lbs[t], ubs[t])  # noqa: E731
+    uz = None if inp.uz is None else inp.uz.permute(0, 2, 1).to(f32)  # [T, Bp, nu]
+    du = inp.du
     p = params.to(f32)
     step, jac = dyn.kernel_step, dyn.jac_lanes
-    if nu == 1:
-        lo, hi = lo[0], hi[0]
-    else:
-        lo, hi = (torch.tensor(v, dtype=f32, device=dev) for v in (lo, hi))
 
-    x0 = torch.zeros(Bp, nx, dtype=f32, device=dev)
-    x0[:B] = x_init
+    x0 = inp.x_init.T.contiguous()
     u = torch.zeros(T, Bp, nu, dtype=f32, device=dev)
-    if u_init is not None:
-        u[:, :B] = u_init
+    if inp.u_init is not None:
+        u = inp.u_init.permute(0, 2, 1).contiguous()
 
     def obj(t, xt, ut):
         tau = torch.cat([xt, ut], -1)
@@ -415,64 +609,51 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
         run_l = lanes(run)
 
         # 2-5) Riccati with F = jac (zero at T-1), delta-space shift,
-        # box-QP gains, V/v update
+        # box-QP (or free-subspace) gains, V/v update
         V = torch.zeros(Bp, nx, nx, dtype=f32, device=dev)
         v = torch.zeros(Bp, nx, dtype=f32, device=dev)
         K, k = [None] * T, [None] * T
         for t in range(T - 1, -1, -1):
             xt, ut = x[t], u[t]
-            Ct = Cf(t)
             tau = torch.cat([xt, ut], -1)
             F = jac(xt, ut, p) if t < T - 1 else zF
-            Q, q = _q_terms(Ct, cf(t), tau, F, V, v)
-            if nu == 1:
-                # exact closed-form 1-D box-QP
-                H, qu, ut = Q[:, nx, nx], q[:, nx], ut[:, 0]
-                lb, ub = lo - ut, hi - ut
-                kt = clamp(-qu / H, lb, ub)
-                g = H * kt + qu
-                Ic = ((kt <= lb) & (g > 0.0)) | ((kt >= ub) & (g < 0.0))
-                If = torch.where(Ic, 0.0, 1.0).to(f32)
-                Hinv = 1.0 / (H * If + 1e-11)
-                Kt = -(Hinv[:, None] * (Q[:, nx, :nx] * If[:, None]))
-                M = Q[:, :nx, nx:] * Kt[:, None, :]
-                V = (Q[:, :nx, :nx] + M + M.transpose(-1, -2)
-                     + Kt[:, :, None] * (H[:, None, None] * Kt[:, None, :]))
-                v = q[:, :nx] + Q[:, :nx, nx] * kt[:, None] + Kt * (qu + H * kt)[:, None]
-                K[t], k[t] = Kt, kt[:, None]
-                continue
-            # the per-tile box-QP, warm-started with this sweep's k_{t+1}
-            # (at T-1 with the clipped ridged Newton point)
-            K[t], k[t], V, v = _box_gains(Q, q, nx, ut, lo, hi, k[t + 1] if t < T - 1 else None,
-                                          cfg.pnqp_iter, TILE)
+            Q, q = _q_terms(Cf(t), cf(t), tau, F, V, v)
+            lo, hi = bounds(t)
+            K[t], k[t], V, v = riccati_step(
+                Q, q, nx, ut, lo, hi, k[t + 1] if t < T - 1 else None, cfg.pnqp_iter, TILE,
+                du=du, Iz=uz[t] if inp.uz_free else None)
 
         # 6) line search; the trial runs on every lane and is kept on the
         # lanes of tiles that run it
         def trial(alpha):
-            xt, cost, du2 = x0, torch.zeros_like(alpha), torch.zeros_like(alpha)
+            xt, cost_, du2 = x0, torch.zeros_like(alpha), torch.zeros_like(alpha)
             txs, tus = [], []
             for t in range(T):
-                if nu == 1:
-                    kdx = (K[t] * (xt - x[t])).sum(-1, keepdim=True)
-                else:
-                    kdx = (K[t] * (xt - x[t])[:, None, :]).sum(-1)
-                new_u = clamp(kdx + u[t] + alpha[:, None] * k[t], lo, hi)
+                kdx = (K[t] * (xt - x[t])[:, None, :]).sum(-1)
+                new_u = kdx + u[t] + alpha[:, None] * k[t]
+                if uz is not None:  # masked coordinates zeroed before the clamp
+                    new_u = new_u * (1.0 - uz[t])
+                lo, hi = bounds(t)
+                if du is not None:  # the clamp widened around the iterate
+                    lo = torch.maximum(u[t] - du, lo)
+                    hi = torch.minimum(u[t] + du, hi)
+                new_u = clamp(new_u, lo, hi)
                 d = u[t] - new_u
                 du2 = du2 + (d * d).sum(-1)
                 txs.append(xt)
                 tus.append(new_u)
-                cost = cost + obj(t, xt, new_u)
+                cost_ = cost_ + obj(t, xt, new_u)
                 xt = step(xt, new_u, p)
-            return cost, du2, torch.stack(txs), torch.stack(tus)
+            return cost_, du2, torch.stack(txs), torch.stack(tus)
 
         alpha = torch.ones(Bp, dtype=f32, device=dev)
         cc, du2s, tx, tu = oc.clone(), torch.zeros_like(oc), x, u
         for i in range(cfg.max_linesearch_iter):
             active = run if i == 0 else run & tiles(cc > oc).any(1)
             if bool(active.any()):
-                cost, du2, ntx, ntu = trial(alpha)
+                cost_, du2, ntx, ntu = trial(alpha)
                 a = lanes(active)
-                cc = torch.where(a, cost, cc)
+                cc = torch.where(a, cost_, cc)
                 tx = torch.where(a[None, :, None], ntx, tx)
                 tu = torch.where(a[None, :, None], ntu, tu)
                 if i == 0:

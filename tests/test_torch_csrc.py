@@ -28,8 +28,9 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from torch.func import jacfwd
 
-from dilqr_tpu_torch.models import cartpole, pendulum, rocket
+from dilqr_tpu_torch.models import cartpole, ctrl_passthrough, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
 from dilqr_tpu_torch.ops.cuda import riccati_fused
 from dilqr_tpu_torch.utils.batch import inv_small
@@ -62,7 +63,10 @@ extern "C" void env_eval(int env, const float* p, const float* x, const float* u
                          float* xn, float* D) {
   if (env == ENV_CARTPOLE) run<Cartpole>(p, x, u, B, xn, D);
   else if (env == ENV_PENDULUM) run<Pendulum>(p, x, u, B, xn, D);
-  else run<Rocket>(p, x, u, B, xn, D);
+  else if (env == ENV_ROCKET) run<Rocket>(p, x, u, B, xn, D);
+  else if (env == ENV_CARTPOLE_SLEW) run<Passthrough<Cartpole>>(p, x, u, B, xn, D);
+  else if (env == ENV_PENDULUM_SLEW) run<Passthrough<Pendulum>>(p, x, u, B, xn, D);
+  else run<Passthrough<Rocket>>(p, x, u, B, xn, D);
 }
 template <int M>
 static void qp_run(int B, const float* H, const float* q, const float* lb, const float* ub,
@@ -95,33 +99,59 @@ extern "C" int qp_eval(int m, int B, const float* H, const float* q, const float
 extern "C" void cos_sin_eval(int n, const float* x, float* c, float* s) {
   for (int i = 0; i < n; ++i) cos_sin(x[i], c + i, s + i);
 }
-extern "C" void box_layout(int* out) {
-  using L = BoxStepLayout<Rocket, 3>;
+template <class Env>
+static void layout_of(int* out) {
+  using L = BoxStepLayout<Env, Env::NU>;
   out[0] = L::kV;
   out[1] = L::kQ;
   out[2] = L::kF;
   out[3] = L::kFloats;
 }
-// the rocket's Riccati step per example, each example its own tile; store
-// [kFloats, B] holds V's triangle (in, out), Q and F (out)
-extern "C" void box_step_host(int B, int last, const float* p, const float* tau, const float* C,
-                              const float* c, const float* lo, const float* hi,
-                              const float* warm, int n_iter, float* store, float* v, float* K,
-                              float* k, int* votes) {
-  Rocket env;
+extern "C" void box_layout(int env, int* out) {
+  if (env == ENV_ROCKET) layout_of<Rocket>(out);
+  else layout_of<Passthrough<Rocket>>(out);
+}
+// the Riccati step of the rocket (env 2) or its slew-rate wrapper (env 5)
+// per example, each example its own tile; store [kFloats, B] holds V's
+// triangle (in, out), Q and F (out). The cost is one [N*N] C and [N] c,
+// or per example (c_lanes) C [N*N, B], c [N, B]; lo/hi are per example
+// [B, NU]; Iz null or the mask [B, NU] of an unboxed solve.
+template <class Env>
+static void box_run(int B, int last, const float* p, const float* tau, const float* C,
+                    const float* c, int c_lanes, const float* lo, const float* hi, int has_du,
+                    float du, const float* Iz, const float* warm, int n_iter, float* store,
+                    float* v, float* K, float* k, int* votes) {
+  constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
+  Env env;
   env.load(p);
   for (int b = 0; b < B; ++b) {
     TileVote vote{nullptr, 0};
-    float Kb[3][13];
-    riccati_box_step<Rocket, 3>(env, last != 0, tau + b * 16, C, c, lo, hi, warm + b * 3,
-                                n_iter, vote, store + b, B, v + b * 13, Kb, k + b * 3);
-    for (int r = 0; r < 3; ++r)
-      for (int j = 0; j < 13; ++j) K[(b * 3 + r) * 13 + j] = Kb[r][j];
+    float Kb[NU][NX];
+    const CostView cost = c_lanes ? CostView{C + b, c + b, B} : CostView{C, c, 1};
+    StepVariant<NU> var{has_du, du, Iz != nullptr, {}};
+    for (int r = 0; Iz && r < NU; ++r) var.Iz[r] = Iz[b * NU + r];
+    riccati_box_step<Env, NU>(env, last != 0, tau + b * N, cost, lo + b * NU, hi + b * NU, var,
+                              warm + b * NU, n_iter, vote, store + b, B, v + b * NX, Kb,
+                              k + b * NU);
+    for (int r = 0; r < NU; ++r)
+      for (int j = 0; j < NX; ++j) K[(b * NU + r) * NX + j] = Kb[r][j];
     votes[b] = vote.n;
   }
 }
+extern "C" void box_step_host(int env, int B, int last, const float* p, const float* tau,
+                              const float* C, const float* c, int c_lanes, const float* lo,
+                              const float* hi, int has_du, float du, const float* Iz,
+                              const float* warm, int n_iter, float* store, float* v, float* K,
+                              float* k, int* votes) {
+  if (env == ENV_ROCKET)
+    box_run<Rocket>(B, last, p, tau, C, c, c_lanes, lo, hi, has_du, du, Iz, warm, n_iter, store,
+                    v, K, k, votes);
+  else
+    box_run<Passthrough<Rocket>>(B, last, p, tau, C, c, c_lanes, lo, hi, has_du, du, Iz, warm,
+                                 n_iter, store, v, K, k, votes);
+}
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
-  return objective<6>(tau, C, c);
+  return objective<6>(tau, CostView{C, c, 1});
 }
 // the KKT VJP of each example on the host: the team's lanes run each
 // phase in turn; global_store puts K, k and dtau in `store` [T, B, KS]
@@ -225,9 +255,10 @@ def lib(tmp_path_factory):
     lib.riccati_plan_host.restype = I
     lib.cos_sin_eval.argtypes = [I, P, P, P]
     lib.cos_sin_eval.restype = None
-    lib.box_layout.argtypes = [P]
+    lib.box_layout.argtypes = [I, P]
     lib.box_layout.restype = None
-    lib.box_step_host.argtypes = [I, I] + [P] * 7 + [I] + [P] * 5
+    lib.box_step_host.argtypes = ([I, I, I] + [P] * 4 + [I, P, P, I, F32, P, P, I]
+                                  + [P] * 5)
     lib.box_step_host.restype = None
     return lib
 
@@ -498,35 +529,29 @@ def test_riccati_plan(lib):
 SEED = 11
 
 
-@pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
-@pytest.mark.parametrize("bounds", ["box", "tight"])
-def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
-    """riccati_box_step, the rocket's Riccati step as the CUDA kernel runs
-    it over [entry][example] storage (V and Q as triangles, F dense, Q
-    formed four columns of V F at a time), against the plain version's step
-    (ilqr_fused._q_terms and _box_gains, each example its own tile) at f32:
-    the Jacobian at bench-like states, a random SPD cost-to-go, the +-20
-    box and the tight +-(8, 0.1, 0.1), a step with its k_{t+1} warm start
-    and the last step (V = 0, F = 0, the ridged Newton warm start).
-    Tolerance 1e-4 relative to each output's largest entry: the two sum in
-    other orders, and the box-QP's Newton and Armijo steps and the gains'
-    inverse of H_free carry that rounding along. The seed is one without a
-    rounding fork at the box-QP's 1e-4 Newton exit: at seed 7 (tight, step)
-    one example of 48 stops a Newton step apart in the two versions, its k
-    2.6e-3 off while the other 47 agree to 6e-8 (measured)."""
-    dyn = rocket.make()
-    nx, nu, n = 13, 3, 16
-    B = 48
-    rng = np.random.RandomState(SEED + 2 * last + (bounds == "tight"))
-    x = bench_start(B, 5)
-    u = np.stack([10.0 + rng.randn(B), 0.05 * rng.randn(B), 0.05 * rng.randn(B)], 1)
+def _box_step(lib, dyn, rng, x, u, last, lo, hi, lanes=False, du=None, Iz=None):
+    """riccati_box_step of ``dyn`` (the rocket or its slew-rate wrapper) on
+    the host and the plain version's step (ilqr_fused._q_terms and
+    riccati_step, each example its own tile) on the same f32 inputs: the
+    states x [B, nx] and controls u [B, nu], a random SPD cost-to-go (zero
+    at the last step), the rocket's cost (the wrapper's u_{t-1} weighted 1;
+    per example, scaled in [1, 1.5], with ``lanes``), bounds lo/hi ([nu] or
+    [B, nu]), delta_u ``du`` and an unboxed solve's mask Iz [B, nu].
+    Returns (got, want, k, votes)."""
+    nx, nu = dyn.n_state, dyn.n_ctrl
+    n, B = nx + nu, x.shape[0]
     tau = np.ascontiguousarray(np.concatenate([x, u], 1), np.float32)
-    u = tau[:, 13:]
-    hi = np.array([20.0, 20.0, 20.0] if bounds == "box" else [8.0, 0.1, 0.1], np.float32)
-    lo = -hi
+    u = tau[:, nx:]
+    lo = np.array(np.broadcast_to(lo, (B, nu)), np.float32, order="C")
+    hi = np.array(np.broadcast_to(hi, (B, nu)), np.float32, order="C")
     q, p = (a.numpy() for a in rocket.get_true_obj())
-    C = np.ascontiguousarray(np.diag(q), np.float32)
-    c = np.ascontiguousarray(p, np.float32)
+    q, p = np.concatenate([np.ones(n - 16), q]), np.concatenate([np.zeros(n - 16), p])
+    C = np.diag(q).astype(np.float32)
+    c = p.astype(np.float32)
+    if lanes:
+        w = rng.uniform(1.0, 1.5, B).astype(np.float32)
+        C = C[None] * w[:, None, None]
+        c = c[None] * w[:, None]
     params = rocket.default_params().numpy()
     if last:
         V = np.zeros((B, nx, nx), np.float32)
@@ -538,7 +563,7 @@ def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
     warm = np.clip(0.3 * rng.randn(B, nu), lo - u, hi - u).astype(np.float32)
 
     layout = np.zeros(4, np.int32)
-    lib.box_layout(_ptr(layout))
+    lib.box_layout(dyn.device_env, _ptr(layout))
     kV, kQ, kF, kFloats = (int(a) for a in layout)
     iu = np.triu_indices(nx)
     store = np.zeros((kFloats, B), np.float32)
@@ -547,9 +572,13 @@ def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
     K = np.zeros((B, nu, nx), np.float32)
     k = np.zeros((B, nu), np.float32)
     votes = np.zeros(B, np.int32)
-    lib.box_step_host(B, int(last), _ptr(params), _ptr(tau), _ptr(C), _ptr(c), _ptr(lo),
-                      _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v_dev), _ptr(K), _ptr(k),
-                      _ptr(votes))
+    C_in = np.ascontiguousarray(C.reshape(B, n * n).T if lanes else C)
+    c_in = np.ascontiguousarray(c.T if lanes else c)
+    Iz_in = None if Iz is None else np.ascontiguousarray(Iz, np.float32)
+    lib.box_step_host(dyn.device_env, B, int(last), _ptr(params), _ptr(tau), _ptr(C_in),
+                      _ptr(c_in), int(lanes), _ptr(lo), _ptr(hi), int(du is not None),
+                      0.0 if du is None else du, None if Iz_in is None else _ptr(Iz_in),
+                      _ptr(warm), 20, _ptr(store), _ptr(v_dev), _ptr(K), _ptr(k), _ptr(votes))
 
     t = {name: torch.from_numpy(a) for name, a in
          (("tau", tau), ("C", C), ("c", c), ("V", V), ("v", v), ("warm", warm))}
@@ -557,22 +586,146 @@ def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
     F = (torch.zeros(B, nx, n) if last
          else dyn.jac_lanes(tx, tu, torch.from_numpy(params)))
     Q, qv = ilqr_fused._q_terms(t["C"], t["c"], t["tau"], F, t["V"], t["v"])
-    wK, wk, wV, wv = ilqr_fused._box_gains(Q, qv, nx, tu, torch.from_numpy(lo),
-                                           torch.from_numpy(hi), None if last else t["warm"],
-                                           20, 1)
+    wK, wk, wV, wv = ilqr_fused.riccati_step(
+        Q, qv, nx, tu, torch.from_numpy(lo), torch.from_numpy(hi), None if last else t["warm"],
+        20, 1, du=du, Iz=None if Iz is None else torch.from_numpy(Iz_in))
     iq = np.triu_indices(n)
     got = {"F": store[kF:kF + nx * n].T.reshape(B, nx, n),
            "Q": store[kQ:kQ + len(iq[0])].T, "K": K, "k": k,
            "V": store[kV:kV + len(iu[0])].T, "v": v_dev}
     want = {"F": F.numpy(), "Q": Q.numpy()[:, iq[0], iq[1]], "K": wK.numpy(), "k": wk.numpy(),
             "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    return got, want, k, votes
+
+
+def _assert_step(got, want):
     for name in got:
         w = want[name]
         np.testing.assert_allclose(got[name], w, rtol=0, atol=1e-4 * max(1.0, np.abs(w).max()),
                                    err_msg=name)
+
+
+def _rocket_point(rng, B):
+    """Bench-like rocket states and controls near hover."""
+    x = bench_start(B, 5)
+    u = np.stack([10.0 + rng.randn(B), 0.05 * rng.randn(B), 0.05 * rng.randn(B)], 1)
+    return x, u
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
+@pytest.mark.parametrize("bounds", ["box", "tight"])
+def test_device_rocket_riccati_step_matches_plain_version(lib, bounds, last):
+    """riccati_box_step, the rocket's Riccati step as the CUDA kernel runs
+    it over [entry][example] storage (V and Q as triangles, F dense, Q
+    formed four columns of V F at a time), against the plain version's step
+    (ilqr_fused._q_terms and riccati_step, each example its own tile) at f32:
+    the Jacobian at bench-like states, a random SPD cost-to-go, the +-20
+    box and the tight +-(8, 0.1, 0.1), a step with its k_{t+1} warm start
+    and the last step (V = 0, F = 0, the ridged Newton warm start).
+    Tolerance 1e-4 relative to each output's largest entry: the two sum in
+    other orders, and the box-QP's Newton and Armijo steps and the gains'
+    inverse of H_free carry that rounding along. The seed is one without a
+    rounding fork at the box-QP's 1e-4 Newton exit: at seed 7 (tight, step)
+    one example of 48 stops a Newton step apart in the two versions, its k
+    2.6e-3 off while the other 47 agree to 6e-8 (measured)."""
+    B = 48
+    rng = np.random.RandomState(SEED + 2 * last + (bounds == "tight"))
+    x, u = _rocket_point(rng, B)
+    hi = np.array([20.0, 20.0, 20.0] if bounds == "box" else [8.0, 0.1, 0.1], np.float32)
+    got, want, k, votes = _box_step(lib, rocket.make(), rng, x, u, last, -hi, hi)
+    _assert_step(got, want)
     # the Newton loop ran (one vote at least a step) and, with the tight
     # bounds, controls end at a bound
     assert votes.min() >= 1
     if bounds == "tight" and not last:
-        at = (np.abs(k - (lo - u)) < 1e-6) | (np.abs(k - (hi - u)) < 1e-6)
+        u = u.astype(np.float32)
+        at = (np.abs(k - (-hi - u)) < 1e-6) | (np.abs(k - (hi - u)) < 1e-6)
         assert at.mean() > 0.1, at.mean()
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
+@pytest.mark.parametrize("variant", ["lanes_cost", "dyn_bounds", "delta_u", "zero"])
+@pytest.mark.parametrize("slew", [False, True], ids=["rocket", "rocket_slew"])
+def test_device_riccati_step_variants_match_plain_version(lib, slew, variant, last):
+    """riccati_box_step's MPC variants against the plain version's step,
+    for the rocket and its slew-rate wrapper Passthrough<Rocket> (16
+    states, the u_{t-1} rows of F constant): a per-example cost, per-example
+    bounds that bind (0.1-0.3 on the side thrusts), delta_u = 0.05 beside
+    the +-20 box, and the free subspace of an unboxed solve with about 35%
+    of the controls masked (no box-QP, so no vote). Tolerance as
+    test_device_rocket_riccati_step_matches_plain_version."""
+    dyn = rocket.make()
+    if slew:
+        dyn = ctrl_passthrough.make(dyn)
+    B = 48
+    rng = np.random.RandomState(SEED + 11 + 2 * last + 4 * slew)
+    x, u = _rocket_point(rng, B)
+    if slew:
+        x = np.concatenate([u + 0.1 * rng.randn(B, 3), x], 1)
+    hi = np.array([20.0, 20.0, 20.0], np.float32)
+    kw = {}
+    if variant == "lanes_cost":
+        kw["lanes"] = True
+    elif variant == "dyn_bounds":
+        hi = np.stack([rng.uniform(9.0, 12.0, B), rng.uniform(0.1, 0.3, B),
+                       rng.uniform(0.1, 0.3, B)], 1).astype(np.float32)
+    elif variant == "delta_u":
+        kw["du"] = 0.05
+    else:
+        kw["Iz"] = (rng.rand(B, 3) < 0.35).astype(np.float32)
+    got, want, k, votes = _box_step(lib, dyn, rng, x, u, last, -hi, hi, **kw)
+    _assert_step(got, want)
+    if variant == "zero":
+        assert (k[kw["Iz"] == 1.0] == 0.0).all() and votes.max() == 0
+    else:
+        assert votes.min() >= 1
+    if variant == "delta_u":
+        assert np.abs(k).max() <= 0.05 and (np.abs(np.abs(k) - 0.05) < 1e-6).mean() > 0.1
+    if variant == "dyn_bounds" and not last:
+        uu = u.astype(np.float32)
+        at = (np.abs(k - (-hi - uu)) < 1e-6) | (np.abs(k - (hi - uu)) < 1e-6)
+        assert at.mean() > 0.1, at.mean()
+
+
+@pytest.mark.parametrize("mod", [cartpole, pendulum, rocket], ids=["cartpole", "pendulum", "rocket"])
+def test_device_passthrough_code_matches_kernel_forms(lib, mod):
+    """Passthrough<Env> (the slew-rate state (u_{t-1}, x)): its step and
+    Jacobian against the port's ctrl_passthrough wrapper (kernel_step,
+    jac_lanes) on the same f32 inputs, at test_device_env_code's
+    tolerances; and the wrapper's jac_lanes at f64 against
+    torch.func.jacfwd of its un-clamped step."""
+    base = mod.make()
+    dyn = ctrl_passthrough.make(base)
+    nxb, nu = base.n_state, base.n_ctrl
+    rng = np.random.RandomState(4)
+    B = 32
+    if mod is rocket:
+        xb = rng.randn(B, 13)
+        u = 300.0 * rng.randn(B, 3)
+    else:
+        th = rng.uniform(-np.pi, np.pi, B)
+        cs = np.stack([np.cos(th), np.sin(th)], 1)
+        xb = (np.concatenate([rng.randn(B, 2), cs, rng.randn(B, 1)], 1) if nxb == 5
+              else np.concatenate([cs, rng.randn(B, 1)], 1))
+        u = 1.5 * base.upper * rng.uniform(-1, 1, (B, 1))
+    x = np.concatenate([rng.randn(B, nu), xb], 1).astype(np.float32)
+    u = u.astype(np.float32)
+    params = mod.default_params().numpy()
+    nx = nu + nxb
+    xn = np.zeros((B, nx), np.float32)
+    D = np.zeros((B, nx, nx + nu), np.float32)
+    lib.env_eval(dyn.device_env, _ptr(params), _ptr(x), _ptr(u), B, _ptr(xn), _ptr(D))
+    tx, tu, tp = torch.from_numpy(x), torch.from_numpy(u), torch.from_numpy(params)
+    want = dyn.kernel_step(tx, tu, tp).numpy()
+    np.testing.assert_allclose(xn, want, atol=2e-6 * max(1.0, np.abs(want).max()), rtol=0)
+    want = dyn.jac_lanes(tx, tu, tp).numpy()
+    np.testing.assert_allclose(D, want, atol=2e-6 * max(1.0, np.abs(want).max()), rtol=0)
+    assert (D[:, :nu, :nx] == 0).all() and (D[:, nu:, :nu] == 0).all()
+    assert (D[:, :nu, nx:] == np.eye(nu)).all()
+    # the wrapper's Jacobian is the derivative of its step, at f64
+    tx, tu, tp = tx.double(), tu.double(), tp.double()
+    got = dyn.jac_lanes(tx, tu, tp)
+    for i in range(4):
+        J = jacfwd(lambda xu: dyn.step_unclamped(xu[:nx], xu[nx:], tp))(
+            torch.cat([tx[i], tu[i]]))
+        np.testing.assert_allclose(J.numpy(), got[i].numpy(), atol=1e-12, rtol=0)

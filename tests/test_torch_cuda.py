@@ -11,6 +11,8 @@ loose on-device bound of docs/DESIGN.md:103-107 (u moves by about 1e-2 at
 bang-bang switching points between two equally converged optima); the
 Riccati kernel within 2e-6 + 1e-5 max|plain| of its plain version (JAX's
 2e-6 plus FMA contraction over a 20-step recursion)."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -224,6 +226,138 @@ def test_solve_dispatches_to_the_kernel(dev):
                 backprop=False, exit_unconverged=False, backend="torch")
     out = mpc(x0[:8], P.QuadCost(torch.diag(q), p), dyn, params=params)
     assert fused.LAUNCHES == before + 1 and out[0].is_cuda
+
+
+VARIANTS = ("per-example cost", "per-time bounds", "u_zero_I boxed", "u_zero_I unboxed",
+            "delta_u")
+
+
+def _variant_problem(dev, env, variant, B=1030, T=12):
+    """(cfg, dyn, params, x0, cost, lo, hi, kw) of one MPC variant: a
+    per-example cost (weights in [1, 1.5]), per-time and per-example bounds
+    that bind, a mask over about 35% of the controls with the box or
+    without it, delta_u 0.2; eps=0 and 4 iterations."""
+    mod = {"cartpole": cartpole, "pendulum": pendulum, "rocket": rocket}[env]
+    dyn, params = mod.make(), mod.default_params(device=dev)
+    q, p = mod.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(7)
+    nx, nu = dyn.n_state, dyn.n_ctrl
+    if env == "rocket":
+        x0 = torch.from_numpy(bench_start(B, 6)).to(dev)
+    else:
+        th = 0.5 * torch.randn(B, generator=gen) + (3.0 if env == "cartpole" else 0.0)
+        z = torch.zeros(B)
+        x0 = (torch.stack([z, z, th.cos(), th.sin(), z], 1) if env == "cartpole"
+              else torch.stack([th.cos(), th.sin(), z], 1)).to(dev)
+    cfg = P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=4, eps=0.0,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    cost, lo, hi, kw = (torch.diag(q), p), dyn.lower, dyn.upper, {}
+    if variant == "per-example cost":
+        w = (1.0 + 0.5 * torch.rand(T, B, 1, generator=gen)).to(dev)
+        n = nx + nu
+        cost = ((torch.diag(q).expand(T, B, n, n) * w[..., None]).contiguous(),
+                (p.expand(T, B, n) * w).contiguous())
+    elif variant == "per-time bounds":
+        r = torch.rand(T, B, nu, generator=gen).to(dev)
+        hi = (torch.tensor([8.0, 0.05, 0.05], device=dev) + r * torch.tensor(
+            [2.0, 0.1, 0.1], device=dev)) if nu == 3 else 0.1 + 0.5 * r
+        lo = -hi
+    elif variant.startswith("u_zero_I"):
+        kw["u_zero_I"] = (torch.rand(T, B, nu, generator=gen) < 0.35).to(dev)
+        if variant.endswith("unboxed"):
+            lo = hi = None
+    else:
+        kw["delta_u"] = 0.2
+    return cfg, dyn, params, x0, cost, lo, hi, kw
+
+
+def _assert_variant(k, r, cfg):
+    assert int(k[4]) == int(r[4])
+    torch.testing.assert_close(k[2], r[2], rtol=1e-4, atol=1e-5)
+    assert (k[1] - r[1]).abs().max().item() <= 2e-2
+    assert (k[0] - r[0]).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("env", ["cartpole", "rocket"])
+def test_kernel_variants_match_plain_version(dev, env, variant):
+    """The whole-solve kernel's MPC variants against the plain version on
+    the same CUDA inputs (B=1030: two tiles, the second ragged), one launch
+    each, the masked u exactly 0, and the same bits at every cluster size;
+    eps=0 and 4 iterations, short of the f32 forks of a converged line
+    search (ROADMAP C)."""
+    cfg, dyn, params, x0, cost, lo, hi, kw = _variant_problem(dev, env, variant)
+    before = fused.LAUNCHES
+    k = fused.ilqr_fused(cfg, dyn, params, x0, cost, None, lo, hi, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    r = fused.ilqr_fused_reference(cfg, dyn, params, x0, cost, None, lo, hi, **kw)
+    _assert_variant(k, r, cfg)
+    if "u_zero_I" in kw:
+        assert k[1][kw["u_zero_I"]].abs().max().item() == 0.0
+    for G in fused.clusters(dyn.device_env):
+        out = fused.ilqr_fused(cfg, dyn, params, x0, cost, None, lo, hi, **kw, cluster=G)
+        assert all(torch.equal(a, b) for a, b in zip(out, k)), G
+
+
+@pytest.mark.parametrize("env", ["cartpole", "pendulum", "rocket"])
+def test_slew_rate_kernel_matches_plain_version(dev, env):
+    """The slew-rate state (Passthrough<Env>) through augment_slew_rate:
+    the kernel against its plain version, at every cluster size the
+    instantiation has (the rocket's: 16 only)."""
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+
+    cfg, dyn, params, x0, cost, lo, hi, _ = _variant_problem(dev, env, "slew")
+    B, T, n = x0.shape[0], cfg.T, cfg.n_state + cfg.n_ctrl
+    a_cfg, a_cost, a_dyn, a_params, a_x0 = augment_slew_rate(
+        dataclasses.replace(cfg, slew_rate_penalty=1.0),
+        canonicalize_cost(P.QuadCost(*cost), T, B, n), dyn, params, x0, None)
+    args = (a_cfg, a_dyn, a_params, a_x0, (a_cost.C, a_cost.c), None, lo, hi)
+    k = fused.ilqr_fused(*args)
+    r = fused.ilqr_fused_reference(*args)
+    _assert_variant(k, r, a_cfg)
+    for G in fused.clusters(a_dyn.device_env):
+        assert all(torch.equal(a, b) for a, b in zip(fused.ilqr_fused(*args, cluster=G), k))
+
+
+def test_variant_solves_launch_the_kernel(dev):
+    """backend="cuda" launches the whole-solve kernel once a solve on the
+    MPC variants -- the slew rate (no Riccati launch), u_zero_I with
+    delta_u, a per-example cost with per-time bounds -- and still refuses
+    the slew rate of the complex pendulum (no device code)."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(8)
+    B, T = 1024, 10
+    th = 3.0 + 0.2 * torch.randn(B, generator=gen)
+    z = torch.zeros(B)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    kw = dict(lqr_iter=5, eps=1e-4, backprop=False, exit_unconverged=False, backend="cuda")
+    mask = (torch.rand(B, T, 1, generator=gen) < 0.35).to(dev)
+    w = (1.0 + 0.5 * torch.rand(B, T, 1, generator=gen)).to(dev)
+    lanes = P.QuadCost((torch.diag(q).expand(B, T, 6, 6) * w[..., None]).contiguous(),
+                       (p.expand(B, T, 6) * w).contiguous())
+    hi_t = (0.2 + 0.6 * torch.rand(T, 1, generator=gen)).to(dev)
+    for mpc, cost in (
+            (P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, slew_rate_penalty=1.0, **kw),
+             P.QuadCost(torch.diag(q), p)),
+            (P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, u_zero_I=mask, delta_u=0.4, **kw),
+             P.QuadCost(torch.diag(q), p)),
+            (P.MPC(5, 1, T, u_lower=-hi_t, u_upper=hi_t, **kw), lanes)):
+        before, ric_before = fused.LAUNCHES, riccati_fused.LAUNCHES
+        x, u, costs = mpc(x0, cost, dyn, params=params)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + 1 and riccati_fused.LAUNCHES == ric_before
+        assert u.shape == (B, T, 1) and torch.isfinite(costs).all()
+    assert u.abs().max().item() <= hi_t.max().item() + 1e-6
+    pd = pendulum.make(simple=False)
+    bad = P.MPC(pd.n_state, 1, T, u_lower=-2.0, u_upper=2.0, slew_rate_penalty=1.0, **kw)
+    xp = torch.zeros(8, pd.n_state, device=dev)
+    with pytest.raises(ValueError, match="not covered"):
+        bad(xp, P.QuadCost(torch.eye(pd.n_state + 1, device=dev),
+                           torch.zeros(pd.n_state + 1, device=dev)), pd,
+            params=pendulum.default_params(simple=False, device=dev))
 
 
 def _kkt_problem(dev, nx, nu, T, B, seed):

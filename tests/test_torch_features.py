@@ -306,12 +306,17 @@ def test_slew_rate_pendulum_matches_jax_f64(cost_kind):
 def test_ctrl_passthrough_steps_the_augmented_state():
     dyn = tpend.make()
     aug = ctrl_passthrough.make(dyn)
-    assert (aug.n_state, aug.n_ctrl, aug.device_env) == (4, 1, None)
+    # the simple pendulum's wrapper has device code (Passthrough<Pendulum>,
+    # ENV_PENDULUM_SLEW in csrc/ilqr_fused.cuh); the complex pendulum's none
+    assert (aug.n_state, aug.n_ctrl, aug.device_env) == (4, 1, 4)
+    assert ctrl_passthrough.make(tpend.make(simple=False)).device_env is None
     p = tpend.default_params(dtype=F64)
     xa = torch.tensor([[0.3, 1.0, 0.0, 0.2]], dtype=F64)
     u = torch.tensor([[0.7]], dtype=F64)
     out = aug.step(xa, u, p)
     torch.testing.assert_close(out, torch.cat([u, dyn.step(xa[:, 1:], u, p)], -1))
-    # no kernel: the augmented solve takes the plain loop, whose one-control
+    torch.testing.assert_close(aug.kernel_step(xa, u, p),
+                               torch.cat([u, dyn.kernel_step(xa[:, 1:], u, p)], -1))
+    # a wrapper without device code takes the plain loop, whose one-control
     # f32 Riccati the CUDA Riccati kernel covers at the augmented size
     assert riccati_fused.covered(aug.n_state, 1, torch.float32, None, "auto", True)

@@ -176,14 +176,18 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(x, y)
 
     def cov(cfg=cfg, dyn=tdyn, params=params, dtype=torch.float32,
-            cost_small=(torch.diag(q), p), lo=-100.0, hi=100.0):
-        return fused.covered(cfg, dyn, params, dtype, cost_small, None, None, lo, hi)
+            cost_small=(torch.diag(q), p), lo=-100.0, hi=100.0, uz=None, du=None):
+        return fused.covered(cfg, dyn, params, dtype, cost_small, uz, du, lo, hi)
 
     assert cov()
     assert cov(lo=None, hi=None) and cov(lo=torch.tensor([-1.0]), hi=torch.tensor([1.0]))
     assert not cov(dtype=torch.float64)
-    assert not cov(cost_small=None)  # per-example cost
-    assert not cov(lo=torch.zeros(6, 5, 1), hi=torch.ones(6, 5, 1))  # per-step bounds
+    # the MPC variants: a per-example cost, per-step bounds, a mask, delta_u
+    assert cov(cost_small=None)
+    assert cov(lo=torch.zeros(6, 5, 1), hi=torch.ones(6, 5, 1))
+    assert cov(uz=torch.zeros(6, 5, 1, dtype=torch.bool)) and cov(du=0.4)
+    assert cov(du=torch.tensor(0.4)) and not cov(du=torch.tensor([0.4]))
+    assert not cov(lo=torch.zeros(7, 5, 1), hi=torch.ones(7, 5, 1))  # another T
     assert not cov(cfg=dataclasses.replace(cfg, qp_solver="pnqp"))
     assert not cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.AUTO_DIFF))
     assert not cov(dyn=tpend.make(simple=False), params=tpend.default_params(simple=False),

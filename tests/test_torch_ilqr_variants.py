@@ -1,0 +1,337 @@
+"""The whole-solve kernel's MPC variants on the CPU: the plain version
+(ops/cuda/ilqr_fused.ilqr_fused on CPU tensors, i.e. ilqr_fused_reference)
+against the JAX package's Pallas kernel in interpret mode (solve(...,
+backend="pallas") on the CPU, as tests/test_fused_edge_cases.py runs it),
+on the same numpy-seeded inputs:
+
+ * a per-example QuadCost [B, T, n, n] (the lanes cost; weights scaled in
+   [1, 1.5] per step and example, as test_fused_per_example_lanes_cost);
+ * per-time and per-example bounds [B, T, nu] that bind;
+ * a u_zero_I mask, with the box (the mask zeroes the trial step) and
+   without it (the Riccati's free-subspace gains); the masked u is exactly 0;
+ * a static delta_u trust region, which binds;
+ * the slew rate through augment_slew_rate on cartpole, the pendulum and
+   the rocket (Passthrough<Env>: the port's hand Jacobian where JAX takes
+   a jvp sweep).
+
+Tolerances are tests/test_torch_ilqr_fused.py's: u 2e-3, x 5e-3, costs
+rtol/atol 1e-5, n_iter equal; eps=0 and a few iterations, short of the
+f32 forks of a converged line search (ROADMAP C). Also the gate: the
+port's ``covered`` against JAX's ``fused_supported`` and ``lane_compatible``
+on each of these configurations, and on the ones the port still refuses
+(LinDx, a callable cost, the complex pendulum, the rocket with
+normalize_quat=True), where JAX admits them: the ROADMAP's listed gap
+(queue B, item 4)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dilqr_tpu as J
+from dilqr_tpu.core.solver import augment_slew_rate as j_augment
+from dilqr_tpu.core.solver import canonicalize_cost as j_canonicalize_cost
+from dilqr_tpu.models import cartpole as jcart
+from dilqr_tpu.models import pendulum as jpend
+from dilqr_tpu.models import rocket as jrock
+from dilqr_tpu.models.base import Dynamics as JDynamics
+from dilqr_tpu.ops.pallas.ilqr_fused import (cost_lane_compatible, fused_supported,
+                                             lane_compatible)
+import dilqr_tpu_torch as P
+from dilqr_tpu_torch.convert import from_numpy
+from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+from dilqr_tpu_torch.models import cartpole as tcart
+from dilqr_tpu_torch.models import pendulum as tpend
+from dilqr_tpu_torch.models import rocket as trock
+from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
+from rocket_bench_start import bench_start
+
+ENVS = {"cartpole": (jcart, tcart), "pendulum": (jpend, tpend), "rocket": (jrock, trock)}
+
+
+def _start(name, B, seed):
+    rng = np.random.RandomState(seed)
+    if name == "rocket":
+        return bench_start(B, seed)
+    th = rng.uniform(-2, 2, B).astype(np.float32)
+    z = np.zeros(B, np.float32)
+    if name == "pendulum":
+        return np.stack([np.cos(th), np.sin(th), z], 1)
+    return np.stack([z, z, np.cos(th), np.sin(th), z], 1)
+
+
+def _problem(name, B, T, lqr_iter, seed=1):
+    jm, tm = ENVS[name]
+    jdyn, tdyn = jm.make(), tm.make()
+    params = np.asarray(jm.default_params())
+    q, p = (np.asarray(a) for a in jm.get_true_obj())
+    kw = dict(n_state=jdyn.n_state, n_ctrl=jdyn.n_ctrl, T=T, lqr_iter=lqr_iter, eps=0.0,
+              linesearch_decay=jdyn.linesearch_decay,
+              max_linesearch_iter=jdyn.max_linesearch_iter,
+              exit_unconverged=False, detach_unconverged=False, backprop=False)
+    return jdyn, tdyn, params, q, p, _start(name, B, seed), kw
+
+
+def _tm(a):
+    """Batch-major [B, T, ...] numpy -> time-major torch."""
+    return from_numpy(np.ascontiguousarray(np.swapaxes(a, 0, 1)))
+
+
+def _compare(jres, out, strip=0):
+    x, u, costs, _, n_iter = out
+    np.testing.assert_allclose(u.transpose(0, 1).numpy(), np.asarray(jres.u), atol=2e-3)
+    np.testing.assert_allclose(x[:, :, strip:].transpose(0, 1).numpy(), np.asarray(jres.x),
+                               atol=5e-3)
+    np.testing.assert_allclose(costs.numpy(), np.asarray(jres.costs), atol=1e-5, rtol=1e-5)
+    assert int(n_iter) == int(jres.n_iter)
+
+
+def _both(name, B, T, lqr_iter, cost=None, lo=None, hi=None, uz=None, du=None, seed=1,
+          box=True):
+    """JAX's kernel (interpret mode) and the port's plain version on one
+    problem: cost None is the env's diagonal cost, else a (C [B,T,n,n], c
+    [B,T,n]) pair; lo/hi None take the env's box unless box=False; uz a
+    [B,T,nu] bool mask."""
+    jdyn, tdyn, params, q, p, x0, kw = _problem(name, B, T, lqr_iter, seed)
+    if cost is None:
+        jcost = J.QuadCost(jnp.diag(q), jnp.asarray(p))
+        tcost = (torch.diag(from_numpy(q)), from_numpy(p))
+    else:
+        jcost = J.QuadCost(jnp.asarray(cost[0]), jnp.asarray(cost[1]))
+        tcost = (_tm(cost[0]), _tm(cost[1]))
+    if box and lo is None:
+        lo, hi = np.asarray(jdyn.lower, np.float32), np.asarray(jdyn.upper, np.float32)
+    jb = {} if lo is None else dict(u_lower=jnp.asarray(lo), u_upper=jnp.asarray(hi))
+    jres = J.solve(J.ILQRConfig(backend="pallas", **kw), jnp.asarray(x0), jcost, jdyn,
+                   params=jnp.asarray(params), **jb,
+                   u_zero_I=None if uz is None else jnp.asarray(uz), delta_u=du)
+
+    def bound(v):
+        if v is None:
+            return None
+        v = np.asarray(v, np.float32)
+        return _tm(v) if v.ndim == 3 else from_numpy(v)
+
+    out = fused.ilqr_fused(P.ILQRConfig(**kw), tdyn, from_numpy(params), from_numpy(x0), tcost,
+                           None, bound(lo), bound(hi),
+                           u_zero_I=None if uz is None else _tm(uz), delta_u=du)
+    return jres, out
+
+
+def _lanes_cost(name, B, T, seed=2):
+    """The env's diagonal cost per step and example, weights in [1, 1.5]."""
+    q, p = (np.asarray(a) for a in ENVS[name][0].get_true_obj())
+    scale = (1.0 + 0.5 * np.random.RandomState(seed).rand(B, T, 1)).astype(np.float32)
+    C = (np.broadcast_to(np.diag(q), (B, T) + (q.size,) * 2) * scale[..., None]).astype(np.float32)
+    return C, (np.broadcast_to(p, (B, T, p.size)) * scale).astype(np.float32)
+
+
+def _unconstrained_reach(name, B, T, lqr_iter, **kw):
+    """max |u| of the port's plain version without delta_u."""
+    _, tdyn, params, q, p, x0, cfg_kw = _problem(name, B, T, lqr_iter)
+    out = fused.ilqr_fused(P.ILQRConfig(**cfg_kw), tdyn, from_numpy(params), from_numpy(x0),
+                           (torch.diag(from_numpy(q)), from_numpy(p)), None, tdyn.lower,
+                           tdyn.upper, **kw)
+    return out[1].abs().max().item()
+
+
+def test_per_example_cost():
+    """The lanes cost: C [B,T,n,n] and c [B,T,n] per step and example."""
+    _compare(*_both("pendulum", 5, 6, 4, cost=_lanes_cost("pendulum", 5, 6)))
+
+
+def test_per_example_bounds():
+    """Bounds [B, T, nu] that vary over time and examples and bind."""
+    B, T = 6, 6
+    hi = np.random.RandomState(3).uniform(0.1, 0.6, (B, T, 1)).astype(np.float32)
+    jres, out = _both("cartpole", B, T, 4, lo=-hi, hi=hi)
+    _compare(jres, out)
+    at = np.abs(np.abs(np.asarray(jres.u)) - hi) < 1e-6
+    assert at.mean() > 0.1, at.mean()
+
+
+@pytest.mark.parametrize("box", [True, False], ids=["boxed", "unboxed"])
+def test_u_zero_I(box):
+    """A mask over about 35% of the controls: with the box the trial step
+    zeroes them before the clamp; without it the Riccati takes the
+    free-subspace gains (1e-8 on frozen diagonals; for one control k
+    divides by the unmasked Quu). The masked u is exactly 0."""
+    B, T = 6, 6
+    uz = np.random.RandomState(4).rand(B, T, 1) < 0.35
+    jres, out = _both("pendulum", B, T, 4, uz=uz, box=box)
+    _compare(jres, out)
+    assert (out[1].transpose(0, 1).numpy()[uz] == 0.0).all()
+    assert (np.asarray(jres.u)[uz] == 0.0).all()
+
+
+def test_delta_u():
+    """The static trust region: the QP bounds intersected with +-delta_u,
+    the trial clamp widened around the current iterate. From the zero
+    start |u| <= n_iter delta_u, which the solve without it passes."""
+    B, T, it, du = 6, 6, 4, 0.3
+    jres, out = _both("pendulum", B, T, it, du=du)
+    _compare(jres, out)
+    assert np.abs(np.asarray(jres.u)).max() <= it * du + 1e-5
+    assert _unconstrained_reach("pendulum", B, T, it) > it * du
+
+
+@pytest.mark.parametrize("box", [True, False], ids=["boxed", "unboxed"])
+def test_rocket_variants(box):
+    """The rocket (three controls, the box-QP) with the variants at once,
+    one JAX call each: a per-example cost, and boxed: per-time and
+    per-example bounds that bind (the main thrust 8-10, the side thrusts
+    0.05-0.15), a mask over about 35% of the controls and delta_u = 0.1;
+    unboxed: the mask, through the free-subspace gains with the 3x3
+    inverse."""
+    B, T, it = 4, 5, 3
+    rng = np.random.RandomState(5)
+    uz = rng.rand(B, T, 3) < 0.35
+    kw = dict(cost=_lanes_cost("rocket", B, T), uz=uz)
+    if box:
+        hi = np.stack([rng.uniform(8, 10, (B, T)), rng.uniform(0.05, 0.15, (B, T)),
+                       rng.uniform(0.05, 0.15, (B, T))], -1).astype(np.float32)
+        kw.update(lo=-hi, hi=hi, du=0.1)
+    jres, out = _both("rocket", B, T, it, box=box, **kw)
+    _compare(jres, out)
+    u = np.asarray(jres.u)
+    assert (u[uz] == 0.0).all() and (out[1].transpose(0, 1).numpy()[uz] == 0.0).all()
+    if box:
+        assert np.abs(u).max() <= it * 0.1 + 1e-5
+        assert (np.abs(np.abs(u) - hi) < 1e-6)[~uz].mean() > 0.1
+        assert _unconstrained_reach("rocket", B, T, it) > it * 0.1
+
+
+@pytest.mark.parametrize("name,B,T,lqr_iter", [("cartpole", 6, 6, 4), ("pendulum", 6, 6, 4),
+                                               ("rocket", 4, 5, 3)])
+def test_slew_rate(name, B, T, lqr_iter):
+    """The slew rate (penalty 1.0) through augment_slew_rate: the augmented
+    problem (u_{t-1}, x) with its per-example cost on the port's
+    Passthrough env (hand Jacobian) against JAX's solve with
+    slew_rate_penalty on its kernel (jvp sweep)."""
+    jdyn, tdyn, params, q, p, x0, kw = _problem(name, B, T, lqr_iter)
+    lo, hi = np.asarray(jdyn.lower, np.float32), np.asarray(jdyn.upper, np.float32)
+    jcfg = J.ILQRConfig(backend="pallas", slew_rate_penalty=1.0, **kw)
+    jres = J.solve(jcfg, jnp.asarray(x0), J.QuadCost(jnp.diag(q), jnp.asarray(p)), jdyn,
+                   params=jnp.asarray(params), u_lower=jnp.asarray(lo), u_upper=jnp.asarray(hi))
+    n = q.size
+    cost = canonicalize_cost(P.QuadCost(torch.diag(from_numpy(q)), from_numpy(p)), T, B, n)
+    cfg, acost, adyn, aparams, ax0 = augment_slew_rate(
+        P.ILQRConfig(slew_rate_penalty=1.0, **kw), cost, tdyn, from_numpy(params),
+        from_numpy(x0), None)
+    assert adyn.device_env is not None and cfg.slew_rate_penalty is None
+    out = fused.ilqr_fused(cfg, adyn, aparams, ax0, (acost.C, acost.c), None, from_numpy(lo),
+                           from_numpy(hi))
+    _compare(jres, out, strip=kw["n_ctrl"])
+
+
+def _gates(cfg_kw, jdyn, tdyn, params, cost_small=True, uz=None, du=None, lo=None, hi=None,
+           dtype=np.float32, qp_solver="auto", callable_cost=False):
+    """(JAX's fused_supported and lane_compatible, the port's covered) on
+    one configuration; cost_small False is the per-example cost."""
+    kw = dict(cfg_kw, qp_solver=qp_solver)
+    jcfg, tcfg = J.ILQRConfig(**kw), P.ILQRConfig(**kw)
+    n, nu = kw["n_state"] + kw["n_ctrl"], kw["n_ctrl"]
+    jcost = (lambda tau, p: 0.5 * (tau * tau).sum(0)) if callable_cost \
+        else J.QuadCost(jnp.eye(n), jnp.zeros(n))
+    if callable_cost:
+        assert cost_lane_compatible(jcost, n, 0)
+    jsmall = (jnp.eye(n), jnp.zeros(n)) if cost_small and not callable_cost else None
+    tsmall = (torch.eye(n), torch.zeros(n)) if cost_small and not callable_cost else None
+
+    def jb(v):
+        return None if v is None else jnp.asarray(v)
+
+    def tb(v):
+        return None if v is None else (float(v) if np.ndim(v) == 0 else from_numpy(
+            np.asarray(v, np.float32)))
+
+    jparams = jnp.asarray(params)
+    j_ok = fused_supported(jcfg, jcost, jdyn, jparams, jb(uz), du,
+                           jnp.float32 if dtype == np.float32 else jnp.float64,
+                           cost_small=jsmall, u_lower=jb(lo), u_upper=jb(hi),
+                           callable_cost=callable_cost)
+    if j_ok and isinstance(jdyn, JDynamics):
+        j_ok = lane_compatible(jdyn, jparams, kw["n_state"], nu)
+    t_ok = (not callable_cost and tdyn is not None and fused.covered(
+        tcfg, tdyn, from_numpy(np.asarray(params)),
+        torch.float32 if dtype == np.float32 else torch.float64, tsmall,
+        None if uz is None else from_numpy(uz), tb(du), tb(lo), tb(hi)))
+    return bool(j_ok), bool(t_ok)
+
+
+def _slew_dyns(name, T, B):
+    """The augmented (Passthrough) models of JAX and the port."""
+    jm, tm = ENVS[name]
+    jdyn, tdyn = jm.make(), tm.make()
+    params = np.asarray(jm.default_params())
+    n = jdyn.n_state + jdyn.n_ctrl
+    kw = dict(n_state=jdyn.n_state, n_ctrl=jdyn.n_ctrl, T=T, slew_rate_penalty=1.0)
+    x0 = np.zeros((B, jdyn.n_state), np.float32)
+    jq = J.QuadCost(jnp.eye(n), jnp.zeros(n))
+    jc = j_canonicalize_cost(jq, T, B, n)
+    jcfg, _, jaug, _, _ = j_augment(J.ILQRConfig(**kw), jc, jdyn, jnp.asarray(params),
+                                    jnp.asarray(x0), None, None)
+    tc = canonicalize_cost(P.QuadCost(torch.eye(n), torch.zeros(n)), T, B, n)
+    tcfg, _, taug, _, _ = augment_slew_rate(P.ILQRConfig(**kw), tc, tdyn, from_numpy(params),
+                                            from_numpy(x0), None)
+    return dict(n_state=jcfg.n_state, n_ctrl=jcfg.n_ctrl, T=T), jaug, taug, params
+
+
+def test_covered_agrees_with_jax_gate():
+    """The port's gate equals JAX's (fused_supported and lane_compatible)
+    on every variant the port takes, and on refusals both make; on LinDx,
+    a callable cost, the complex pendulum and the rocket with
+    normalize_quat=True JAX's kernel admits them (its jvp sweep and lane
+    inputs) and the port still refuses them: the gap ROADMAP queue B
+    item 4 lists."""
+    T, B = 6, 4
+    rows = []
+    for name in ("cartpole", "pendulum", "rocket"):
+        jm, tm = ENVS[name]
+        jdyn, tdyn = jm.make(), tm.make()
+        params = np.asarray(jm.default_params())
+        nu = jdyn.n_ctrl
+        kw = dict(n_state=jdyn.n_state, n_ctrl=nu, T=T)
+        hi = np.ones((T, B, nu), np.float32)  # time-major, as ilqr_loop passes it
+        mask = np.zeros((T, B, nu), bool)
+        same = [
+            ("static", {}),
+            ("static bounds", dict(lo=-1.0, hi=1.0)),
+            ("per-example cost", dict(cost_small=False, lo=-1.0, hi=1.0)),
+            ("per-time and per-example bounds", dict(lo=-hi, hi=hi)),
+            ("u_zero_I", dict(uz=mask, lo=-1.0, hi=1.0)),
+            ("u_zero_I unboxed", dict(uz=mask)),
+            ("delta_u", dict(du=0.4, lo=-1.0, hi=1.0)),
+            ("delta_u [1]", dict(du=np.array([0.4], np.float32), lo=-1.0, hi=1.0)),
+            ("f64", dict(dtype=np.float64)),
+            ("qp_solver pnqp", dict(qp_solver="pnqp")),
+        ]
+        for label, extra in same:
+            rows.append((f"{name} {label}", *_gates(kw, jdyn, tdyn, params, **extra)))
+        skw, jaug, taug, _ = _slew_dyns(name, T, B)
+        rows.append((f"{name} slew rate", *_gates(skw, jaug, taug, params, cost_small=False,
+                                                  lo=-1.0, hi=1.0)))
+    for label, j_ok, t_ok in rows:
+        want = not any(s in label for s in ("f64", "pnqp", "[1]"))
+        assert (j_ok, t_ok) == (want, want), label
+
+    # the port's listed gap: JAX admits, the port refuses
+    gap = []
+    jp, tp = jpend.make(simple=False), tpend.make(simple=False)
+    pp = np.asarray(jpend.default_params(simple=False))
+    gap.append(("complex pendulum", *_gates(dict(n_state=jp.n_state, n_ctrl=1, T=T), jp, tp,
+                                            pp)))
+    jr, tr = jrock.make(normalize_quat=True), trock.make(normalize_quat=True)
+    gap.append(("rocket normalize_quat", *_gates(dict(n_state=13, n_ctrl=3, T=T), jr, tr,
+                                                 np.asarray(jrock.default_params()))))
+    jdyn = jcart.make()
+    cp = np.asarray(jcart.default_params())
+    gap.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jdyn, tcart.make(),
+                                          cp, callable_cost=True)))
+    lin = J.LinDx(jnp.zeros((B, T - 1, 5, 6)), None)
+    gap.append(("LinDx", *_gates(dict(n_state=5, n_ctrl=1, T=T), lin, None, np.zeros(1))))
+    for label, j_ok, t_ok in gap:
+        assert (j_ok, t_ok) == (True, False), label
+    # the port's plain-loop side of the same: LinDx is not a Dynamics
+    assert not fused.covered(P.ILQRConfig(n_state=5, n_ctrl=1, T=T), P.LinDx(
+        torch.zeros(B, T - 1, 5, 6)), torch.zeros(1), torch.float32, None, None, None,
+        None, None)

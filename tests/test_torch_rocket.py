@@ -227,8 +227,9 @@ def test_reference_decides_per_1024_tile_with_three_controls():
 
 def test_covered_rocket_configurations():
     """The kernel takes the rocket with normalize_quat=False, ANALYTIC,
-    qp_solver "auto" and static bounds (None, a scalar or [3]), f32; not
-    normalize_quat=True, qp_solver "pnqp", per-time bounds or f64."""
+    qp_solver "auto", static bounds (None, a scalar or [3]) or per-time
+    ones, f32; not normalize_quat=True, qp_solver "pnqp", bounds of
+    another T or control count, or f64."""
     dyn, params = tr.make(), tr.default_params()
     q, p = tr.get_true_obj()
     cfg = P.ILQRConfig(n_state=13, n_ctrl=3, T=6, backprop=False)
@@ -239,7 +240,8 @@ def test_covered_rocket_configurations():
     assert cov() and cov(lo=-1.0, hi=1.0) and cov(lo=None, hi=None)
     assert not cov(dyn=tr.make(normalize_quat=True))
     assert not cov(cfg=dataclasses.replace(cfg, qp_solver="pnqp"))
-    assert not cov(lo=-torch.ones(6, 3), hi=torch.ones(6, 3))
+    assert cov(lo=-torch.ones(6, 1, 3), hi=torch.ones(6, 1, 3))
+    assert not cov(lo=-torch.ones(7, 1, 3), hi=torch.ones(7, 1, 3))
     assert not cov(lo=-torch.ones(2), hi=torch.ones(2))
     assert not cov(dtype=torch.float64)
     assert not cov(params=params[:4])
