@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the last line:
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
-     KKT VJP, the reverse Riccati), and print the build seconds and the
+     KKT VJP, the reverse Riccati, and phase 8's LinDx shapes, one
+     library each), and print the build seconds and the
      ptxas report, with each whole-solve and KKT instantiation's registers,
      stack and spills; a whole-solve instantiation missing (17: the envs
      and their slew-rate wrappers by cost form and block size) fails, and
@@ -86,7 +87,19 @@ Phases, in order; any failure exits non-zero before the last line:
      points, one whole-solve launch a solve and no Riccati launch; each
      path's time against backend="torch" in turns, and the device idle
      share of one profiled slew-rate step;
-  8. print the JSON line, the nvidia-smi line, then the result line
+  8. LinDx (time-varying affine LQR) problems and n_ctrl 2..8 on the
+     whole-solve kernel (see lindx_paths; LinDx<NX, NU>, one library per
+     shape, built in phase 2 with the rest, a stack or spill failing at
+     (3,2) and at one control with up to 6 states): each case against its
+     plain version at each cluster size -- the slice's (3,2) at B=4096
+     boxed, unboxed, masked, with delta_u, per-time bounds and an
+     example-invariant cost, its slew rate (5,2), n_ctrl 4..8, the gate's
+     edges (15,2) and (11,8), one control at (6,1) and (15,1); MPC on a
+     LinDx with and without the slew rate (one whole-solve launch, no
+     Riccati launch) and the IFT gradient (the KKT kernel backward)
+     against the plain backward; the kernel and MPC at B=4096 and 135168
+     against backend="torch" in turns, and the idle share of one MPC call;
+  9. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -303,7 +316,7 @@ def same_bits(torch, fused, name, k_out, args, **kw):
     arithmetic and the tile's votes do not depend on how a tile is cut into
     blocks. An env with one cluster size is launched again at it: the same
     bits twice. kw: the variants, as parity's."""
-    sizes = fused.clusters(args[1].device_env)
+    sizes = fused.kernel_clusters(args[0], args[1])
     for G in sizes:
         out = fused.ilqr_fused(*args, **kw, cluster=G)
         if not all(torch.equal(a, b) for a, b in zip(out, k_out)):
@@ -351,6 +364,7 @@ def main():
     import torch
 
     # ---- 1) the card ----
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     card = card_line()
@@ -372,9 +386,12 @@ def main():
 
     # ---- 2) build ----
     t0 = time.perf_counter()
-    reports = build.build_all([m.SOURCE for m in kernels.values()])
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} source(s)", flush=True)
-    for src, rep in reports.items():
+    reports = build.build_all([m.SOURCE for m in kernels.values()]
+                              + [fused.lindx_spec(*shape) for shape in LINDX_SHAPES])
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources "
+          f"and {len(LINDX_SHAPES)} LinDx shapes)", flush=True)
+    for spec, rep in reports.items():
+        src = spec if isinstance(spec, str) else build.library_path(spec).split("/")[-1]
         for line in rep.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "error")):
                 print(f"ptxas[{src}]: {line.strip()}", flush=True)
@@ -411,6 +428,7 @@ def main():
     if ric_seen != RICCATI_KERNELS:
         fail(f"riccati_fused: {ric_seen} instantiations in the ptxas report, want "
              f"{RICCATI_KERNELS}")
+    lindx_ptxas(fused, reports)
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -774,7 +792,19 @@ def main():
     rows[0]["variant_paths"] = v_paths
     kkt_row["launches"] += v_launches["kkt_fused"]
 
-    # ---- 8) the card's line, then the result line ----
+    # ---- 8) LinDx problems and n_ctrl 2..8 on the whole-solve kernel ----
+    print(f"phase 8 starts {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+    lgen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    l_launches, l_err, l_cases, l_paths = lindx_paths(torch, P, dev, kernels, card, fused, lgen)
+    print(f"phase 8 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+    rows[0]["launches"] += l_launches["ilqr_fused"]
+    rows[0]["lindx_launches"] = l_launches["ilqr_fused"]
+    rows[0]["max_abs_err_lindx"] = l_err
+    rows[0]["lindx"] = l_cases
+    rows[0]["lindx_paths"] = l_paths
+    kkt_row["launches"] += l_launches["kkt_fused"]
+
+    # ---- 9) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2295,6 +2325,294 @@ def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, 
           f"host clock); {bytes_} bytes -> byte bound {bound:.4f} ms [{card}]", flush=True)
     return {"name": label.replace("phase 7 (a) ", ""), "ms": ms, "plain_ms": plain_ms,
             "byte_bound_ms": bound, "max_abs_err": err, "n_iter": int(k_out[4]), "u": k_out[1]}
+
+
+# phase 8's LinDx shapes (n_state, n_ctrl, per-example cost), one library
+# each, built in phase 2 beside the other sources: the slice's (3,2) in both
+# cost forms, its slew rate (5,2), n_ctrl 4..8 at 4 states, the gate's edges
+# (15,2) and (11,8), and one control in registers (6,1) and past them (15,1)
+LINDX_SHAPES = ((3, 2, True), (3, 2, False), (5, 2, True), (4, 4, True), (4, 5, True),
+                (4, 6, True), (4, 7, True), (4, 8, True), (15, 2, True), (11, 8, True),
+                (6, 1, True), (15, 1, True))
+# LinDx<NX, NU> in the whole-solve kernel's mangled name
+LINDX_NAME = r"LinDxILi(\d+)ELi(\d+)EE"
+
+
+def lindx_ptxas(fused, reports):
+    """Phase 2 for the LinDx libraries: each one's instantiations with
+    their registers, stack and spills; a missing instantiation (one per
+    cluster size the shape fits) fails, and so does a stack or a spill at
+    the slice's shape (3,2) or at one control with at most 6 states (the
+    register path)."""
+    for nx, nu, lanes in LINDX_SHAPES:
+        rep = reports[fused.lindx_spec(nx, nu, lanes)]
+        seen = 0
+        for name, regs, stack, st, ld in ptxas_entries(rep, ILQR_ENTRY, "LinDx"):
+            name = re.sub(LINDX_NAME, r"LinDx<\1, \2>", name)
+            print(f"ptxas ilqr_lindx {name}: {regs} registers, {stack} bytes stack, {st}/{ld} "
+                  f"bytes spill stores/loads", flush=True)
+            seen += 1
+            if ((nx, nu) == (3, 2) or (nu == 1 and nx <= fused.REGISTER_NX)) and (
+                    stack or st or ld):
+                fail(f"ilqr_lindx {name} has a stack frame or spills")
+        if seen != len(fused.lindx_clusters(nx, nu)):
+            fail(f"ilqr_lindx ({nx}, {nu}) lanes {lanes}: {seen} instantiations, want "
+                 f"{len(fused.lindx_clusters(nx, nu))}")
+
+
+def lindx_bound(fused, cfg, B, cost, dyn, lo, hi, kw, tile_iters):
+    """The least time of one LinDx solve: (ms, "bytes" or "operations",
+    FLOP, bytes). Bytes: each input read once (x_init, the cost in its
+    form, F, f, tensor bounds, the mask as bytes) and each output written
+    once (x, u, costs, du). Operations: per example, step and iteration its
+    tile ran, the Riccati step's products (V F, F^T V F on a triangle, C tau
+    + c, F^T v, the gains and the V/v update) and one line-search trial (K
+    dx, the step F tau + f, the objective); the box-QP's Newton steps depend
+    on the data and are not counted, so this is a lower bound."""
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    n = nx + nu
+    ins = [cost[0], cost[1], dyn[0]] + [a for a in (dyn[1], lo, hi) if hasattr(a, "dim")]
+    by = 4 * B * nx + sum(4 * a.numel() for a in ins)
+    by += T * B * nu if kw.get("u_zero_I") is not None else 0
+    by += 4 * (T * B * n + 2 * B)
+    per_t = (2 * nx * nx * n + nx * n * (n + 1) + 2 * n * n + 2 * nx * n
+             + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3
+             + 2 * nu * nx + 2 * nx * n + 2 * n * n + 3 * n)
+    flops = per_t * T * sum(it * min(fused.TILE, B - g * fused.TILE)
+                            for g, it in enumerate(tile_iters))
+    t_ops, t_by = flops / FP32_PEAK * 1e3, by / HBM_RATE * 1e3
+    return max(t_ops, t_by), ("operations" if t_ops >= t_by else "bytes"), flops, by
+
+
+def tile_iters_of(fused, cfg, dyn, x0, cost, lo, hi, kw):
+    """Iterations each 1024-example tile of a LinDx solve ran: one launch
+    per tile's own examples (tiles are independent)."""
+    import dilqr_tpu_torch as P
+
+    its = []
+    for g in range(0, x0.shape[0], fused.TILE):
+        sl = slice(g, g + fused.TILE)
+
+        def cut(a):
+            return a[:, sl] if hasattr(a, "dim") and a.dim() >= 3 else a
+        c = tuple(cut(a) for a in cost)
+        d = P.LinDx(cut(dyn[0]), None if dyn[1] is None else cut(dyn[1]))
+        k = {name: cut(v) for name, v in kw.items()}
+        its.append(int(fused.ilqr_fused(cfg, d, None, x0[sl], c, None, cut(lo), cut(hi),
+                                        **k)[4]))
+    return its
+
+
+def lindx_case(torch, fused, card, label, cfg, dyn, x0, cost, lo, hi, kw):
+    """One (a) case of phase 8: parity (its tolerances, x and u held on the
+    examples converged in both), the same bits at every cluster size the
+    shape's library has, the masked u exactly 0, and the kernel's time
+    (CUDA events, median of 5) beside the plain version's (one run, host
+    clock) and the bound. Returns the JSON figures."""
+    err, k_out, r_out = parity(torch, fused, label, dyn, None, cfg, x0, cost, None, lo, hi,
+                               converged_only=True, **kw)
+    plain_ms = parity.plain_ms
+    same_bits(torch, fused, label, k_out, (cfg, dyn, None, x0, cost, None, lo, hi), **kw)
+    mask = kw.get("u_zero_I")
+    if mask is not None:
+        if k_out[1][mask].abs().max().item() != 0.0 or r_out[1][mask].abs().max().item() != 0.0:
+            fail(f"{label}: a masked control is not exactly zero")
+        print(f"{label}: {mask.float().mean().item():.3f} of the controls masked, all exactly 0",
+              flush=True)
+    ms, runs = cuda_ms(lambda: fused.ilqr_fused(cfg, dyn, None, x0, cost, None, lo, hi, **kw),
+                       1, 5)
+    its = tile_iters_of(fused, cfg, dyn, x0, cost, lo, hi, kw)
+    bound, by_what, flops, by = lindx_bound(fused, cfg, x0.shape[0], cost, dyn, lo, hi, kw, its)
+    info = fused.lindx_info(cfg.n_state, cfg.n_ctrl, 0, cost[0].dim() == 4)
+    print(f"time {label}: {ms:.3f} ms median of {len(runs)} "
+          f"({', '.join(f'{r:.3f}' for r in runs)}); plain version {plain_ms:.1f} ms (one run, "
+          f"host clock); {flops:.3e} FLOP, {by} bytes -> bound {bound:.4f} ms ({by_what}); "
+          f"tile iterations {its}; G={info['cluster']}, V/Q/F in {info['store']}, "
+          f"{info['registers']} registers, {info['local_bytes']} local bytes, "
+          f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']} [{card}]", flush=True)
+    return {"name": label.replace("phase 8 (a) ", ""), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by_what, "max_abs_err": err,
+            "n_iter": int(k_out[4])}
+
+
+def lindx_paths(torch, P, dev, kernels, card, fused, gen):
+    """Phase 8: LinDx (time-varying affine LQR) problems and n_ctrl 2..8 on
+    the whole-solve kernel (LinDx<NX, NU>, one library per shape from
+    csrc/ilqr_lindx.cu), on lqr_problem's random problems (C = A A^T + 3 I,
+    F = [I + 0.08 N | 0.4 N], f = 0.2 N), T=10.
+    (a) parity, the kernel against its plain version on the same CUDA
+        inputs at each cluster size the shape has (lindx_case): the slice's
+        (3,2) at B=4096, lqr_iter 8, eps 1e-4, with f and the box +-0.5,
+        unboxed, unboxed with the 30% u_zero_I mask, with delta_u 0.2,
+        with per-time and per-example bounds in [0.2, 0.8], and with an
+        example-invariant cost; the slew rate (penalty 1.0) at (5,2); n_ctrl
+        4..8 at 4 states, B=1024, boxed (+-0.4) and unboxed; the gate's
+        edges (15,2) and (11,8) at B=1024, boxed; one control at (6,1)
+        (registers), boxed, and at (15,1) (shared memory), masked;
+    (b) the entry points, every counter zeroed before each and read after:
+        MPC(...)(x, cost, LinDx) at (3,2) B=4096, one whole-solve launch and
+        no Riccati launch; the same with slew_rate_penalty=1.0; and the IFT
+        gradient of the LinDx solve with respect to F and f (the
+        whole-solve kernel forward, the KKT kernel at (3,2) backward) held
+        against the plain backward;
+    (c) times at (3,2), T=10, box +-0.5, 8 iterations (eps 0): the kernel
+        alone (CUDA events) beside its bound at B=4096 and B=135168, and
+        MPC end to end against backend="torch" in turns (a b b a x3, host
+        clock); the device idle share of one profiled MPC call.
+    Returns (the launches of (b), the largest |kernel - plain| of (a)'s x
+    and u, the cases' figures, the paths' figures)."""
+    import dataclasses
+
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+
+    T = 10
+
+    def problem(B, nx, nu):
+        (C, c, F, f, x0), mask = lqr_problem(torch, gen, T, B, nx, nu, dev, torch.float32)
+        return (C, c), P.LinDx(F, f), x0, mask
+
+    def cfg_of(nx, nu, lqr_iter=8, eps=1e-4):
+        return P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=lqr_iter, eps=eps,
+                            exit_unconverged=False, detach_unconverged=False, backprop=False)
+
+    # ---- (a) parity ----
+    cases, worst = [], 0.0
+
+    def case(what, cfg, dyn, x0, cost, lo, hi, kw=None):
+        nonlocal worst
+        label = f"phase 8 (a) ({cfg.n_state},{cfg.n_ctrl}) B={x0.shape[0]} T={T} {what}"
+        cases.append(lindx_case(torch, fused, card, label, cfg, dyn, x0, cost, lo, hi,
+                                kw or {}))
+        worst = max(worst, cases[-1]["max_abs_err"])
+
+    main_cost, main_dyn, main_x0, mask = problem(4096, 3, 2)
+    B = main_x0.shape[0]
+    cfg = cfg_of(3, 2)
+    hi_t = (0.2 + 0.6 * torch.rand(T, B, 2, generator=gen)).to(dev)
+    case("box +-0.5, f", cfg, main_dyn, main_x0, main_cost, -0.5, 0.5)
+    case("unboxed", cfg, main_dyn, main_x0, main_cost, None, None)
+    case("unboxed, u_zero_I 30%", cfg, main_dyn, main_x0, main_cost, None, None,
+         {"u_zero_I": mask})
+    case("box +-0.5, delta_u 0.2", cfg, main_dyn, main_x0, main_cost, -0.5, 0.5,
+         {"delta_u": 0.2})
+    case("per-time and per-example bounds", cfg, main_dyn, main_x0, main_cost, -hi_t, hi_t)
+    case("example-invariant cost, box +-0.5", cfg, main_dyn, main_x0,
+         (main_cost[0][0, 0].contiguous(), main_cost[1][0, 0].contiguous()), -0.5, 0.5)
+    tcost = P.QuadCost(*main_cost)  # time-major, as augment_slew_rate takes it
+    a_cfg, a_cost, a_dyn, _, a_x0 = augment_slew_rate(
+        dataclasses.replace(cfg, slew_rate_penalty=1.0), tcost, main_dyn, None, main_x0, None)
+    case("slew rate 1.0, box +-0.5", a_cfg, a_dyn, a_x0, (a_cost.C, a_cost.c), -0.5, 0.5)
+    for nu in (4, 5, 6, 7, 8):
+        cost, dyn, x0, _ = problem(1024, 4, nu)
+        case("box +-0.4", cfg_of(4, nu), dyn, x0, cost, -0.4, 0.4)
+        case("unboxed", cfg_of(4, nu), dyn, x0, cost, None, None)
+    for nx, nu in ((15, 2), (11, 8), (6, 1)):
+        cost, dyn, x0, _ = problem(1024, nx, nu)
+        case("box +-0.5", cfg_of(nx, nu), dyn, x0, cost, -0.5, 0.5)
+    cost, dyn, x0, m1 = problem(1024, 15, 1)
+    case("unboxed, u_zero_I 30%", cfg_of(15, 1), dyn, x0, cost, None, None, {"u_zero_I": m1})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the entry points ----
+    total = {name: 0 for name in kernels}
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+
+    def bm(a):  # time-major -> batch-major, as MPC takes them
+        return a.transpose(0, 1)
+
+    qc = P.QuadCost(bm(main_cost[0]), bm(main_cost[1]))
+    lin = P.LinDx(bm(main_dyn.F), bm(main_dyn.f))
+    mpc_kw = dict(u_lower=-0.5, u_upper=0.5, lqr_iter=8, eps=1e-4, backprop=False,
+                  exit_unconverged=False)
+    # what MPC must give: the kernel's bits on the same inputs, the plain
+    # version's costs within parity's rule
+    direct = fused.ilqr_fused(cfg, main_dyn, None, main_x0, main_cost, None, -0.5, 0.5)
+    ref = fused.ilqr_fused_reference(cfg, main_dyn, None, main_x0, main_cost, None, -0.5, 0.5)
+    for label, mkw, nx in (("MPC (3,2) B=4096 box +-0.5", {}, 3),
+                           ("MPC (3,2) B=4096 slew rate 1.0", {"slew_rate_penalty": 1.0}, 3)):
+        (x, u, costs), _ = drive(torch, kernels, total, f"phase 8 (b) {label}",
+                                 lambda: P.MPC(3, 2, T, **mpc_kw, **mkw)(main_x0, qc, lin), one)
+        if x.shape != (B, T, nx) or u.shape != (B, T, 2):
+            fail(f"{label}: shapes {tuple(x.shape)}, {tuple(u.shape)}")
+        if not (torch.isfinite(costs).all() and torch.isfinite(x).all()):
+            fail(f"{label}: non-finite output")
+        if u.abs().max().item() > 0.5 + 1e-6:
+            fail(f"{label}: controls outside the box")
+        msg = f"phase 8 (b) {label}: mean cost {costs.mean().item():.4f}"
+        if not mkw:
+            if not (torch.equal(costs, direct[2]) and torch.equal(u, direct[1].transpose(0, 1))):
+                fail(f"{label}: MPC's result is not the kernel's on the same inputs")
+            rel = (costs - ref[2]).abs() / ref[2].abs().clamp(min=1e-6)
+            msg += (f", the kernel's bits; cost rel to the plain version max "
+                    f"{rel.max().item():.2e}, past 1e-4: {int((rel > 1e-4).sum())}/{B}")
+            if rel.max().item() > 1e-2 or int((rel > 1e-4).sum()) > 0.01 * B:
+                fail(f"{label}: costs disagree with the plain version past parity's rule")
+        print(msg, flush=True)
+
+    c_ift = dataclasses.replace(cfg, backprop=True, backward_mode=P.BackwardMode.IFT)
+
+    def lindx_grad(c):
+        F = lin.F.clone().requires_grad_(True)
+        f = lin.f.clone().requires_grad_(True)
+        res = P.solve(c, main_x0, qc, P.LinDx(F, f), u_lower=-0.5, u_upper=0.5)
+        return torch.autograd.grad((res.u ** 2).mean(), (F, f))
+
+    label = "LinDx (3,2) IFT grad B=4096"
+    g, _ = drive(torch, kernels, total, f"phase 8 (b) {label}", lambda: lindx_grad(c_ift),
+                 {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
+    g_ref = lindx_grad(dataclasses.replace(c_ift, backward_backend="torch"))
+    for name, a, b in zip(("F", "f"), g, g_ref):
+        err = (a - b).abs().max().item()
+        print(f"phase 8 (b) {label}: d/d{name} max {b.abs().max().item():.3e}, abs. diff to the "
+              f"plain backward {err:.2e}", flush=True)
+        if not torch.isfinite(a).all() or a.abs().max().item() == 0.0:
+            fail(f"{label}: a non-finite or zero gradient")
+        if err > 1e-3 * b.abs().max().item() + 1e-8:
+            fail(f"{label}: d/d{name} differs from the plain backward's by {err:.3e}")
+    print(f"phase 8 (b) launches: {total}", flush=True)
+
+    # ---- (c) times ----
+    figures = []
+    t_cfg = cfg_of(3, 2, eps=0.0)
+    for first in (True, False):
+        # the main problem, then one 1024-example tile per SM
+        cost, dyn, x0 = (main_cost, main_dyn, main_x0) if first else problem(132 * 1024, 3,
+                                                                              2)[:3]
+        Bt = x0.shape[0]
+        ms, runs = cuda_ms(lambda: fused.ilqr_fused(t_cfg, dyn, None, x0, cost, None, -0.5, 0.5),
+                           1, 5)
+        its = tile_iters_of(fused, t_cfg, dyn, x0, cost, -0.5, 0.5, {}) if first \
+            else [int(fused.ilqr_fused(t_cfg, dyn, None, x0, cost, None, -0.5, 0.5)[4])] * (
+                Bt // fused.TILE)
+        bound, by_what, flops, by = lindx_bound(fused, t_cfg, Bt, cost, dyn, -0.5, 0.5, {}, its)
+        print(f"time phase 8 ilqr_fused LinDx (3,2) B={Bt} T={T} box +-0.5, 8 iterations: "
+              f"{ms:.3f} ms median of {len(runs)} ({', '.join(f'{r:.3f}' for r in runs)}), "
+              f"{Bt / ms * 1e3:.0f} solves/s; {flops:.3e} FLOP, {by} bytes -> bound {bound:.4f} "
+              f"ms ({by_what}) [{card}]", flush=True)
+        mk = P.MPC(3, 2, T, u_lower=-0.5, u_upper=0.5, lqr_iter=8, eps=0.0, backprop=False,
+                   exit_unconverged=False)
+        mq = P.QuadCost(bm(cost[0]), bm(cost[1]))
+        ml = P.LinDx(bm(dyn.F), bm(dyn.f))
+
+        def call(be):
+            mk.cfg = dataclasses.replace(mk.cfg, backend=be)
+            return mk(x0, mq, ml)
+
+        # a b b a x3, once at the full card: the plain loop takes seconds there
+        got = host_ms_in_turns({"kernel": lambda: call("auto"),
+                                "plain loop": lambda: call("torch")}, rounds=3 if first else 1)
+        print(f"time phase 8 MPC LinDx (3,2) B={Bt} T={T}, 8 iterations, in turns (host clock, "
+              f"synchronized, medians): kernel {got['kernel'][0]:.3f} ms "
+              f"({', '.join(f'{t:.3f}' for t in got['kernel'][1])}); plain loop "
+              f"{got['plain loop'][0]:.1f} ms "
+              f"({', '.join(f'{t:.1f}' for t in got['plain loop'][1])}) [{card}]", flush=True)
+        figures.append({"name": f"MPC LinDx (3,2) B={Bt}", "kernel_ms": ms, "bound_ms": bound,
+                        "bound_by": by_what, "mpc_ms": got["kernel"][0],
+                        "torch_ms": got["plain loop"][0]})
+        if first:
+            profile_step(torch, "phase 8 MPC LinDx (3,2) B=4096", lambda: call("auto"))
+    return total, worst, cases, figures
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

@@ -1,8 +1,9 @@
-// Per-example math of the whole-solve iLQR kernel (ilqr_fused.cu): the env
-// steps and Jacobians in their kernel form, the quadratic objective, the
-// tile vote, the small-matrix pieces of the multi-control box-QP
-// (closed-form inverses, the projected-Newton step and its tile-voting
-// loop) and the multi-control Riccati step over strided storage.
+// Per-example math of the whole-solve iLQR kernel (ilqr_kernel.cuh): the env
+// steps and Jacobians in their kernel form, the dynamics of a time-varying
+// affine (LQR) problem as data (LinDx), the quadratic objective, the tile
+// vote, the small-matrix pieces of the multi-control box-QP (explicit
+// inverses, the projected-Newton step and its tile-voting loop) and the
+// Riccati step over strided storage.
 //
 // The envs are the device counterparts of dilqr_tpu_torch/models/
 // cartpole.py, pendulum.py and rocket.py (`kernel_step`, `jac_lanes`): the
@@ -37,8 +38,9 @@ enum EnvId {
   ENV_ROCKET_SLEW = 5,
 };
 
-// the most controls any env with device code has (the rocket's 3)
-constexpr int kMaxNu = 3;
+// the most controls the kernel takes (JAX's MAX_NU): a LinDx problem's;
+// the envs with device code have at most 3 (the rocket's)
+constexpr int kMaxNu = 8;
 
 DILQR_HD float rsqrt_f(float v) {
 #ifdef __CUDA_ARCH__
@@ -542,7 +544,71 @@ struct Passthrough {
   }
 };
 
-// ---- the multi-control box-QP of the Riccati step (nu = 2, 3) ----
+// The dynamics of a time-varying affine (LQR) problem as data (LinDx in
+// dilqr_tpu_torch/types.py; the JAX kernel's F/f lane inputs,
+// ilqr_fused.py:1166-1176 and :1269-1270): the step x' = F_t tau + f_t,
+// each row summed over the columns j = 0..N-1 in order, and the Jacobian
+// F_t itself. F is [T-1, NX*N, Bp] and f [T-1, NX, Bp] or null, each
+// example its own column: bind() takes this example's, at(t) seats step
+// t's slab. There is no F at T-1: the kernel takes no step after the last
+// one and forms Q = C there. Read through the read-only cache.
+template <int NX_, int NU_>
+struct LinDx {
+  static constexpr int NX = NX_;
+  static constexpr int NU = NU_;
+  static constexpr int N = NX + NU;
+  static constexpr int NP = 0;
+  static constexpr bool kColumnwiseQ = true;
+  const float* F0;  // step 0's entries of this example, `stride` apart
+  const float* f0;  // or null
+  int stride;
+  const float* Ft;  // step t's
+  const float* ft;
+
+  DILQR_HD void load(const float*) {}
+
+  DILQR_HD void bind(const float* F, const float* f, int Bp, int b) {
+    F0 = F + b;
+    f0 = f ? f + b : nullptr;
+    stride = Bp;
+  }
+
+  DILQR_HD void at(int t) {
+    Ft = F0 + (size_t)t * NX * N * stride;
+    ft = f0 ? f0 + (size_t)t * NX * stride : nullptr;
+  }
+
+  DILQR_HD float Fe(int i, int j) const { return ldg_f(Ft + (size_t)(i * N + j) * stride); }
+
+  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) s += Fe(i, j) * xs[j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) s += Fe(i, NX + j) * us[j];
+      xn[i] = ft ? s + ldg_f(ft + (size_t)i * stride) : s;
+    }
+  }
+
+  // D = F_t, [NX][N]: a float[NX][N] or any view indexed D[i][j]
+  template <class Out>
+  DILQR_HD void jac(const float*, const float*, Out&& D) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) D[i][j] = Fe(i, j);
+  }
+};
+
+// envs whose dynamics are data (bind, at): the kernel seats the step
+template <class Env>
+constexpr bool kDataEnv = false;
+template <int NX, int NU>
+constexpr bool kDataEnv<LinDx<NX, NU>> = true;
+
+// ---- the multi-control box-QP of the Riccati step (nu = 2..8) ----
 // Counterparts of _inv_lanes and _pnqp_lanes in dilqr_tpu/ops/pallas/
 // ilqr_fused.py, with its constants.
 constexpr float kPnqpReg = 1e-11f;
@@ -553,9 +619,12 @@ constexpr int kPnqpArmijoIter = 10;
 // examples that no longer step carry this armijo value (the reference quirk)
 constexpr float kPnqpSentinel = (float)(0.1 + 1e-6);
 
-// Explicit inverse of a small SPD-plus-ridge matrix, M <= 3: reciprocal,
-// Cramer, adjugate over the determinant (the JAX kernels' _inv_lanes,
-// dilqr_tpu/ops/pallas/ilqr_fused.py:492)
+// Explicit inverse of a small SPD-plus-ridge matrix, M <= kMaxNu:
+// reciprocal, Cramer, adjugate over the determinant for M <= 3, unpivoted
+// Gauss-Jordan for 4 <= M <= 8 (the JAX kernels' _inv_lanes,
+// dilqr_tpu/ops/pallas/ilqr_fused.py:492-545, in its order: row k scaled
+// by 1/pivot, then every other row i eliminated, column by column; no
+// pivoting, as elimination keeps an SPD matrix's pivots positive)
 template <int M>
 DILQR_HD void inv_small(const float A[M][M], float R[M][M]) {
   if constexpr (M == 1) {
@@ -567,8 +636,7 @@ DILQR_HD void inv_small(const float A[M][M], float R[M][M]) {
     R[0][1] = -A[0][1] * r;
     R[1][0] = -A[1][0] * r;
     R[1][1] = A[0][0] * r;
-  } else {
-    static_assert(M == 3, "closed-form inverse for M <= 3");
+  } else if constexpr (M == 3) {
     const float c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1];
     const float c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2];
     const float c02 = A[1][0] * A[2][1] - A[1][1] * A[2][0];
@@ -583,6 +651,35 @@ DILQR_HD void inv_small(const float A[M][M], float R[M][M]) {
     R[0][0] = c00 * r; R[0][1] = c10 * r; R[0][2] = c20 * r;
     R[1][0] = c01 * r; R[1][1] = c11 * r; R[1][2] = c21 * r;
     R[2][0] = c02 * r; R[2][1] = c12 * r; R[2][2] = c22 * r;
+  } else {
+    static_assert(M <= kMaxNu, "Gauss-Jordan for 4 <= M <= kMaxNu");
+    float a[M][M];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        a[i][j] = A[i][j];
+        R[i][j] = i == j ? 1.0f : 0.0f;
+      }
+#pragma unroll
+    for (int k = 0; k < M; ++k) {
+      const float piv = 1.0f / a[k][k];
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        a[k][j] = a[k][j] * piv;
+        R[k][j] = R[k][j] * piv;
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i == k) continue;
+        const float fct = a[i][k];
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          a[i][j] = a[i][j] - fct * a[k][j];
+          R[i][j] = R[i][j] - fct * R[k][j];
+        }
+      }
+    }
   }
 }
 
@@ -705,7 +802,8 @@ struct StepVariant {
   float Iz[NU];
 };
 
-// ---- the Riccati step of the multi-control kernel (nu = 2, 3) ----
+// ---- the Riccati step over strided storage (nu = 2..8; nu = 1 past
+// kRegisterNx states) ----
 // One example's V, Q and F sit in strided storage: on the device
 // [entry][example] in the block's shared memory, so none of them is in
 // local memory; v, q, the gains and one block of columns of V F are
@@ -735,7 +833,8 @@ struct BoxStepLayout {
 // = qx + Qxu k + K^T (qu + Quu k). An unboxed solve with a u_zero_I mask
 // (var.masked) takes the free subspace instead (:1313-1334): If = 1 - Iz,
 // H_free = Quu * If If^T + 1e-8 diag(Iz), k = -inv(H_free) (qu * If), and
-// no box-QP. V and v are read and overwritten; `store` holds V, Q, F with
+// no box-QP. One control takes the closed-form 1-D QP (or, masked, k =
+// -(qu If) / Quu) instead. V and v are read and overwritten; `store` holds V, Q, F with
 // `stride` between entries (BoxStepLayout); lo/hi are this step's bounds.
 template <class Env, int NU>
 DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const CostView& cost,
@@ -825,7 +924,24 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
     for (int s = 0; s < NU; ++s) H[r][s] = Q(NX + r, NX + s);
   }
   float If[NU], Hf[NU][NU], Hinv[NU][NU];
-  if (var.masked) {
+  if constexpr (NU == 1) {
+    // one control (a LinDx problem past kRegisterNx states): the register
+    // path's exact closed-form 1-D box-QP, no vote; masked, the free
+    // subspace with k over the unmasked Quu (the reference's quirk,
+    // :1328-1331)
+    const float h = H[0][0];
+    if (var.masked) {
+      If[0] = 1.0f - var.Iz[0];
+      kt[0] = -(qu[0] * If[0]) / h;
+      Hinv[0][0] = 1.0f / (h * If[0] * If[0] + 1e-8f * var.Iz[0]);
+    } else {
+      kt[0] = clip(-qu[0] / h, lb[0], ub[0]);
+      const float g = h * kt[0] + qu[0];
+      const bool Ic = (kt[0] <= lb[0] && g > 0.0f) || (kt[0] >= ub[0] && g < 0.0f);
+      If[0] = Ic ? 0.0f : 1.0f;
+      Hinv[0][0] = 1.0f / (h * If[0] + 1e-11f);
+    }
+  } else if (var.masked) {
     // the free subspace of an unboxed masked solve; no box-QP, no vote
     float qf[NU];
 #pragma unroll

@@ -6,6 +6,11 @@ build happens at first use, from the package's own sources only, into
 ``dilqr_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
 carries the hash of the sources and flags: a changed source is rebuilt, an
 unchanged one is loaded from the earlier build.
+
+A source may be built more than once with preprocessor defines (a
+``Spec``: the source and its ``(name, value)`` pairs), one library each:
+``ilqr_lindx.cu`` is built per LinDx shape and cost form. The defines are
+part of the library's name and hash, so each is built once and cached.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple, Union
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(PKG_DIR, "csrc")
@@ -25,7 +30,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+# a source, or a source with its preprocessor defines
+Spec = Union[str, Tuple[str, Tuple[Tuple[str, int], ...]]]
+
+_LOADED: Dict[Spec, ctypes.CDLL] = {}
+
+
+def _split(spec: Spec):
+    return (spec, ()) if isinstance(spec, str) else spec
 
 
 def nvcc_path() -> str:
@@ -37,8 +49,12 @@ def nvcc_path() -> str:
     return path
 
 
-def _digest(source: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _define_flags(defines) -> list:
+    return [f"-D{name}={value}" for name, value in defines]
+
+
+def _digest(source: str, defines=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(_define_flags(defines))).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
@@ -47,15 +63,18 @@ def _digest(source: str) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(source: str) -> str:
+def library_path(spec: Spec) -> str:
+    source, defines = _split(spec)
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}_{_digest(source)}.so")
+    tag = "".join(f"_{name.split('_')[-1].lower()}{value}" for name, value in defines)
+    return os.path.join(BUILD_DIR, f"lib{stem}{tag}_{_digest(source, defines)}.so")
 
 
-def start_build(source: str):
-    """Start nvcc on ``csrc/<source>`` unless its library is built already.
-    Returns (library path, Popen or None, temp path)."""
-    out = library_path(source)
+def start_build(spec: Spec):
+    """Start nvcc on ``csrc/<source>`` (with its defines) unless its library
+    is built already. Returns (library path, Popen or None, temp path)."""
+    source, defines = _split(spec)
+    out = library_path(spec)
     if os.path.exists(out):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -63,7 +82,8 @@ def start_build(source: str):
     os.close(fd)
     log = open(tmp + ".log", "w")
     proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, os.path.join(CSRC, source)],
+        [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-I", CSRC, "-o", tmp,
+         os.path.join(CSRC, source)],
         stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return out, proc, tmp
@@ -88,20 +108,21 @@ def finish_build(out: str, proc, tmp) -> str:
     return report
 
 
-def build_all(sources: Sequence[str]) -> Dict[str, str]:
-    """Build the given sources in parallel (one nvcc each, all started
-    together). Returns {source: nvcc report}."""
-    started = {s: start_build(s) for s in sources}
-    return {s: finish_build(*started[s]) for s in sources}
+def build_all(specs: Sequence[Spec]) -> Dict[Spec, str]:
+    """Build the given sources (or sources with defines) in parallel, one
+    nvcc each, all started together. Returns {spec: nvcc report}."""
+    started = {s: start_build(s) for s in specs}
+    return {s: finish_build(*started[s]) for s in specs}
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built first if needed."""
-    lib = _LOADED.get(source)
+def load(spec: Spec) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>`` (with its defines), built
+    first if needed."""
+    lib = _LOADED.get(spec)
     if lib is None:
-        out = library_path(source)
+        out = library_path(spec)
         if not os.path.exists(out):
-            build_all([source])
+            build_all([spec])
         lib = ctypes.CDLL(out)
-        _LOADED[source] = lib
+        _LOADED[spec] = lib
     return lib

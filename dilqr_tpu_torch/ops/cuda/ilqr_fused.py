@@ -1,13 +1,17 @@
 """Whole-solve batched iLQR on the card: the wrapper of the hand-written
-CUDA kernel ``csrc/ilqr_fused.cu`` and its plain PyTorch version.
+CUDA kernel (``csrc/ilqr_kernel.cuh``, instantiated in ``csrc/ilqr_fused.cu``
+and, per LinDx shape, ``csrc/ilqr_lindx.cu``) and its plain PyTorch version.
 
 Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
 the Pallas kernel ``_ilqr_kernel``) for the configurations ``covered``
-admits: GradMethod.ANALYTIC with the env's hand-derived Jacobian, f32, an
-env with device code -- cartpole and the simple pendulum (n_ctrl == 1, the
-closed-form 1-D box-QP), the rocket (n_ctrl == 3, the in-kernel
-projected-Newton box-QP) and the slew-rate wrapper of each
-(``models/ctrl_passthrough``) -- and, as data, a QuadCost that is
+admits: f32 and either GradMethod.ANALYTIC with the env's hand-derived
+Jacobian on an env with device code -- cartpole and the simple pendulum
+(n_ctrl == 1, the closed-form 1-D box-QP), the rocket (n_ctrl == 3, the
+in-kernel projected-Newton box-QP) and the slew-rate wrapper of each
+(``models/ctrl_passthrough``) -- or a time-varying affine (LQR) problem,
+``LinDx`` F [T-1,B,nx,nx+nu] and f [T-1,B,nx] or None, as data (n_ctrl
+1..8 and n_state up to JAX's gate, ``LINDX_MAX_NX``; the box-QP's inverse
+by Gauss-Jordan past 3 controls) -- and, as data, a QuadCost that is
 example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
 ([T,B,n,n]+[T,B,n], "the lanes cost"), bounds that are static (None, a
 number or [nu]) or per time and example (anything that broadcasts to
@@ -21,7 +25,9 @@ the line search's any(cost worsened), the not-improved reset's
 any(improved), the stopping rule's max(du) < eps and the box-QP's Newton
 and Armijo exits are decided per 1024-example tile, as the JAX kernel
 decides them (ilqr_fused.py:35-47, :570-678). The env steps and Jacobians
-are the kernel forms (``Dynamics.kernel_step`` / ``jac_lanes``). The
+are the kernel forms (``Dynamics.kernel_step`` / ``jac_lanes``), a LinDx
+problem's x' = F_t tau + f_t and F_t (its padded examples' F and f are
+zero, as JAX pads them: they stay at x = 0). The
 variants' arithmetic is JAX's: delta_u intersects the QP bounds with
 +-delta_u and widens the trial clamp around the current iterate
 (:1307-1311, :1404-1408); a mask zeroes its coordinates before the trial
@@ -32,10 +38,12 @@ free-subspace gains with 1e-8 on frozen diagonals instead of the box-QP
 Launch geometry (``geometry``): one tile is one thread-block cluster of G
 blocks, 1024/G examples a block, one thread an example; the tile's
 decisions are cluster votes. G is 8 unless a caller measuring the kernel
-passes another (``cluster``), or 16 for the rocket's slew-rate wrapper,
-whose shared memory admits 64 examples a block; the result does not depend
-on G. A launch the card refuses raises: nothing falls back to another
-geometry or to the plain version.
+passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
+the LinDx shapes whose shared memory admits 64 examples a block
+(``lindx_clusters``); the result does not depend on G. A LinDx shape's
+library is built at first use (one nvcc, seconds to a minute) and cached
+in ``dilqr_tpu_torch/_build/``. A launch the card refuses raises: nothing
+falls back to another geometry or to the plain version.
 
 ``ilqr_fused`` launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; there is no fallback from one to the
@@ -50,7 +58,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ...models.base import Dynamics
-from ...types import GradMethod, ILQRConfig
+from ...types import GradMethod, ILQRConfig, LinDx
 from ...utils.batch import clamp, inv_small
 from ..pnqp import ARMIJO_DECAY, CONV_TOL, GAMMA, MAX_ARMIJO_ITER, REG
 from . import build
@@ -69,7 +77,19 @@ ENV_CLUSTERS = {5: (16,)}
 # the slew-rate wrappers are instantiated for the per-example cost only:
 # ``prepare`` expands an example-invariant cost for them
 LANES_ONLY = (3, 4, 5)
-MAX_NU = 3  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
+MAX_NU = 8  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
+
+# a LinDx problem's kernel: one library per (n_state, n_ctrl, cost form)
+LINDX_SOURCE = "ilqr_lindx.cu"
+# the most states JAX's fused_supported admits for a LinDx problem at
+# n_ctrl = 1..8, by cost form (True: example-invariant, ``cost_small``; False:
+# per example), whatever T, mask, warm start or bound form: probed on the
+# JAX package (its VMEM model, which has no CUDA counterpart) and held
+# equal by tests/test_torch_ilqr_lindx.py's table test
+LINDX_MAX_NX = {False: (15, 15, 14, 14, 13, 12, 12, 11),
+                True: (17, 16, 16, 15, 15, 14, 14, 13)}
+REGISTER_NX = 6  # kRegisterNx in csrc/ilqr_kernel.cuh
+MAX_SMEM = 232448  # kMaxSmem: dynamic shared bytes a Hopper block may have
 
 # kernel launches made by ilqr_fused (the plain version does not count)
 LAUNCHES = 0
@@ -118,16 +138,11 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             u_lower, u_upper) -> bool:
     """True when the configuration is one the kernel computes (counterpart
     of ``fused_supported`` plus ``lane_compatible`` for the envs with
-    device code). ``cost_small`` None means the per-example cost."""
-    nu = cfg.n_ctrl
-    return (
-        isinstance(dyn, Dynamics)
-        and dyn.device_env in DEVICE_ENVS
-        and dyn.jacobian is None
-        and nu == dyn.n_ctrl == DEVICE_ENVS[dyn.device_env][1]
-        and cfg.n_state == dyn.n_state
-        and cfg.grad_method is GradMethod.ANALYTIC
-        and cfg.qp_solver == "auto"
+    device code and for LinDx problems, whose ``params`` are ignored, as in
+    JAX). ``cost_small`` None means the per-example cost."""
+    nu, nx = cfg.n_ctrl, cfg.n_state
+    common = (
+        cfg.qp_solver == "auto"
         and not cfg.unroll
         and cfg.verbose < 1
         and dtype == torch.float32
@@ -136,6 +151,26 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
                                   and u_zero_I.shape[0] == cfg.T and u_zero_I.shape[2] == nu))
         and all(_bound_is_static(v, nu) or _bound_is_lanes(v, cfg.T, nu)
                 for v in (u_lower, u_upper))
+    )
+    if isinstance(dyn, LinDx):
+        F, f = dyn
+        return (
+            common
+            and 1 <= nu <= MAX_NU
+            and nx <= LINDX_MAX_NX[cost_small is not None][nu - 1]
+            and isinstance(F, torch.Tensor) and F.dim() == 4 and F.shape[0] == cfg.T - 1
+            and tuple(F.shape[2:]) == (nx, nx + nu)
+            and (f is None or (isinstance(f, torch.Tensor) and f.dim() == 3
+                               and f.shape[0] == cfg.T - 1 and f.shape[2] == nx))
+        )
+    return (
+        common
+        and isinstance(dyn, Dynamics)
+        and dyn.device_env in DEVICE_ENVS
+        and dyn.jacobian is None
+        and nu == dyn.n_ctrl == DEVICE_ENVS[dyn.device_env][1]
+        and nx == dyn.n_state
+        and cfg.grad_method is GradMethod.ANALYTIC
         and isinstance(params, torch.Tensor)
         and params.dim() == 1
         and params.shape[0] == DEVICE_ENVS[dyn.device_env][0]
@@ -145,6 +180,34 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
 def clusters(device_env: int) -> Tuple[int, ...]:
     """The cluster sizes the env's instantiation has."""
     return ENV_CLUSTERS.get(device_env, CLUSTERS)
+
+
+def lindx_floats(nx: int, nu: int) -> int:
+    """Floats of shared memory an example of a LinDx shape takes (V and Q
+    as triangles, F dense: BoxStepLayout), 0 on the register path."""
+    if nu == 1 and nx <= REGISTER_NX:
+        return 0
+    n = nx + nu
+    return nx * (nx + 1) // 2 + n * (n + 1) // 2 + nx * n
+
+
+def lindx_clusters(nx: int, nu: int) -> Tuple[int, ...]:
+    """The cluster sizes a LinDx shape's library has: those whose blocks
+    (1024 / G examples) fit the shared memory (csrc/ilqr_lindx.cu)."""
+    return tuple(G for G in CLUSTERS if 4 * lindx_floats(nx, nu) * (TILE // G) <= MAX_SMEM)
+
+
+def kernel_clusters(cfg: ILQRConfig, dyn) -> Tuple[int, ...]:
+    """The cluster sizes of the instantiation that solves ``dyn``."""
+    if isinstance(dyn, LinDx):
+        return lindx_clusters(cfg.n_state, cfg.n_ctrl)
+    return clusters(dyn.device_env)
+
+
+def lindx_spec(nx: int, nu: int, lanes: bool):
+    """The build spec (source, defines) of a LinDx shape's library."""
+    return (LINDX_SOURCE, (("DILQR_LINDX_NX", nx), ("DILQR_LINDX_NU", nu),
+                           ("DILQR_LINDX_LANES", int(lanes))))
 
 
 def _padded(B: int) -> int:
@@ -159,16 +222,15 @@ class Geometry(NamedTuple):
     blocks: int    # blocks in the launch
 
 
-def geometry(B: int, cluster: int = 0, device_env: int = 0) -> Geometry:
+def geometry(B: int, cluster: int = 0, device_env: int = 0,
+             sizes: Optional[Tuple[int, ...]] = None) -> Geometry:
     """The kernel's launch shape for a batch of B; ``cluster`` 0 takes the
-    env's default G (its smallest instantiated one)."""
-    sizes = clusters(device_env)
-    G = cluster or min(DEFAULT_CLUSTER, *sizes) if DEFAULT_CLUSTER in sizes or not cluster \
-        else cluster
+    instantiation's default G (8 where it has it). ``sizes``: the cluster
+    sizes of the instantiation, by default the env's."""
+    sizes = sizes or clusters(device_env)
     G = cluster or (DEFAULT_CLUSTER if DEFAULT_CLUSTER in sizes else sizes[0])
     if G not in sizes:
-        raise ValueError(f"ilqr_fused instantiates clusters of {sizes} blocks for env "
-                         f"{device_env}; got {G}")
+        raise ValueError(f"ilqr_fused instantiates clusters of {sizes} blocks here; got {G}")
     Bp = _padded(B)
     return Geometry(Bp, Bp // TILE, G, TILE // G, Bp // TILE * G)
 
@@ -188,13 +250,15 @@ class Inputs(NamedTuple):
     uz: Optional[torch.Tensor]        # [T, nu, Bp] uint8 mask, or None
     uz_free: bool                     # unboxed (u_lower None) and masked
     du: Optional[float]               # the static delta_u
+    F: Optional[torch.Tensor] = None  # LinDx: [T-1, nx*n, Bp]
+    f: Optional[torch.Tensor] = None  # LinDx: [T-1, nx, Bp] or None
 
 
 def _lanes(a: torch.Tensor, B: int, Bp: int, fill: float = 0.0) -> torch.Tensor:
     """[T, B, *small] -> [T, prod(small), Bp] (the batch last, padded with
     ``fill``)."""
     T = a.shape[0]
-    out = torch.full((T, a[0, 0].numel(), Bp), fill, dtype=a.dtype, device=a.device)
+    out = torch.full((T, math.prod(a.shape[2:]), Bp), fill, dtype=a.dtype, device=a.device)
     out[:, :, :B] = a.reshape(T, B, -1).permute(0, 2, 1)
     return out
 
@@ -242,28 +306,42 @@ def _expand_bound(v, T: int, B: int, Bp: int, nu: int, sign: float, device) -> t
     return _lanes(v.expand(T, B, nu), B, Bp)
 
 
-def prepare(cfg: ILQRConfig, dyn: Dynamics, params, x_init, cost, u_init, u_lower, u_upper,
+def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper,
             u_zero_I, delta_u, Bp: int) -> Inputs:
     """Validates the inputs and lays them out for the kernel (the lanes
-    transpose, once a solve)."""
-    if dyn.device_env not in DEVICE_ENVS or cfg.n_ctrl != DEVICE_ENVS[dyn.device_env][1]:
-        raise ValueError("ilqr_fused covers cartpole, the simple pendulum (n_ctrl == 1), "
-                         "the rocket with normalize_quat=False (n_ctrl == 3) and their "
-                         "slew-rate wrappers")
+    transpose, once a solve; a LinDx problem's F and f too)."""
     T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
-    n_params = DEVICE_ENVS[dyn.device_env][0]
+    lin = isinstance(dyn, LinDx)
+    if lin:
+        if not 1 <= nu <= MAX_NU:
+            raise ValueError(f"ilqr_fused takes LinDx problems with 1 <= n_ctrl <= {MAX_NU}")
+    elif dyn.device_env not in DEVICE_ENVS or nu != DEVICE_ENVS[dyn.device_env][1]:
+        raise ValueError("ilqr_fused covers cartpole, the simple pendulum (n_ctrl == 1), "
+                         "the rocket with normalize_quat=False (n_ctrl == 3), their "
+                         "slew-rate wrappers and LinDx problems")
     if x_init.dtype != torch.float32:
         raise ValueError(f"ilqr_fused is f32 only, got {x_init.dtype}")
     if x_init.dim() != 2 or x_init.shape[1] != nx:
         raise ValueError(f"x_init must be [B, {nx}], got {tuple(x_init.shape)}")
-    if params.dim() != 1 or params.shape[0] != n_params:
-        raise ValueError(f"params must be [{n_params}], got {tuple(params.shape)}")
     B = x_init.shape[0]
+    if lin:
+        F, f = dyn
+        if tuple(F.shape) != (T - 1, B, nx, nx + nu) or (
+                f is not None and tuple(f.shape) != (T - 1, B, nx)):
+            raise ValueError(f"a LinDx problem must be F [T-1, B, nx, n] = "
+                             f"{(T - 1, B, nx, nx + nu)} and f [T-1, B, nx] or None; got "
+                             f"{tuple(F.shape)}, {None if f is None else tuple(f.shape)}")
+        params = None
+    else:
+        n_params = DEVICE_ENVS[dyn.device_env][0]
+        if params.dim() != 1 or params.shape[0] != n_params:
+            raise ValueError(f"params must be [{n_params}], got {tuple(params.shape)}")
     if u_init is not None and tuple(u_init.shape) != (T, B, nu):
         raise ValueError(f"u_init must be [T, B, {nu}], got {tuple(u_init.shape)}")
     if u_zero_I is not None and tuple(u_zero_I.shape) != (T, B, nu):
         raise ValueError(f"u_zero_I must be [T, B, {nu}], got {tuple(u_zero_I.shape)}")
-    for name, t in (("params", params), ("u_init", u_init), ("u_zero_I", u_zero_I)):
+    for name, t in (("params", params), ("u_init", u_init), ("u_zero_I", u_zero_I)) + (
+            (("F", dyn[0]), ("f", dyn[1])) if lin else ()):
         if t is not None and t.device != x_init.device:
             raise ValueError(f"{name} is on {t.device}, x_init on {x_init.device}")
     du = None
@@ -274,7 +352,7 @@ def prepare(cfg: ILQRConfig, dyn: Dynamics, params, x_init, cost, u_init, u_lowe
                              f"tensor), got {type(delta_u).__name__}")
     dev = x_init.device
     lanes, C, c = _cost_inputs(cost, T, B, Bp, nx + nu, dev,
-                               lanes_only=dyn.device_env in LANES_ONLY)
+                               lanes_only=not lin and dyn.device_env in LANES_ONLY)
     bounds = static_bounds(u_lower, u_upper, nu)
     lb = ub = None
     if bounds is None:
@@ -289,15 +367,20 @@ def prepare(cfg: ILQRConfig, dyn: Dynamics, params, x_init, cost, u_init, u_lowe
     xi[:, :B] = x_init.T
     u0 = None if u_init is None else _lanes(u_init.to(torch.float32), B, Bp)
     uz = None if u_zero_I is None else _lanes(u_zero_I.to(torch.uint8), B, Bp)
+    Fl = fl = None
+    if lin:  # zero-padded: a padded example stays at x = 0
+        Fl = _lanes(dyn[0].to(torch.float32), B, Bp)
+        fl = None if dyn[1] is None else _lanes(dyn[1].to(torch.float32), B, Bp)
     return Inputs(xi, u0, lanes, C, c, bounds[0], bounds[1], lb, ub, uz,
-                  uz is not None and u_lower is None, du)
+                  uz is not None and u_lower is None, du, Fl, fl)
 
 
-def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-               x_init: torch.Tensor, cost, u_init: Optional[torch.Tensor] = None,
-               u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
-               delta_u=None, cluster: int = 0):
-    """Run the whole solve. x_init [B, nx]; cost the pair (C, c), either
+def ilqr_fused(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
+               u_init: Optional[torch.Tensor] = None, u_lower=None, u_upper=None,
+               u_zero_I: Optional[torch.Tensor] = None, delta_u=None, cluster: int = 0):
+    """Run the whole solve. dyn: a Dynamics with device code and its params
+    [P], or a time-major LinDx (F [T-1,B,nx,n], f [T-1,B,nx] or None; params
+    ignored). x_init [B, nx]; cost the pair (C, c), either
     example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
     ([T,B,n,n]+[T,B,n]); u_init [T, B, nu] time-major or None (zeros);
     u_lower/u_upper None, a number, [nu] or anything that broadcasts to
@@ -314,8 +397,8 @@ def ilqr_fused(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                    delta_u, cluster)[0]
 
 
-def ilqr_fused_probe(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-                     x_init: torch.Tensor, cost, u_init: Optional[torch.Tensor] = None,
+def ilqr_fused_probe(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
+                     u_init: Optional[torch.Tensor] = None,
                      u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
                      delta_u=None, cluster: int = 0):
     """One launch of the kernel on CUDA tensors that also records what it
@@ -332,12 +415,12 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
             cluster, probe=False):
     global LAUNCHES
     T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
-    geo = geometry(B, cluster, dyn.device_env)
+    lin = isinstance(dyn, LinDx)
+    geo = geometry(B, cluster, sizes=kernel_clusters(cfg, dyn))
     Bp = geo.Bp
     inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
                   Bp)
     dev = x_init.device
-    p = params.to(torch.float32).contiguous()
 
     # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
     work = torch.empty(T * (3 * (nx + nu) + nu * nx + nu) * Bp, dtype=torch.float32, device=dev)
@@ -352,14 +435,21 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    fn = _entry()
+    # the head of the arguments: the LinDx shape's library and its F/f, or
+    # the env's and its params
+    if lin:
+        fn = _entry(lindx_spec(nx, nu, inp.lanes), "dilqr_ilqr_lindx", 6, 2)
+        head = (nx, nu, T, Bp, int(inp.lanes), inp.C.shape[0], ptr(inp.F), ptr(inp.f))
+    else:
+        fn = _entry(SOURCE, "dilqr_ilqr_fused", 5, 1)
+        p = params.to(torch.float32).contiguous()
+        head = (dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr())
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
     pad = (0.0,) * (MAX_NU - nu)
     lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr(),
-                inp.x_init.data_ptr(), inp.C.data_ptr(), inp.c.data_ptr(), ptr(inp.u_init),
+        rc = fn(*head, inp.x_init.data_ptr(), inp.C.data_ptr(), inp.c.data_ptr(), ptr(inp.u_init),
                 lo_c, hi_c, ptr(inp.lb), ptr(inp.ub), ptr(inp.uz), int(inp.uz_free),
                 int(inp.du is not None), 0.0 if inp.du is None else inp.du,
                 cfg.lqr_iter, cfg.eps, cfg.linesearch_decay, cfg.max_linesearch_iter,
@@ -373,6 +463,10 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
     out = (bx.permute(0, 2, 1)[:, :B], bu.permute(0, 2, 1)[:, :B], bc[:B], bdu[:B],
            iters.max())
     return out, stats, smids
+
+
+_INFO_KEYS = ("max_active_clusters", "registers", "local_bytes", "static_smem",
+              "dynamic_smem")
 
 
 def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False) -> dict:
@@ -390,18 +484,58 @@ def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False) -> dict:
     if rc != 0:
         raise RuntimeError(f"ilqr_fused_info (env {device_env}, lanes {lanes}, cluster {G}): "
                            f"CUDA error {rc}")
-    keys = ("max_active_clusters", "registers", "local_bytes", "static_smem", "dynamic_smem")
-    return dict(zip(keys, out), cluster=G, lanes=lanes)
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes)
 
 
-def _entry():
-    fn = build.load(SOURCE).dilqr_ilqr_fused
+def lindx_info(nx: int, nu: int, cluster: int = 0, lanes: bool = False) -> dict:
+    """kernel_info for a LinDx shape's library (built first if needed),
+    with where V, Q and F live: "registers" or "shared"."""
+    G = geometry(TILE, cluster, sizes=lindx_clusters(nx, nu)).cluster
+    fn = build.load(lindx_spec(nx, nu, lanes)).dilqr_ilqr_lindx_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(nx, nu, int(lanes), G, out)
+    if rc != 0:
+        raise RuntimeError(f"ilqr_lindx_info ({nx}, {nu}), lanes {lanes}, cluster {G}: "
+                           f"CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
+                store="shared" if lindx_floats(nx, nu) else "registers")
+
+
+def _entry(spec, name: str, n_int: int, n_ptr: int):
+    """The C entry ``name`` of the library of ``spec``: ``n_int`` ints and
+    ``n_ptr`` pointers lead, then the arguments the two entries share."""
+    fn = getattr(build.load(spec), name)
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I, I, I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, F,
-                       I, F, F, I, F, I, I, I, P, P, P, P, P, P, P, P, P]
+        fn.argtypes = [I] * n_int + [P] * n_ptr + [P, P, P, P, P, P, P, P, P, I, I, F,
+                                                      I, F, F, I, F, I, I, I, P, P, P, P, P,
+                                                      P, P, P, P]
         fn.restype = I
     return fn
+
+
+def inv_lanes(A: torch.Tensor) -> torch.Tensor:
+    """Explicit inverses of small SPD-plus-ridge matrices A [..., m, m], m =
+    1..8: the kernel's inv_small<M> (JAX's _inv_lanes, ilqr_fused.py:492-545).
+    The closed forms of utils/batch.inv_small for m <= 3; unpivoted
+    Gauss-Jordan for m >= 4, every entry in the kernel's order: row k scaled
+    by 1/pivot, then every other row i less a[i][k] times row k."""
+    m = A.shape[-1]
+    if m <= 3:
+        return inv_small(A)
+    a = A.clone()
+    inv = torch.eye(m, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    for k in range(m):
+        piv = (1.0 / a[..., k, k])[..., None]
+        ak, ik = a[..., k, :] * piv, inv[..., k, :] * piv
+        fct = a[..., :, k, None]  # a[i][k] before row i changes
+        a = a - fct * ak[..., None, :]
+        inv = inv - fct * ik[..., None, :]
+        a[..., k, :] = ak
+        inv[..., k, :] = ik
+    return inv
 
 
 def _pnqp_tiles(H, q, lb, ub, x0, n_iter: int, tile: int):
@@ -426,7 +560,7 @@ def _pnqp_tiles(H, q, lb, ub, x0, n_iter: int, tile: int):
         Ic = ((x <= lb) & (g > 0.0)) | ((x >= ub) & (g < 0.0))
         If = torch.where(Ic, 0.0, 1.0).to(H.dtype)
         Hf = H * If[:, :, None] * If[:, None, :] + REG * eye
-        return g, If, Hf, -mv(inv_small(Hf), g * If)
+        return g, If, Hf, -mv(inv_lanes(Hf), g * If)
 
     sentinel = torch.full((Bp,), GAMMA + 1e-6, dtype=H.dtype, device=H.device)
     x = clamp(x0, lb, ub)
@@ -481,9 +615,9 @@ def _box_gains(Q, q, nx: int, lb, ub, warm, n_iter: int, tile: int):
     Quu, qu = Q[:, nx:, nx:], q[:, nx:]
     if warm is None:
         eye = torch.eye(qu.shape[1], dtype=Q.dtype, device=Q.device)
-        warm = clamp(-(inv_small(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
+        warm = clamp(-(inv_lanes(Quu + REG * eye) @ qu[..., None])[..., 0], lb, ub)
     kt, If, Hf = _pnqp_tiles(Quu, qu, lb, ub, warm, n_iter, tile)
-    return -(inv_small(Hf) @ (Q[:, nx:, :nx] * If[:, :, None])), kt
+    return -(inv_lanes(Hf) @ (Q[:, nx:, :nx] * If[:, :, None])), kt
 
 
 def _free_gains(Q, q, nx: int, Iz):
@@ -494,7 +628,7 @@ def _free_gains(Q, q, nx: int, Iz):
     Quu, qu = Q[:, nx:, nx:], q[:, nx:]
     If = 1.0 - Iz
     Hf = Quu * If[:, :, None] * If[:, None, :] + 1e-8 * torch.diag_embed(Iz)
-    Hinv = inv_small(Hf)
+    Hinv = inv_lanes(Hf)
     if Iz.shape[1] == 1:
         kt = -(qu * If) / Quu[:, :, 0]
     else:
@@ -531,15 +665,15 @@ def riccati_step(Q, q, nx: int, ut, lo, hi, warm, n_iter: int, tile: int, du=Non
     return (K, k) + _update(Q, q, nx, K, k)
 
 
-def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
-                         x_init: torch.Tensor, cost,
+def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
                          u_init: Optional[torch.Tensor] = None,
                          u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
                          delta_u=None):
     """The kernel's function in plain PyTorch, on the tensors' own device:
-    the same padding, per-tile decisions, kernel-form step and Jacobian,
-    Riccati arithmetic (the closed-form QP for n_ctrl == 1, the per-tile
-    box-QP with explicit inverses and the kernel's warm start otherwise,
+    the same padding, per-tile decisions, kernel-form step and Jacobian (a
+    LinDx problem's F_t tau + f_t and F_t), Riccati arithmetic (the
+    closed-form QP for n_ctrl == 1, the per-tile box-QP with the explicit
+    inverses of inv_lanes and the kernel's warm start otherwise,
     the free-subspace gains of an unboxed masked solve), the variants'
     bounds and accept/best-tracking order. Same arguments and returns as
     ilqr_fused."""
@@ -566,8 +700,24 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
         bounds = lambda t: (lbs[t], ubs[t])  # noqa: E731
     uz = None if inp.uz is None else inp.uz.permute(0, 2, 1).to(f32)  # [T, Bp, nu]
     du = inp.du
-    p = params.to(f32)
-    step, jac = dyn.kernel_step, dyn.jac_lanes
+    if isinstance(dyn, LinDx):  # [T-1, Bp, nx, n] and [T-1, Bp, nx]
+        Fs = inp.F.permute(0, 2, 1).reshape(T - 1, Bp, nx, n)
+        fs = None if inp.f is None else inp.f.permute(0, 2, 1)
+
+        def step(t, xt, ut):
+            xn = (Fs[t] * torch.cat([xt, ut], -1)[:, None, :]).sum(-1)
+            return xn if fs is None else xn + fs[t]
+
+        def jac(t, xt, ut):
+            return Fs[t]
+    else:
+        p = params.to(f32)
+
+        def step(t, xt, ut):
+            return dyn.kernel_step(xt, ut, p)
+
+        def jac(t, xt, ut):
+            return dyn.jac_lanes(xt, ut, p)
 
     x0 = inp.x_init.T.contiguous()
     u = torch.zeros(T, Bp, nu, dtype=f32, device=dev)
@@ -590,7 +740,8 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
     for t in range(T):
         xs.append(xt)
         oc = oc + obj(t, xt, u[t])
-        xt = step(xt, u[t], p)
+        if t < T - 1:
+            xt = step(t, xt, u[t])
     x = torch.stack(xs)
 
     bx = torch.zeros(T, Bp, nx, dtype=f32, device=dev)
@@ -616,7 +767,7 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
         for t in range(T - 1, -1, -1):
             xt, ut = x[t], u[t]
             tau = torch.cat([xt, ut], -1)
-            F = jac(xt, ut, p) if t < T - 1 else zF
+            F = jac(t, xt, ut) if t < T - 1 else zF
             Q, q = _q_terms(Cf(t), cf(t), tau, F, V, v)
             lo, hi = bounds(t)
             K[t], k[t], V, v = riccati_step(
@@ -643,7 +794,8 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn: Dynamics, params: torch.Tensor,
                 txs.append(xt)
                 tus.append(new_u)
                 cost_ = cost_ + obj(t, xt, new_u)
-                xt = step(xt, new_u, p)
+                if t < T - 1:
+                    xt = step(t, xt, new_u)
             return cost_, du2, torch.stack(txs), torch.stack(tus)
 
         alpha = torch.ones(Bp, dtype=f32, device=dev)

@@ -150,6 +150,95 @@ extern "C" void box_step_host(int env, int B, int last, const float* p, const fl
     box_run<Passthrough<Rocket>>(B, last, p, tau, C, c, c_lanes, lo, hi, has_du, du, Iz, warm,
                                  n_iter, store, v, K, k, votes);
 }
+// inv_small<M> of B matrices [B, M, M]
+template <int M>
+static void inv_run(int B, const float* A, float* R) {
+  for (int b = 0; b < B; ++b) {
+    float Ab[M][M], Rb[M][M];
+    for (int i = 0; i < M; ++i)
+      for (int j = 0; j < M; ++j) Ab[i][j] = A[(b * M + i) * M + j];
+    inv_small<M>(Ab, Rb);
+    for (int i = 0; i < M; ++i)
+      for (int j = 0; j < M; ++j) R[(b * M + i) * M + j] = Rb[i][j];
+  }
+}
+extern "C" int inv_eval(int m, int B, const float* A, float* R) {
+  switch (m) {
+    case 1: inv_run<1>(B, A, R); return 0;
+    case 2: inv_run<2>(B, A, R); return 0;
+    case 3: inv_run<3>(B, A, R); return 0;
+    case 4: inv_run<4>(B, A, R); return 0;
+    case 5: inv_run<5>(B, A, R); return 0;
+    case 6: inv_run<6>(B, A, R); return 0;
+    case 7: inv_run<7>(B, A, R); return 0;
+    case 8: inv_run<8>(B, A, R); return 0;
+    default: return 1;
+  }
+}
+// the LinDx shapes built here: (1,1), (3,2), (5,2), (9,1), (4,5), (4,8)
+template <class F>
+static int lindx_shape(int nx, int nu, F f) {
+  if (nx == 1 && nu == 1) return f(LinDx<1, 1>{});
+  if (nx == 3 && nu == 2) return f(LinDx<3, 2>{});
+  if (nx == 5 && nu == 2) return f(LinDx<5, 2>{});
+  if (nx == 9 && nu == 1) return f(LinDx<9, 1>{});
+  if (nx == 4 && nu == 5) return f(LinDx<4, 5>{});
+  if (nx == 4 && nu == 8) return f(LinDx<4, 8>{});
+  return 1;
+}
+// LinDx<NX, NU>'s step and Jacobian at step t of F [T-1, NX*N, B] and f
+// [T-1, NX, B] (or null), each example b its own column
+extern "C" int lindx_eval(int nx, int nu, int t, int B, const float* F, const float* f,
+                          const float* x, const float* u, float* xn, float* D) {
+  return lindx_shape(nx, nu, [&](auto e) {
+    using Env = decltype(e);
+    constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
+    for (int b = 0; b < B; ++b) {
+      Env env;
+      env.load(nullptr);
+      env.bind(F, f, B, b);
+      env.at(t);
+      env.step(x + b * NX, u + b * NU, xn + b * NX);
+      float J[NX][N];
+      env.jac(x + b * NX, u + b * NU, J);
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < N; ++j) D[(b * NX + i) * N + j] = J[i][j];
+    }
+    return 0;
+  });
+}
+// riccati_box_step of LinDx<NX, NU> per example (each its own tile), with
+// F [1, NX*N, B] (step 0) unless `last`, the example-invariant cost C [N*N]
+// and c [N], per-example bounds lo/hi [B, NU], the warm start [B, NU];
+// store [kFloats, B] holds V's triangle (in, out), Q and F (out)
+extern "C" int lindx_box_step(int nx, int nu, int B, int last, const float* F,
+                              const float* tau, const float* C, const float* c,
+                              const float* lo, const float* hi, const float* warm, int n_iter,
+                              float* store, float* v, float* K, float* k, int* layout) {
+  return lindx_shape(nx, nu, [&](auto e) {
+    using Env = decltype(e);
+    constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
+    using L = BoxStepLayout<Env, NU>;
+    layout[0] = L::kV;
+    layout[1] = L::kQ;
+    layout[2] = L::kF;
+    layout[3] = L::kFloats;
+    for (int b = 0; b < B; ++b) {
+      Env env;
+      env.bind(F, nullptr, B, b);
+      env.at(0);
+      TileVote vote{nullptr, 0};
+      float Kb[NU][NX];
+      StepVariant<NU> var{0, 0.0f, 0, {}};
+      riccati_box_step<Env, NU>(env, last != 0, tau + b * N, CostView{C, c, 1}, lo + b * NU,
+                                hi + b * NU, var, warm + b * NU, n_iter, vote, store + b, B,
+                                v + b * NX, Kb, k + b * NU);
+      for (int r = 0; r < NU; ++r)
+        for (int j = 0; j < NX; ++j) K[(b * NU + r) * NX + j] = Kb[r][j];
+    }
+    return 0;
+  });
+}
 extern "C" float objective6(const float* tau, const float* C, const float* c) {
   return objective<6>(tau, CostView{C, c, 1});
 }
@@ -260,6 +349,12 @@ def lib(tmp_path_factory):
     lib.box_step_host.argtypes = ([I, I, I] + [P] * 4 + [I, P, P, I, F32, P, P, I]
                                   + [P] * 5)
     lib.box_step_host.restype = None
+    lib.inv_eval.argtypes = [I, I, P, P]
+    lib.inv_eval.restype = I
+    lib.lindx_eval.argtypes = [I, I, I, I] + [P] * 6
+    lib.lindx_eval.restype = I
+    lib.lindx_box_step.argtypes = [I, I, I, I] + [P] * 7 + [I] + [P] * 5
+    lib.lindx_box_step.restype = I
     return lib
 
 
@@ -729,3 +824,116 @@ def test_device_passthrough_code_matches_kernel_forms(lib, mod):
         J = jacfwd(lambda xu: dyn.step_unclamped(xu[:nx], xu[nx:], tp))(
             torch.cat([tx[i], tu[i]]))
         np.testing.assert_allclose(J.numpy(), got[i].numpy(), atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("m", [4, 5, 6, 7, 8])
+def test_device_gauss_jordan_inverse_matches_inv_lanes(lib, m):
+    """inv_small<M> for M = 4..8 (the kernel's unpivoted Gauss-Jordan) on
+    SPD-plus-ridge matrices: bit for bit the plain version's inv_lanes (the
+    same operations in the same order, no FMA in either here), and within
+    1e-4 of torch.linalg.inv relative to the largest entry (f32 elimination
+    against an f64 LU)."""
+    B = 32
+    rng = np.random.RandomState(40 + m)
+    A = rng.randn(B, m, m)
+    H = (A @ A.transpose(0, 2, 1) + 0.5 * np.eye(m)).astype(np.float32)
+    R = np.zeros_like(H)
+    assert lib.inv_eval(m, B, _ptr(H), _ptr(R)) == 0
+    np.testing.assert_array_equal(R, ilqr_fused.inv_lanes(torch.from_numpy(H)).numpy())
+    want = torch.linalg.inv(torch.from_numpy(H).double()).numpy()
+    np.testing.assert_allclose(R, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("nx,nu,with_f", [(1, 1, True), (3, 2, True), (3, 2, False), (5, 2, True),
+                                          (9, 1, False), (4, 5, True), (4, 8, True)])
+def test_device_lindx_code_matches_affine_step(lib, nx, nu, with_f):
+    """LinDx<NX, NU>, the kernel's env of a time-varying affine problem:
+    at step t of F [T-1, NX*N, B] and f [T-1, NX, B] its step is F_t tau +
+    f_t and its Jacobian F_t, each example reading its own column. The step
+    within 1e-6 of the plain version's (its sum in order, PyTorch's in
+    another), the Jacobian exactly."""
+    B, T, t = 16, 4, 2
+    n = nx + nu
+    rng = np.random.RandomState(nx * 10 + nu)
+    F = rng.randn(T - 1, B, nx, n).astype(np.float32)
+    f = rng.randn(T - 1, B, nx).astype(np.float32) if with_f else None
+    x = rng.randn(B, nx).astype(np.float32)
+    u = rng.randn(B, nu).astype(np.float32)
+    Fl = np.ascontiguousarray(F.reshape(T - 1, B, nx * n).transpose(0, 2, 1))
+    fl = None if f is None else np.ascontiguousarray(f.transpose(0, 2, 1))
+    xn = np.zeros((B, nx), np.float32)
+    D = np.zeros((B, nx, n), np.float32)
+    assert lib.lindx_eval(nx, nu, t, B, _ptr(Fl), None if fl is None else _ptr(fl), _ptr(x),
+                          _ptr(u), _ptr(xn), _ptr(D)) == 0
+    np.testing.assert_array_equal(D, F[t])
+    tau = torch.from_numpy(np.concatenate([x, u], 1))
+    want = (torch.from_numpy(F[t]) @ tau[:, :, None])[:, :, 0]
+    if f is not None:
+        want = want + torch.from_numpy(f[t])
+    np.testing.assert_allclose(xn, want.numpy(), rtol=0, atol=1e-6 * max(1.0, want.abs().max()))
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
+@pytest.mark.parametrize("nx,nu", [(3, 2), (4, 5), (9, 1)])
+def test_device_lindx_riccati_step_matches_plain_version(lib, nx, nu, last):
+    """riccati_box_step on LinDx<NX, NU> (V, Q, F in strided storage, F
+    read from the data) against the plain version's step (_q_terms and
+    riccati_step, each example its own tile): n_ctrl 2 (Cramer) and 5
+    (Gauss-Jordan) through the per-example box-QP, n_ctrl 1 past the
+    register path (the closed-form 1-D QP), a step with its warm start and
+    the last step (V = 0, F = 0). Bounds +-0.5 about the controls, which
+    bind; tolerance as test_device_rocket_riccati_step_matches_plain_version."""
+    B, n = 48, nx + nu
+    rng = np.random.RandomState(70 + 3 * nx + nu + 100 * last)
+    F = (rng.randn(1, B, nx, n) * 0.3 + np.eye(nx, n)).astype(np.float32)
+    A = rng.randn(n, n)
+    C = (A @ A.T + 0.5 * np.eye(n)).astype(np.float32)
+    c = rng.randn(n).astype(np.float32)
+    tau = rng.randn(B, n).astype(np.float32)
+    u = tau[:, nx:]
+    lo = np.ascontiguousarray(u - 0.5, np.float32)
+    hi = np.ascontiguousarray(u + 0.5, np.float32)
+    if last:
+        V = np.zeros((B, nx, nx), np.float32)
+        v = np.zeros((B, nx), np.float32)
+    else:
+        Av = rng.randn(B, nx, nx)
+        V = (Av @ Av.transpose(0, 2, 1) + np.eye(nx)).astype(np.float32)
+        v = (3.0 * rng.randn(B, nx)).astype(np.float32)
+    warm = np.clip(0.3 * rng.randn(B, nu), -0.5, 0.5).astype(np.float32)
+    layout = np.zeros(4, np.int32)
+    Fl = np.ascontiguousarray(F.reshape(1, B, nx * n).transpose(0, 2, 1))
+    # the layout first (a call on no example), then the step
+    store = np.zeros((1, 1), np.float32)
+    lib.lindx_box_step(nx, nu, 0, 1, _ptr(Fl), _ptr(tau), _ptr(C.reshape(-1)), _ptr(c),
+                       _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v), None, None,
+                       _ptr(layout))
+    kV, kQ, kF, kFloats = (int(a) for a in layout)
+    iu = np.triu_indices(nx)
+    store = np.zeros((kFloats, B), np.float32)
+    store[kV:kV + len(iu[0])] = V[:, iu[0], iu[1]].T
+    v_dev = v.copy()
+    K = np.zeros((B, nu, nx), np.float32)
+    k = np.zeros((B, nu), np.float32)
+    Cf = np.ascontiguousarray(C.reshape(-1))
+    assert lib.lindx_box_step(nx, nu, B, int(last), _ptr(Fl), _ptr(tau), _ptr(Cf), _ptr(c),
+                              _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v_dev),
+                              _ptr(K), _ptr(k), _ptr(layout)) == 0
+    t = {name: torch.from_numpy(a) for name, a in
+         (("tau", tau), ("C", C), ("c", c), ("V", V), ("v", v), ("warm", warm))}
+    Ft = torch.zeros(B, nx, n) if last else torch.from_numpy(F[0])
+    Q, qv = ilqr_fused._q_terms(t["C"], t["c"], t["tau"], Ft, t["V"], t["v"])
+    wK, wk, wV, wv = ilqr_fused.riccati_step(
+        Q, qv, nx, t["tau"][:, nx:], torch.from_numpy(lo), torch.from_numpy(hi),
+        None if last else t["warm"], 20, 1)
+    iq = np.triu_indices(n)
+    got = {"Q": store[kQ:kQ + len(iq[0])].T, "K": K, "k": k,
+           "V": store[kV:kV + len(iu[0])].T, "v": v_dev}
+    want = {"Q": Q.numpy()[:, iq[0], iq[1]], "K": wK.numpy(), "k": wk.numpy(),
+            "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    if not last:
+        got["F"] = store[kF:kF + nx * n].T.reshape(B, nx, n)
+        want["F"] = F[0]
+    _assert_step(got, want)
+    at = (np.abs(k + 0.5) < 1e-6) | (np.abs(k - 0.5) < 1e-6)
+    assert at.mean() > 0.05, at.mean()

@@ -12,6 +12,7 @@ bang-bang switching points between two equally converged optima); the
 Riccati kernel within 2e-6 + 1e-5 max|plain| of its plain version (JAX's
 2e-6 plus FMA contraction over a 20-step recursion)."""
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -751,3 +752,136 @@ def test_lstm_policy_on_the_card_matches_the_cpu(dev):
     for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
         err = (b.grad.cpu() - a.grad).abs().max().item()
         assert err <= 1e-4 * a.grad.abs().max().item(), (name, err)
+
+
+LINDX_CASES = ("(3,2) box", "(3,2) unboxed", "(3,2) u_zero_I unboxed", "(3,2) delta_u",
+               "(3,2) per-time bounds", "(3,2) example-invariant cost", "(3,2) slew rate",
+               "(4,4) box", "(4,8) box", "(4,8) unboxed", "(15,2) box", "(6,1) box",
+               "(15,1) u_zero_I unboxed")
+
+
+def _lindx_case(dev, case, B=1030, T=10):
+    """(cfg, LinDx, x0, cost, lo, hi, kw) of one LinDx case on _lqr_problem's
+    random problem (f32): box +-0.5 (+-0.4 at 4 states), the 30% mask,
+    delta_u 0.2, per-time and per-example bounds in [0.2, 0.8], one
+    [n,n]+[n] cost, the slew rate 1.0 (augment_slew_rate: (5,2)); eps=0
+    and 4 iterations."""
+    from dilqr_tpu_torch.core.solver import augment_slew_rate
+
+    nx, nu = (int(v) for v in case[1:case.index(")")].split(","))
+    gen = torch.Generator().manual_seed(9 + nx + 10 * nu)
+    C, c, F, f, x0, mask = _lqr_problem(gen, T, B, nx, nu, dev, torch.float32)
+    cfg = P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=4, eps=0.0, backprop=False)
+    dyn, cost, kw = P.LinDx(F, f), (C, c), {}
+    box = 0.4 if nx == 4 else 0.5
+    lo, hi = -box, box
+    if "unboxed" in case:
+        lo = hi = None
+    if "u_zero_I" in case:
+        kw["u_zero_I"] = mask
+    if "delta_u" in case:
+        kw["delta_u"] = 0.2
+    if "per-time" in case:
+        hi = (0.2 + 0.6 * torch.rand(T, B, nu, generator=gen)).to(dev)
+        lo = -hi
+    if "example-invariant" in case:
+        cost = (C[0, 0].contiguous(), c[0, 0].contiguous())
+    if "slew" in case:
+        cfg, a_cost, dyn, _, x0 = augment_slew_rate(
+            dataclasses.replace(cfg, slew_rate_penalty=1.0), P.QuadCost(C, c), dyn, None, x0,
+            None)
+        cost = (a_cost.C, a_cost.c)
+    return cfg, dyn, x0, cost, lo, hi, kw
+
+
+@pytest.mark.parametrize("case", LINDX_CASES)
+def test_lindx_kernel_matches_plain_version(dev, case):
+    """A LinDx problem on the whole-solve kernel (LinDx<NX, NU>, its
+    shape's library built at first use) against the plain version on the
+    same CUDA inputs, one launch, the masked u exactly 0, and the same bits
+    at every cluster size the shape has: the slice's (3,2) with its
+    variants and slew rate, n_ctrl 4 and 8 (Gauss-Jordan), the gate's
+    (15,2) (G=16 only), one control in registers (6,1) and in shared memory
+    (15,1)."""
+    cfg, dyn, x0, cost, lo, hi, kw = _lindx_case(dev, case)
+    assert fused.covered(cfg, dyn, None, torch.float32, cost if cost[0].dim() == 2 else None,
+                         kw.get("u_zero_I"), kw.get("delta_u"), lo, hi)
+    before = fused.LAUNCHES
+    k = fused.ilqr_fused(cfg, dyn, None, x0, cost, None, lo, hi, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    r = fused.ilqr_fused_reference(cfg, dyn, None, x0, cost, None, lo, hi, **kw)
+    _assert_variant(k, r, cfg)
+    if "u_zero_I" in kw:
+        assert k[1][kw["u_zero_I"]].abs().max().item() == 0.0
+    for G in fused.lindx_clusters(cfg.n_state, cfg.n_ctrl):
+        out = fused.ilqr_fused(cfg, dyn, None, x0, cost, None, lo, hi, **kw, cluster=G)
+        assert all(torch.equal(a, b) for a, b in zip(out, k)), G
+
+
+def test_lindx_solves_launch_the_kernel_and_build_once(dev, monkeypatch):
+    """backend="cuda" launches the whole-solve kernel once a LinDx solve
+    (no Riccati launch), with and without the slew rate; a second solve at a
+    built shape loads its library from the build directory and starts no
+    nvcc; a shape past JAX's gate and n_ctrl 9 are refused."""
+    from dilqr_tpu_torch.ops.cuda import build
+
+    gen = torch.Generator().manual_seed(12)
+    B, T = 1024, 10
+    C, c, F, f, x0, _ = _lqr_problem(gen, T, B, 3, 2, dev, torch.float32)
+    bm = lambda a: a.transpose(0, 1)  # noqa: E731
+    cost, lin = P.QuadCost(bm(C), bm(c)), P.LinDx(bm(F), bm(f))
+    kw = dict(u_lower=-0.5, u_upper=0.5, lqr_iter=4, eps=1e-4, backprop=False,
+              exit_unconverged=False, backend="cuda")
+    outs = []
+    for mpc in (P.MPC(3, 2, T, **kw), P.MPC(3, 2, T, slew_rate_penalty=1.0, **kw)):
+        before, ric_before = fused.LAUNCHES, riccati_fused.LAUNCHES
+        outs.append(mpc(x0, cost, lin))
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + 1 and riccati_fused.LAUNCHES == ric_before
+        assert outs[-1][1].shape == (B, T, 2) and torch.isfinite(outs[-1][2]).all()
+    spec = fused.lindx_spec(3, 2, True)
+    assert os.path.exists(build.library_path(spec))
+
+    def no_nvcc(*a, **k):
+        raise AssertionError("nvcc started for a shape that is built")
+
+    monkeypatch.setattr(build.subprocess, "Popen", no_nvcc)
+    monkeypatch.delitem(build._LOADED, spec)
+    x, u, costs = P.MPC(3, 2, T, **kw)(x0, cost, lin)
+    assert torch.equal(costs, outs[0][2])
+    for nx, nu in ((16, 2), (3, 9)):
+        n = nx + nu
+        with pytest.raises(ValueError, match="not covered"):
+            P.MPC(nx, nu, T, **kw)(torch.zeros(8, nx, device=dev),
+                                   P.QuadCost(torch.eye(n, device=dev).expand(8, T, n, n),
+                                              torch.zeros(8, T, n, device=dev)),
+                                   P.LinDx(torch.zeros(8, T - 1, nx, n, device=dev)))
+
+
+def test_lindx_ift_gradient_launches_both_kernels(dev):
+    """The IFT gradient of a LinDx solve at (3,2): the whole-solve kernel
+    forward, the KKT kernel backward, within 1e-3 (relative to the
+    largest entry) of the plain backward's d/dF and d/df."""
+    gen = torch.Generator().manual_seed(13)
+    B, T = 1024, 10
+    C, c, F, f, x0, _ = _lqr_problem(gen, T, B, 3, 2, dev, torch.float32)
+    cfg = P.ILQRConfig(n_state=3, n_ctrl=2, T=T, lqr_iter=6, eps=1e-4,
+                       detach_unconverged=False, backward_mode=P.BackwardMode.IFT)
+    bm = lambda a: a.transpose(0, 1)  # noqa: E731
+
+    def grad(c_):
+        Fr, fr = bm(F).clone().requires_grad_(True), bm(f).clone().requires_grad_(True)
+        res = P.solve(c_, x0, P.QuadCost(bm(C), bm(c)), P.LinDx(Fr, fr), u_lower=-0.5,
+                      u_upper=0.5)
+        return torch.autograd.grad((res.u ** 2).mean(), (Fr, fr))
+
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES, riccati_fused.LAUNCHES)
+    g = grad(cfg)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before[0] + 1 and kkt_fused.LAUNCHES > before[1]
+    assert riccati_fused.LAUNCHES == before[2]
+    g_ref = grad(dataclasses.replace(cfg, backward_backend="torch"))
+    for a, b in zip(g, g_ref):
+        assert torch.isfinite(a).all() and a.abs().max().item() > 0
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()

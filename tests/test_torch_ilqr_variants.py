@@ -18,10 +18,10 @@ Tolerances are tests/test_torch_ilqr_fused.py's: u 2e-3, x 5e-3, costs
 rtol/atol 1e-5, n_iter equal; eps=0 and a few iterations, short of the
 f32 forks of a converged line search (ROADMAP C). Also the gate: the
 port's ``covered`` against JAX's ``fused_supported`` and ``lane_compatible``
-on each of these configurations, and on the ones the port still refuses
-(LinDx, a callable cost, the complex pendulum, the rocket with
-normalize_quat=True), where JAX admits them: the ROADMAP's listed gap
-(queue B, item 4)."""
+on each of these configurations and on LinDx problems (since they reach
+the kernel), and on the ones the port still refuses (a callable cost, the
+complex pendulum, the rocket with normalize_quat=True), where JAX admits
+them: the ROADMAP's listed gap (queue B, item 4)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -278,11 +278,11 @@ def _slew_dyns(name, T, B):
 
 def test_covered_agrees_with_jax_gate():
     """The port's gate equals JAX's (fused_supported and lane_compatible)
-    on every variant the port takes, and on refusals both make; on LinDx,
-    a callable cost, the complex pendulum and the rocket with
-    normalize_quat=True JAX's kernel admits them (its jvp sweep and lane
-    inputs) and the port still refuses them: the gap ROADMAP queue B
-    item 4 lists."""
+    on every variant the port takes, and on refusals both make, a LinDx
+    problem's included (tests/test_torch_ilqr_lindx.py holds its whole
+    table); on a callable cost, the complex pendulum and the rocket with
+    normalize_quat=True JAX's kernel admits them (its jvp sweep) and the
+    port still refuses them: the gap ROADMAP queue B item 4 lists."""
     T, B = 6, 4
     rows = []
     for name in ("cartpole", "pendulum", "rocket"):
@@ -310,8 +310,23 @@ def test_covered_agrees_with_jax_gate():
         skw, jaug, taug, _ = _slew_dyns(name, T, B)
         rows.append((f"{name} slew rate", *_gates(skw, jaug, taug, params, cost_small=False,
                                                   lo=-1.0, hi=1.0)))
+    # a LinDx problem: F/f as data, the port's LinDx<NX, NU> (both gates
+    # ignore params); with f, with the per-example cost, with n_ctrl 8, and
+    # refused past the gate's n_state and at f64
+    for label, nx, nu, f, extra in (("LinDx", 5, 1, False, {}), ("LinDx f", 3, 2, True, {}),
+                                    ("LinDx per-example cost", 15, 2, True,
+                                     dict(cost_small=False)),
+                                    ("LinDx n_ctrl 8", 13, 8, False, {}),
+                                    ("LinDx past the gate", 16, 2, True,
+                                     dict(cost_small=False)),
+                                    ("LinDx f64", 3, 2, False, dict(dtype=np.float64))):
+        n = nx + nu
+        jlin = J.LinDx(jnp.zeros((B, T - 1, nx, n)), jnp.zeros((B, T - 1, nx)) if f else None)
+        tlin = P.LinDx(torch.zeros(T - 1, B, nx, n), torch.zeros(T - 1, B, nx) if f else None)
+        rows.append((label, *_gates(dict(n_state=nx, n_ctrl=nu, T=T), jlin, tlin,
+                                    np.zeros(1), **extra)))
     for label, j_ok, t_ok in rows:
-        want = not any(s in label for s in ("f64", "pnqp", "[1]"))
+        want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate"))
         assert (j_ok, t_ok) == (want, want), label
 
     # the port's listed gap: JAX admits, the port refuses
@@ -327,11 +342,5 @@ def test_covered_agrees_with_jax_gate():
     cp = np.asarray(jcart.default_params())
     gap.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jdyn, tcart.make(),
                                           cp, callable_cost=True)))
-    lin = J.LinDx(jnp.zeros((B, T - 1, 5, 6)), None)
-    gap.append(("LinDx", *_gates(dict(n_state=5, n_ctrl=1, T=T), lin, None, np.zeros(1))))
     for label, j_ok, t_ok in gap:
         assert (j_ok, t_ok) == (True, False), label
-    # the port's plain-loop side of the same: LinDx is not a Dynamics
-    assert not fused.covered(P.ILQRConfig(n_state=5, n_ctrl=1, T=T), P.LinDx(
-        torch.zeros(B, T - 1, 5, 6)), torch.zeros(1), torch.float32, None, None, None,
-        None, None)
