@@ -41,7 +41,7 @@ decisions are cluster votes. G is 8 unless a caller measuring the kernel
 passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
 the LinDx shapes whose shared memory admits 64 examples a block
 (``lindx_clusters``); the result does not depend on G. A LinDx shape's
-library is built at first use (one nvcc, seconds to a minute) and cached
+library is built at first use (one nvcc) and cached
 in ``dilqr_tpu_torch/_build/``. A launch the card refuses raises: nothing
 falls back to another geometry or to the plain version.
 
