@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the last line:
-  1. require a CUDA device; print the card's name and power limit;
+  1. require a CUDA device and the package beside this script; print the
+     card's name and power limit;
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
-     KKT VJP, the reverse Riccati, and phase 8's LinDx shapes, one
-     library each), and print the build seconds and the
+     KKT VJP, the reverse Riccati, phase 8's LinDx shapes and phase 9's
+     jvp libraries, one library each), and print the build seconds and the
      ptxas report, with each whole-solve and KKT instantiation's registers,
      stack and spills; a whole-solve instantiation missing (17: the envs
      and their slew-rate wrappers by cost form and block size) fails, and
@@ -99,7 +100,18 @@ Phases, in order; any failure exits non-zero before the last line:
      Riccati launch) and the IFT gradient (the KKT kernel backward)
      against the plain backward; the kernel and MPC at B=4096 and 135168
      against backend="torch" in turns, and the idle share of one MPC call;
-  9. print the JSON line, the nvidia-smi line, then the result line
+  9. the whole-solve kernel's jvp sweep (see jvp_paths; JvpJac, one
+     library per env and method from csrc/ilqr_jvp.cu, built in phase 2
+     with the rest, a stack or spill failing at one control): AUTO_DIFF on
+     cartpole, the pendulum and the rocket, the complex pendulum and the
+     renormalizing rocket under both methods, and the slew rate of each,
+     against the plain version at each cluster size; MPC and
+     receding_horizon on the complex pendulum, cartpole and the
+     renormalizing rocket under AUTO_DIFF (one launch a solve), the AUTO_DIFF
+     IFT gradients against the plain backward, ILExp on pendulum-complex;
+     each serving path against backend="torch" in turns, and the idle share
+     of one complex-pendulum MPC call;
+ 10. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -373,7 +385,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import dilqr_tpu_torch as P
+    try:
+        import dilqr_tpu_torch as P
+    except ImportError as e:
+        fail(f"the package dilqr_tpu_torch does not import ({e}): run this script from the "
+             f"root of a checkout of the repository")
     from dilqr_tpu_torch.control import receding_horizon
     from dilqr_tpu_torch.models import cartpole, pendulum, rocket
     from dilqr_tpu_torch.ops.cuda import build
@@ -387,9 +403,11 @@ def main():
     # ---- 2) build ----
     t0 = time.perf_counter()
     reports = build.build_all([m.SOURCE for m in kernels.values()]
-                              + [fused.lindx_spec(*shape) for shape in LINDX_SHAPES])
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources "
-          f"and {len(LINDX_SHAPES)} LinDx shapes)", flush=True)
+                              + [fused.lindx_spec(*shape) for shape in LINDX_SHAPES]
+                              + fused.jvp_specs())
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources, "
+          f"{len(LINDX_SHAPES)} LinDx shapes and {len(fused.jvp_specs())} jvp libraries)",
+          flush=True)
     for spec, rep in reports.items():
         src = spec if isinstance(spec, str) else build.library_path(spec).split("/")[-1]
         for line in rep.splitlines():
@@ -429,6 +447,8 @@ def main():
         fail(f"riccati_fused: {ric_seen} instantiations in the ptxas report, want "
              f"{RICCATI_KERNELS}")
     lindx_ptxas(fused, reports)
+    jvp_ptxas(fused, reports)
+    print(f"phase 2 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
@@ -532,6 +552,7 @@ def main():
     reserved = torch.cuda.memory_reserved() / 2 ** 20
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"phase 3 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
     print(f"allocator: {reserved:.0f} MiB reserved after phase 3, "
           f"{torch.cuda.memory_reserved() / 2 ** 20:.0f} MiB after releasing the cache",
           flush=True)
@@ -597,6 +618,7 @@ def main():
     rk = rocket_paths(torch, P, dev, kernels, r_dyn, r_params, r_cs, r_cfg, rgen)
 
     # ---- 5) times ----
+    print(f"phase 4 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
     rows = []
     cs = (torch.diag(cp_q), cp_p)
     t_kernel = {}
@@ -666,10 +688,12 @@ def main():
     print(f"time receding_horizon cartpole B=1024: {statistics.median(t_rh):.3f} ms per step, "
           f"median of 3 episodes of 5 steps (host clock) [{card}]", flush=True)
     x0 = cartpole_x0(4096)
+    # one run: the plain version takes seconds, and the script's time limit
+    # is fixed
     plain_ms, runs = cuda_ms(lambda: fused.ilqr_fused_reference(
-        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 1, 3)
+        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 0, 1)
     print(f"time ilqr_fused_reference (plain) cartpole B=4096: {plain_ms:.1f} ms "
-          f"median of 3 [{card}]", flush=True)
+          f"(one run) [{card}]", flush=True)
 
     # bound: bench.py's FLOP model of the solve (per example, per step, per
     # iteration) times the iterations this run's tiles ran, over the
@@ -745,8 +769,8 @@ def main():
                     r_dyn.lower, r_dyn.upper), r_ms[1024])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
-        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)
-    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms median of 3 "
+        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 0, 1)
+    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms (one run) "
           f"[{card}]", flush=True)
     r_flops, r_bytes, counts = rocket_work(torch, fused, r_cfg, r_dyn, r_params, x0, r_cs)
     r_bound = max(r_flops / FP32_PEAK, r_bytes / HBM_RATE) * 1e3
@@ -776,10 +800,12 @@ def main():
                               mlp_cost, mp, ric_err))
 
     # ---- 6) the associative-scan Riccati, the LSTM policy, the utilities ----
+    print(f"phase 5 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
     parallel_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p, bench_cfg,
                    mlp_dyn, mlp_params)
 
     # ---- 7) the whole-solve kernel's MPC variants and the slew rate ----
+    print(f"phase 6 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
     vgen = torch.Generator(device="cpu").manual_seed(SEED + 7)
     v_launches, v_err, variants, v_paths = variant_paths(
         torch, P, dev, kernels, card, fused,
@@ -804,7 +830,18 @@ def main():
     rows[0]["lindx_paths"] = l_paths
     kkt_row["launches"] += l_launches["kkt_fused"]
 
-    # ---- 9) the card's line, then the result line ----
+    # ---- 9) the whole-solve kernel's jvp sweep ----
+    jgen = torch.Generator(device="cpu").manual_seed(SEED + 9)
+    j_launches, j_err, j_cases, j_paths = jvp_paths(torch, P, dev, kernels, card, fused, jgen)
+    print(f"phase 9 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+    rows[0]["launches"] += j_launches["ilqr_fused"]
+    rows[0]["jvp_launches"] = j_launches["ilqr_fused"]
+    rows[0]["max_abs_err_jvp"] = j_err
+    rows[0]["jvp"] = j_cases
+    rows[0]["jvp_paths"] = j_paths
+    kkt_row["launches"] += j_launches["kkt_fused"]
+
+    # ---- 10) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1272,11 +1309,15 @@ def train_path(torch, P, dev, kernels, dyn, params, q, p, cfg, x0):
     }
 
 
-def profile_step(torch, label, fn):
-    """Where one call's time goes: torch.profiler over one warm call, the
-    wall time under the profiler, the device's busy time and idle share,
-    the number of device kernels and copies, the six kernels with the most
-    device time and the five host operators with the most self time.
+def profile_step(torch, label, fn, counted=None):
+    """Where one call's time goes: torch.profiler over one warm call, in a
+    window utils/profiling.profiled opens (padded, so that it holds every
+    device activity of the call), the wall time of the call, the device's
+    busy time and idle share, the number of device kernels and copies, the
+    six kernels with the most device time and the five host operators with
+    the most self time. counted: (wrapper module, kernel name) whose launch
+    counter the recorded launches are printed beside; a window that records
+    fewer is opened again, up to three in all.
 
     Busy time is the union of the device activities' intervals. Only the
     activities themselves count: the profiler also gives each host operator
@@ -1284,18 +1325,24 @@ def profile_step(torch, label, fn):
     summing every row with device time counts a kernel two or three times.
     Reports, never fails: nothing else relies on the profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from dilqr_tpu_torch.utils.profiling import busy_ms, device_events
+    from dilqr_tpu_torch.utils.profiling import WINDOW, busy_ms, device_events, profiled
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t1) * 1e3
-    device = device_events(prof)
+    for attempt in range(1, 4):  # a window that lost a counted launch is opened again
+        before = counted[0].LAUNCHES if counted else 0
+        with profiled() as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        device = device_events(prof)
+        if counted:
+            seen = sum(counted[1] in e.name for e in device)
+            print(f"profile {label}: window {attempt}: {seen} {counted[1]} launches recorded "
+                  f"of the {counted[0].LAUNCHES - before} its wrapper counted", flush=True)
+        if not counted or seen >= counted[0].LAUNCHES - before:
+            break
     busy = busy_ms(device)
     by_name = {}
     for e in device:
@@ -1306,9 +1353,14 @@ def profile_step(torch, label, fn):
           flush=True)
     for key, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"profile {label}:   {ms:8.3f} ms  x{count:<5d} {key[:110]}", flush=True)
-    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU), reverse=True)
-    for ms, count, key in host[:5]:
+    # the host operators of the call: those from the window's mark on
+    start = min((e.time_range.start for e in prof.events() if e.name == WINDOW), default=0.0)
+    host = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.time_range.start >= start and e.name != WINDOW:
+            ms, count = host.get(e.name, (0.0, 0))
+            host[e.name] = (ms + e.self_cpu_time_total / 1e3, count + 1)
+    for key, (ms, count) in sorted(host.items(), key=lambda kv: -kv[1][0])[:5]:
         print(f"profile {label}:   host {ms:8.3f} ms  x{count:<5d} {key[:100]}", flush=True)
 
 
@@ -2281,13 +2333,15 @@ def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
     c_one = dataclasses.replace(bench_cfg, slew_rate_penalty=1.0)
     profile_step(torch, "phase 7 slew-rate receding_horizon step cartpole B=1024",
                  lambda: receding_horizon(c_one, cp_dyn, cp_params, cp_cost, x1024, 1,
-                                          u_lower=-100.0, u_upper=100.0))
+                                          u_lower=-100.0, u_upper=100.0),
+                 counted=(fused, "ilqr_fused_kernel"))
     return total, worst, variants, figures
 
 
 def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, hi, kw):
-    """One (a) case of phase 7: parity, the same bits at every cluster
-    size, rocket_checks for three controls, the masked u exactly 0, and the
+    """One (a) case of phase 7 (and of phase 9, by jvp_case): parity, the
+    same bits at every cluster size, rocket_checks for three controls, the
+    masked u exactly 0, and the
     kernel's time (CUDA events, median of 5) beside the plain version's
     (one run, host clock) and the byte bound. Returns the JSON figures and
     the kernel's u."""
@@ -2611,7 +2665,340 @@ def lindx_paths(torch, P, dev, kernels, card, fused, gen):
                         "bound_by": by_what, "mpc_ms": got["kernel"][0],
                         "torch_ms": got["plain loop"][0]})
         if first:
-            profile_step(torch, "phase 8 MPC LinDx (3,2) B=4096", lambda: call("auto"))
+            profile_step(torch, "phase 8 MPC LinDx (3,2) B=4096", lambda: call("auto"),
+                         counted=(fused, "ilqr_fused_kernel"))
+    return total, worst, cases, figures
+
+
+# phase 9: the device envs by id (csrc/ilqr_fused.cuh EnvId), and the
+# floating-point operations of one float evaluation of each base env's step,
+# counted from csrc/ilqr_fused.cuh (cos_sin's double-precision polynomial as
+# 30, atan2f as 20, a division or a square root as one)
+JVP_ENV_NAMES = {0: "cartpole", 1: "pendulum", 2: "rocket", 3: "cartpole slew",
+                 4: "pendulum slew", 5: "rocket slew", 6: "complex pendulum",
+                 7: "rocket normalize_quat", 8: "complex pendulum slew",
+                 9: "rocket normalize_quat slew"}
+JVP_SLEW_BASE = {3: 0, 4: 1, 5: 2, 8: 6, 9: 7}
+STEP_FLOPS = {0: 70, 1: 50, 2: 110, 6: 95, 7: 125}
+# the whole-solve kernel in a jvp library, as <NU, block threads, per-example cost>
+JVP_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)I\w+?ELi(\d+)ELi(\d+)"
+             r"ELb(\d)E(?:Li\d+E)?EEv")
+
+
+def jvp_label(spec):
+    d = dict(spec[1])
+    env, clamped = d["DILQR_JVP_ENV"], d["DILQR_JVP_CLAMPED"]
+    return env, clamped, f"{JVP_ENV_NAMES[env]} {'AUTO_DIFF' if clamped else 'ANALYTIC'}"
+
+
+def jvp_ptxas(fused, reports):
+    """Phase 2 for the jvp libraries (csrc/ilqr_jvp.cu, one per env and
+    method): each instantiation's registers, stack and spills; a missing
+    instantiation (one per cluster size and cost form the env has) fails,
+    and so does a stack or a spill at one control -- cartpole and the
+    pendulum under AUTO_DIFF, the complex pendulum under both methods and
+    the slew-rate wrappers of these (at most 6 states). The rocket's forms
+    are reported, not gated."""
+    for spec in fused.jvp_specs():
+        env, _, label = jvp_label(spec)
+        seen = 0
+        for name, regs, stack, st, ld in ptxas_entries(reports[spec], JVP_ENTRY, "jvp"):
+            nu = int(name.strip("<>").split(",")[0])
+            print(f"ptxas ilqr_jvp {label} <NU, threads, lanes> {name}: {regs} registers, "
+                  f"{stack} bytes stack, {st}/{ld} bytes spill stores/loads", flush=True)
+            seen += 1
+            if nu == 1 and (stack or st or ld):
+                fail(f"ilqr_jvp {label} {name} (n_ctrl 1) has a stack frame or spills")
+        want = len(fused.clusters(env)) * (1 if env in fused.LANES_ONLY else 2)
+        if seen != want:
+            fail(f"ilqr_jvp {label}: {seen} instantiations, want {want}")
+
+
+def jvp_bound(fused, cfg, B, env, cost, lo, hi, tile_iters):
+    """The least time of one solve with the jvp sweep: (ms, "bytes" or
+    "operations", FLOP, bytes). Operations, per example, step and iteration
+    its tile ran: the Jacobian as n = nx + nu step evaluations on Duals (a
+    Dual operation three float ones), the Riccati step's products as
+    lindx_bound counts them, and one line-search trial (K dx, a float step,
+    the objective); the box-QP's Newton steps and further trials depend on
+    the data and are not counted. Bytes: variant_work's."""
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    n = nx + nu
+    step = STEP_FLOPS[JVP_SLEW_BASE.get(env, env)]
+    per_t = (3 * n * step + 2 * nx * nx * n + nx * n * (n + 1) + 2 * n * n + 2 * nx * n
+             + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3
+             + 2 * nu * nx + step + 2 * n * n + 3 * n)
+    flops = per_t * T * sum(it * min(fused.TILE, B - g * fused.TILE)
+                            for g, it in enumerate(tile_iters))
+    by = variant_work(cfg, B, cost, lo, hi, None, {})
+    t_ops, t_by = flops / FP32_PEAK * 1e3, by / HBM_RATE * 1e3
+    return max(t_ops, t_by), ("operations" if t_ops >= t_by else "bytes"), flops, by
+
+
+def jvp_case(torch, fused, card, label, cfg, dyn, params, x0, cost, lo, hi):
+    """One (a) case of phase 9: variant_case's parity (x and u held on the
+    examples converged in both, with its witness), the same bits at every
+    cluster size, rocket_checks for three controls and the kernel's time
+    beside the plain version's, then the bound by jvp_bound from the
+    iterations each tile ran. Returns the JSON figures."""
+    fig = variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, None, lo, hi, {})
+    its = [int(fused.ilqr_fused(cfg, dyn, params, x0[g:g + fused.TILE],
+                                tuple(a[:, g:g + fused.TILE] if a.dim() >= 3 else a
+                                      for a in cost), None, lo, hi)[4])
+           for g in range(0, x0.shape[0], fused.TILE)]
+    bound, by_what, flops, by = jvp_bound(fused, cfg, x0.shape[0], dyn.device_env, cost, lo, hi,
+                                          its)
+    info = fused.kernel_info(dyn.device_env, 0, cost[0].dim() == 4, cfg.grad_method)
+    print(f"bound {label}: {flops:.3e} FLOP, {by} bytes -> {bound:.4f} ms ({by_what}); tile "
+          f"iterations {its}; G={info['cluster']}, {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes, cudaOccupancyMaxActiveClusters "
+          f"{info['max_active_clusters']} [{card}]", flush=True)
+    return {"name": label.replace("phase 9 (a) ", ""), "ms": fig["ms"],
+            "plain_ms": fig["plain_ms"], "bound_ms": bound, "bound_by": by_what,
+            "max_abs_err": fig["max_abs_err"], "n_iter": fig["n_iter"]}
+
+
+def jvp_paths(torch, P, dev, kernels, card, fused, gen):
+    """Phase 9: the whole-solve kernel's jvp sweep (JvpJac in
+    csrc/ilqr_fused.cuh, one library per env and method from
+    csrc/ilqr_jvp.cu): GradMethod.AUTO_DIFF on every device env, the complex
+    pendulum (the IL env "pendulum-complex"'s params 10, 1, 1, 1, 0.1) and
+    the rocket with normalize_quat=True under both methods, and the
+    slew-rate wrapper of each, at full width, T=20.
+    (a) parity, the kernel against its plain version (whose Jacobian is a
+        batched torch.func.jvp a column of the kernel-form step) on the same
+        CUDA inputs at each cluster size the library has (jvp_case): cartpole
+        B=4096 AUTO_DIFF (bench.py's problem), the pendulum B=1030 AUTO_DIFF
+        (its box is its torque clamp), the rocket B=1024 AUTO_DIFF (bench.py's
+        start, +-20), the complex pendulum B=4096 (the IL env's starts, +-2)
+        and the renormalizing rocket B=1024 under both methods; then the
+        slew rate (penalty 1.0) of each of these seven;
+    (b) the entry points, every counter zeroed before each and read after:
+        MPC(3, 1, 20)(x, QuadCost, pendulum.make(simple=False), params) at
+        B=4096 and receding_horizon on it at B=1024 (5 steps), one
+        whole-solve launch a solve; bench.py's cartpole configuration under
+        AUTO_DIFF with the box +-1 that saturates (its solution's |u| reaches
+        1.4), MPC.solve at B=4096 and
+        its IFT gradient (the KKT kernel backward) against the plain
+        backward; the complex pendulum's AUTO_DIFF IFT gradient at B=1024
+        against the plain backward; the renormalizing rocket under AUTO_DIFF
+        (the reference golden's configuration, f32) MPC.solve at B=1024;
+        ILExp on "pendulum-complex" in modes imempc and empc (learn_cost; its
+        mode sysid and learn_dx raise in the JAX package and the port alike:
+        the mis-specified init has 3 values for the 5-param model) for 2
+        steps each;
+    (c) each (b) serving path's host time against the same call with
+        backend="torch", in turns (a b b a, once), and the device idle share
+        of one profiled complex-pendulum MPC call.
+    Returns (the launches of (b), the largest |kernel - plain| of (a)'s x
+    and u, the cases' figures, the paths' figures)."""
+    import dataclasses
+    import tempfile
+
+    from dilqr_tpu_torch.control import receding_horizon
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+    from dilqr_tpu_torch.il.env import sample_xinit
+    from dilqr_tpu_torch.il.exp import ILExp
+    from dilqr_tpu_torch.models import cartpole, pendulum, rocket
+
+    T = 20
+    AD, AN = P.GradMethod.AUTO_DIFF, P.GradMethod.ANALYTIC
+    il_params = torch.tensor([10.0, 1.0, 1.0, 1.0, 0.1], device=dev)
+    cp, cp_params = cartpole.make(), cartpole.default_params(device=dev)
+    pd, pd_params = pendulum.make(), pendulum.default_params(device=dev)
+    pc = pendulum.make(simple=False)
+    rk, rk_params = rocket.make(), rocket.default_params(device=dev)
+    rn = rocket.make(normalize_quat=True)
+    cp_q, cp_p = cartpole.get_true_obj(device=dev)
+    pd_q, pd_p = pendulum.get_true_obj(device=dev)
+    r_q, r_p = rocket.get_true_obj(device=dev)
+    r_lo, r_hi = rk.lower.to(dev), rk.upper.to(dev)
+
+    def cfg_of(dyn, nx, nu, lqr_iter, eps, method):
+        return P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=lqr_iter, eps=eps,
+                            linesearch_decay=dyn.linesearch_decay,
+                            max_linesearch_iter=dyn.max_linesearch_iter, grad_method=method,
+                            exit_unconverged=False, detach_unconverged=False, backprop=False)
+
+    def pend_x0(B):
+        th = -1.5 + 3.0 * torch.rand(B, generator=gen)
+        return torch.stack([th.cos(), th.sin(), 0.5 * torch.randn(B, generator=gen)], 1).to(dev)
+
+    bench_ad = P.ILQRConfig(n_state=5, n_ctrl=1, T=T, lqr_iter=20, eps=1e-4,
+                            linesearch_decay=0.5, max_linesearch_iter=2, grad_method=AD,
+                            exit_unconverged=False, detach_unconverged=False, backprop=False)
+    # (label, dyn, params, cfg, x0, (q, p), lo, hi)
+    problems = [
+        ("cartpole B=4096 AUTO_DIFF (bench)", cp, cp_params, bench_ad,
+         cartpole_start(torch, gen, 4096, dev), (cp_q, cp_p), -100.0, 100.0),
+        ("pendulum B=1030 AUTO_DIFF, box +-2 (the clamp)", pd, pd_params,
+         cfg_of(pd, 3, 1, 10, 1e-3, AD), pend_x0(1030), (pd_q, pd_p), -2.0, 2.0),
+        ("rocket B=1024 AUTO_DIFF (bench)", rk, rk_params, cfg_of(rk, 13, 3, 15, 1e-3, AD),
+         rocket.bench_start(1024, gen, device=dev), (r_q, r_p), r_lo, r_hi),
+    ]
+    for method in (AN, AD):
+        problems.append((f"complex pendulum B=4096 {method.name}, box +-2", pc, il_params,
+                         cfg_of(pc, 3, 1, 10, 1e-3, method),
+                         sample_xinit(gen, "pendulum-complex", 4096, device=dev), (pd_q, pd_p),
+                         -2.0, 2.0))
+        problems.append((f"rocket normalize_quat B=1024 {method.name}", rn, rk_params,
+                         cfg_of(rn, 13, 3, 15, 1e-3, method),
+                         rocket.bench_start(1024, gen, device=dev), (r_q, r_p), r_lo, r_hi))
+
+    # ---- (a) parity ----
+    cases, worst = [], 0.0
+    for label, dyn, params, cfg, x0, (q, p), lo, hi in problems:
+        for slew in (False, True):
+            if slew:
+                B, n = x0.shape[0], cfg.n_state + cfg.n_ctrl
+                cost = canonicalize_cost(P.QuadCost(torch.diag(q), p), T, B, n)
+                c_cfg, a_cost, c_dyn, c_params, c_x0 = augment_slew_rate(
+                    dataclasses.replace(cfg, slew_rate_penalty=1.0), cost, dyn, params, x0,
+                    None)
+                c_cost = (a_cost.C, a_cost.c)
+                what = f"slew rate 1.0 {label} (n_state {c_cfg.n_state})"
+            else:
+                c_cfg, c_dyn, c_params, c_x0, c_cost = cfg, dyn, params, x0, (torch.diag(q), p)
+                what = label
+            if not fused.covered(c_cfg, c_dyn, c_params, torch.float32,
+                                 None if slew else c_cost, None, None, lo, hi):
+                fail(f"phase 9 {what}: not covered")
+            if not fused.uses_jvp(c_cfg.grad_method, c_dyn.device_env):
+                fail(f"phase 9 {what}: does not take the jvp sweep")
+            cases.append(jvp_case(torch, fused, card, f"phase 9 (a) {what} T={T}", c_cfg, c_dyn,
+                                  c_params, c_x0, c_cost, lo, hi))
+            worst = max(worst, cases[-1]["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the entry points ----
+    total = {name: 0 for name in kernels}
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"phase 9 (b) {label}", fn, want)
+
+    pc_cost = P.QuadCost(torch.diag(pd_q), pd_p)
+    pc_kw = dict(u_lower=-2.0, u_upper=2.0, lqr_iter=10, eps=pc.mpc_eps,
+                 linesearch_decay=pc.linesearch_decay, max_linesearch_iter=pc.max_linesearch_iter,
+                 backprop=False, exit_unconverged=False)
+    x_pc = sample_xinit(gen, "pendulum-complex", 4096, device=dev)
+    x_pc1 = sample_xinit(gen, "pendulum-complex", 1024, device=dev)
+    x_cp = cartpole_start(torch, gen, 4096, dev)
+    x_rn = rocket.bench_start(1024, gen, device=dev)
+    cp_cost = P.QuadCost(torch.diag(cp_q), cp_p)
+    r_cost = P.QuadCost(torch.diag(r_q), r_p)
+    cp_kw = dict(lqr_iter=20, eps=1e-4, linesearch_decay=0.5, max_linesearch_iter=2,
+                 grad_method=AD, backprop=False, exit_unconverged=False)
+    rn_kw = dict(lqr_iter=15, eps=1e-3, linesearch_decay=rn.linesearch_decay,
+                 max_linesearch_iter=rn.max_linesearch_iter, grad_method=AD, backprop=False,
+                 exit_unconverged=False)
+    pc_cfg = cfg_of(pc, 3, 1, 10, pc.mpc_eps, AN)
+
+    # name -> (call(backend), B, nx, nu, box, launches a call)
+    paths = {
+        "MPC complex pendulum B=4096": (
+            lambda be: P.MPC(3, 1, T, backend=be, **pc_kw).solve(x_pc, pc_cost, pc,
+                                                                 params=il_params),
+            4096, 3, 1, 2.0, 1),
+        "receding_horizon complex pendulum B=1024 x5 steps": (
+            lambda be: receding_horizon(dataclasses.replace(pc_cfg, backend=be), pc, il_params,
+                                        pc_cost, x_pc1, 5, u_lower=-2.0, u_upper=2.0),
+            1024, 3, 1, 2.0, 5),
+        "MPC.solve cartpole AUTO_DIFF B=4096 box +-1": (
+            lambda be: P.MPC(5, 1, T, u_lower=-1.0, u_upper=1.0, backend=be,
+                             **cp_kw).solve(x_cp, cp_cost, cp, params=cp_params),
+            4096, 5, 1, 1.0, 1),
+        "MPC.solve rocket normalize_quat AUTO_DIFF B=1024": (
+            lambda be: P.MPC(13, 3, T, u_lower=r_lo, u_upper=r_hi, backend=be,
+                             **rn_kw).solve(x_rn, r_cost, rn, params=rk_params),
+            1024, 13, 3, 20.0, 1),
+    }
+    for label, (call, B, nx, nu, box, n) in paths.items():
+        out, _ = run(label, lambda: call("auto"), {**one, "ilqr_fused": n})
+        if label.startswith("receding_horizon"):
+            if out.xs.shape != (B, n + 1, nx) or not torch.isfinite(out.xs).all():
+                fail(f"{label}: bad closed-loop states")
+            if out.us.abs().max().item() > box + 1e-5:
+                fail(f"{label}: actions outside the box")
+            print(f"phase 9 (b) {label}: mean |u| {out.us.abs().mean().item():.4f}, final mean "
+                  f"cos th {out.xs[:, -1, 0].mean().item():.4f}", flush=True)
+            continue
+        if out.x.shape != (B, T, nx) or out.u.shape != (B, T, nu):
+            fail(f"{label}: shapes {tuple(out.x.shape)}, {tuple(out.u.shape)}")
+        if not (torch.isfinite(out.costs).all() and torch.isfinite(out.x).all()):
+            fail(f"{label}: non-finite output")
+        if (out.u.abs() - box).max().item() > 1e-5:
+            fail(f"{label}: controls outside the box")
+        at = ((out.u.abs() - box).abs() < 1e-6).float().mean().item()
+        print(f"phase 9 (b) {label}: n_iter {int(out.n_iter)}, mean cost "
+              f"{out.costs.mean().item():.4f}, converged share "
+              f"{out.converged.float().mean().item():.4f}, share of controls at the box "
+              f"{at:.4f}", flush=True)
+        if "cartpole" in label and at < 0.01:
+            fail(f"{label}: the box does not saturate ({at:.4f} of the controls at it)")
+
+    # IFT gradients: the whole-solve kernel forward (jvp sweep), the KKT
+    # kernel backward, within 1e-3 of the largest entry of the plain backward's
+    def grad(c, x0, cost, dyn, params, lo, hi):
+        pr = params.clone().requires_grad_(True)
+        res = P.solve(c, x0, cost, dyn, params=pr, u_lower=lo, u_upper=hi)
+        (g,) = torch.autograd.grad((res.u ** 2).mean(), pr)
+        return g
+
+    for label, c, args in (
+            ("cartpole AUTO_DIFF IFT grad B=4096 box +-1",
+             dataclasses.replace(bench_ad, backprop=True, backward_mode=P.BackwardMode.IFT),
+             (x_cp, cp_cost, cp, cp_params, -1.0, 1.0)),
+            ("complex pendulum AUTO_DIFF IFT grad B=1024",
+             dataclasses.replace(cfg_of(pc, 3, 1, 10, pc.mpc_eps, AD), backprop=True,
+                                 backward_mode=P.BackwardMode.IFT),
+             (x_pc1, pc_cost, pc, il_params, -2.0, 2.0))):
+        g, _ = run(label, lambda: grad(c, *args),
+                   {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
+        g_ref = grad(dataclasses.replace(c, backward_backend="torch"), *args)
+        err = (g - g_ref).abs().max().item()
+        print(f"phase 9 (b) {label}: grad params {g.tolist()}, abs. diff to the plain backward "
+              f"{err:.2e}", flush=True)
+        if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
+            fail(f"{label}: a non-finite or zero gradient")
+        if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
+            fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+
+    # the IL trainer on the complex pendulum: 2 steps a mode (64 examples,
+    # batches of 32), the expert data made by the kernel
+    for mode in ("imempc", "empc"):
+        label = f"ILExp pendulum-complex {mode} learn_cost, 2 steps"
+
+        def train(work):
+            exp = ILExp.from_cli(["--env", "pendulum-complex", "--mode", mode, "--learn_cost",
+                                  "--n_epoch", "1", "--n_train", "64", "--n_batch", "32",
+                                  "--work", work], device="cuda")
+            return exp.run(verbose=False)
+
+        with tempfile.TemporaryDirectory() as work:
+            best, _ = run(label, lambda: train(work), {"ilqr_fused": None, "kkt_fused": None,
+                                                       "riccati_fused": 0})
+        if not math.isfinite(best):
+            fail(f"{label}: a non-finite validation loss")
+        print(f"phase 9 (b) {label}: best validation loss {best:.6f}", flush=True)
+    print(f"phase 9 (b) launches: {total}", flush=True)
+
+    # ---- (c) times: the kernel path against the plain loop, in turns ----
+    figures = []
+    for label, (call, B, nx, nu, box, n) in paths.items():
+        got = host_ms_in_turns({"kernel": lambda: call("auto"),
+                                "plain loop": lambda: call("torch")}, rounds=1)
+        (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
+        per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
+        print(f"time phase 9 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
+              f"{t_ms:.3f} ms with backend='torch' (host clock, synchronized, median of "
+              f"{len(k_runs)} in turns: {', '.join(f'{r:.3f}' for r in k_runs)} / "
+              f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        figures.append({"name": label, "launches": n, "ms": k_ms, "torch_ms": t_ms})
+    profile_step(torch, "phase 9 MPC complex pendulum B=4096",
+                 lambda: paths["MPC complex pendulum B=4096"][0]("auto"),
+                 counted=(fused, "ilqr_fused_kernel"))
     return total, worst, cases, figures
 
 

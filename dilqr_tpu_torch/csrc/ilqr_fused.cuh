@@ -1,17 +1,21 @@
 // Per-example math of the whole-solve iLQR kernel (ilqr_kernel.cuh): the env
 // steps and Jacobians in their kernel form, the dynamics of a time-varying
-// affine (LQR) problem as data (LinDx), the quadratic objective, the tile
-// vote, the small-matrix pieces of the multi-control box-QP (explicit
-// inverses, the projected-Newton step and its tile-voting loop) and the
-// Riccati step over strided storage.
+// affine (LQR) problem as data (LinDx), the Jacobian by forward mode
+// (JvpJac), the quadratic objective, the tile vote, the small-matrix pieces
+// of the multi-control box-QP (explicit inverses, the projected-Newton step
+// and its tile-voting loop) and the Riccati step over strided storage.
 //
 // The envs are the device counterparts of dilqr_tpu_torch/models/
 // cartpole.py, pendulum.py and rocket.py (`kernel_step`, `jac_lanes`): the
 // cartpole and pendulum steps advance the angle with the angle-addition
 // identities plus one rsqrt renormalization (rotate_cs, kernel form, with
-// its zero-norm guard); the rocket step is a polynomial map. Each Jacobian
-// is the hand-derived one of the un-clamped step. The functions are
-// __host__ __device__ so a host compiler can build them too.
+// its zero-norm guard); the rocket step is a polynomial map. Each step is a
+// template over its scalar type (float, or a Dual of dual.cuh for the jvp
+// sweep) and over the control clamp (the clamped step, or the un-clamped
+// physics an ANALYTIC linearization differentiates). Cartpole, Pendulum and
+// Rocket carry the hand-derived Jacobian of the un-clamped step;
+// PendulumComplex and RocketNorm have none and take JvpJac's. The functions
+// are __host__ __device__ so a host compiler can build them too.
 #pragma once
 
 #include <math.h>
@@ -22,6 +26,8 @@
 #else
 #define DILQR_HD inline
 #endif
+
+#include "dual.cuh"
 
 namespace dilqr {
 
@@ -36,19 +42,15 @@ enum EnvId {
   ENV_CARTPOLE_SLEW = 3,
   ENV_PENDULUM_SLEW = 4,
   ENV_ROCKET_SLEW = 5,
+  ENV_PENDULUM_COMPLEX = 6,
+  ENV_ROCKET_NORM = 7,
+  ENV_PENDULUM_COMPLEX_SLEW = 8,
+  ENV_ROCKET_NORM_SLEW = 9,
 };
 
 // the most controls the kernel takes (JAX's MAX_NU): a LinDx problem's;
 // the envs with device code have at most 3 (the rocket's)
 constexpr int kMaxNu = 8;
-
-DILQR_HD float rsqrt_f(float v) {
-#ifdef __CUDA_ARCH__
-  return rsqrtf(v);
-#else
-  return 1.0f / sqrtf(v);
-#endif
-}
 
 // jnp.clip / torch.clamp semantics: NaN propagates
 DILQR_HD float clip(float v, float lo, float hi) {
@@ -160,42 +162,30 @@ struct DenseMat {
   DILQR_HD Row operator[](int i) const { return {s.p + i * C * s.stride, s.stride}; }
 };
 
-// (cos x, sin x) of a float, evaluated in double and rounded once: x is
-// reduced by pi/2 in two parts with fused multiply-adds (the product with
-// the leading part exact), then the Taylor polynomials to degree 14 and 13
-// on |r| <= pi/4 (truncation below 1e-13). Within an ulp of cosf/sinf, and
-// unlike them it has no Payne-Hanek fallback for huge arguments, whose
-// word table and call put a stack frame (and, around the call, spills)
-// into every kernel that inlines it. Accurate for |x| < 1e15, where the
-// reduction's second part still holds; NaN for a NaN or infinite x.
-DILQR_HD void cos_sin(float xf, float* oc, float* os) {
-  const double x = xf;
-  const double j = rint(x * 0.63661977236758134);  // 2 / pi
-  const double r = fma(-j, 6.123233995736766e-17, fma(-j, 1.5707963267948966, x));
-  const double r2 = r * r;
-  const double sr = r * (1.0 + r2 * (-1.0 / 6 + r2 * (1.0 / 120 + r2 * (-1.0 / 5040
-                    + r2 * (1.0 / 362880 + r2 * (-1.0 / 39916800 + r2 * (1.0 / 6227020800.0)))))));
-  const double cr = 1.0 + r2 * (-0.5 + r2 * (1.0 / 24 + r2 * (-1.0 / 720 + r2 * (1.0 / 40320
-                    + r2 * (-1.0 / 3628800 + r2 * (1.0 / 479001600.0 + r2 * (-1.0 / 87178291200.0)))))));
-  const double m = j - 4.0 * floor(0.25 * j);  // the quadrant, 0..3 (NaN for NaN)
-  const double c = m == 0.0 ? cr : (m == 1.0 ? -sr : (m == 2.0 ? -cr : (m == 3.0 ? sr : r)));
-  const double s = m == 0.0 ? sr : (m == 1.0 ? cr : (m == 2.0 ? -sr : (m == 3.0 ? -cr : r)));
-  *oc = (float)c;
-  *os = (float)s;
-}
-
 // (cos, sin) of atan2(s, c) + delta without recovering the angle.
-DILQR_HD void rotate_cs(float c, float s, float delta, float* oc, float* os) {
-  float cd, sd;
-  cos_sin(delta, &cd, &sd);
-  const float ct = c * cd - s * sd;
-  const float st = s * cd + c * sd;
-  const float nn = ct * ct + st * st;
-  const float r = rsqrt_f(fmaxf(nn, 1e-30f));
+template <class S>
+DILQR_HD void rotate_cs(S c, S s, S delta, S* oc, S* os) {
+  S cd, sd;
+  cos_sin_s(delta, &cd, &sd);
+  const S ct = c * cd - s * sd;
+  const S st = s * cd + c * sd;
+  const S nn = ct * ct + st * st;
+  const S r = rsqrt_s(fmax_s(nn, 1e-30f));
   // atan2(0, 0) = 0: the sequential form returns (cos delta, sin delta)
   const bool zero = nn == 0.0f;
   *oc = zero ? cd : ct * r;
   *os = zero ? sd : st * r;
+}
+
+// the in-step control clamp of the clamped step (kClamp), none in the
+// un-clamped physics
+template <bool kClamp, class S>
+DILQR_HD S clamp_if(S u, float lo, float hi) {
+  if constexpr (kClamp) {
+    return clamp_sel(u, lo, hi);
+  } else {
+    return u;
+  }
 }
 
 // Cartpole: state (x, x_dot, cos th, sin th, th_dot), force clamped to
@@ -214,15 +204,17 @@ struct Cartpole {
     l = p[3];
   }
 
-  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
-    const float u = us[0];
-    const float uu = u > 100.0f ? 100.0f : (u < -100.0f ? -100.0f : u);
+  // x' = step(x, u): S is float or Dual; kClamp: the force clamped to
+  // +-100 (the step), or not (the un-clamped physics)
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    const S uu = clamp_if<kClamp>(us[0], -100.0f, 100.0f);
     const float tm = mp + mc;
     const float pml = mp * l;
-    const float x = xs[0], dx = xs[1], c = xs[2], s = xs[3], w = xs[4];
-    const float cart_in = (uu + pml * (w * w) * s) / tm;
-    const float th_acc = (g * s - c * cart_in) / (l * (4.0f / 3.0f - mp * (c * c) / tm));
-    const float xacc = cart_in - pml * th_acc * c / tm;
+    const S x = xs[0], dx = xs[1], c = xs[2], s = xs[3], w = xs[4];
+    const S cart_in = (uu + pml * (w * w) * s) / tm;
+    const S th_acc = (g * s - c * cart_in) / (l * (4.0f / 3.0f - mp * (c * c) / tm));
+    const S xacc = cart_in - pml * th_acc * c / tm;
     xn[0] = x + kDt * dx;
     xn[1] = dx + kDt * xacc;
     rotate_cs(c, s, kDt * w, &xn[2], &xn[3]);
@@ -297,11 +289,13 @@ struct Pendulum {
     l = p[2];
   }
 
-  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
-    const float u = us[0];
-    const float uu = u > 2.0f ? 2.0f : (u < -2.0f ? -2.0f : u);
-    const float c = xs[0], s = xs[1], w = xs[2];
-    const float newdth = w + kDt * (-3.0f * g / (2.0f * l) * (-s) + 3.0f * uu / (m * (l * l)));
+  // x' = step(x, u): S is float or Dual; kClamp: the torque clamped to
+  // +-2, or not
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    const S uu = clamp_if<kClamp>(us[0], -2.0f, 2.0f);
+    const S c = xs[0], s = xs[1], w = xs[2];
+    const S newdth = w + kDt * (-3.0f * g / (2.0f * l) * (-s) + 3.0f * uu / (m * (l * l)));
     rotate_cs(c, s, newdth * kDt, &xn[0], &xn[1]);
     xn[2] = newdth;
   }
@@ -350,7 +344,8 @@ struct Pendulum {
 
 // Rocket: state (r[3], v[3], q[4], w[3]), thrust vector clamped to +-400
 // inside the step, params (Jx, Jy, Jz, mass, l), dt = 0.1; the
-// normalize_quat=False step (the reference's un-normalized return).
+// normalize_quat=False step (the reference's un-normalized return;
+// RocketNorm renormalizes).
 struct Rocket {
   static constexpr int NX = 13;
   static constexpr int NU = 3;
@@ -369,7 +364,8 @@ struct Rocket {
 
   // c[i][j] of the direction-cosine matrix C_B_I; the step uses its
   // transpose, R[i][j] = c[j][i]
-  DILQR_HD static void dcm(float q0, float q1, float q2, float q3, float c[3][3]) {
+  template <class S>
+  DILQR_HD static void dcm(S q0, S q1, S q2, S q3, S c[3][3]) {
     c[0][0] = 1.0f - 2.0f * (q2 * q2 + q3 * q3);
     c[0][1] = 2.0f * (q1 * q2 + q0 * q3);
     c[0][2] = 2.0f * (q1 * q3 - q0 * q2);
@@ -381,17 +377,17 @@ struct Rocket {
     c[2][2] = 1.0f - 2.0f * (q1 * q1 + q2 * q2);
   }
 
-  DILQR_HD void step(const float* xs, const float* us, float* xn) const {
-    float Tb[3];
-    for (int i = 0; i < 3; ++i) {
-      const float u = us[i];
-      Tb[i] = u > 400.0f ? 400.0f : (u < -400.0f ? -400.0f : u);
-    }
-    const float q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
-    const float w0 = xs[10], w1 = xs[11], w2 = xs[12];
-    float c[3][3];
+  // x' = step(x, u): S is float or Dual; kClamp: the thrust clamped to
+  // +-400, or not
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    S Tb[3];
+    for (int i = 0; i < 3; ++i) Tb[i] = clamp_if<kClamp>(us[i], -400.0f, 400.0f);
+    const S q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
+    const S w0 = xs[10], w1 = xs[11], w2 = xs[12];
+    S c[3][3];
     dcm(q0, q1, q2, q3, c);
-    float dx[NX];
+    S dx[NX];
     dx[0] = xs[3];
     dx[1] = xs[4];
     dx[2] = xs[5];
@@ -403,11 +399,11 @@ struct Rocket {
     dx[8] = 0.5f * (w1 * q0 - w2 * q1 + w0 * q3);
     dx[9] = 0.5f * (w2 * q0 + w1 * q1 - w0 * q2);
     const float a = -0.5f * l;
-    const float tq1 = -a * Tb[2];
-    const float tq2 = a * Tb[1];
-    const float cw0 = w1 * (Jz * w2) - w2 * (Jy * w1);
-    const float cw1 = w2 * (Jx * w0) - w0 * (Jz * w2);
-    const float cw2 = w0 * (Jy * w1) - w1 * (Jx * w0);
+    const S tq1 = -a * Tb[2];
+    const S tq2 = a * Tb[1];
+    const S cw0 = w1 * (Jz * w2) - w2 * (Jy * w1);
+    const S cw1 = w2 * (Jx * w0) - w0 * (Jz * w2);
+    const S cw2 = w0 * (Jy * w1) - w1 * (Jx * w0);
     dx[10] = (0.0f - cw0) / Jx;
     dx[11] = (tq1 - cw1) / Jy;
     dx[12] = (tq2 - cw2) / Jz;
@@ -490,6 +486,98 @@ struct Rocket {
   }
 };
 
+// Complex pendulum (pendulum.make(simple=False)): state (cos th, sin th,
+// th_dot), torque clamped to +-2, params (g, m, l, d, b) with the damping d
+// and the gravity bias b. The damping term -d th needs the absolute angle,
+// so the step recovers it with atan2 (the JAX kernel's Mosaic polynomial
+// _poly_atan2 is a TPU workaround; atan2f is the card's own) and re-embeds
+// the new angle with cos_sin. No hand Jacobian: JvpJac forms it.
+struct PendulumComplex {
+  static constexpr int NX = 3;
+  static constexpr int NU = 1;
+  static constexpr int NP = 5;
+  static constexpr bool kColumnwiseQ = false;
+  float g, m, l, d, b;
+
+  DILQR_HD void load(const float* p) {
+    g = p[0];
+    m = p[1];
+    l = p[2];
+    d = p[3];
+    b = p[4];
+  }
+
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    const S uu = clamp_if<kClamp>(us[0], -2.0f, 2.0f);
+    const S c = xs[0], s = xs[1], w = xs[2];
+    const S th = atan2_s(s, c);
+    S cb, sb;  // (cos, sin)(th + b)
+    cos_sin_s(th + b, &cb, &sb);
+    const S newdth =
+        w + kDt * (-3.0f * g / (2.0f * l) * (-sb) + 3.0f * uu / (m * (l * l)) - d * th);
+    const S newth = th + newdth * kDt;
+    cos_sin_s(newth, &xn[0], &xn[1]);
+    xn[2] = newdth;
+  }
+};
+
+// The rocket with normalize_quat=True: Rocket's step, then the quaternion
+// divided by sqrt(q . q) + 1e-8 (dilqr_tpu/models/rocket.py:116-119). No
+// hand Jacobian: JvpJac forms it.
+struct RocketNorm : Rocket {
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    Rocket::step<kClamp>(xs, us, xn);
+    const S nrm = sqrt_s(xn[6] * xn[6] + xn[7] * xn[7] + xn[8] * xn[8] + xn[9] * xn[9]) + 1e-8f;
+#pragma unroll
+    for (int i = 6; i < 10; ++i) xn[i] = xn[i] / nrm;
+  }
+
+  template <class Out>
+  void jac(const float*, const float*, Out&&) const = delete;  // not Rocket's
+};
+
+// The Jacobian by forward mode, as the JAX kernel's jvp sweep forms it
+// (lin_at, dilqr_tpu/ops/pallas/ilqr_fused.py:1258-1266): Env's step
+// evaluated on Duals n = NX + NU times, column j with the one-hot tangent
+// e_j (x's columns 0..NX-1, then u's), D[i][j] the tangent of x'_i. Clamped:
+// the clamped step (GradMethod.AUTO_DIFF: a saturated control's column is
+// exactly 0, torch.clamp's convention) or the un-clamped physics (ANALYTIC,
+// an env with no hand Jacobian). The n evaluations share the step's
+// values, which the unrolled loop computes once; each carries one tangent.
+// Every entry of D is written, so D may be registers or strided storage.
+template <class Env, bool Clamped>
+struct JvpJac {
+  static constexpr int NX = Env::NX;
+  static constexpr int NU = Env::NU;
+  static constexpr int NP = Env::NP;
+  static constexpr bool kColumnwiseQ = Env::kColumnwiseQ;
+  Env env;
+
+  DILQR_HD void load(const float* p) { env.load(p); }
+
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    env.template step<kClamp>(xs, us, xn);
+  }
+
+  template <class Out>
+  DILQR_HD void jac(const float* xs, const float* us, Out&& D) const {
+#pragma unroll
+    for (int j = 0; j < NX + NU; ++j) {
+      Dual xd[NX], ud[NU], xn[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xd[i] = Dual(xs[i], i == j ? 1.0f : 0.0f);
+#pragma unroll
+      for (int r = 0; r < NU; ++r) ud[r] = Dual(us[r], NX + r == j ? 1.0f : 0.0f);
+      env.template step<Clamped>(xd, ud, xn);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) D[i][j] = xn[i].d;
+    }
+  }
+};
+
 // Views that shift a matrix's indices: row i of ShiftRows is row i + R of
 // the underlying D, column j is column j + R. The slew-rate wrapper writes
 // its base env's Jacobian through one into the lower-right block.
@@ -509,9 +597,9 @@ struct ShiftRows {
 // The slew-rate augmented state (u_{t-1}, x) of an env (counterpart of
 // models/ctrl_passthrough.py): the step is (u, step(x, u)); the Jacobian
 // over ((u_{t-1}, x), u) has rows [0 | 0 | I] for the u_{t-1} block and
-// [0 | Fx | Fu] below, from the env's hand-derived one. The JAX kernel
-// forms this matrix with a jvp sweep (lin_at); the entries agree up to the
-// rounding of the env's Jacobian against its jvp.
+// [0 | Fx | Fu] below, from the env's own (hand-derived, or JvpJac's).
+// The JAX kernel forms this matrix with a jvp sweep (lin_at); the entries
+// agree up to the rounding of the env's Jacobian against its jvp.
 template <class Env>
 struct Passthrough {
   static constexpr int NU = Env::NU;

@@ -1,12 +1,15 @@
 // The whole-solve batched iLQR kernel for Hopper (sm_90a), as a template
 // over the env, the control count, the block size and the cost form; its
-// instantiations are in ilqr_fused.cu (the envs with device code) and
-// ilqr_lindx.cu (a LinDx problem, one shape a library, built at first use).
+// instantiations are in ilqr_fused.cu (the envs with device code and their
+// hand-derived Jacobians), ilqr_jvp.cu (an env whose Jacobian is the jvp
+// sweep, JvpJac, one env and method a library) and ilqr_lindx.cu (a LinDx
+// problem, one shape a library), the last two built at first use.
 //
 // Replaces the Pallas TPU kernel `_ilqr_kernel` in
 // dilqr_tpu/ops/pallas/ilqr_fused.py (called through `ilqr_fused`), for the
-// configurations the port runs: the env's hand-derived Jacobian or a LinDx
-// problem's F/f as data (ilqr_fused.cuh), f32, a zero or given warm start,
+// configurations the port runs: the env's hand-derived Jacobian, the jvp
+// sweep's (JvpJac: the step on Duals once a column) or a LinDx problem's
+// F/f as data (ilqr_fused.cuh), f32, a zero or given warm start,
 // and
 //  * n_ctrl == 1 (cartpole, simple pendulum, their slew-rate wrappers, a
 //    LinDx problem): the closed-form 1-D box-QP;
@@ -545,6 +548,13 @@ constexpr int kMinBlocks128<Pendulum, false> = 6;
 // LinDx<3, 2> 72 registers and 76 bytes of spill where 80 do without
 template <int NX, int NU, bool LANES>
 constexpr int kMinBlocks128<LinDx<NX, NU>, LANES> = 2;
+// so does the complex pendulum's jvp sweep (ilqr_jvp.cu) and its slew-rate
+// wrapper: ptxas's own choice gave them 80-128 registers and 8-36 bytes of
+// spill
+template <bool C, bool LANES>
+constexpr int kMinBlocks128<JvpJac<PendulumComplex, C>, LANES> = 2;
+template <bool C, bool LANES>
+constexpr int kMinBlocks128<Passthrough<JvpJac<PendulumComplex, C>>, LANES> = 2;
 
 template <class Env, int NU, int EX, bool LANES>
 constexpr auto kernel_of() {

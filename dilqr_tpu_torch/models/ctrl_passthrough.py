@@ -3,9 +3,11 @@
 CtrlPassthroughDynamics, dynamics.py:133-156): the augmented state
 x_tilde = (u_{t-1}, x) steps as x_tilde' = (u_t, f(x, u_t)). Used by
 ``core/solver.augment_slew_rate``. The wrapper of a model with device code
-(cartpole, the simple pendulum, the rocket) has device code too,
-``Passthrough<Env>`` in ``csrc/ilqr_fused.cuh``, so its solves run the
-whole-solve kernel; the wrapper of any other model runs the plain loop."""
+(cartpole, both pendulums, the rocket with normalize_quat off and on) has
+device code too, ``Passthrough<Env>`` in ``csrc/ilqr_fused.cuh``, so its
+solves run the whole-solve kernel (its Jacobian from the base's: the hand
+one, or the jvp sweep's where the base has none); the wrapper of any other
+model runs the plain loop."""
 from __future__ import annotations
 
 import torch
@@ -14,7 +16,7 @@ from .base import Dynamics
 
 # the base model's device_env -> Passthrough<Env>'s (EnvId in
 # csrc/ilqr_fused.cuh)
-DEVICE_ENVS = {0: 3, 1: 4, 2: 5}
+DEVICE_ENVS = {0: 3, 1: 4, 2: 5, 6: 8, 7: 9}
 
 
 def _aug(fn, nu: int):
@@ -43,15 +45,15 @@ def _aug_jac(jac, nu: int):
 def make(base: Dynamics) -> Dynamics:
     """Wrap ``base`` for the augmented state (u_{t-1}, x)."""
     nu = base.n_ctrl
-    device = base.device_env in DEVICE_ENVS and base.jac_lanes is not None \
-        and base.kernel_step is not None
+    device = base.device_env in DEVICE_ENVS and base.kernel_step is not None
     return Dynamics(
         n_state=nu + base.n_state,
         n_ctrl=nu,
         step=_aug(base.step, nu),
         step_unclamped=(_aug(base.linearize_point, nu)
                         if base.step_unclamped is not None else None),
-        jac_lanes=_aug_jac(base.jac_lanes, nu) if device else None,
+        jac_lanes=(_aug_jac(base.jac_lanes, nu)
+                   if device and base.jac_lanes is not None else None),
         kernel_step=_aug(base.kernel_step, nu) if device else None,
         device_env=DEVICE_ENVS[base.device_env] if device else None,
         lower=base.lower,

@@ -5,9 +5,11 @@
     th'     = th + dt * th_dot'
 
 with dt=0.05 and the torque clamped to +-2 inside the step. Params
-(g, m, l) (simple) or (g, m, l, d, b) (damped/biased). Only the simple
-variant has device code (``Pendulum::step`` and ``Pendulum::jac`` in
-``csrc/ilqr_fused.cuh``); the complex one runs on the plain path only.
+(g, m, l) (simple) or (g, m, l, d, b) (damped/biased). Both have device
+code in ``csrc/ilqr_fused.cuh``: the simple variant ``Pendulum::step`` and
+its hand-derived ``Pendulum::jac``, the complex one ``PendulumComplex::step``
+(atan2, then cos/sin of the new angle), whose Jacobian the kernel forms by
+forward mode (``JvpJac``), as JAX's kernel does: it has no ``jac_lanes``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ DT = 0.05
 MAX_TORQUE = 2.0
 N_STATE, N_CTRL = 3, 1
 DEVICE_ENV = 1  # ENV_PENDULUM in csrc/ilqr_fused.cuh
+DEVICE_ENV_COMPLEX = 6  # ENV_PENDULUM_COMPLEX
 
 GOAL_STATE = (1.0, 0.0, 0.0)
 GOAL_WEIGHTS = (1.0, 1.0, 0.1)
@@ -115,9 +118,10 @@ def make(simple: bool = True) -> Dynamics:
         step=lambda x, u, p: _step(x, u, p, clamp_u=True, simple=simple),
         step_unclamped=lambda x, u, p: _step(x, u, p, clamp_u=False, simple=simple),
         jac_lanes=_jac_lanes_simple if simple else None,
-        kernel_step=(lambda x, u, p: _step(x, u, p, clamp_u=True, simple=True,
-                                           kernel=True)) if simple else None,
-        device_env=DEVICE_ENV if simple else None,
+        # the complex step has no separate kernel form: its angle is
+        # recovered with atan2 on and off the kernel
+        kernel_step=lambda x, u, p: _step(x, u, p, clamp_u=True, simple=simple, kernel=True),
+        device_env=DEVICE_ENV if simple else DEVICE_ENV_COMPLEX,
         lower=-MAX_TORQUE,
         upper=MAX_TORQUE,
         mpc_eps=1e-3,

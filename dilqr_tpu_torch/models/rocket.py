@@ -13,7 +13,9 @@ params (Jx, Jy, Jz, mass, l). Counterpart of ``dilqr_tpu/models/rocket.py``:
 the reference does; its step is a polynomial map with the hand-derived
 Jacobian ``jac_lanes`` and device code (``Rocket::step`` / ``Rocket::jac`` in
 ``csrc/ilqr_fused.cuh``). ``normalize_quat=True`` renormalizes the
-quaternion inside the step; it has neither and runs on the plain path only.
+quaternion inside the step (``RocketNorm::step``); it has no ``jac_lanes``,
+and the kernel forms its Jacobian by forward mode (``JvpJac``), as JAX's
+kernel does.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ DT = 0.1
 N_STATE, N_CTRL = 13, 3
 MAX_THRUST = 20.0 ** 2
 DEVICE_ENV = 2  # ENV_ROCKET in csrc/ilqr_fused.cuh
+DEVICE_ENV_NORM = 7  # ENV_ROCKET_NORM
 
 GOAL_WEIGHTS = (10.0,) * 3 + (1.0,) * 3 + (0.1,) * 4 + (1.0,) * 3
 GOAL_STATE = (0.0,) * 6 + (1.0, 0.0, 0.0, 0.0) + (0.0,) * 3
@@ -209,10 +212,10 @@ def make(normalize_quat: bool = False) -> Dynamics:
         step=step,
         step_unclamped=lambda x, u, p: _step(x, u, p, False, normalize_quat),
         # the normalize_quat=True variant renormalizes inside the step: its
-        # Jacobian is not the polynomial one and it has no device code
+        # Jacobian is not the polynomial one (the kernel's jvp sweep forms it)
         jac_lanes=None if normalize_quat else _jac_lanes,
-        kernel_step=None if normalize_quat else step,
-        device_env=None if normalize_quat else DEVICE_ENV,
+        kernel_step=step,
+        device_env=DEVICE_ENV_NORM if normalize_quat else DEVICE_ENV,
         lower=torch.tensor(LOWER),
         upper=torch.tensor(UPPER),
         mpc_eps=1e-3,

@@ -9,8 +9,10 @@ unchanged one is loaded from the earlier build.
 
 A source may be built more than once with preprocessor defines (a
 ``Spec``: the source and its ``(name, value)`` pairs), one library each:
-``ilqr_lindx.cu`` is built per LinDx shape and cost form. The defines are
-part of the library's name and hash, so each is built once and cached.
+``ilqr_lindx.cu`` is built per LinDx shape and cost form
+(``ilqr_fused.lindx_spec``), ``ilqr_jvp.cu`` per device env and
+linearization method (``ilqr_fused.jvp_spec``). The defines are part of
+the library's name and hash, so each is built once and cached.
 """
 from __future__ import annotations
 

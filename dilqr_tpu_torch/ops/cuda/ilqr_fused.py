@@ -1,14 +1,17 @@
 """Whole-solve batched iLQR on the card: the wrapper of the hand-written
-CUDA kernel (``csrc/ilqr_kernel.cuh``, instantiated in ``csrc/ilqr_fused.cu``
-and, per LinDx shape, ``csrc/ilqr_lindx.cu``) and its plain PyTorch version.
+CUDA kernel (``csrc/ilqr_kernel.cuh``, instantiated in ``csrc/ilqr_fused.cu``,
+per env and method with the Jacobian by forward mode in ``csrc/ilqr_jvp.cu``
+and per LinDx shape in ``csrc/ilqr_lindx.cu``) and its plain PyTorch
+version.
 
 Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
 the Pallas kernel ``_ilqr_kernel``) for the configurations ``covered``
-admits: f32 and either GradMethod.ANALYTIC with the env's hand-derived
-Jacobian on an env with device code -- cartpole and the simple pendulum
-(n_ctrl == 1, the closed-form 1-D box-QP), the rocket (n_ctrl == 3, the
-in-kernel projected-Newton box-QP) and the slew-rate wrapper of each
-(``models/ctrl_passthrough``) -- or a time-varying affine (LQR) problem,
+admits: f32 and either an env with device code -- cartpole, the simple and
+the complex pendulum (n_ctrl == 1, the closed-form 1-D box-QP), the rocket
+with normalize_quat False or True (n_ctrl == 3, the in-kernel
+projected-Newton box-QP) and the slew-rate wrapper of each
+(``models/ctrl_passthrough``) -- under GradMethod.ANALYTIC or AUTO_DIFF, or
+a time-varying affine (LQR) problem,
 ``LinDx`` F [T-1,B,nx,nx+nu] and f [T-1,B,nx] or None, as data (n_ctrl
 1..8 and n_state up to JAX's gate, ``LINDX_MAX_NX``; the box-QP's inverse
 by Gauss-Jordan past 3 controls) -- and, as data, a QuadCost that is
@@ -24,10 +27,17 @@ identity C, a tensor bound's padded entries are 0, as JAX pads them), and
 the line search's any(cost worsened), the not-improved reset's
 any(improved), the stopping rule's max(du) < eps and the box-QP's Newton
 and Armijo exits are decided per 1024-example tile, as the JAX kernel
-decides them (ilqr_fused.py:35-47, :570-678). The env steps and Jacobians
-are the kernel forms (``Dynamics.kernel_step`` / ``jac_lanes``), a LinDx
-problem's x' = F_t tau + f_t and F_t (its padded examples' F and f are
-zero, as JAX pads them: they stay at x = 0). The
+decides them (ilqr_fused.py:35-47, :570-678). The env steps are the
+kernel forms (``Dynamics.kernel_step``). The Jacobian is the hand-derived
+one (``jac_lanes``, ``csrc/ilqr_fused.cu``) under ANALYTIC where the env
+has it; otherwise it is JAX's jvp sweep (``lin_at``, :1258-1266): one
+forward-mode evaluation per column, of the clamped step under AUTO_DIFF (a
+saturated control's column is 0, torch.clamp's derivative) and of the
+un-clamped physics under ANALYTIC (the complex pendulum, the renormalizing
+rocket and their slew-rate wrappers), ``JvpJac`` in ``csrc/ilqr_jvp.cu``,
+one library per (env, method) built at first use. A LinDx problem's step
+is x' = F_t tau + f_t and its Jacobian F_t (its padded examples' F and f
+are zero, as JAX pads them: they stay at x = 0). The
 variants' arithmetic is JAX's: delta_u intersects the QP bounds with
 +-delta_u and widens the trial clamp around the current iterate
 (:1307-1311, :1404-1408); a mask zeroes its coordinates before the trial
@@ -41,9 +51,10 @@ decisions are cluster votes. G is 8 unless a caller measuring the kernel
 passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
 the LinDx shapes whose shared memory admits 64 examples a block
 (``lindx_clusters``); the result does not depend on G. A LinDx shape's
-library is built at first use (one nvcc) and cached
-in ``dilqr_tpu_torch/_build/``. A launch the card refuses raises: nothing
-falls back to another geometry or to the plain version.
+library and an (env, method)'s jvp library are built at first use (one
+nvcc each) and cached in ``dilqr_tpu_torch/_build/``. A launch the card
+refuses raises: nothing falls back to another geometry or to the plain
+version.
 
 ``ilqr_fused`` launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU; there is no fallback from one to the
@@ -56,6 +67,7 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.func import jvp, vmap
 
 from ...models.base import Dynamics
 from ...types import GradMethod, ILQRConfig, LinDx
@@ -68,15 +80,23 @@ TILE = 1024  # examples per tile: the JAX kernel's base tile
 # cluster sizes G (blocks a tile) csrc/ilqr_fused.cu instantiates
 CLUSTERS = (8, 16)
 DEFAULT_CLUSTER = 8
-# device_env -> (params, controls) the device code reads: cartpole,
-# pendulum, rocket, then Passthrough<> of each (the slew-rate state)
-DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3), 3: (4, 1), 4: (3, 1), 5: (5, 3)}
-# the instantiations with fewer cluster sizes: Passthrough<Rocket> (16
-# states) needs 2,520 shared bytes an example, so 64 examples a block
-ENV_CLUSTERS = {5: (16,)}
+# device_env -> (params, controls) the device code reads (EnvId in
+# csrc/ilqr_fused.cuh): cartpole, pendulum, rocket, Passthrough<> of each
+# (the slew-rate state), the complex pendulum, the renormalizing rocket and
+# Passthrough<> of those two
+DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3), 3: (4, 1), 4: (3, 1), 5: (5, 3),
+               6: (5, 1), 7: (5, 3), 8: (5, 1), 9: (5, 3)}
+# the envs with a hand-derived Jacobian, instantiated in csrc/ilqr_fused.cu;
+# the others, and every env under AUTO_DIFF, take csrc/ilqr_jvp.cu
+HAND_JAC_ENVS = (0, 1, 2, 3, 4, 5)
+# the instantiations with fewer cluster sizes: the slew-rate rockets (16
+# states) need 2,520 shared bytes an example, so 64 examples a block
+ENV_CLUSTERS = {5: (16,), 9: (16,)}
 # the slew-rate wrappers are instantiated for the per-example cost only:
 # ``prepare`` expands an example-invariant cost for them
-LANES_ONLY = (3, 4, 5)
+LANES_ONLY = (3, 4, 5, 8, 9)
+# the jvp sweep's kernel: one library per (device env, clamped)
+JVP_SOURCE = "ilqr_jvp.cu"
 MAX_NU = 8  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
 
 # a LinDx problem's kernel: one library per (n_state, n_ctrl, cost form)
@@ -138,8 +158,9 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             u_lower, u_upper) -> bool:
     """True when the configuration is one the kernel computes (counterpart
     of ``fused_supported`` plus ``lane_compatible`` for the envs with
-    device code and for LinDx problems, whose ``params`` are ignored, as in
-    JAX). ``cost_small`` None means the per-example cost."""
+    device code, under ANALYTIC or AUTO_DIFF, and for LinDx problems, whose
+    ``params`` are ignored, as in JAX). ``cost_small`` None means the
+    per-example cost."""
     nu, nx = cfg.n_ctrl, cfg.n_state
     common = (
         cfg.qp_solver == "auto"
@@ -170,7 +191,7 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
         and dyn.jacobian is None
         and nu == dyn.n_ctrl == DEVICE_ENVS[dyn.device_env][1]
         and nx == dyn.n_state
-        and cfg.grad_method is GradMethod.ANALYTIC
+        and cfg.grad_method in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF)
         and isinstance(params, torch.Tensor)
         and params.dim() == 1
         and params.shape[0] == DEVICE_ENVS[dyn.device_env][0]
@@ -195,6 +216,33 @@ def lindx_clusters(nx: int, nu: int) -> Tuple[int, ...]:
     """The cluster sizes a LinDx shape's library has: those whose blocks
     (1024 / G examples) fit the shared memory (csrc/ilqr_lindx.cu)."""
     return tuple(G for G in CLUSTERS if 4 * lindx_floats(nx, nu) * (TILE // G) <= MAX_SMEM)
+
+
+def uses_jvp(grad_method: GradMethod, device_env: int) -> bool:
+    """The env's Jacobian comes from the jvp sweep (csrc/ilqr_jvp.cu): every
+    env under AUTO_DIFF, and under ANALYTIC the envs with no hand-derived
+    one."""
+    return grad_method is GradMethod.AUTO_DIFF or device_env not in HAND_JAC_ENVS
+
+
+def jvp_spec(device_env: int, clamped: bool):
+    """The build spec (source, defines) of the jvp library of a device env:
+    the clamped step's Jacobian (AUTO_DIFF) or the un-clamped physics'."""
+    return (JVP_SOURCE, (("DILQR_JVP_ENV", device_env), ("DILQR_JVP_CLAMPED", int(clamped))))
+
+
+def jvp_specs():
+    """Every jvp library the gate can reach: each env under AUTO_DIFF, and
+    under ANALYTIC those with no hand Jacobian."""
+    return [jvp_spec(env, clamped) for env in DEVICE_ENVS for clamped in (True, False)
+            if clamped or env not in HAND_JAC_ENVS]
+
+
+def env_spec(grad_method: GradMethod, device_env: int):
+    """The library whose kernel solves the device env under the method."""
+    if uses_jvp(grad_method, device_env):
+        return jvp_spec(device_env, grad_method is GradMethod.AUTO_DIFF)
+    return SOURCE
 
 
 def kernel_clusters(cfg: ILQRConfig, dyn) -> Tuple[int, ...]:
@@ -316,9 +364,11 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
         if not 1 <= nu <= MAX_NU:
             raise ValueError(f"ilqr_fused takes LinDx problems with 1 <= n_ctrl <= {MAX_NU}")
     elif dyn.device_env not in DEVICE_ENVS or nu != DEVICE_ENVS[dyn.device_env][1]:
-        raise ValueError("ilqr_fused covers cartpole, the simple pendulum (n_ctrl == 1), "
-                         "the rocket with normalize_quat=False (n_ctrl == 3), their "
-                         "slew-rate wrappers and LinDx problems")
+        raise ValueError("ilqr_fused covers cartpole, both pendulums (n_ctrl == 1), the "
+                         "rocket (n_ctrl == 3), their slew-rate wrappers and LinDx problems")
+    elif cfg.grad_method not in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF):
+        raise ValueError(f"ilqr_fused linearizes by ANALYTIC or AUTO_DIFF, got "
+                         f"{cfg.grad_method}")
     if x_init.dtype != torch.float32:
         raise ValueError(f"ilqr_fused is f32 only, got {x_init.dtype}")
     if x_init.dim() != 2 or x_init.shape[1] != nx:
@@ -441,7 +491,7 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
         fn = _entry(lindx_spec(nx, nu, inp.lanes), "dilqr_ilqr_lindx", 6, 2)
         head = (nx, nu, T, Bp, int(inp.lanes), inp.C.shape[0], ptr(inp.F), ptr(inp.f))
     else:
-        fn = _entry(SOURCE, "dilqr_ilqr_fused", 5, 1)
+        fn = _entry(env_spec(cfg.grad_method, dyn.device_env), "dilqr_ilqr_fused", 5, 1)
         p = params.to(torch.float32).contiguous()
         head = (dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr())
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
@@ -469,14 +519,16 @@ _INFO_KEYS = ("max_active_clusters", "registers", "local_bytes", "static_smem",
               "dynamic_smem")
 
 
-def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False) -> dict:
+def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False,
+                grad_method: GradMethod = GradMethod.ANALYTIC) -> dict:
     """What the card says of one instantiation (``lanes``: the per-example
-    cost's; the slew-rate wrappers have no other): the clusters of G blocks
-    it can hold at once (cudaOccupancyMaxActiveClusters), registers and
-    local bytes a thread, static and dynamic shared bytes a block."""
+    cost's; the slew-rate wrappers have no other; ``grad_method`` picks the
+    hand Jacobian's or the jvp sweep's, ``env_spec``): the clusters of G
+    blocks it can hold at once (cudaOccupancyMaxActiveClusters), registers
+    and local bytes a thread, static and dynamic shared bytes a block."""
     G = geometry(TILE, cluster, device_env).cluster
     lanes = lanes or device_env in LANES_ONLY
-    fn = build.load(SOURCE).dilqr_ilqr_fused_info
+    fn = build.load(env_spec(grad_method, device_env)).dilqr_ilqr_fused_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
@@ -665,13 +717,47 @@ def riccati_step(Q, q, nx: int, ut, lo, hi, warm, n_iter: int, tile: int, du=Non
     return (K, k) + _update(Q, q, nx, K, k)
 
 
+def jvp_jacobian(step_fn):
+    """[dx'/dx | dx'/du] of step_fn(x [Bp, nx], u [Bp, nu], p) by forward
+    mode, as the kernel's JvpJac forms it: ``torch.func.jvp`` of the batched
+    step with the one-hot tangent e_j for column j, x's columns first, then
+    u's (JAX's ``lin_at`` order), the n columns mapped with
+    ``torch.func.vmap`` (the bits of n separate calls, in one). Not jacfwd:
+    at a single point it turns f32 into f64."""
+
+    def jac(x, u, p):
+        nx, n = x.shape[-1], x.shape[-1] + u.shape[-1]
+        eye = torch.eye(n, dtype=x.dtype, device=x.device)[:, None]
+
+        def column(tx, tu):
+            return jvp(lambda x_, u_: step_fn(x_, u_, p), (x, u), (tx, tu))[1]
+
+        return vmap(column)(eye[..., :nx].expand(n, *x.shape),
+                            eye[..., nx:].expand(n, *u.shape)).movedim(0, -1)
+
+    return jac
+
+
+def _jacobian(grad_method: GradMethod, dyn: Dynamics):
+    """The kernel's Jacobian of a device env: the hand-derived ``jac_lanes``
+    under ANALYTIC where the env has one, else the jvp sweep of the clamped
+    kernel step (AUTO_DIFF) or of the un-clamped physics (ANALYTIC; an env
+    with no hand Jacobian has no kernel form of its own, so that is
+    ``linearize_point``)."""
+    if not uses_jvp(grad_method, dyn.device_env):
+        return dyn.jac_lanes
+    return jvp_jacobian(dyn.kernel_step if grad_method is GradMethod.AUTO_DIFF
+                        else dyn.linearize_point)
+
+
 def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
                          u_init: Optional[torch.Tensor] = None,
                          u_lower=None, u_upper=None, u_zero_I: Optional[torch.Tensor] = None,
                          delta_u=None):
     """The kernel's function in plain PyTorch, on the tensors' own device:
-    the same padding, per-tile decisions, kernel-form step and Jacobian (a
-    LinDx problem's F_t tau + f_t and F_t), Riccati arithmetic (the
+    the same padding, per-tile decisions, kernel-form step and Jacobian (the
+    hand one or the jvp sweep, ``_jacobian``; a LinDx problem's F_t tau +
+    f_t and F_t), Riccati arithmetic (the
     closed-form QP for n_ctrl == 1, the per-tile box-QP with the explicit
     inverses of inv_lanes and the kernel's warm start otherwise,
     the free-subspace gains of an unboxed masked solve), the variants'
@@ -712,12 +798,13 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
             return Fs[t]
     else:
         p = params.to(f32)
+        jac_p = _jacobian(cfg.grad_method, dyn)
 
         def step(t, xt, ut):
             return dyn.kernel_step(xt, ut, p)
 
         def jac(t, xt, ut):
-            return dyn.jac_lanes(xt, ut, p)
+            return jac_p(xt, ut, p)
 
     x0 = inp.x_init.T.contiguous()
     u = torch.zeros(T, Bp, nu, dtype=f32, device=dev)

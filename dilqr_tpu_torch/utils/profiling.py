@@ -13,6 +13,16 @@ A device time is the union of the device activities' intervals: the
 profiler also gives each host operator and annotated range the device time
 of the kernels under it, so a sum over every row with device time counts a
 kernel two or three times.
+
+Every window here is opened by ``profiled``. In a process that has run
+for minutes, a trace drops the device activities of its first few
+milliseconds of device work: a one-call window recorded none of them, a
+burst of 20 whole-solve launches lost its first 3, where a fresh process
+recorded all (PERF.md, ROADMAP C2). ``profiled`` therefore starts the trace
+with a priming burst of device work, waits ``PAD_S``, and marks the
+caller's block with the range ``WINDOW``; ``device_events`` keeps the
+activities from that mark on. A caller that knows how many launches a
+window holds checks the count (``kernel_ms`` opens it again).
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+PAD_S = 0.2  # host seconds between the priming burst and the block
+WINDOW = "dilqr_tpu_torch profiled window"  # the range around the block
+
+
 def _activities():
     from torch.profiler import ProfilerActivity
 
@@ -39,18 +53,42 @@ def _activities():
     return acts
 
 
+def _prime() -> None:
+    """About 5 ms of device work and 64 small kernels, synchronized: what a
+    trace drops at its start (see the module docstring)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda._sleep(10_000_000)
+        v = torch.zeros(256, device="cuda")
+        for _ in range(64):
+            v.add_(1.0)
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the block (host, and the card where there is
+    one), started with the priming burst and ``PAD_S`` of host time, the
+    block in the range ``WINDOW`` and the device synchronized at its end
+    (see the module docstring). Yields the profiler; read it after the
+    block, its device activities with ``device_events``."""
+    from torch.profiler import profile, record_function
+
+    _sync()
+    with profile(activities=_activities()) as prof:
+        _prime()
+        time.sleep(PAD_S)
+        with record_function(WINDOW):
+            yield prof
+            _sync()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """torch.profiler over the block (host, and the card where there is
-    one), written to ``log_dir/trace.json`` as a chrome trace."""
-    from torch.profiler import profile
-
+    """``profiled`` over the block, written to ``log_dir/trace.json`` as a
+    chrome trace."""
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=_activities()) as prof:
-        try:
-            yield prof
-        finally:
-            _sync()
+    with profiled() as prof:
+        yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
@@ -86,13 +124,22 @@ def throughput_report(fn: Callable, *args, batch: int,
 def device_events(prof):
     """The device's own activities in a torch.profiler trace: kernels and
     copies, without the host operators and ranges the profiler also gives
-    device time."""
+    device time; in a ``profiled`` trace, those from the start of its
+    ``WINDOW`` range on, less 0.9 ``PAD_S`` (the priming burst ended
+    ``PAD_S`` before it; the device's timestamps, mapped onto the host's
+    clock, were seen 6 ms off their launches)."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    return [e for e in events if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False) and e.name not in host_names]
+    marks = [e.time_range.start for e in events
+             if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    if marks:
+        start = min(marks) - 0.9 * PAD_S * 1e6  # microseconds
+        device = [e for e in device if e.time_range.start >= start]
+    return device
 
 
 def busy_ms(device) -> float:
@@ -105,21 +152,22 @@ def busy_ms(device) -> float:
     return busy / 1e3
 
 
-def kernel_ms(fn: Callable, name: str, calls: int = 20):
+def kernel_ms(fn: Callable, name: str, calls: int = 20, tries: int = 3):
     """The mean device time of the launches of kernel ``name`` in ``calls``
-    calls of fn under torch.profiler (the kernel alone, without host gaps),
-    how many launches the trace recorded, and the names of the other device
-    activities it recorded."""
-    from torch.profiler import profile
-
+    calls of fn (one launch each) under torch.profiler (the kernel alone,
+    without host gaps), how many launches the trace recorded, and the names
+    of the other device activities it recorded. A window that records fewer
+    than ``calls`` launches is opened again, up to ``tries`` windows in all
+    (a primed trace still lost a whole burst once, PERF.md)."""
     fn()
-    _sync()
-    with profile(activities=_activities()) as prof:
-        for _ in range(calls):
-            fn()
-        _sync()
-    device = device_events(prof)
-    runs = [e.time_range.end - e.time_range.start for e in device if name in e.name]
+    for _ in range(tries):
+        with profiled() as prof:
+            for _ in range(calls):
+                fn()
+        device = device_events(prof)
+        runs = [e.time_range.end - e.time_range.start for e in device if name in e.name]
+        if len(runs) >= calls:
+            break
     others = sorted({e.name for e in device if name not in e.name})
     return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs), others
 
@@ -131,14 +179,10 @@ def device_kernel_ms(fn: Callable, *args, n: int = 10, match: str = "ilqr") -> d
     activities) and ``top`` (the 5 device activities with the most time,
     by name). Host gaps and dispatch are left out, so matched_ms is the
     time a roofline share divides by."""
-    from torch.profiler import profile
-
     fn(*args)
-    _sync()
-    with profile(activities=_activities()) as prof:
+    with profiled() as prof:
         for _ in range(n):
             fn(*args)
-        _sync()
     device = device_events(prof)
     durs: dict = {}
     for e in device:

@@ -285,6 +285,132 @@ static void ric_run(const RiccatiArgs& a, const int* p) {
     }
   }
 }
+// JvpJac<Env, Clamped>: the step (float) and the jvp sweep's Jacobian of
+// each device env id, the slew-rate wrappers as Passthrough<JvpJac<...>>
+template <class Env, bool Clamped>
+static void jvp_run(const float* p, const float* x, const float* u, int B, float* xn,
+                    float* D) {
+  run<JvpJac<Env, Clamped>>(p, x, u, B, xn, D);
+}
+template <class Env, bool Clamped>
+static void jvp_slew_run(const float* p, const float* x, const float* u, int B, float* xn,
+                         float* D) {
+  run<Passthrough<JvpJac<Env, Clamped>>>(p, x, u, B, xn, D);
+}
+template <bool C>
+static int jvp_env(int env, const float* p, const float* x, const float* u, int B, float* xn,
+                   float* D) {
+  switch (env) {
+    case ENV_CARTPOLE: jvp_run<Cartpole, C>(p, x, u, B, xn, D); return 0;
+    case ENV_PENDULUM: jvp_run<Pendulum, C>(p, x, u, B, xn, D); return 0;
+    case ENV_ROCKET: jvp_run<Rocket, C>(p, x, u, B, xn, D); return 0;
+    case ENV_PENDULUM_COMPLEX: jvp_run<PendulumComplex, C>(p, x, u, B, xn, D); return 0;
+    case ENV_ROCKET_NORM: jvp_run<RocketNorm, C>(p, x, u, B, xn, D); return 0;
+    case ENV_CARTPOLE_SLEW: jvp_slew_run<Cartpole, C>(p, x, u, B, xn, D); return 0;
+    case ENV_PENDULUM_SLEW: jvp_slew_run<Pendulum, C>(p, x, u, B, xn, D); return 0;
+    case ENV_ROCKET_SLEW: jvp_slew_run<Rocket, C>(p, x, u, B, xn, D); return 0;
+    case ENV_PENDULUM_COMPLEX_SLEW: jvp_slew_run<PendulumComplex, C>(p, x, u, B, xn, D); return 0;
+    case ENV_ROCKET_NORM_SLEW: jvp_slew_run<RocketNorm, C>(p, x, u, B, xn, D); return 0;
+    default: return 1;
+  }
+}
+extern "C" int jvp_eval(int env, int clamped, const float* p, const float* x, const float* u,
+                        int B, float* xn, float* D) {
+  return clamped ? jvp_env<true>(env, p, x, u, B, xn, D) : jvp_env<false>(env, p, x, u, B, xn, D);
+}
+// The float steps as they were written before they became templates over
+// the scalar type (the same expressions, float throughout): the templated
+// step<float> must give their bits.
+namespace legacy {
+static void rotate_cs(float c, float s, float delta, float* oc, float* os) {
+  float cd, sd;
+  cos_sin(delta, &cd, &sd);
+  const float ct = c * cd - s * sd;
+  const float st = s * cd + c * sd;
+  const float nn = ct * ct + st * st;
+  const float r = rsqrt_f(fmaxf(nn, 1e-30f));
+  const bool zero = nn == 0.0f;
+  *oc = zero ? cd : ct * r;
+  *os = zero ? sd : st * r;
+}
+static void cartpole(const float* p, const float* xs, const float* us, float* xn) {
+  const float g = p[0], mc = p[1], mp = p[2], l = p[3];
+  const float u = us[0];
+  const float uu = u > 100.0f ? 100.0f : (u < -100.0f ? -100.0f : u);
+  const float tm = mp + mc;
+  const float pml = mp * l;
+  const float x = xs[0], dx = xs[1], c = xs[2], s = xs[3], w = xs[4];
+  const float cart_in = (uu + pml * (w * w) * s) / tm;
+  const float th_acc = (g * s - c * cart_in) / (l * (4.0f / 3.0f - mp * (c * c) / tm));
+  const float xacc = cart_in - pml * th_acc * c / tm;
+  xn[0] = x + kDt * dx;
+  xn[1] = dx + kDt * xacc;
+  rotate_cs(c, s, kDt * w, &xn[2], &xn[3]);
+  xn[4] = w + kDt * th_acc;
+}
+static void pendulum(const float* p, const float* xs, const float* us, float* xn) {
+  const float g = p[0], m = p[1], l = p[2];
+  const float u = us[0];
+  const float uu = u > 2.0f ? 2.0f : (u < -2.0f ? -2.0f : u);
+  const float c = xs[0], s = xs[1], w = xs[2];
+  const float newdth = w + kDt * (-3.0f * g / (2.0f * l) * (-s) + 3.0f * uu / (m * (l * l)));
+  rotate_cs(c, s, newdth * kDt, &xn[0], &xn[1]);
+  xn[2] = newdth;
+}
+static void rocket(const float* p, const float* xs, const float* us, float* xn) {
+  const float Jx = p[0], Jy = p[1], Jz = p[2], mass = p[3], l = p[4];
+  float Tb[3];
+  for (int i = 0; i < 3; ++i) {
+    const float u = us[i];
+    Tb[i] = u > 400.0f ? 400.0f : (u < -400.0f ? -400.0f : u);
+  }
+  const float q0 = xs[6], q1 = xs[7], q2 = xs[8], q3 = xs[9];
+  const float w0 = xs[10], w1 = xs[11], w2 = xs[12];
+  float c[3][3];
+  c[0][0] = 1.0f - 2.0f * (q2 * q2 + q3 * q3);
+  c[0][1] = 2.0f * (q1 * q2 + q0 * q3);
+  c[0][2] = 2.0f * (q1 * q3 - q0 * q2);
+  c[1][0] = 2.0f * (q1 * q2 - q0 * q3);
+  c[1][1] = 1.0f - 2.0f * (q1 * q1 + q3 * q3);
+  c[1][2] = 2.0f * (q2 * q3 + q0 * q1);
+  c[2][0] = 2.0f * (q1 * q3 + q0 * q2);
+  c[2][1] = 2.0f * (q2 * q3 - q0 * q1);
+  c[2][2] = 1.0f - 2.0f * (q1 * q1 + q2 * q2);
+  float dx[13];
+  dx[0] = xs[3];
+  dx[1] = xs[4];
+  dx[2] = xs[5];
+  const float g[3] = {-10.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 3; ++i)
+    dx[3 + i] = (c[0][i] * Tb[0] + c[1][i] * Tb[1] + c[2][i] * Tb[2]) / mass + g[i];
+  dx[6] = 0.5f * (-w0 * q1 - w1 * q2 - w2 * q3);
+  dx[7] = 0.5f * (w0 * q0 + w2 * q2 - w1 * q3);
+  dx[8] = 0.5f * (w1 * q0 - w2 * q1 + w0 * q3);
+  dx[9] = 0.5f * (w2 * q0 + w1 * q1 - w0 * q2);
+  const float a = -0.5f * l;
+  const float tq1 = -a * Tb[2];
+  const float tq2 = a * Tb[1];
+  const float cw0 = w1 * (Jz * w2) - w2 * (Jy * w1);
+  const float cw1 = w2 * (Jx * w0) - w0 * (Jz * w2);
+  const float cw2 = w0 * (Jy * w1) - w1 * (Jx * w0);
+  dx[10] = (0.0f - cw0) / Jx;
+  dx[11] = (tq1 - cw1) / Jy;
+  dx[12] = (tq2 - cw2) / Jz;
+  for (int i = 0; i < 13; ++i) xn[i] = xs[i] + dx[i] * 0.1f;
+}
+}  // namespace legacy
+extern "C" int legacy_step(int env, const float* p, const float* x, const float* u, int B,
+                           float* xn) {
+  const int nx = env == ENV_CARTPOLE ? 5 : (env == ENV_PENDULUM ? 3 : 13);
+  const int nu = env == ENV_ROCKET ? 3 : 1;
+  for (int b = 0; b < B; ++b) {
+    if (env == ENV_CARTPOLE) legacy::cartpole(p, x + b * nx, u + b * nu, xn + b * nx);
+    else if (env == ENV_PENDULUM) legacy::pendulum(p, x + b * nx, u + b * nu, xn + b * nx);
+    else if (env == ENV_ROCKET) legacy::rocket(p, x + b * nx, u + b * nu, xn + b * nx);
+    else return 1;
+  }
+  return 0;
+}
 extern "C" int riccati_plan_host(int nx, int block, int force_global, int* out) {
   return riccati_plan(nx, block, force_global, out);
 }
@@ -355,6 +481,10 @@ def lib(tmp_path_factory):
     lib.lindx_eval.restype = I
     lib.lindx_box_step.argtypes = [I, I, I, I] + [P] * 7 + [I] + [P] * 5
     lib.lindx_box_step.restype = I
+    lib.jvp_eval.argtypes = [I, I, P, P, P, I, P, P]
+    lib.jvp_eval.restype = I
+    lib.legacy_step.argtypes = [I, P, P, P, I, P]
+    lib.legacy_step.restype = I
     return lib
 
 
@@ -937,3 +1067,122 @@ def test_device_lindx_riccati_step_matches_plain_version(lib, nx, nu, last):
     _assert_step(got, want)
     at = (np.abs(k + 0.5) < 1e-6) | (np.abs(k - 0.5) < 1e-6)
     assert at.mean() > 0.05, at.mean()
+
+
+def _jvp_case(name, B, rng):
+    """(port model, params, x [B, nx], u [B, nu], the control clamp) of a
+    device env on random f32 states: angles of norm 0.7-1.3 off the unit
+    circle, controls inside, exactly on and past the clamp (a quarter
+    each on the clamp and past it)."""
+    if name in ("cartpole", "pendulum", "pendulum_complex"):
+        dyn = cartpole.make() if name == "cartpole" else pendulum.make(simple=name == "pendulum")
+        params = (cartpole.default_params() if name == "cartpole"
+                  else pendulum.default_params() if name == "pendulum"
+                  else torch.tensor([10.0, 1.0, 1.0, 1.0, 0.1]))
+        th = rng.uniform(-np.pi, np.pi, B)
+        scale = 1.0 + 0.3 * rng.uniform(-1, 1, B)
+        cs = np.stack([np.cos(th) * scale, np.sin(th) * scale], 1)
+        x = (np.concatenate([rng.randn(B, 2), cs, rng.randn(B, 1)], 1) if name == "cartpole"
+             else np.concatenate([cs, rng.randn(B, 1)], 1))
+        lim = 100.0 if name == "cartpole" else 2.0
+    else:
+        dyn = rocket.make(normalize_quat=name == "rocket_norm")
+        params = torch.tensor([0.5, 1.2, 0.8, 1.3, 0.9])
+        x = rng.randn(B, 13)
+        lim = 400.0
+    nu = dyn.n_ctrl
+    u = 0.8 * lim * rng.uniform(-1, 1, (B, nu))
+    q = B // 4
+    u[q:2 * q] = lim * np.sign(rng.randn(q, nu))
+    u[2 * q:3 * q] = 1.5 * lim * np.sign(rng.randn(q, nu))
+    return dyn, params.numpy(), x.astype(np.float32), u.astype(np.float32), lim
+
+
+def _unclamped_kernel_step(name, dyn):
+    """The un-clamped physics in kernel form, which the jvp sweep
+    differentiates under ANALYTIC."""
+    if name == "cartpole":
+        return lambda x, u, p: cartpole._step(x, u, p, clamp_u=False, kernel=True)
+    if name == "pendulum":
+        return lambda x, u, p: pendulum._step(x, u, p, clamp_u=False, simple=True, kernel=True)
+    return dyn.step_unclamped
+
+
+@pytest.mark.parametrize("clamped", [True, False], ids=["auto_diff", "analytic"])
+@pytest.mark.parametrize("name", ["cartpole", "pendulum", "rocket", "pendulum_complex",
+                                  "rocket_norm"])
+def test_device_jvp_jac_matches_torch_jvp(lib, name, clamped):
+    """JvpJac<Env, Clamped>::jac (the jvp sweep on Duals) and the env's
+    templated step against torch.func.jvp of the port's kernel-form step
+    (the clamped step for AUTO_DIFF, the un-clamped physics otherwise) and
+    the step itself, one one-hot tangent a column: entries within 4 ulp of
+    the largest (the host build's 1/sqrtf for rsqrtf, FMA contraction and
+    libm's atan2f, sin and cos against PyTorch's). Under AUTO_DIFF a
+    control past the clamp has a column of exact zeros and one exactly on
+    it keeps the un-clamped column (torch.clamp's convention)."""
+    rng = np.random.RandomState(7)
+    B = 64
+    dyn, params, x, u, lim = _jvp_case(name, B, rng)
+    nx, nu = dyn.n_state, dyn.n_ctrl
+    xn = np.zeros((B, nx), np.float32)
+    D = np.zeros((B, nx, nx + nu), np.float32)
+    assert lib.jvp_eval(dyn.device_env, int(clamped), _ptr(params), _ptr(x), _ptr(u), B,
+                        _ptr(xn), _ptr(D)) == 0
+    tx, tu, tp = torch.from_numpy(x), torch.from_numpy(u), torch.from_numpy(params)
+    want_x = dyn.kernel_step(tx, tu, tp).numpy()
+    np.testing.assert_allclose(xn, want_x, atol=2e-6 * max(1.0, np.abs(want_x).max()), rtol=0)
+    fn = dyn.kernel_step if clamped else _unclamped_kernel_step(name, dyn)
+    want = ilqr_fused.jvp_jacobian(fn)(tx, tu, tp).numpy()
+    ulp = np.finfo(np.float32).eps * np.abs(want).max()
+    np.testing.assert_allclose(D, want, atol=4 * ulp, rtol=0)
+    q = B // 4
+    if clamped:
+        assert (D[2 * q:3 * q, :, nx:] == 0).all()
+        assert (np.abs(D[q:2 * q, :, nx:]).max(1) > 0).all()
+    else:
+        assert (np.abs(D[2 * q:3 * q, :, nx:]).max(1) > 0).all()
+
+
+@pytest.mark.parametrize("name", ["pendulum_complex", "rocket_norm"])
+def test_device_jvp_passthrough_matches_torch_jvp(lib, name):
+    """Passthrough<JvpJac<Env, true>>: the slew-rate wrapper of the complex
+    pendulum and the renormalizing rocket, its step and Jacobian against
+    the port's wrapped kernel step and its jvp sweep (the passthrough rows
+    exact)."""
+    rng = np.random.RandomState(8)
+    B = 32
+    dyn, params, x, u, lim = _jvp_case(name, B, rng)
+    aug = ctrl_passthrough.make(dyn)
+    nx, nu = aug.n_state, aug.n_ctrl
+    xa = np.concatenate([rng.uniform(-lim, lim, (B, nu)), x], 1).astype(np.float32)
+    xn = np.zeros((B, nx), np.float32)
+    D = np.zeros((B, nx, nx + nu), np.float32)
+    assert lib.jvp_eval(aug.device_env, 1, _ptr(params), _ptr(xa), _ptr(u), B, _ptr(xn),
+                        _ptr(D)) == 0
+    tx, tu, tp = torch.from_numpy(xa), torch.from_numpy(u), torch.from_numpy(params)
+    want_x = aug.kernel_step(tx, tu, tp).numpy()
+    np.testing.assert_allclose(xn, want_x, atol=2e-6 * max(1.0, np.abs(want_x).max()), rtol=0)
+    want = ilqr_fused.jvp_jacobian(aug.kernel_step)(tx, tu, tp).numpy()
+    np.testing.assert_allclose(D, want, atol=4 * np.finfo(np.float32).eps * np.abs(want).max(),
+                               rtol=0)
+    assert (D[:, :nu, :nx] == 0).all() and (D[:, :nu, nx:] == np.eye(nu)).all()
+
+
+@pytest.mark.parametrize("name", ["cartpole", "pendulum", "rocket"])
+def test_templated_float_step_keeps_its_bits(lib, name):
+    """step<float> of the templated envs gives the bits of the float steps
+    as they were written before the templating (the same expressions,
+    kept in the shim), on states and controls inside, on and past the
+    clamp and the degenerate angle (0, 0)."""
+    rng = np.random.RandomState(9)
+    B = 256
+    dyn, params, x, u, _ = _jvp_case(name, B, rng)
+    if name != "rocket":
+        x[0, slice(2, 4) if name == "cartpole" else slice(0, 2)] = 0.0
+    nx = dyn.n_state
+    got = np.zeros((B, nx), np.float32)
+    D = np.zeros((B, nx, nx + dyn.n_ctrl), np.float32)
+    lib.env_eval(dyn.device_env, _ptr(params), _ptr(x), _ptr(u), B, _ptr(got), _ptr(D))
+    want = np.zeros((B, nx), np.float32)
+    assert lib.legacy_step(dyn.device_env, _ptr(params), _ptr(x), _ptr(u), B, _ptr(want)) == 0
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

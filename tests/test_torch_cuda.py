@@ -194,7 +194,7 @@ def test_cluster_launch_geometry(dev):
 
 def test_rocket_solve_dispatches_to_the_kernel(dev):
     """MPC with the rocket's [3] bounds and a warm start goes through the
-    kernel once; backend="cuda" refuses the uncovered normalize_quat=True."""
+    kernel once; backend="cuda" refuses the uncovered qp_solver "pnqp"."""
     dyn, params = rocket.make(), rocket.default_params(device=dev)
     q, p = rocket.get_true_obj(device=dev)
     x0 = torch.from_numpy(bench_start(1024, 4)).to(dev)
@@ -207,8 +207,9 @@ def test_rocket_solve_dispatches_to_the_kernel(dev):
     assert fused.LAUNCHES == before + 1
     assert u.shape == (1024, 10, 3) and u.is_cuda and torch.isfinite(costs).all()
     bad = P.MPC(13, 3, 10, u_lower=dyn.lower, u_upper=dyn.upper, backprop=False, backend="cuda")
+    bad.cfg = dataclasses.replace(bad.cfg, qp_solver="pnqp")
     with pytest.raises(ValueError, match="not covered"):
-        bad(x0, P.QuadCost(torch.diag(q), p), rocket.make(normalize_quat=True), params=params)
+        bad(x0, P.QuadCost(torch.diag(q), p), dyn, params=params)
 
 
 def test_solve_dispatches_to_the_kernel(dev):
@@ -326,7 +327,7 @@ def test_variant_solves_launch_the_kernel(dev):
     """backend="cuda" launches the whole-solve kernel once a solve on the
     MPC variants -- the slew rate (no Riccati launch), u_zero_I with
     delta_u, a per-example cost with per-time bounds -- and still refuses
-    the slew rate of the complex pendulum (no device code)."""
+    the slew rate of the learned MLP (no device code)."""
     dyn, params = cartpole.make(), cartpole.default_params(device=dev)
     q, p = cartpole.get_true_obj(device=dev)
     gen = torch.Generator().manual_seed(8)
@@ -352,13 +353,13 @@ def test_variant_solves_launch_the_kernel(dev):
         assert fused.LAUNCHES == before + 1 and riccati_fused.LAUNCHES == ric_before
         assert u.shape == (B, T, 1) and torch.isfinite(costs).all()
     assert u.abs().max().item() <= hi_t.max().item() + 1e-6
-    pd = pendulum.make(simple=False)
-    bad = P.MPC(pd.n_state, 1, T, u_lower=-2.0, u_upper=2.0, slew_rate_penalty=1.0, **kw)
-    xp = torch.zeros(8, pd.n_state, device=dev)
+    mlp = nn_dynamics.make(5, 1)
+    ws = nn_dynamics.init_params(5, 1, (8,), generator=torch.Generator().manual_seed(0),
+                                 device=dev)
+    bad = P.MPC(5, 1, T, u_lower=-2.0, u_upper=2.0, slew_rate_penalty=1.0, **kw)
     with pytest.raises(ValueError, match="not covered"):
-        bad(xp, P.QuadCost(torch.eye(pd.n_state + 1, device=dev),
-                           torch.zeros(pd.n_state + 1, device=dev)), pd,
-            params=pendulum.default_params(simple=False, device=dev))
+        bad(x0[:8], P.QuadCost(torch.eye(6, device=dev), torch.zeros(6, device=dev)), mlp,
+            params=ws)
 
 
 def _kkt_problem(dev, nx, nu, T, B, seed):
@@ -885,3 +886,188 @@ def test_lindx_ift_gradient_launches_both_kernels(dev):
     for a, b in zip(g, g_ref):
         assert torch.isfinite(a).all() and a.abs().max().item() > 0
         assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+# the jvp sweep (JvpJac, csrc/ilqr_jvp.cu): (env, method)
+JVP_CASES = (("cartpole", "AUTO_DIFF"), ("pendulum", "AUTO_DIFF"), ("rocket", "AUTO_DIFF"),
+             ("complex pendulum", "ANALYTIC"), ("complex pendulum", "AUTO_DIFF"),
+             ("rocket normalize_quat", "ANALYTIC"), ("rocket normalize_quat", "AUTO_DIFF"))
+IL_PARAMS = (10.0, 1.0, 1.0, 1.0, 0.1)  # il/env.py "pendulum-complex"
+
+
+def _jvp_problem(dev, env, method, B=1030, T=12):
+    """(cfg, dyn, params, x0, cost, lo, hi) of one jvp-sweep case: the env's
+    box (the pendulums' is their torque clamp), eps=0 and 4 iterations."""
+    if env.startswith("rocket"):
+        dyn = rocket.make(normalize_quat=env.endswith("normalize_quat"))
+        params = rocket.default_params(device=dev)
+        q, p = rocket.get_true_obj(device=dev)
+        x0 = torch.from_numpy(bench_start(B, 9)).to(dev)
+    else:
+        gen = torch.Generator().manual_seed(10)
+        th = 0.5 * torch.randn(B, generator=gen) + (3.0 if env == "cartpole" else 0.0)
+        z = torch.zeros(B)
+        if env == "cartpole":
+            dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+            q, p = cartpole.get_true_obj(device=dev)
+            x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1)
+        else:
+            dyn = pendulum.make(simple=env == "pendulum")
+            params = (pendulum.default_params(device=dev) if env == "pendulum"
+                      else torch.tensor(IL_PARAMS, device=dev))
+            q, p = pendulum.get_true_obj(device=dev)
+            x0 = torch.stack([th.cos(), th.sin(), z], 1)
+        x0 = x0.to(dev)
+    cfg = P.ILQRConfig(n_state=dyn.n_state, n_ctrl=dyn.n_ctrl, T=T, lqr_iter=4, eps=0.0,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter,
+                       grad_method=P.GradMethod[method], backprop=False)
+    lo, hi = dyn.lower, dyn.upper
+    if isinstance(lo, torch.Tensor):
+        lo, hi = lo.to(dev), hi.to(dev)
+    return cfg, dyn, params, x0, (torch.diag(q), p), lo, hi
+
+
+@pytest.mark.parametrize("slew", [False, True], ids=["plain", "slew"])
+@pytest.mark.parametrize("env,method", JVP_CASES)
+def test_jvp_kernel_matches_plain_version(dev, env, method, slew):
+    """The jvp sweep's kernel (csrc/ilqr_jvp.cu) against its plain version
+    (a batched torch.func.jvp a column) on the same CUDA inputs, one launch,
+    the same bits at every cluster size its library has; with slew the
+    slew-rate wrapper Passthrough<JvpJac<Env>> through augment_slew_rate."""
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+
+    cfg, dyn, params, x0, cost, lo, hi = _jvp_problem(dev, env, method)
+    if slew:
+        B, T, n = x0.shape[0], cfg.T, cfg.n_state + cfg.n_ctrl
+        cfg, a_cost, dyn, params, x0 = augment_slew_rate(
+            dataclasses.replace(cfg, slew_rate_penalty=1.0),
+            canonicalize_cost(P.QuadCost(*cost), T, B, n), dyn, params, x0, None)
+        cost = (a_cost.C, a_cost.c)
+    assert fused.uses_jvp(cfg.grad_method, dyn.device_env)
+    args = (cfg, dyn, params, x0, cost, None, lo, hi)
+    before = fused.LAUNCHES
+    k = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    _assert_variant(k, fused.ilqr_fused_reference(*args), cfg)
+    for G in fused.clusters(dyn.device_env):
+        assert all(torch.equal(a, b) for a, b in zip(fused.ilqr_fused(*args, cluster=G), k))
+
+
+def test_jvp_solves_launch_the_kernel_and_refuse_the_rest(dev):
+    """backend="cuda" launches the whole-solve kernel once a solve on the
+    complex pendulum (MPC, ANALYTIC), cartpole under AUTO_DIFF and the
+    renormalizing rocket under AUTO_DIFF, no Riccati launch; it refuses
+    FINITE_DIFF, f64 and qp_solver "pnqp" on the complex pendulum."""
+    pc = pendulum.make(simple=False)
+    params = torch.tensor(IL_PARAMS, device=dev)
+    q, p = pendulum.get_true_obj(device=dev)
+    B, T = 1024, 10
+    gen = torch.Generator().manual_seed(11)
+    th = 1.5 * torch.randn(B, generator=gen)
+    x0 = torch.stack([th.cos(), th.sin(), torch.zeros(B)], 1).to(dev)
+    cost = P.QuadCost(torch.diag(q), p)
+    kw = dict(u_lower=-2.0, u_upper=2.0, lqr_iter=5, eps=1e-3, backprop=False,
+              exit_unconverged=False, backend="cuda")
+    runs = [(P.MPC(3, 1, T, **kw), x0, cost, pc, params)]
+    cp_q, cp_p = cartpole.get_true_obj(device=dev)
+    z = torch.zeros(B)
+    xc = torch.stack([z, z, (3.0 + th).cos(), (3.0 + th).sin(), z], 1).to(dev)
+    runs.append((P.MPC(5, 1, T, **dict(kw, u_lower=-10.0, u_upper=10.0),
+                       grad_method=P.GradMethod.AUTO_DIFF), xc,
+                 P.QuadCost(torch.diag(cp_q), cp_p), cartpole.make(),
+                 cartpole.default_params(device=dev)))
+    r_q, r_p = rocket.get_true_obj(device=dev)
+    runs.append((P.MPC(13, 3, T, **dict(kw, u_lower=-20.0, u_upper=20.0),
+                       grad_method=P.GradMethod.AUTO_DIFF),
+                 torch.from_numpy(bench_start(B, 11)).to(dev), P.QuadCost(torch.diag(r_q), r_p),
+                 rocket.make(normalize_quat=True), rocket.default_params(device=dev)))
+    for mpc, x, c, dyn, prm in runs:
+        before, ric_before = fused.LAUNCHES, riccati_fused.LAUNCHES
+        xs, us, costs = mpc(x, c, dyn, params=prm)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + 1 and riccati_fused.LAUNCHES == ric_before
+        assert torch.isfinite(costs).all() and us.shape == (B, T, dyn.n_ctrl)
+    for change in (dict(grad_method=P.GradMethod.FINITE_DIFF), dict(qp_solver="pnqp")):
+        bad = P.MPC(3, 1, T, **kw)
+        bad.cfg = dataclasses.replace(bad.cfg, **change)
+        with pytest.raises(ValueError, match="not covered"):
+            bad(x0, cost, pc, params=params)
+    with pytest.raises(ValueError, match="not covered"):
+        P.MPC(3, 1, T, **kw)(x0.double(), P.QuadCost(torch.diag(q).double(), p.double()), pc,
+                             params=params.double())
+
+
+def test_jvp_ift_gradient_launches_both_kernels(dev):
+    """The AUTO_DIFF IFT gradient of the complex pendulum with respect to
+    its params: the whole-solve kernel forward (the jvp sweep), the KKT
+    kernel at (3,1) backward, within 1e-3 (relative to the largest entry)
+    of the plain backward's."""
+    cfg, dyn, params, x0, cost, lo, hi = _jvp_problem(dev, "complex pendulum", "AUTO_DIFF",
+                                                      B=1024)
+    cfg = dataclasses.replace(cfg, eps=1e-3, lqr_iter=8, backprop=True, detach_unconverged=False,
+                              backward_mode=P.BackwardMode.IFT)
+
+    def grad(c):
+        pr = params.clone().requires_grad_(True)
+        res = P.solve(c, x0, P.QuadCost(*cost), dyn, params=pr, u_lower=lo, u_upper=hi)
+        return torch.autograd.grad((res.u ** 2).mean(), pr)[0]
+
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+    g = grad(cfg)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before[0] + 1 and kkt_fused.LAUNCHES > before[1]
+    g_ref = grad(dataclasses.replace(cfg, backward_backend="torch"))
+    assert torch.isfinite(g).all() and g.abs().max().item() > 0
+    assert (g - g_ref).abs().max().item() <= 1e-3 * g_ref.abs().max().item()
+
+
+def _profiled(fn):
+    """The device events of fn in a window utils/profiling.profiled opens."""
+    from dilqr_tpu_torch.utils.profiling import device_events, profiled
+
+    with profiled() as prof:
+        fn()
+    return device_events(prof)
+
+
+def test_profiler_records_every_kernel_launch(dev):
+    """utils/profiling.profiled opens a window in which the device events
+    (device_events) hold every whole-solve launch the wrapper counted, under
+    the kernel's name: a burst of 20 launches, and the one-call window of
+    an MPC call on a LinDx problem (phase 8's), whose one launch and the
+    host's lanes transposes the profile must show."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(14)
+    th = 3.0 + 0.2 * torch.randn(4096, generator=gen)
+    z = torch.zeros(4096)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=20, lqr_iter=5, eps=1e-4, backprop=False)
+    call = lambda: fused.ilqr_fused(cfg, dyn, params, x0, (torch.diag(q), p), None,  # noqa: E731
+                                    -100.0, 100.0)
+    call()
+    torch.cuda.synchronize()
+
+    def burst():
+        for _ in range(20):
+            call()
+
+    before = fused.LAUNCHES
+    events = _profiled(burst)
+    assert fused.LAUNCHES - before == 20
+    assert sum("ilqr_fused_kernel" in e.name for e in events) == 20
+
+    C, c, F, f, xl, _ = _lqr_problem(gen, 10, 4096, 3, 2, dev, torch.float32)
+    bm = lambda a: a.transpose(0, 1)  # noqa: E731
+    mpc = P.MPC(3, 2, 10, u_lower=-0.5, u_upper=0.5, lqr_iter=8, eps=1e-4, backprop=False,
+                exit_unconverged=False)
+    cost, lin = P.QuadCost(bm(C), bm(c)), P.LinDx(bm(F), bm(f))
+    mpc(xl, cost, lin)
+    torch.cuda.synchronize()
+    before = fused.LAUNCHES
+    events = _profiled(lambda: mpc(xl, cost, lin))
+    assert fused.LAUNCHES - before == 1
+    assert sum("ilqr_fused_kernel" in e.name for e in events) == 1
+    assert len(events) > 1

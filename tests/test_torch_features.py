@@ -307,9 +307,11 @@ def test_ctrl_passthrough_steps_the_augmented_state():
     dyn = tpend.make()
     aug = ctrl_passthrough.make(dyn)
     # the simple pendulum's wrapper has device code (Passthrough<Pendulum>,
-    # ENV_PENDULUM_SLEW in csrc/ilqr_fused.cuh); the complex pendulum's none
+    # ENV_PENDULUM_SLEW in csrc/ilqr_fused.cuh); so has the complex
+    # pendulum's (ENV_PENDULUM_COMPLEX_SLEW), with no hand Jacobian
     assert (aug.n_state, aug.n_ctrl, aug.device_env) == (4, 1, 4)
-    assert ctrl_passthrough.make(tpend.make(simple=False)).device_env is None
+    aug_c = ctrl_passthrough.make(tpend.make(simple=False))
+    assert (aug_c.device_env, aug_c.jac_lanes) == (8, None)
     p = tpend.default_params(dtype=F64)
     xa = torch.tensor([[0.3, 1.0, 0.0, 0.2]], dtype=F64)
     u = torch.tensor([[0.7]], dtype=F64)

@@ -189,9 +189,11 @@ def test_cpu_tensors_take_the_plain_version():
     assert cov(du=torch.tensor(0.4)) and not cov(du=torch.tensor([0.4]))
     assert not cov(lo=torch.zeros(7, 5, 1), hi=torch.ones(7, 5, 1))  # another T
     assert not cov(cfg=dataclasses.replace(cfg, qp_solver="pnqp"))
-    assert not cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.AUTO_DIFF))
-    assert not cov(dyn=tpend.make(simple=False), params=tpend.default_params(simple=False),
-                   cfg=dataclasses.replace(cfg, n_state=3))
+    # the jvp sweep: AUTO_DIFF, and the complex pendulum (no hand Jacobian)
+    assert cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.AUTO_DIFF))
+    assert cov(dyn=tpend.make(simple=False), params=tpend.default_params(simple=False),
+               cfg=dataclasses.replace(cfg, n_state=3))
+    assert not cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.FINITE_DIFF))
     assert cov(dyn=tpend.make(), params=tpend.default_params(),
                cfg=dataclasses.replace(cfg, n_state=3))
 

@@ -18,10 +18,13 @@ Tolerances are tests/test_torch_ilqr_fused.py's: u 2e-3, x 5e-3, costs
 rtol/atol 1e-5, n_iter equal; eps=0 and a few iterations, short of the
 f32 forks of a converged line search (ROADMAP C). Also the gate: the
 port's ``covered`` against JAX's ``fused_supported`` and ``lane_compatible``
-on each of these configurations and on LinDx problems (since they reach
-the kernel), and on the ones the port still refuses (a callable cost, the
-complex pendulum, the rocket with normalize_quat=True), where JAX admits
-them: the ROADMAP's listed gap (queue B, item 4)."""
+on each of these configurations, on LinDx problems and on the jvp sweep's
+(GradMethod.AUTO_DIFF on every env, the complex pendulum and the rocket
+with normalize_quat=True under both methods, and slew rates of these),
+since they reach the kernel; and on the ones the port still refuses where
+JAX admits them (a callable cost, the small MLP whose weights JAX flattens
+into its kernel's scalars): the ROADMAP's listed gap (queue B, items 2-3)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,15 +34,17 @@ import dilqr_tpu as J
 from dilqr_tpu.core.solver import augment_slew_rate as j_augment
 from dilqr_tpu.core.solver import canonicalize_cost as j_canonicalize_cost
 from dilqr_tpu.models import cartpole as jcart
+from dilqr_tpu.models import nn_dynamics as jnn
 from dilqr_tpu.models import pendulum as jpend
 from dilqr_tpu.models import rocket as jrock
 from dilqr_tpu.models.base import Dynamics as JDynamics
-from dilqr_tpu.ops.pallas.ilqr_fused import (cost_lane_compatible, fused_supported,
-                                             lane_compatible)
+from dilqr_tpu.ops.pallas.ilqr_fused import (_flatten_pytree_params, cost_lane_compatible,
+                                             fused_supported, lane_compatible)
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
 from dilqr_tpu_torch.models import cartpole as tcart
+from dilqr_tpu_torch.models import nn_dynamics as tnn
 from dilqr_tpu_torch.models import pendulum as tpend
 from dilqr_tpu_torch.models import rocket as trock
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
@@ -224,11 +229,14 @@ def test_slew_rate(name, B, T, lqr_iter):
 
 
 def _gates(cfg_kw, jdyn, tdyn, params, cost_small=True, uz=None, du=None, lo=None, hi=None,
-           dtype=np.float32, qp_solver="auto", callable_cost=False):
+           dtype=np.float32, qp_solver="auto", callable_cost=False, auto_diff=False):
     """(JAX's fused_supported and lane_compatible, the port's covered) on
-    one configuration; cost_small False is the per-example cost."""
+    one configuration; cost_small False is the per-example cost, auto_diff
+    GradMethod.AUTO_DIFF (else ANALYTIC)."""
     kw = dict(cfg_kw, qp_solver=qp_solver)
-    jcfg, tcfg = J.ILQRConfig(**kw), P.ILQRConfig(**kw)
+    jm, tm = ((J.GradMethod.AUTO_DIFF, P.GradMethod.AUTO_DIFF) if auto_diff
+              else (J.GradMethod.ANALYTIC, P.GradMethod.ANALYTIC))
+    jcfg, tcfg = J.ILQRConfig(grad_method=jm, **kw), P.ILQRConfig(grad_method=tm, **kw)
     n, nu = kw["n_state"] + kw["n_ctrl"], kw["n_ctrl"]
     jcost = (lambda tau, p: 0.5 * (tau * tau).sum(0)) if callable_cost \
         else J.QuadCost(jnp.eye(n), jnp.zeros(n))
@@ -258,11 +266,11 @@ def _gates(cfg_kw, jdyn, tdyn, params, cost_small=True, uz=None, du=None, lo=Non
     return bool(j_ok), bool(t_ok)
 
 
-def _slew_dyns(name, T, B):
-    """The augmented (Passthrough) models of JAX and the port."""
-    jm, tm = ENVS[name]
-    jdyn, tdyn = jm.make(), tm.make()
-    params = np.asarray(jm.default_params())
+def _slew_dyns(name, T, B, models=None):
+    """The augmented (Passthrough) models of JAX and the port; models: the
+    (JAX model, port model, params) to wrap, by default the env's."""
+    jm, tm = ENVS.get(name, (None, None))
+    jdyn, tdyn, params = models or (jm.make(), tm.make(), np.asarray(jm.default_params()))
     n = jdyn.n_state + jdyn.n_ctrl
     kw = dict(n_state=jdyn.n_state, n_ctrl=jdyn.n_ctrl, T=T, slew_rate_penalty=1.0)
     x0 = np.zeros((B, jdyn.n_state), np.float32)
@@ -280,9 +288,11 @@ def test_covered_agrees_with_jax_gate():
     """The port's gate equals JAX's (fused_supported and lane_compatible)
     on every variant the port takes, and on refusals both make, a LinDx
     problem's included (tests/test_torch_ilqr_lindx.py holds its whole
-    table); on a callable cost, the complex pendulum and the rocket with
-    normalize_quat=True JAX's kernel admits them (its jvp sweep) and the
-    port still refuses them: the gap ROADMAP queue B item 4 lists."""
+    table); the jvp sweep's configurations agree too (AUTO_DIFF on every
+    env, the complex pendulum and the rocket with normalize_quat=True under
+    both methods, their slew rates). A callable cost and the small MLP
+    (hidden (8,), tests/test_fused_nn_dynamics.py:25) JAX's kernel admits
+    and the port still refuses: the gap ROADMAP queue B items 2-3 list."""
     T, B = 6, 4
     rows = []
     for name in ("cartpole", "pendulum", "rocket"):
@@ -325,19 +335,49 @@ def test_covered_agrees_with_jax_gate():
         tlin = P.LinDx(torch.zeros(T - 1, B, nx, n), torch.zeros(T - 1, B, nx) if f else None)
         rows.append((label, *_gates(dict(n_state=nx, n_ctrl=nu, T=T), jlin, tlin,
                                     np.zeros(1), **extra)))
+    # the jvp sweep: every env under AUTO_DIFF, the complex pendulum and the
+    # renormalizing rocket (no hand Jacobian) under both methods, and the
+    # slew rate of one env under AUTO_DIFF and of both new envs
+    jvp_envs = [("complex pendulum", jpend.make(simple=False), tpend.make(simple=False),
+                 np.asarray(jpend.default_params(simple=False))),
+                ("rocket normalize_quat", jrock.make(normalize_quat=True),
+                 trock.make(normalize_quat=True), np.asarray(jrock.default_params()))]
+    jvp_envs += [(name, jm.make(), tm.make(), np.asarray(jm.default_params()))
+                 for name, (jm, tm) in ENVS.items()]
+    for label, jd, td, pp in jvp_envs:
+        kw = dict(n_state=jd.n_state, n_ctrl=jd.n_ctrl, T=T)
+        for auto in (False, True):
+            method = "AUTO_DIFF" if auto else "ANALYTIC"
+            rows.append((f"{label} {method}", *_gates(kw, jd, td, pp, lo=-1.0, hi=1.0,
+                                                      auto_diff=auto)))
+        rows.append((f"{label} AUTO_DIFF per-example cost f64",
+                     *_gates(kw, jd, td, pp, cost_small=False, auto_diff=True,
+                             dtype=np.float64)))
+        if label in ("complex pendulum", "rocket normalize_quat", "cartpole"):
+            skw, jaug, taug, _ = _slew_dyns(label, T, B, models=(jd, td, pp))
+            rows.append((f"{label} slew rate AUTO_DIFF",
+                         *_gates(skw, jaug, taug, pp, cost_small=False, lo=-1.0, hi=1.0,
+                                 auto_diff=True)))
+            rows.append((f"{label} slew rate ANALYTIC",
+                         *_gates(skw, jaug, taug, pp, cost_small=False, lo=-1.0, hi=1.0)))
     for label, j_ok, t_ok in rows:
         want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate"))
         assert (j_ok, t_ok) == (want, want), label
 
     # the port's listed gap: JAX admits, the port refuses
     gap = []
-    jp, tp = jpend.make(simple=False), tpend.make(simple=False)
-    pp = np.asarray(jpend.default_params(simple=False))
-    gap.append(("complex pendulum", *_gates(dict(n_state=jp.n_state, n_ctrl=1, T=T), jp, tp,
-                                            pp)))
-    jr, tr = jrock.make(normalize_quat=True), trock.make(normalize_quat=True)
-    gap.append(("rocket normalize_quat", *_gates(dict(n_state=13, n_ctrl=3, T=T), jr, tr,
-                                                 np.asarray(jrock.default_params()))))
+    # the small MLP, its weights flattened into JAX's kernel scalars
+    # (ROADMAP B2); the port's MLP has no device code
+    jmlp, tmlp = jnn.make(3, 1, hidden_sizes=(8,)), tnn.make(3, 1, hidden_sizes=(8,))
+    flat = _flatten_pytree_params(jnn.init_params(jax.random.PRNGKey(0), 3, 1, (8,)))
+    kw = dict(n_state=3, n_ctrl=1, T=T)
+    j_ok = fused_supported(J.ILQRConfig(**kw), J.QuadCost(jnp.eye(4), jnp.zeros(4)), jmlp, flat,
+                           None, None, jnp.float32, cost_small=(jnp.eye(4), jnp.zeros(4)),
+                           u_lower=-1.0, u_upper=1.0) and lane_compatible(jmlp, flat, 3, 1)
+    t_ok = fused.covered(P.ILQRConfig(**kw), tmlp,
+                         tnn.init_params(3, 1, (8,), generator=torch.Generator().manual_seed(0)),
+                         torch.float32, (torch.eye(4), torch.zeros(4)), None, None, -1.0, 1.0)
+    gap.append(("small MLP", bool(j_ok), bool(t_ok)))
     jdyn = jcart.make()
     cp = np.asarray(jcart.default_params())
     gap.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jdyn, tcart.make(),

@@ -226,10 +226,11 @@ def test_reference_decides_per_1024_tile_with_three_controls():
 
 
 def test_covered_rocket_configurations():
-    """The kernel takes the rocket with normalize_quat=False, ANALYTIC,
-    qp_solver "auto", static bounds (None, a scalar or [3]) or per-time
-    ones, f32; not normalize_quat=True, qp_solver "pnqp", bounds of
-    another T or control count, or f64."""
+    """The kernel takes the rocket with normalize_quat False or True (the
+    jvp sweep's RocketNorm), ANALYTIC or AUTO_DIFF, qp_solver "auto",
+    static bounds (None, a scalar or [3]) or per-time ones, f32; not
+    qp_solver "pnqp", FINITE_DIFF, bounds of another T or control count, or
+    f64."""
     dyn, params = tr.make(), tr.default_params()
     q, p = tr.get_true_obj()
     cfg = P.ILQRConfig(n_state=13, n_ctrl=3, T=6, backprop=False)
@@ -238,7 +239,9 @@ def test_covered_rocket_configurations():
         return fused.covered(cfg, dyn, params, dtype, (torch.diag(q), p), None, None, lo, hi)
 
     assert cov() and cov(lo=-1.0, hi=1.0) and cov(lo=None, hi=None)
-    assert not cov(dyn=tr.make(normalize_quat=True))
+    assert cov(dyn=tr.make(normalize_quat=True))
+    assert cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.AUTO_DIFF))
+    assert not cov(cfg=dataclasses.replace(cfg, grad_method=P.GradMethod.FINITE_DIFF))
     assert not cov(cfg=dataclasses.replace(cfg, qp_solver="pnqp"))
     assert cov(lo=-torch.ones(6, 1, 3), hi=torch.ones(6, 1, 3))
     assert not cov(lo=-torch.ones(7, 1, 3), hi=torch.ones(7, 1, 3))
