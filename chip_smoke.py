@@ -133,12 +133,19 @@ import time
 
 SEED = 0
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+FP64_PEAK = 34e12  # H100 SXM float64 outside the tensor cores, FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 
 
 def fail(msg: str):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def fmt_ms(ms: float) -> str:
+    """A profiler reading in milliseconds, or "not measured" where the
+    window lost a launch (utils/profiling.kernel_ms gives NaN)."""
+    return "not measured" if math.isnan(ms) else f"{ms:.4f} ms"
 
 
 def card_line() -> str:
@@ -688,12 +695,10 @@ def main():
     print(f"time receding_horizon cartpole B=1024: {statistics.median(t_rh):.3f} ms per step, "
           f"median of 3 episodes of 5 steps (host clock) [{card}]", flush=True)
     x0 = cartpole_x0(4096)
-    # one run: the plain version takes seconds, and the script's time limit
-    # is fixed
     plain_ms, runs = cuda_ms(lambda: fused.ilqr_fused_reference(
-        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 0, 1)
+        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 1, 3)
     print(f"time ilqr_fused_reference (plain) cartpole B=4096: {plain_ms:.1f} ms "
-          f"(one run) [{card}]", flush=True)
+          f"median of 3 [{card}]", flush=True)
 
     # bound: bench.py's FLOP model of the solve (per example, per step, per
     # iteration) times the iterations this run's tiles ran, over the
@@ -769,8 +774,8 @@ def main():
                     r_dyn.lower, r_dyn.upper), r_ms[1024])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
-        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 0, 1)
-    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms (one run) "
+        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)
+    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms median of 3 "
           f"[{card}]", flush=True)
     r_flops, r_bytes, counts = rocket_work(torch, fused, r_cfg, r_dyn, r_params, x0, r_cs)
     r_bound = max(r_flops / FP32_PEAK, r_bytes / HBM_RATE) * 1e3
@@ -1031,7 +1036,7 @@ def kkt_times(torch, kkt, card, bench, rocket_case, train, rk, gen):
         print(f"time kkt_fused {label} T={ops.T}: Ff call {ff_ms:.4f} ms median of {len(runs)} "
               f"({', '.join(f'{x:.4f}' for x in runs)}), full call {full_ms:.4f} ms; the "
               f"kernel alone (profiler, mean of the {n_ff} and {n_full} launches it recorded "
-              f"of 20) Ff {ff_dev:.4f} ms, full {full_dev:.4f} ms; plain version (Ff) "
+              f"of 20) Ff {fmt_ms(ff_dev)}, full {fmt_ms(full_dev)}; plain version (Ff) "
               f"{plain_ms:.3f} ms; {p['L']} lanes, "
               f"{p['teams']} teams a block, {p['smem']} shared bytes a block [{card}]", flush=True)
         print(f"bound kkt_fused {label}: Ff {bounds[0][0]:.4e} FLOP, {bounds[0][1]} bytes -> "
@@ -1317,7 +1322,9 @@ def profile_step(torch, label, fn, counted=None):
     six kernels with the most device time and the five host operators with
     the most self time. counted: (wrapper module, kernel name) whose launch
     counter the recorded launches are printed beside; a window that records
-    fewer is opened again, up to three in all.
+    fewer is opened again, up to utils/profiling.WINDOW_TRIES in all, and
+    if the last is short too, its busy time and idle share are printed as
+    not measured.
 
     Busy time is the union of the device activities' intervals. Only the
     activities themselves count: the profiler also gives each host operator
@@ -1326,10 +1333,12 @@ def profile_step(torch, label, fn, counted=None):
     Reports, never fails: nothing else relies on the profiler."""
     from torch.autograd import DeviceType
 
-    from dilqr_tpu_torch.utils.profiling import WINDOW, busy_ms, device_events, profiled
+    from dilqr_tpu_torch.utils.profiling import (WINDOW, WINDOW_TRIES, busy_ms, device_events,
+                                                 profiled)
 
     fn()
-    for attempt in range(1, 4):  # a window that lost a counted launch is opened again
+    complete = True
+    for attempt in range(1, WINDOW_TRIES + 1):
         before = counted[0].LAUNCHES if counted else 0
         with profiled() as prof:
             t1 = time.perf_counter()
@@ -1341,16 +1350,18 @@ def profile_step(torch, label, fn, counted=None):
             seen = sum(counted[1] in e.name for e in device)
             print(f"profile {label}: window {attempt}: {seen} {counted[1]} launches recorded "
                   f"of the {counted[0].LAUNCHES - before} its wrapper counted", flush=True)
-        if not counted or seen >= counted[0].LAUNCHES - before:
+        complete = not counted or seen >= counted[0].LAUNCHES - before
+        if complete:
             break
     busy = busy_ms(device)
     by_name = {}
     for e in device:
         ms, count = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, count + 1)
-    print(f"profile {label}: wall {wall:.2f} ms under the profiler, device busy {busy:.2f} ms "
-          f"(idle share {1.0 - busy / wall:.3f}), {len(device)} device kernels and copies",
-          flush=True)
+    share = (f"device busy {busy:.2f} ms (idle share {1.0 - busy / wall:.3f})" if complete else
+             f"device busy and idle share not measured (the last window lost a launch)")
+    print(f"profile {label}: wall {wall:.2f} ms under the profiler, {share}, {len(device)} "
+          f"device kernels and copies", flush=True)
     for key, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"profile {label}:   {ms:8.3f} ms  x{count:<5d} {key[:110]}", flush=True)
     # the host operators of the call: those from the window's mark on
@@ -1755,7 +1766,7 @@ def riccati_times(torch, P, dev, gen, ric, card, cfg, dyn, params, cost, mp, err
             p = ric.plan(nx, B)
             print(f"time riccati_fused B={B} T={T} nx={nx} box {form}: call {ms:.4f} ms median "
                   f"of {len(runs)} ({', '.join(f'{r:.4f}' for r in runs)}); the kernel alone "
-                  f"{k_ms:.4f} ms (profiler, mean of the {seen} launches it recorded of 20); "
+                  f"{fmt_ms(k_ms)} (profiler, mean of the {seen} launches it recorded of 20); "
                   f"device operations a call: {1 if seen else 'not seen'} (no other device "
                   f"activity recorded); {p['L']} lanes, {p['teams']} teams a block, "
                   f"{p['smem']} shared bytes a block [{card}]", flush=True)
@@ -2414,6 +2425,15 @@ def lindx_ptxas(fused, reports):
                  f"{len(fused.lindx_clusters(nx, nu))}")
 
 
+def riccati_trial_flops(nx, nu):
+    """FP32 operations of one Riccati step (V F, F^T V F on a triangle,
+    C tau + c, F^T v, the gains and the V/v update) and of one line-search
+    trial without its step (K dx, the objective), per example."""
+    n = nx + nu
+    return (2 * nx * nx * n + nx * n * (n + 1) + 2 * n * n + 2 * nx * n
+            + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3 + 2 * nu * nx + 2 * n * n + 3 * n)
+
+
 def lindx_bound(fused, cfg, B, cost, dyn, lo, hi, kw, tile_iters):
     """The least time of one LinDx solve: (ms, "bytes" or "operations",
     FLOP, bytes). Bytes: each input read once (x_init, the cost in its
@@ -2429,9 +2449,7 @@ def lindx_bound(fused, cfg, B, cost, dyn, lo, hi, kw, tile_iters):
     by = 4 * B * nx + sum(4 * a.numel() for a in ins)
     by += T * B * nu if kw.get("u_zero_I") is not None else 0
     by += 4 * (T * B * n + 2 * B)
-    per_t = (2 * nx * nx * n + nx * n * (n + 1) + 2 * n * n + 2 * nx * n
-             + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3
-             + 2 * nu * nx + 2 * nx * n + 2 * n * n + 3 * n)
+    per_t = riccati_trial_flops(nx, nu) + 2 * nx * n  # the step F tau
     flops = per_t * T * sum(it * min(fused.TILE, B - g * fused.TILE)
                             for g, it in enumerate(tile_iters))
     t_ops, t_by = flops / FP32_PEAK * 1e3, by / HBM_RATE * 1e3
@@ -2670,16 +2688,12 @@ def lindx_paths(torch, P, dev, kernels, card, fused, gen):
     return total, worst, cases, figures
 
 
-# phase 9: the device envs by id (csrc/ilqr_fused.cuh EnvId), and the
-# floating-point operations of one float evaluation of each base env's step,
-# counted from csrc/ilqr_fused.cuh (cos_sin's double-precision polynomial as
-# 30, atan2f as 20, a division or a square root as one)
+# phase 9: the device envs by id (csrc/ilqr_fused.cuh EnvId)
 JVP_ENV_NAMES = {0: "cartpole", 1: "pendulum", 2: "rocket", 3: "cartpole slew",
                  4: "pendulum slew", 5: "rocket slew", 6: "complex pendulum",
                  7: "rocket normalize_quat", 8: "complex pendulum slew",
                  9: "rocket normalize_quat slew"}
 JVP_SLEW_BASE = {3: 0, 4: 1, 5: 2, 8: 6, 9: 7}
-STEP_FLOPS = {0: 70, 1: 50, 2: 110, 6: 95, 7: 125}
 # the whole-solve kernel in a jvp library, as <NU, block threads, per-example cost>
 JVP_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)I\w+?ELi(\d+)ELi(\d+)"
              r"ELb(\d)E(?:Li\d+E)?EEv")
@@ -2716,23 +2730,27 @@ def jvp_ptxas(fused, reports):
 
 def jvp_bound(fused, cfg, B, env, cost, lo, hi, tile_iters):
     """The least time of one solve with the jvp sweep: (ms, "bytes" or
-    "operations", FLOP, bytes). Operations, per example, step and iteration
-    its tile ran: the Jacobian as n = nx + nu step evaluations on Duals (a
-    Dual operation three float ones), the Riccati step's products as
-    lindx_bound counts them, and one line-search trial (K dx, a float step,
-    the objective); the box-QP's Newton steps and further trials depend on
-    the data and are not counted. Bytes: variant_work's."""
+    "operations", FP32 and FP64 operations, bytes). Operations, per example,
+    step and iteration its tile ran: the Jacobian as JvpJac forms it, the
+    base env's step on Duals with its values computed once and the tangent
+    operations once for each of its n = nx + nu columns (fused.STEP_OPS),
+    the Riccati step's products and one line-search trial (K dx, a float
+    step, the objective) as lindx_bound counts them; the box-QP's Newton
+    steps and further trials depend on the data and are not counted. The
+    FP32 and FP64 times add up: both take the schedulers' dispatch slots, which
+    FP32 at its peak fills. Bytes: variant_work's."""
     T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
-    n = nx + nu
-    step = STEP_FLOPS[JVP_SLEW_BASE.get(env, env)]
-    per_t = (3 * n * step + 2 * nx * nx * n + nx * n * (n + 1) + 2 * n * n + 2 * nx * n
-             + 6 * nu * nx * nx + 4 * nu * nu * nx + nu ** 3
-             + 2 * nu * nx + step + 2 * n * n + 3 * n)
-    flops = per_t * T * sum(it * min(fused.TILE, B - g * fused.TILE)
-                            for g, it in enumerate(tile_iters))
+    base = JVP_SLEW_BASE.get(env, env)
+    ops = fused.STEP_OPS[base]
+    n_base = nx if base != env else nx + nu  # a slew-rate state holds the u columns
+    per_t = (ops.jvp_f32 + n_base * ops.tangent + riccati_trial_flops(nx, nu) + ops.f32)
+    per_t64 = ops.jvp_f64 + ops.f64
+    count = T * sum(it * min(fused.TILE, B - g * fused.TILE) for g, it in enumerate(tile_iters))
+    flops, flops64 = per_t * count, per_t64 * count
     by = variant_work(cfg, B, cost, lo, hi, None, {})
-    t_ops, t_by = flops / FP32_PEAK * 1e3, by / HBM_RATE * 1e3
-    return max(t_ops, t_by), ("operations" if t_ops >= t_by else "bytes"), flops, by
+    t_ops = (flops / FP32_PEAK + flops64 / FP64_PEAK) * 1e3
+    t_by = by / HBM_RATE * 1e3
+    return max(t_ops, t_by), ("operations" if t_ops >= t_by else "bytes"), flops, flops64, by
 
 
 def jvp_case(torch, fused, card, label, cfg, dyn, params, x0, cost, lo, hi):
@@ -2746,10 +2764,11 @@ def jvp_case(torch, fused, card, label, cfg, dyn, params, x0, cost, lo, hi):
                                 tuple(a[:, g:g + fused.TILE] if a.dim() >= 3 else a
                                       for a in cost), None, lo, hi)[4])
            for g in range(0, x0.shape[0], fused.TILE)]
-    bound, by_what, flops, by = jvp_bound(fused, cfg, x0.shape[0], dyn.device_env, cost, lo, hi,
-                                          its)
+    bound, by_what, flops, flops64, by = jvp_bound(fused, cfg, x0.shape[0], dyn.device_env, cost,
+                                                   lo, hi, its)
     info = fused.kernel_info(dyn.device_env, 0, cost[0].dim() == 4, cfg.grad_method)
-    print(f"bound {label}: {flops:.3e} FLOP, {by} bytes -> {bound:.4f} ms ({by_what}); tile "
+    print(f"bound {label}: {flops:.3e} FP32 and {flops64:.3e} FP64 operations, {by} bytes -> "
+          f"{bound:.4f} ms ({by_what}); tile "
           f"iterations {its}; G={info['cluster']}, {info['registers']} registers, "
           f"{info['local_bytes']} local bytes, cudaOccupancyMaxActiveClusters "
           f"{info['max_active_clusters']} [{card}]", flush=True)

@@ -53,54 +53,77 @@ DILQR_HD float rsqrt_f(float v) {
 // unlike them it has no Payne-Hanek fallback for huge arguments, whose
 // word table and call put a stack frame (and, around the call, spills)
 // into every kernel that inlines it. Accurate for |x| < 1e15, where the
-// reduction's second part still holds; NaN for a NaN or infinite x.
+// reduction's second part still holds; NaN for a NaN or infinite x. D is
+// double; a host build may put a type there that counts the operations.
+template <class D = double>
 DILQR_HD void cos_sin(float xf, float* oc, float* os) {
-  const double x = xf;
-  const double j = rint(x * 0.63661977236758134);  // 2 / pi
-  const double r = fma(-j, 6.123233995736766e-17, fma(-j, 1.5707963267948966, x));
-  const double r2 = r * r;
-  const double sr = r * (1.0 + r2 * (-1.0 / 6 + r2 * (1.0 / 120 + r2 * (-1.0 / 5040
-                    + r2 * (1.0 / 362880 + r2 * (-1.0 / 39916800 + r2 * (1.0 / 6227020800.0)))))));
-  const double cr = 1.0 + r2 * (-0.5 + r2 * (1.0 / 24 + r2 * (-1.0 / 720 + r2 * (1.0 / 40320
-                    + r2 * (-1.0 / 3628800 + r2 * (1.0 / 479001600.0 + r2 * (-1.0 / 87178291200.0)))))));
-  const double m = j - 4.0 * floor(0.25 * j);  // the quadrant, 0..3 (NaN for NaN)
-  const double c = m == 0.0 ? cr : (m == 1.0 ? -sr : (m == 2.0 ? -cr : (m == 3.0 ? sr : r)));
-  const double s = m == 0.0 ? sr : (m == 1.0 ? cr : (m == 2.0 ? -sr : (m == 3.0 ? -cr : r)));
+  const D x = xf;
+  const D j = rint(x * 0.63661977236758134);  // 2 / pi
+  const D r = fma(-j, 6.123233995736766e-17, fma(-j, 1.5707963267948966, x));
+  const D r2 = r * r;
+  const D sr = r * (1.0 + r2 * (-1.0 / 6 + r2 * (1.0 / 120 + r2 * (-1.0 / 5040
+               + r2 * (1.0 / 362880 + r2 * (-1.0 / 39916800 + r2 * (1.0 / 6227020800.0)))))));
+  const D cr = 1.0 + r2 * (-0.5 + r2 * (1.0 / 24 + r2 * (-1.0 / 720 + r2 * (1.0 / 40320
+               + r2 * (-1.0 / 3628800 + r2 * (1.0 / 479001600.0 + r2 * (-1.0 / 87178291200.0)))))));
+  const D m = j - 4.0 * floor(0.25 * j);  // the quadrant, 0..3 (NaN for NaN)
+  const D c = m == 0.0 ? cr : (m == 1.0 ? -sr : (m == 2.0 ? -cr : (m == 3.0 ? sr : r)));
+  const D s = m == 0.0 ? sr : (m == 1.0 ? cr : (m == 2.0 ? -sr : (m == 3.0 ? -cr : r)));
   *oc = (float)c;
   *os = (float)s;
 }
 
-struct Dual {
-  float v;  // value
-  float d;  // tangent
-  Dual() = default;
-  DILQR_HD constexpr Dual(float value, float tangent = 0.0f) : v(value), d(tangent) {}
+// R is float; a host build may put a type there that counts the operations
+template <class R>
+struct DualOf {
+  R v;  // value
+  R d;  // tangent
+  DualOf() = default;
+  DILQR_HD constexpr DualOf(R value, R tangent = R(0.0f)) : v(value), d(tangent) {}
 };
+using Dual = DualOf<float>;
 
-DILQR_HD Dual operator-(Dual a) { return {-a.v, -a.d}; }
-DILQR_HD Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
-DILQR_HD Dual operator+(Dual a, float b) { return {a.v + b, a.d}; }
-DILQR_HD Dual operator+(float a, Dual b) { return {a + b.v, b.d}; }
-DILQR_HD Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
-DILQR_HD Dual operator-(Dual a, float b) { return {a.v - b, a.d}; }
-DILQR_HD Dual operator-(float a, Dual b) { return {a - b.v, -b.d}; }
-DILQR_HD Dual operator*(Dual a, Dual b) { return {a.v * b.v, a.d * b.v + a.v * b.d}; }
-DILQR_HD Dual operator*(Dual a, float b) { return {a.v * b, a.d * b}; }
-DILQR_HD Dual operator*(float a, Dual b) { return {a * b.v, a * b.d}; }
-DILQR_HD Dual operator/(Dual a, Dual b) {
-  const float q = a.v / b.v;
+template <class R>
+DILQR_HD DualOf<R> operator-(DualOf<R> a) { return {-a.v, -a.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator+(DualOf<R> a, DualOf<R> b) { return {a.v + b.v, a.d + b.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator+(DualOf<R> a, float b) { return {a.v + b, a.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator+(float a, DualOf<R> b) { return {a + b.v, b.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator-(DualOf<R> a, DualOf<R> b) { return {a.v - b.v, a.d - b.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator-(DualOf<R> a, float b) { return {a.v - b, a.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator-(float a, DualOf<R> b) { return {a - b.v, -b.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator*(DualOf<R> a, DualOf<R> b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+template <class R>
+DILQR_HD DualOf<R> operator*(DualOf<R> a, float b) { return {a.v * b, a.d * b}; }
+template <class R>
+DILQR_HD DualOf<R> operator*(float a, DualOf<R> b) { return {a * b.v, a * b.d}; }
+template <class R>
+DILQR_HD DualOf<R> operator/(DualOf<R> a, DualOf<R> b) {
+  const R q = a.v / b.v;
   return {q, (a.d - q * b.d) / b.v};
 }
-DILQR_HD Dual operator/(Dual a, float b) { return {a.v / b, a.d / b}; }
-DILQR_HD Dual operator/(float a, Dual b) {
-  const float q = a / b.v;
+template <class R>
+DILQR_HD DualOf<R> operator/(DualOf<R> a, float b) { return {a.v / b, a.d / b}; }
+template <class R>
+DILQR_HD DualOf<R> operator/(float a, DualOf<R> b) {
+  const R q = a / b.v;
   return {q, -q * b.d / b.v};
 }
 
 // comparisons read the values (a NaN compares false, as for floats)
-DILQR_HD bool operator<(Dual a, float b) { return a.v < b; }
-DILQR_HD bool operator>(Dual a, float b) { return a.v > b; }
-DILQR_HD bool operator==(Dual a, float b) { return a.v == b; }
+template <class R>
+DILQR_HD bool operator<(DualOf<R> a, float b) { return a.v < b; }
+template <class R>
+DILQR_HD bool operator>(DualOf<R> a, float b) { return a.v > b; }
+template <class R>
+DILQR_HD bool operator==(DualOf<R> a, float b) { return a.v == b; }
 
 // u > hi ? hi : (u < lo ? lo : u): the in-step control clamp, with
 // torch.clamp's derivative on a Dual (tangent 1 on [lo, hi], bounds
@@ -111,33 +134,40 @@ DILQR_HD S clamp_sel(S u, float lo, float hi) {
 }
 
 DILQR_HD float sqrt_s(float a) { return sqrtf(a); }
-DILQR_HD Dual sqrt_s(Dual a) {
-  const float r = sqrtf(a.v);
+template <class R>
+DILQR_HD DualOf<R> sqrt_s(DualOf<R> a) {
+  const R r = sqrtf(a.v);
   return {r, a.d / (2.0f * r)};
 }
 
 DILQR_HD float rsqrt_s(float a) { return rsqrt_f(a); }
-DILQR_HD Dual rsqrt_s(Dual a) {
-  const float r = rsqrt_f(a.v);
+template <class R>
+DILQR_HD DualOf<R> rsqrt_s(DualOf<R> a) {
+  const R r = rsqrt_f(a.v);
   return {r, -0.5f * (r * r * r) * a.d};
 }
 
 // fmaxf(a, b) for a constant b: torch.clamp(a, min=b) on a Dual
 DILQR_HD float fmax_s(float a, float b) { return fmaxf(a, b); }
-DILQR_HD Dual fmax_s(Dual a, float b) { return {fmaxf(a.v, b), a.v >= b ? a.d : 0.0f}; }
+template <class R>
+DILQR_HD DualOf<R> fmax_s(DualOf<R> a, float b) {
+  return {fmaxf(a.v, b), a.v >= b ? a.d : R(0.0f)};
+}
 
 DILQR_HD float atan2_s(float y, float x) { return atan2f(y, x); }
-DILQR_HD Dual atan2_s(Dual y, Dual x) {
+template <class R>
+DILQR_HD DualOf<R> atan2_s(DualOf<R> y, DualOf<R> x) {
   return {atan2f(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
 }
 
 // (cos a, sin a) by cos_sin
 DILQR_HD void cos_sin_s(float a, float* oc, float* os) { cos_sin(a, oc, os); }
-DILQR_HD void cos_sin_s(Dual a, Dual* oc, Dual* os) {
-  float c, s;
+template <class R>
+DILQR_HD void cos_sin_s(DualOf<R> a, DualOf<R>* oc, DualOf<R>* os) {
+  R c, s;
   cos_sin(a.v, &c, &s);
-  *oc = Dual(c, -s * a.d);
-  *os = Dual(s, c * a.d);
+  *oc = DualOf<R>(c, -s * a.d);
+  *os = DualOf<R>(s, c * a.d);
 }
 
 }  // namespace dilqr

@@ -97,6 +97,26 @@ ENV_CLUSTERS = {5: (16,), 9: (16,)}
 LANES_ONLY = (3, 4, 5, 8, 9)
 # the jvp sweep's kernel: one library per (device env, clamped)
 JVP_SOURCE = "ilqr_jvp.cu"
+
+
+class StepOps(NamedTuple):
+    """Operations of one evaluation of a device env's step: as float (FP32,
+    and FP64 in cos_sin, which evaluates in double), and on Duals as
+    JvpJac evaluates it (FP32 on the values, computed once for the n
+    columns; FP64; FP32 of one column's tangent). A division, square root,
+    rsqrt, fmax or atan2 counts one, an FMA two."""
+    f32: int
+    f64: int
+    jvp_f32: int
+    jvp_f64: int
+    tangent: int
+
+
+# each base env's, the clamped and the un-clamped step alike, counted on a
+# host build of the steps over a counting scalar (tests/test_torch_csrc.py)
+STEP_OPS = {0: StepOps(38, 38, 41, 38, 66), 1: StepOps(20, 38, 23, 38, 37),
+            2: StepOps(133, 0, 133, 0, 216), 6: StepOps(12, 76, 15, 76, 18),
+            7: StepOps(146, 0, 147, 0, 244)}
 MAX_NU = 8  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
 
 # a LinDx problem's kernel: one library per (n_state, n_ctrl, cost form)

@@ -21,8 +21,10 @@ burst of 20 whole-solve launches lost its first 3, where a fresh process
 recorded all (PERF.md, ROADMAP C2). ``profiled`` therefore starts the trace
 with a priming burst of device work, waits ``PAD_S``, and marks the
 caller's block with the range ``WINDOW``; ``device_events`` keeps the
-activities from that mark on. A caller that knows how many launches a
-window holds checks the count (``kernel_ms`` opens it again).
+activities from that mark on. Even a primed window once lost a whole burst,
+for a cause still unknown: a caller that knows how many launches a window
+holds opens it again, up to ``WINDOW_TRIES`` windows in all, and reads a
+last window that is still short as not measured (``kernel_ms``).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ def _sync() -> None:
 
 PAD_S = 0.2  # host seconds between the priming burst and the block
 WINDOW = "dilqr_tpu_torch profiled window"  # the range around the block
+WINDOW_TRIES = 3  # windows opened while one records fewer launches than it holds
 
 
 def _activities():
@@ -152,15 +155,15 @@ def busy_ms(device) -> float:
     return busy / 1e3
 
 
-def kernel_ms(fn: Callable, name: str, calls: int = 20, tries: int = 3):
+def kernel_ms(fn: Callable, name: str, calls: int = 20):
     """The mean device time of the launches of kernel ``name`` in ``calls``
     calls of fn (one launch each) under torch.profiler (the kernel alone,
     without host gaps), how many launches the trace recorded, and the names
     of the other device activities it recorded. A window that records fewer
-    than ``calls`` launches is opened again, up to ``tries`` windows in all
-    (a primed trace still lost a whole burst once, PERF.md)."""
+    than ``calls`` launches is opened again, up to ``WINDOW_TRIES`` in all;
+    if the last is short too, the time is NaN (not measured)."""
     fn()
-    for _ in range(tries):
+    for _ in range(WINDOW_TRIES):
         with profiled() as prof:
             for _ in range(calls):
                 fn()
@@ -169,7 +172,7 @@ def kernel_ms(fn: Callable, name: str, calls: int = 20, tries: int = 3):
         if len(runs) >= calls:
             break
     others = sorted({e.name for e in device if name not in e.name})
-    return (sum(runs) / len(runs) / 1e3 if runs else math.nan), len(runs), others
+    return (sum(runs) / len(runs) / 1e3 if len(runs) >= calls else math.nan), len(runs), others
 
 
 def device_kernel_ms(fn: Callable, *args, n: int = 10, match: str = "ilqr") -> dict:

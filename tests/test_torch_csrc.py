@@ -40,6 +40,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "dilqr_tpu_torch", "csrc")
 
 SHIM = r"""
+#include <cmath>
 #include <vector>
 #include "ilqr_fused.cuh"
 #include "kkt_fused.cuh"
@@ -411,6 +412,113 @@ extern "C" int legacy_step(int env, const float* p, const float* x, const float*
   }
   return 0;
 }
+// The operations of one step evaluation (the jvp sweep's bound in
+// chip_smoke.py, ilqr_fused.STEP_OPS): tally::F is a float that counts each
+// arithmetic operation it takes part in, as a tangent operation where an
+// operand holds a tangent or was computed from one (the work of one column
+// of JvpJac) and as a value operation otherwise (computed once for the
+// columns); tally::D is a double that counts cos_sin's operations. A
+// division, a square root, rsqrt, fmax or atan2 counts one, an FMA two, a
+// sign flip, a comparison or a select none.
+namespace tally {
+struct Counts {
+  long f32, f64, tangent;
+};
+static Counts n;
+struct F {
+  float v;
+  bool t;  // holds a tangent, or was computed from one
+  F() = default;
+  F(float x, bool tangent = false) : v(x), t(tangent) {}
+};
+static F op(F a, F b, float r) {
+  (a.t || b.t ? n.tangent : n.f32) += 1;
+  return F(r, a.t || b.t);
+}
+inline F operator+(F a, F b) { return op(a, b, a.v + b.v); }
+inline F operator-(F a, F b) { return op(a, b, a.v - b.v); }
+inline F operator*(F a, F b) { return op(a, b, a.v * b.v); }
+inline F operator/(F a, F b) { return op(a, b, a.v / b.v); }
+inline F operator-(F a) { return F(-a.v, a.t); }
+inline bool operator<(F a, F b) { return a.v < b.v; }
+inline bool operator>(F a, F b) { return a.v > b.v; }
+inline bool operator>=(F a, F b) { return a.v >= b.v; }
+inline bool operator==(F a, F b) { return a.v == b.v; }
+inline F sqrtf(F a) { return op(a, a, std::sqrt(a.v)); }
+inline F rsqrt_f(F a) { return op(a, a, 1.0f / std::sqrt(a.v)); }
+inline F fmaxf(F a, F b) { return op(a, b, std::fmax(a.v, b.v)); }
+inline F atan2f(F y, F x) { return op(y, x, std::atan2(y.v, x.v)); }
+struct D {
+  double v;
+  D() = default;
+  D(double x) : v(x) {}
+  explicit operator float() const { return (float)v; }
+};
+inline D operator+(D a, D b) { ++n.f64; return a.v + b.v; }
+inline D operator-(D a, D b) { ++n.f64; return a.v - b.v; }
+inline D operator*(D a, D b) { ++n.f64; return a.v * b.v; }
+inline D operator-(D a) { return -a.v; }
+inline bool operator==(D a, D b) { return a.v == b.v; }
+inline D rint(D a) { ++n.f64; return std::rint(a.v); }
+inline D floor(D a) { ++n.f64; return std::floor(a.v); }
+inline D fma(D a, D b, D c) { n.f64 += 2; return std::fma(a.v, b.v, c.v); }
+inline void cos_sin(F x, F* c, F* s) {
+  float cf, sf;
+  dilqr::cos_sin<D>(x.v, &cf, &sf);
+  *c = F(cf);
+  *s = F(sf);
+}
+// the float overloads the steps call by name
+inline F sqrt_s(F a) { return sqrtf(a); }
+inline F rsqrt_s(F a) { return rsqrt_f(a); }
+inline F fmax_s(F a, float b) { return fmaxf(a, F(b)); }
+inline F atan2_s(F y, F x) { return atan2f(y, x); }
+inline void cos_sin_s(F a, F* c, F* s) { cos_sin(a, c, s); }
+}  // namespace tally
+// out: the float step's FP32 and FP64 operations, then the Dual step's FP32
+// value, FP64 and FP32 tangent operations, at the point (x, u)
+template <class Env, bool C>
+static void count_ops(const float* p, const float* x, const float* u, long* out) {
+  using tally::F;
+  using DF = DualOf<F>;
+  Env env;
+  env.load(p);
+  F xf[Env::NX], uf[Env::NU], xnf[Env::NX];
+  DF xd[Env::NX], ud[Env::NU], xnd[Env::NX];
+  for (int i = 0; i < Env::NX; ++i) {
+    xf[i] = F(x[i]);
+    xd[i] = DF(F(x[i]), F(0.0f, true));
+  }
+  for (int r = 0; r < Env::NU; ++r) {
+    uf[r] = F(u[r]);
+    ud[r] = DF(F(u[r]), F(0.0f, true));
+  }
+  tally::n = {};
+  env.template step<C>(xf, uf, xnf);
+  out[0] = tally::n.f32 + tally::n.tangent;
+  out[1] = tally::n.f64;
+  tally::n = {};
+  env.template step<C>(xd, ud, xnd);
+  out[2] = tally::n.f32;
+  out[3] = tally::n.f64;
+  out[4] = tally::n.tangent;
+}
+extern "C" int step_ops(int env, int clamped, const float* p, const float* x, const float* u,
+                        long* out) {
+  switch (env * 2 + clamped) {
+    case ENV_CARTPOLE * 2: count_ops<Cartpole, false>(p, x, u, out); return 0;
+    case ENV_CARTPOLE * 2 + 1: count_ops<Cartpole, true>(p, x, u, out); return 0;
+    case ENV_PENDULUM * 2: count_ops<Pendulum, false>(p, x, u, out); return 0;
+    case ENV_PENDULUM * 2 + 1: count_ops<Pendulum, true>(p, x, u, out); return 0;
+    case ENV_ROCKET * 2: count_ops<Rocket, false>(p, x, u, out); return 0;
+    case ENV_ROCKET * 2 + 1: count_ops<Rocket, true>(p, x, u, out); return 0;
+    case ENV_PENDULUM_COMPLEX * 2: count_ops<PendulumComplex, false>(p, x, u, out); return 0;
+    case ENV_PENDULUM_COMPLEX * 2 + 1: count_ops<PendulumComplex, true>(p, x, u, out); return 0;
+    case ENV_ROCKET_NORM * 2: count_ops<RocketNorm, false>(p, x, u, out); return 0;
+    case ENV_ROCKET_NORM * 2 + 1: count_ops<RocketNorm, true>(p, x, u, out); return 0;
+    default: return 1;
+  }
+}
 extern "C" int riccati_plan_host(int nx, int block, int force_global, int* out) {
   return riccati_plan(nx, block, force_global, out);
 }
@@ -485,6 +593,8 @@ def lib(tmp_path_factory):
     lib.jvp_eval.restype = I
     lib.legacy_step.argtypes = [I, P, P, P, I, P]
     lib.legacy_step.restype = I
+    lib.step_ops.argtypes = [I, I, P, P, P, P]
+    lib.step_ops.restype = I
     return lib
 
 
@@ -1186,3 +1296,20 @@ def test_templated_float_step_keeps_its_bits(lib, name):
     want = np.zeros((B, nx), np.float32)
     assert lib.legacy_step(dyn.device_env, _ptr(params), _ptr(x), _ptr(u), B, _ptr(want)) == 0
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("clamped", [True, False], ids=["auto_diff", "analytic"])
+@pytest.mark.parametrize("name", ["cartpole", "pendulum", "rocket", "pendulum_complex",
+                                  "rocket_norm"])
+def test_step_operation_counts_match_the_table(lib, name, clamped):
+    """ilqr_fused.STEP_OPS, the operations the jvp sweep's bound counts,
+    are those of the env's templated step: the float step and the step on
+    Duals counted on a host build over a counting scalar, at a point inside
+    the clamp where every tangent operation runs."""
+    rng = np.random.RandomState(10)
+    dyn, params, x, u, lim = _jvp_case(name, 1, rng)
+    u = np.full((1, dyn.n_ctrl), 0.25 * lim, np.float32)
+    out = np.zeros(5, np.int64)
+    assert lib.step_ops(dyn.device_env, int(clamped), _ptr(params), _ptr(x), _ptr(u),
+                        _ptr(out)) == 0
+    assert tuple(out) == tuple(ilqr_fused.STEP_OPS[dyn.device_env])
