@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
      card's name and power limit;
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
-     KKT VJP, the reverse Riccati, phase 8's LinDx shapes and phase 9's
-     jvp libraries, one library each), and print the build seconds and the
+     KKT VJP, the reverse Riccati, phase 8's LinDx shapes, phase 9's
+     jvp libraries and phase 10's MLP shapes, one library each), and print
+     the build seconds and the
      ptxas report, with each whole-solve and KKT instantiation's registers,
      stack and spills; a whole-solve instantiation missing (17: the envs
      and their slew-rate wrappers by cost form and block size) fails, and
@@ -111,14 +112,25 @@ Phases, in order; any failure exits non-zero before the last line:
      IFT gradients against the plain backward, ILExp on pendulum-complex;
      each serving path against backend="torch" in turns, and the idle share
      of one complex-pendulum MPC call;
- 10. print the JSON line, the nvidia-smi line, then the result line
+ 10. the small MLP on the whole-solve kernel (see small_mlp_paths;
+     JvpJac<Mlp>, one library per shape, activation, slew rate and cost form from
+     csrc/ilqr_mlp.cu, built in phase 2 with the rest, a stack or spill
+     failing at one control): each shape JAX's gate admits, against its
+     plain version at each cluster size; MPC.solve and receding_horizon on
+     the reference golden's MLP (tests/goldens/nn_dynamics.npz) at B=4096,
+     one launch a solve, MPC.solve against backend="torch" in turns, with
+     the idle share of one call; the IFT gradient with respect to its weights
+     against the plain backward; the learned model at hidden 100 (1,205
+     weights) taking no whole-solve launch;
+ 11. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
 this system are the dynamics parameters and the cost; they are the
 cartpole's and the rocket's published defaults and, for the learned model,
-1,205 MLP weights drawn from a numpy seed; the initial states come from a
-seed.
+1,205 MLP weights drawn from a numpy seed; phase 10's MLPs take the
+reference golden's 147 weights or weights from a seed; the initial states
+come from a seed.
 """
 from __future__ import annotations
 
@@ -174,12 +186,17 @@ def host_ms(fn, reps: int = 3, warmup: bool = True):
     return statistics.median(ts)
 
 
-def host_ms_in_turns(fns, rounds: int = 3):
+def host_ms_in_turns(fns, rounds: int = 3, warm_both: bool = True):
     """Median host-clock milliseconds of each of two calls, timed in turns
     (a b b a, a b b a, ...) after one warm-up run of each, so that a slow
-    stretch of the host falls on both."""
+    stretch of the host falls on both. warm_both False warms the first
+    only: the kernel paths against the plain loop, whose second is a
+    host-bound PyTorch loop of seconds on kernels every earlier phase ran
+    (its discarded warm-up took a minute of the run's time limit)."""
     (na, fa), (nb, fb) = fns.items()
-    fa(), fb()
+    fa()
+    if warm_both:
+        fb()
     ts = {na: [], nb: []}
     for _ in range(rounds):
         for name in (na, nb, nb, na):
@@ -411,10 +428,10 @@ def main():
     t0 = time.perf_counter()
     reports = build.build_all([m.SOURCE for m in kernels.values()]
                               + [fused.lindx_spec(*shape) for shape in LINDX_SHAPES]
-                              + fused.jvp_specs())
+                              + fused.jvp_specs() + small_mlp_specs(fused))
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources, "
-          f"{len(LINDX_SHAPES)} LinDx shapes and {len(fused.jvp_specs())} jvp libraries)",
-          flush=True)
+          f"{len(LINDX_SHAPES)} LinDx shapes, {len(fused.jvp_specs())} jvp libraries and "
+          f"{len(SMALL_MLP_CASES)} MLP shapes)", flush=True)
     for spec, rep in reports.items():
         src = spec if isinstance(spec, str) else build.library_path(spec).split("/")[-1]
         for line in rep.splitlines():
@@ -455,6 +472,7 @@ def main():
              f"{RICCATI_KERNELS}")
     lindx_ptxas(fused, reports)
     jvp_ptxas(fused, reports)
+    small_mlp_ptxas(fused, reports)
     print(f"phase 2 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -846,7 +864,13 @@ def main():
     rows[0]["jvp_paths"] = j_paths
     kkt_row["launches"] += j_launches["kkt_fused"]
 
-    # ---- 10) the card's line, then the result line ----
+    # ---- 10) the small MLP on the whole-solve kernel ----
+    ngen = torch.Generator(device="cpu").manual_seed(SEED + 10)
+    rows.append(small_mlp_paths(torch, P, dev, kernels, card, fused, ngen))
+    kkt_row["launches"] += rows[-1].pop("kkt_launches")
+    print(f"phase 10 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+
+    # ---- 11) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2332,7 +2356,8 @@ def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
         # one round (a b b a): the plain loop takes seconds a call, and the
         # script's time limit is fixed
         got = host_ms_in_turns({"kernel": lambda: call("auto"),
-                                "plain loop": lambda: call("torch")}, rounds=1)
+                                "plain loop": lambda: call("torch")}, rounds=1,
+                               warm_both=False)
         (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
         per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
         print(f"time phase 7 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
@@ -2349,10 +2374,12 @@ def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
     return total, worst, variants, figures
 
 
-def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, hi, kw):
-    """One (a) case of phase 7 (and of phase 9, by jvp_case): parity, the
-    same bits at every cluster size, rocket_checks for three controls, the
-    masked u exactly 0, and the
+def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, hi, kw,
+                 rocket=True):
+    """One (a) case of phase 7 (and of phases 9 and 10, by jvp_case and
+    small_mlp_case): parity, the same bits at every cluster size, rocket_checks
+    for three controls (unless ``rocket`` is False), the masked u exactly
+    0, and the
     kernel's time (CUDA events, median of 5) beside the plain version's
     (one run, host clock) and the byte bound. Returns the JSON figures and
     the kernel's u."""
@@ -2371,7 +2398,7 @@ def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, 
               flush=True)
     same_bits(torch, fused, label, k_out, (cfg, dyn, params, x0, cost, u0, lo, hi), **kw)
     nu = cfg.n_ctrl
-    if nu == 3:
+    if nu == 3 and rocket:
         inf = torch.full((3,), float("inf"), device=x0.device)
         rocket_checks(label, cfg, k_out, r_out, -inf if lo is None else lo,
                       inf if hi is None else hi)
@@ -2673,7 +2700,8 @@ def lindx_paths(torch, P, dev, kernels, card, fused, gen):
 
         # a b b a x3, once at the full card: the plain loop takes seconds there
         got = host_ms_in_turns({"kernel": lambda: call("auto"),
-                                "plain loop": lambda: call("torch")}, rounds=3 if first else 1)
+                                "plain loop": lambda: call("torch")}, rounds=3 if first else 1,
+                               warm_both=False)
         print(f"time phase 8 MPC LinDx (3,2) B={Bt} T={T}, 8 iterations, in turns (host clock, "
               f"synchronized, medians): kernel {got['kernel'][0]:.3f} ms "
               f"({', '.join(f'{t:.3f}' for t in got['kernel'][1])}); plain loop "
@@ -2693,7 +2721,7 @@ JVP_ENV_NAMES = {0: "cartpole", 1: "pendulum", 2: "rocket", 3: "cartpole slew",
                  4: "pendulum slew", 5: "rocket slew", 6: "complex pendulum",
                  7: "rocket normalize_quat", 8: "complex pendulum slew",
                  9: "rocket normalize_quat slew"}
-JVP_SLEW_BASE = {3: 0, 4: 1, 5: 2, 8: 6, 9: 7}
+JVP_SLEW_BASE = {3: 0, 4: 1, 5: 2, 8: 6, 9: 7, 11: 10}
 # the whole-solve kernel in a jvp library, as <NU, block threads, per-example cost>
 JVP_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)I\w+?ELi(\d+)ELi(\d+)"
              r"ELb(\d)E(?:Li\d+E)?EEv")
@@ -2728,7 +2756,7 @@ def jvp_ptxas(fused, reports):
             fail(f"ilqr_jvp {label}: {seen} instantiations, want {want}")
 
 
-def jvp_bound(fused, cfg, B, env, cost, lo, hi, tile_iters):
+def jvp_bound(fused, cfg, B, env, cost, lo, hi, tile_iters, ops=None):
     """The least time of one solve with the jvp sweep: (ms, "bytes" or
     "operations", FP32 and FP64 operations, bytes). Operations, per example,
     step and iteration its tile ran: the Jacobian as JvpJac forms it, the
@@ -2738,10 +2766,12 @@ def jvp_bound(fused, cfg, B, env, cost, lo, hi, tile_iters):
     step, the objective) as lindx_bound counts them; the box-QP's Newton
     steps and further trials depend on the data and are not counted. The
     FP32 and FP64 times add up: both take the schedulers' dispatch slots, which
-    FP32 at its peak fills. Bytes: variant_work's."""
+    FP32 at its peak fills. Bytes: variant_work's. ops: the step's
+    StepOps, by default the base env's STEP_OPS (an MLP passes
+    fused.mlp_step_ops of its widths)."""
     T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
     base = JVP_SLEW_BASE.get(env, env)
-    ops = fused.STEP_OPS[base]
+    ops = ops or fused.STEP_OPS[base]
     n_base = nx if base != env else nx + nu  # a slew-rate state holds the u columns
     per_t = (ops.jvp_f32 + n_base * ops.tangent + riccati_trial_flops(nx, nu) + ops.f32)
     per_t64 = ops.jvp_f64 + ops.f64
@@ -3007,7 +3037,8 @@ def jvp_paths(torch, P, dev, kernels, card, fused, gen):
     figures = []
     for label, (call, B, nx, nu, box, n) in paths.items():
         got = host_ms_in_turns({"kernel": lambda: call("auto"),
-                                "plain loop": lambda: call("torch")}, rounds=1)
+                                "plain loop": lambda: call("torch")}, rounds=1,
+                               warm_both=False)
         (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
         per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
         print(f"time phase 9 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
@@ -3019,6 +3050,286 @@ def jvp_paths(torch, P, dev, kernels, card, fused, gen):
                  lambda: paths["MPC complex pendulum B=4096"][0]("auto"),
                  counted=(fused, "ilqr_fused_kernel"))
     return total, worst, cases, figures
+
+
+# phase 10: the small MLP's cases, one library each (csrc/ilqr_mlp.cu),
+# built in phase 2: (label, n_state, n_ctrl, hidden, activation, per-example
+# cost, slew rate, batch). The golden's shape (3, 2, (16,)) takes the
+# reference golden's weights in every activation, both cost forms and the
+# slew rate; the other shapes JAX's gate admits (67-253
+# weights) take weights from a seed.
+SMALL_MLP_CASES = (
+    ("golden (3,2,(16,)) sigmoid", 3, 2, (16,), "sigmoid", False, False, 4096),
+    ("golden (3,2,(16,)) sigmoid per-example cost", 3, 2, (16,), "sigmoid", True, False, 4096),
+    ("golden (3,2,(16,)) sigmoid slew rate", 3, 2, (16,), "sigmoid", True, True, 4096),
+    ("golden (3,2,(16,)) relu", 3, 2, (16,), "relu", False, False, 1030),
+    ("golden (3,2,(16,)) elu", 3, 2, (16,), "elu", False, False, 1030),
+    ("(3,1,(8,)) sigmoid", 3, 1, (8,), "sigmoid", False, False, 1030),
+    ("(3,1,(6,6)) relu", 3, 1, (6, 6), "relu", False, False, 1030),
+    ("(3,1,(8,)) elu", 3, 1, (8,), "elu", False, False, 1030),
+    ("(5,1,(16,)) sigmoid", 5, 1, (16,), "sigmoid", False, False, 1030),
+    ("(6,2,(12,)) sigmoid", 6, 2, (12,), "sigmoid", False, False, 1030),
+    ("(13,3,(8,)) sigmoid", 13, 3, (8,), "sigmoid", False, False, 1030),
+)
+GOLDEN_MLP = "tests/goldens/nn_dynamics.npz"  # NNDynamics(3, 2, [16], sigmoid, passthrough)
+
+
+def small_mlp_spec(case):
+    from dilqr_tpu_torch.models.base import MlpSpec
+
+    _, nx, nu, hidden, act, _, slew, _ = case
+    return MlpSpec(nx, nu, hidden, act, True, slew)
+
+
+def small_mlp_specs(fused):
+    """The build specs of phase 10's MLP libraries."""
+    return [fused.mlp_spec(small_mlp_spec(c), c[5]) for c in SMALL_MLP_CASES]
+
+
+def small_mlp_ptxas(fused, reports):
+    """Phase 2 for the MLP libraries: each instantiation's registers, stack
+    and spills (one per cluster size whose shared memory fits, one cost
+    form a library); a missing instantiation fails, and so does a stack or
+    a spill at one control."""
+    for case, spec in zip(SMALL_MLP_CASES, small_mlp_specs(fused)):
+        m = small_mlp_spec(case)
+        nx = m.n_state + (m.n_ctrl if m.slew else 0)
+        seen = 0
+        for name, regs, stack, st, ld in ptxas_entries(reports[spec], JVP_ENTRY, "MLP"):
+            print(f"ptxas ilqr_mlp {case[0]} <NU, threads, lanes> {name}: {regs} registers, "
+                  f"{stack} bytes stack, {st}/{ld} bytes spill stores/loads", flush=True)
+            seen += 1
+            if m.n_ctrl == 1 and (stack or st or ld):
+                fail(f"ilqr_mlp {case[0]} {name} (n_ctrl 1) has a stack frame or spills")
+        want = len(fused.mlp_clusters(nx, m.n_ctrl))
+        if seen != want:
+            fail(f"ilqr_mlp {case[0]}: {seen} instantiations, want {want}")
+
+
+def golden_mlp(torch, dev):
+    """The reference golden's MLP weights [(W0, b0), (W1, b1)], f32 on the
+    card, from the checkout."""
+    import os
+
+    import numpy as np
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN_MLP)
+    if not os.path.exists(path):
+        fail(f"{GOLDEN_MLP} is missing: run this script from a checkout of the repository")
+    g = np.load(path)
+    return [tuple(torch.tensor(g[k], dtype=torch.float32, device=dev) for k in (w, b))
+            for w, b in (("W0", "b0"), ("W1", "b1"))]
+
+
+def small_mlp_case(torch, fused, card, label, cfg, dyn, flat, x0, cost, lo, hi):
+    """One (a) case of phase 10: variant_case's parity (x and u held on the
+    examples converged in both, with its witness; costs and n_iter on all),
+    the same bits at every cluster size and the kernel's time beside the
+    plain version's, then the bound by jvp_bound with the MLP's step
+    operations (fused.mlp_step_ops) from the iterations each tile ran.
+    Returns the JSON figures."""
+    before = fused.LAUNCHES
+    fused.ilqr_fused(cfg, dyn, flat, x0, cost, None, lo, hi)
+    torch.cuda.synchronize()
+    if fused.LAUNCHES != before + 1:
+        fail(f"{label}: {fused.LAUNCHES - before} launches for one solve")
+    fig = variant_case(torch, fused, card, label, cfg, dyn, flat, x0, cost, None, lo, hi, {},
+                       rocket=False)
+    its = [int(fused.ilqr_fused(cfg, dyn, flat, x0[g:g + fused.TILE],
+                                tuple(a[:, g:g + fused.TILE] if a.dim() >= 3 else a
+                                      for a in cost), None, lo, hi)[4])
+           for g in range(0, x0.shape[0], fused.TILE)]
+    spec = dyn.device_mlp
+    bound, by_what, flops, flops64, by = jvp_bound(fused, cfg, x0.shape[0], dyn.device_env, cost,
+                                                   lo, hi, its, ops=fused.mlp_step_ops(spec))
+    info = fused.mlp_info(spec, 0, cost[0].dim() == 4)
+    print(f"bound {label}: {spec.n_weights} weights, {flops:.3e} FP32 operations, {by} bytes -> "
+          f"{bound:.4f} ms ({by_what}); tile iterations {its}; G={info['cluster']}, "
+          f"{info['registers']} registers, {info['local_bytes']} local bytes, V/Q/F in "
+          f"{info['store']}, cudaOccupancyMaxActiveClusters {info['max_active_clusters']} "
+          f"[{card}]", flush=True)
+    return {"name": label.replace("phase 10 (a) ", ""), "ms": fig["ms"],
+            "plain_ms": fig["plain_ms"], "bound_ms": bound, "bound_by": by_what,
+            "max_abs_err": fig["max_abs_err"], "n_iter": fig["n_iter"]}
+
+
+def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
+    """Phase 10: the small MLP on the whole-solve kernel (JvpJac<Mlp> in
+    csrc/ilqr_fused.cuh, one library per case from csrc/ilqr_mlp.cu), T=20,
+    box +-0.5, the identity cost (x and u to 0).
+    (a) parity, the kernel against its plain version on the same CUDA
+        inputs, the weights flat (nn_dynamics.flat_params), at each cluster
+        size the library has (small_mlp_case): every case of
+        SMALL_MLP_CASES, lqr_iter 10, eps 1e-4, starts randn; the random-weight models fork in f32
+        under a 1-ulp nudge by up to about 2e-2 in u while their costs agree
+        to 1e-6, so x and u are held on the examples converged in both;
+    (b) serving on the golden's MLP (3 states, 2 controls, hidden 16,
+        sigmoid, the residual; its weights as the pytree) through the entry
+        points, every counter zeroed before each and read after, one
+        whole-solve launch a solve and no other: MPC.solve at B=4096
+        (lqr_iter 20, eps 1e-4) and one receding_horizon step at B=4096;
+        MPC.solve against backend="torch" in turns (a b b a, once), and the
+        device idle share of one profiled MPC call;
+    (c) the IFT gradient of mean(u^2) with respect to the golden's weights
+        at B=1024: the whole-solve kernel forward, the KKT kernel at (3,2)
+        backward, within 1e-3 of the largest entry of the plain
+        backward's;
+    (d) the learned model at hidden 100 (5 states, 1 control, 1,205
+        weights from a seed, past the 256 JAX flattens) in MPC.solve at
+        B=1024: no whole-solve launch, the Riccati kernel a plain-loop
+        iteration.
+    Returns the JSON row, with the KKT launches of (c) under
+    "kkt_launches"."""
+    import dataclasses
+
+    from dilqr_tpu_torch.control import receding_horizon
+    from dilqr_tpu_torch.core.ilqr import kernel_params
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+    from dilqr_tpu_torch.models import cartpole, nn_dynamics
+
+    T, box = 20, 0.5
+    golden = golden_mlp(torch, dev)
+
+    # ---- (a) parity ----
+    cases, worst = [], 0.0
+    for case in SMALL_MLP_CASES:
+        label, nx, nu, hidden, act, lanes, slew, B = case
+        dyn = nn_dynamics.make(nx, nu, activation=act, hidden_sizes=hidden)
+        ws = (golden if label.startswith("golden") else nn_dynamics.init_params(
+            nx, nu, hidden, generator=gen, device=dev))
+        x0 = torch.randn(B, nx, generator=gen).to(dev)
+        n = nx + nu
+        cfg = P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=10, eps=1e-4,
+                           exit_unconverged=False, detach_unconverged=False, backprop=False)
+        eye, zero = torch.eye(n, device=dev), torch.zeros(n, device=dev)
+        cost = (eye, zero)
+        if slew:
+            c_cost = canonicalize_cost(P.QuadCost(eye, zero), T, B, n)
+            cfg, a_cost, dyn, ws, x0 = augment_slew_rate(
+                dataclasses.replace(cfg, slew_rate_penalty=1.0), c_cost, dyn, ws, x0, None)
+            cost = (a_cost.C, a_cost.c)
+        elif lanes:
+            cost = tuple(a.contiguous() for a in canonicalize_cost(P.QuadCost(eye, zero), T, B, n))
+        flat = kernel_params(dyn, ws)
+        if not fused.covered(cfg, dyn, flat, torch.float32, None if lanes else cost, None, None,
+                             -box, box):
+            fail(f"phase 10 {label}: not covered")
+        cases.append(small_mlp_case(torch, fused, card, f"phase 10 (a) {label} B={B} T={T}", cfg,
+                                    dyn, flat, x0, cost, -box, box))
+        worst = max(worst, cases[-1]["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) serving on the golden's MLP ----
+    total = {name: 0 for name in kernels}
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+
+    def run(label, fn, want, part="b"):
+        return drive(torch, kernels, total, f"phase 10 ({part}) {label}", fn, want)
+
+    dyn = nn_dynamics.make(3, 2, activation="sigmoid", passthrough=True, hidden_sizes=(16,))
+    cost = P.QuadCost(torch.eye(5, device=dev), torch.zeros(5, device=dev))
+    x_serve = torch.randn(4096, 3, generator=gen).to(dev)
+    kw = dict(u_lower=-box, u_upper=box, lqr_iter=20, eps=1e-4, backprop=False,
+              exit_unconverged=False)
+    cfg = P.ILQRConfig(n_state=3, n_ctrl=2, T=T, lqr_iter=20, eps=1e-4, backprop=False,
+                       exit_unconverged=False, detach_unconverged=False)
+    # name -> (call(backend), B, launches a call)
+    paths = {
+        "MPC.solve golden MLP B=4096": (
+            lambda be: P.MPC(3, 2, T, backend=be, **kw).solve(x_serve, cost, dyn, params=golden),
+            4096, 1),
+        "receding_horizon golden MLP B=4096 x1 step": (
+            lambda be: receding_horizon(dataclasses.replace(cfg, backend=be), dyn, golden, cost,
+                                        x_serve, 1, u_lower=-box, u_upper=box),
+            4096, 1),
+    }
+    for label, (call, B, n) in paths.items():
+        out, _ = run(label, lambda: call("auto"), {**one, "ilqr_fused": n})
+        if label.startswith("receding_horizon"):
+            if out.xs.shape != (B, n + 1, 3) or not torch.isfinite(out.xs).all():
+                fail(f"{label}: bad closed-loop states")
+            if out.us.abs().max().item() > box + 1e-5:
+                fail(f"{label}: actions outside the box")
+            print(f"phase 10 (b) {label}: mean |u| {out.us.abs().mean().item():.4f}, mean |x'| "
+                  f"{out.xs[:, -1].abs().mean().item():.4f}", flush=True)
+            continue
+        if out.x.shape != (B, T, 3) or out.u.shape != (B, T, 2):
+            fail(f"{label}: shapes {tuple(out.x.shape)}, {tuple(out.u.shape)}")
+        if not (torch.isfinite(out.costs).all() and torch.isfinite(out.x).all()):
+            fail(f"{label}: non-finite output")
+        if (out.u.abs() - box).max().item() > 1e-5:
+            fail(f"{label}: controls outside the box")
+        at = ((out.u.abs() - box).abs() < 1e-6).float().mean().item()
+        print(f"phase 10 (b) {label}: n_iter {int(out.n_iter)}, mean cost "
+              f"{out.costs.mean().item():.4f}, converged share "
+              f"{out.converged.float().mean().item():.4f}, share of controls at the box "
+              f"{at:.4f}", flush=True)
+
+    # ---- (c) the IFT gradient with respect to the golden's weights ----
+    x_grad = x_serve[:1024]
+
+    def grad(backward_backend):
+        wr = [tuple(a.clone().requires_grad_(True) for a in layer) for layer in golden]
+        c = dataclasses.replace(cfg, lqr_iter=10, backprop=True, backward_mode=P.BackwardMode.IFT,
+                                backward_backend=backward_backend)
+        res = P.solve(c, x_grad, cost, dyn, params=wr, u_lower=-box, u_upper=box)
+        gs = torch.autograd.grad((res.u ** 2).mean(), [a for layer in wr for a in layer])
+        return torch.cat([g.reshape(-1) for g in gs])
+
+    label = "IFT grad golden MLP weights B=1024"
+    g, _ = run(label, lambda: grad(None), {"ilqr_fused": 1, "kkt_fused": None,
+                                           "riccati_fused": 0}, "c")
+    g_ref = grad("torch")
+    err = (g - g_ref).abs().max().item()
+    print(f"phase 10 (c) {label}: |grad| max {g.abs().max().item():.4e}, abs. diff to the plain "
+          f"backward {err:.2e} over {g.numel()} weights", flush=True)
+    if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
+        fail(f"{label}: a non-finite or zero gradient")
+    if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
+        fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
+
+    # ---- (d) hidden 100 stays off the kernel ----
+    big = nn_dynamics.make(5, 1, hidden_sizes=(100,))
+    wb = nn_dynamics.init_params(5, 1, (100,), generator=gen, device=dev)
+    if nn_dynamics.flat_params(wb) is not None:
+        fail("phase 10 (d): the 1,205 weights of hidden 100 flatten")
+    q, p = cartpole.get_true_obj(device=dev)
+    label = "MPC.solve learned model hidden 100 B=1024"
+    out, got = run(label, lambda: P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, lqr_iter=2,
+                                        eps=1e-4, linesearch_decay=0.5, max_linesearch_iter=2,
+                                        backprop=False, exit_unconverged=False).solve(
+        cartpole_start(torch, gen, 1024, dev), P.QuadCost(torch.diag(q), p), big, params=wb),
+        {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None}, "d")
+    if not torch.isfinite(out.costs).all():
+        fail(f"{label}: non-finite costs")
+    print(f"phase 10 (d) {label}: n_iter {int(out.n_iter)}, Riccati launches "
+          f"{got['riccati_fused']}, whole-solve launches {got['ilqr_fused']}", flush=True)
+    print(f"phase 10 launches: {total}", flush=True)
+
+    # ---- (b) times: MPC.solve against the plain loop, in turns ----
+    figures = []
+    for label, (call, B, n) in list(paths.items())[:1]:
+        got = host_ms_in_turns({"kernel": lambda: call("auto"),
+                                "plain loop": lambda: call("torch")}, rounds=1,
+                               warm_both=False)
+        (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
+        print(f"time phase 10 {label}: {k_ms:.3f} ms with the whole-solve kernel, {t_ms:.3f} ms "
+              f"with backend='torch' (host clock, synchronized, median of {len(k_runs)} in "
+              f"turns: {', '.join(f'{r:.3f}' for r in k_runs)} / "
+              f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        figures.append({"name": label, "launches": n, "ms": k_ms, "torch_ms": t_ms})
+    profile_step(torch, "phase 10 MPC.solve golden MLP B=4096",
+                 lambda: paths["MPC.solve golden MLP B=4096"][0]("auto"),
+                 counted=(fused, "ilqr_fused_kernel"))
+    head = cases[0]
+    return {"name": "ilqr_fused_mlp", "route": "cuda",
+            "source": "dilqr_tpu_torch/csrc/ilqr_mlp.cu",
+            "replaces": "dilqr_tpu/ops/pallas/ilqr_fused.py:699",
+            "launches": total["ilqr_fused"], "max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None, "cases": cases, "paths": figures,
+            "kkt_launches": total["kkt_fused"]}
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

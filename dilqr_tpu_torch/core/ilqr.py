@@ -8,7 +8,9 @@
    not_improved_lim iterations.
 
 ``ilqr_loop`` sends a covered configuration on CUDA tensors to the
-whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``) and everything else to
+whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``; an MLP's weights
+[(W, b), ...] flattened into its params vector, ``kernel_params``) and
+everything else to
 the plain loop below on the tensors' own device, whose Riccati backward
 ``ops/riccati.lqr_backward`` takes the CUDA Riccati kernel where that one
 covers it (``ops/cuda/riccati_fused.py``). The choice depends on the
@@ -22,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.nn_dynamics import flat_params
 from ..ops.cuda import ilqr_fused as fused
 from ..ops.riccati import lqr_backward
 from ..ops.rollout import get_traj, lqr_forward
@@ -83,16 +86,27 @@ def lqr_step(cfg: ILQRConfig, cost, dyn, params, x_init, x, u,
     return new_x, new_u, out, ric.n_total_qp_iter
 
 
+def kernel_params(dyn, params):
+    """The params the kernel reads: pytree params (the MLP's [(W, b), ...])
+    flattened into one vector where ``flat_params`` takes them, as JAX
+    flattens them for its kernel (dilqr_tpu/core/ilqr.py:186-195); any other
+    params as they are. The plain loop and the backward keep the pytree."""
+    if isinstance(dyn, LinDx):
+        return params
+    flat = flat_params(params)
+    return params if flat is None else flat
+
+
 def use_kernel(cfg: ILQRConfig, cost, dyn, params, x_init, u_zero_I, delta_u,
-               cost_small, u_lower, u_upper) -> bool:
+               cost_small, u_lower, u_upper, u_init_zero: bool = False) -> bool:
     """Backend dispatch. "torch" never takes the kernel; "auto" takes it
     for CUDA tensors in the covered configuration; "cuda" must take it and
-    raises where it cannot."""
+    raises where it cannot. ``params``: the kernel's (kernel_params)."""
     if cfg.backend == "torch":
         return False
     ok = isinstance(cost, QuadCost) and fused.covered(
         cfg, dyn, params, x_init.dtype, cost_small, u_zero_I, delta_u,
-        u_lower, u_upper)
+        u_lower, u_upper, u_init_zero=u_init_zero)
     if cfg.backend == "cuda":
         if not x_init.is_cuda:
             raise ValueError(
@@ -125,12 +139,13 @@ def ilqr_loop(
     cost_small: the user's example-invariant (C, c), [n,n]+[n] or
     [T,n,n]+[T,n], when there is one; u_init_zero: the warm start is known
     to be zeros. Both are hints for the kernel."""
-    if use_kernel(cfg, cost, dyn, params, x_init, u_zero_I, delta_u,
-                  cost_small, u_lower, u_upper):
+    kparams = kernel_params(dyn, params)
+    if use_kernel(cfg, cost, dyn, kparams, x_init, u_zero_I, delta_u,
+                  cost_small, u_lower, u_upper, u_init_zero):
         # the user's example-invariant cost where there is one, else the
         # per-example [T, B, ...] pair
         return ILQRInternal(*fused.ilqr_fused(
-            cfg, dyn, params, x_init,
+            cfg, dyn, kparams, x_init,
             cost_small if cost_small is not None else (cost.C, cost.c),
             None if u_init_zero else u_init,
             u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,

@@ -170,4 +170,53 @@ DILQR_HD void cos_sin_s(DualOf<R> a, DualOf<R>* oc, DualOf<R>* os) {
   *os = DualOf<R>(s, c * a.d);
 }
 
+// The MLP's activations (Mlp in ilqr_fused.cuh), with the derivative
+// conventions of JAX's jax.nn functions, which PyTorch's forward mode
+// shares (the plain version jvps torch.sigmoid, torch.relu and elu):
+//  * sigmoid(a) = 1 / (1 + exp(-a)), tangent s (1 - s) d;
+//  * relu(a) = a < 0 ? 0 : a (NaN passes), tangent d where a > 0, else 0
+//    (relu'(0) = 0);
+//  * elu(a) = a > 0 ? a : expm1(a), tangent d where a > 0, else
+//    (expm1(a) + 1) d (elu'(0) = 1, the a > 0 false branch).
+// The value forms are templates over a scalar that is not a Dual (float,
+// double in a host build, or a host type that counts the operations); a
+// Dual's tangent adds one product (sigmoid, elu) or none (relu). Both
+// branches of elu are computed and one is selected, as the card does.
+DILQR_HD float exp_s(float a) { return expf(a); }
+DILQR_HD double exp_s(double a) { return exp(a); }
+DILQR_HD float expm1_s(float a) { return expm1f(a); }
+DILQR_HD double expm1_s(double a) { return expm1(a); }
+
+template <class S>
+DILQR_HD S sigmoid_s(S a) {
+  return 1.0f / (1.0f + exp_s(-a));
+}
+template <class R>
+DILQR_HD DualOf<R> sigmoid_s(DualOf<R> a) {
+  const R s = sigmoid_s(a.v);
+  return {s, a.d * (s * (1.0f - s))};
+}
+
+template <class S>
+DILQR_HD S relu_s(S a) {
+  return a < 0.0f ? S(0.0f) : a;
+}
+template <class R>
+DILQR_HD DualOf<R> relu_s(DualOf<R> a) {
+  return {relu_s(a.v), a.v > 0.0f ? a.d : R(0.0f)};
+}
+
+template <class S>
+DILQR_HD S elu_s(S a) {
+  const S e = expm1_s(a);
+  return a > 0.0f ? a : e;
+}
+template <class R>
+DILQR_HD DualOf<R> elu_s(DualOf<R> a) {
+  const R e = expm1_s(a.v);
+  const R de = a.d * (e + 1.0f);
+  const bool pos = a.v > 0.0f;
+  return {pos ? a.v : e, pos ? a.d : de};
+}
+
 }  // namespace dilqr

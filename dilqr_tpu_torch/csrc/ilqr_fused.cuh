@@ -14,8 +14,10 @@
 // sweep) and over the control clamp (the clamped step, or the un-clamped
 // physics an ANALYTIC linearization differentiates). Cartpole, Pendulum and
 // Rocket carry the hand-derived Jacobian of the un-clamped step;
-// PendulumComplex and RocketNorm have none and take JvpJac's. The functions
-// are __host__ __device__ so a host compiler can build them too.
+// PendulumComplex and RocketNorm have none and take JvpJac's, and so does
+// Mlp, the learned model (models/nn_dynamics.py) with its widths as
+// template parameters. The functions are __host__ __device__ so a host
+// compiler can build them too.
 #pragma once
 
 #include <math.h>
@@ -46,6 +48,8 @@ enum EnvId {
   ENV_ROCKET_NORM = 7,
   ENV_PENDULUM_COMPLEX_SLEW = 8,
   ENV_ROCKET_NORM_SLEW = 9,
+  ENV_MLP = 10,  // any Mlp<...> (ilqr_mlp.cu, one library per shape)
+  ENV_MLP_SLEW = 11,
 };
 
 // the most controls the kernel takes (JAX's MAX_NU): a LinDx problem's;
@@ -536,6 +540,87 @@ struct RocketNorm : Rocket {
 
   template <class Out>
   void jac(const float*, const float*, Out&&) const = delete;  // not Rocket's
+};
+
+// the MLP's activation ids, shared with ops/cuda/ilqr_fused.py (MLP_ACTS)
+enum MlpAct { MLP_SIGMOID = 0, MLP_RELU = 1, MLP_ELU = 2 };
+
+template <int ACT, class S>
+DILQR_HD S mlp_act(S z) {
+  if constexpr (ACT == MLP_SIGMOID) {
+    return sigmoid_s(z);
+  } else if constexpr (ACT == MLP_RELU) {
+    return relu_s(z);
+  } else {
+    return elu_s(z);
+  }
+}
+
+// The learned model with its widths fixed (nn_dynamics.make(..., hidden_sizes=
+// (H...))): x' = MLP(x, u), plus x where Residual (the reference's
+// "passthrough" flag, a residual connection -- not the slew-rate wrapper
+// Passthrough<Env> below). The layers are NX + NU -> H... -> NX, each hidden
+// one followed by the activation ACT (MlpAct). The weights are the flat
+// vector of nn_dynamics.flat_params (JAX's ravel_pytree order: each layer's
+// W [out, in] row-major, then its b), the kernel's params: every example of
+// a warp reads the same weight at the same moment, so they are read in
+// place through the read-only cache (one transaction a warp, the <= 1 KB
+// held in L1) at compile-time offsets -- no thread holds a copy. Each row is
+// summed in step_scalars' order (models/nn_dynamics.py:92-112): the products
+// over the inputs in order, then the bias. No clamp (kClamp is ignored) and
+// no hand Jacobian: JvpJac<Mlp, C> forms it.
+template <int NX_, int NU_, int ACT, bool Residual, int... H>
+struct Mlp {
+  static constexpr int NX = NX_;
+  static constexpr int NU = NU_;
+  static constexpr int kLayers = sizeof...(H) + 1;
+  static constexpr int kWidths[kLayers + 1] = {NX + NU, H..., NX};
+  static constexpr int weights() {
+    int s = 0;
+    for (int l = 0; l < kLayers; ++l) s += (kWidths[l] + 1) * kWidths[l + 1];
+    return s;
+  }
+  static constexpr int NP = weights();
+  static constexpr bool kColumnwiseQ = false;
+  const float* w;  // [NP]
+
+  DILQR_HD void load(const float* p) { w = p; }
+
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    S z[NX + NU];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) z[i] = xs[i];
+#pragma unroll
+    for (int r = 0; r < NU; ++r) z[NX + r] = us[r];
+    layer<0, 0>(z, xs, xn);
+  }
+
+  // layer L of the net, its weights at OFF: y = W z + b, activated unless
+  // it is the last, whose output (plus x where Residual) is x'
+  template <int L, int OFF, class S>
+  DILQR_HD void layer(const S* z, const S* xs, S* xn) const {
+    constexpr int NIN = kWidths[L], NOUT = kWidths[L + 1];
+    constexpr bool kLast = L + 1 == kLayers;
+    S y[kLast ? 1 : NOUT];
+#pragma unroll
+    for (int i = 0; i < NOUT; ++i) {
+      S s = ldg_f(w + OFF + i * NIN) * z[0];
+#pragma unroll
+      for (int j = 1; j < NIN; ++j) s = s + ldg_f(w + OFF + i * NIN + j) * z[j];
+      s = s + ldg_f(w + OFF + NOUT * NIN + i);
+      if constexpr (kLast) {
+        if constexpr (Residual) {
+          xn[i] = s + xs[i];
+        } else {
+          xn[i] = s;
+        }
+      } else {
+        y[i] = mlp_act<ACT>(s);
+      }
+    }
+    if constexpr (!kLast) layer<L + 1, OFF + (NIN + 1) * NOUT>(y, xs, xn);
+  }
 };
 
 // The Jacobian by forward mode, as the JAX kernel's jvp sweep forms it

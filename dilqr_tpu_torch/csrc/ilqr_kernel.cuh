@@ -2,14 +2,17 @@
 // over the env, the control count, the block size and the cost form; its
 // instantiations are in ilqr_fused.cu (the envs with device code and their
 // hand-derived Jacobians), ilqr_jvp.cu (an env whose Jacobian is the jvp
-// sweep, JvpJac, one env and method a library) and ilqr_lindx.cu (a LinDx
-// problem, one shape a library), the last two built at first use.
+// sweep, JvpJac, one env and method a library), ilqr_lindx.cu (a LinDx
+// problem, one shape a library) and ilqr_mlp.cu (the learned MLP with its
+// widths fixed, Mlp, one shape a library), the last three built at first
+// use.
 //
 // Replaces the Pallas TPU kernel `_ilqr_kernel` in
 // dilqr_tpu/ops/pallas/ilqr_fused.py (called through `ilqr_fused`), for the
 // configurations the port runs: the env's hand-derived Jacobian, the jvp
-// sweep's (JvpJac: the step on Duals once a column) or a LinDx problem's
-// F/f as data (ilqr_fused.cuh), f32, a zero or given warm start,
+// sweep's (JvpJac: the step on Duals once a column; the MLP's, whose
+// weights are read in place) or a LinDx problem's F/f as data
+// (ilqr_fused.cuh), f32, a zero or given warm start,
 // and
 //  * n_ctrl == 1 (cartpole, simple pendulum, their slew-rate wrappers, a
 //    LinDx problem): the closed-form 1-D box-QP;
@@ -555,6 +558,12 @@ template <bool C, bool LANES>
 constexpr int kMinBlocks128<JvpJac<PendulumComplex, C>, LANES> = 2;
 template <bool C, bool LANES>
 constexpr int kMinBlocks128<Passthrough<JvpJac<PendulumComplex, C>>, LANES> = 2;
+// and so do the MLP's (ilqr_mlp.cu): at 64 threads a block ptxas's own
+// choice gave the golden's (3, 2, (16,)) 72 registers and 68 bytes of spill
+template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
+constexpr int kMinBlocks128<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>, LANES> = 2;
+template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
+constexpr int kMinBlocks128<Passthrough<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>>, LANES> = 2;
 
 template <class Env, int NU, int EX, bool LANES>
 constexpr auto kernel_of() {

@@ -17,13 +17,35 @@ tensor. Every function broadcasts over leading batch dims:
     device_env                        id of the env's device code in
                                       csrc/ilqr_fused.cuh; None = the env
                                       has none and never reaches the kernel
+    device_mlp                        the shape of the learned model's
+                                      device code (MlpSpec, Mlp<...> in
+                                      csrc/ilqr_fused.cuh), beside its
+                                      device_env; None for the other envs
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+
+class MlpSpec(NamedTuple):
+    """The widths of an MLP with device code (nn_dynamics.make with
+    hidden_sizes): layers n_state + n_ctrl -> hidden... -> n_state, the
+    activation's name, the residual x' = MLP(x, u) + x (the reference's
+    ``passthrough``), and whether the model is its slew-rate wrapper."""
+    n_state: int
+    n_ctrl: int
+    hidden: Tuple[int, ...]
+    activation: str
+    residual: bool
+    slew: bool = False
+
+    @property
+    def n_weights(self) -> int:
+        sizes = (self.n_state + self.n_ctrl,) + self.hidden + (self.n_state,)
+        return sum((a + 1) * b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +58,7 @@ class Dynamics:
     jac_lanes: Optional[Callable] = None
     kernel_step: Optional[Callable] = None
     device_env: Optional[int] = None
+    device_mlp: Optional[MlpSpec] = None
     # box bounds on u (None = unconstrained); scalars or [nu] arrays
     lower: Any = None
     upper: Any = None

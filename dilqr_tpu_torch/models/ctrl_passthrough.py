@@ -3,11 +3,11 @@
 CtrlPassthroughDynamics, dynamics.py:133-156): the augmented state
 x_tilde = (u_{t-1}, x) steps as x_tilde' = (u_t, f(x, u_t)). Used by
 ``core/solver.augment_slew_rate``. The wrapper of a model with device code
-(cartpole, both pendulums, the rocket with normalize_quat off and on) has
-device code too, ``Passthrough<Env>`` in ``csrc/ilqr_fused.cuh``, so its
-solves run the whole-solve kernel (its Jacobian from the base's: the hand
-one, or the jvp sweep's where the base has none); the wrapper of any other
-model runs the plain loop."""
+(cartpole, both pendulums, the rocket with normalize_quat off and on, the
+MLP with hidden_sizes) has device code too, ``Passthrough<Env>`` in
+``csrc/ilqr_fused.cuh``, so its solves run the whole-solve kernel (its
+Jacobian from the base's: the hand one, or the jvp sweep's where the base
+has none); the wrapper of any other model runs the plain loop."""
 from __future__ import annotations
 
 import torch
@@ -15,8 +15,8 @@ import torch
 from .base import Dynamics
 
 # the base model's device_env -> Passthrough<Env>'s (EnvId in
-# csrc/ilqr_fused.cuh)
-DEVICE_ENVS = {0: 3, 1: 4, 2: 5, 6: 8, 7: 9}
+# csrc/ilqr_fused.cuh; 10 -> 11 the MLP's)
+DEVICE_ENVS = {0: 3, 1: 4, 2: 5, 6: 8, 7: 9, 10: 11}
 
 
 def _aug(fn, nu: int):
@@ -56,6 +56,8 @@ def make(base: Dynamics) -> Dynamics:
                    if device and base.jac_lanes is not None else None),
         kernel_step=_aug(base.kernel_step, nu) if device else None,
         device_env=DEVICE_ENVS[base.device_env] if device else None,
+        device_mlp=(base.device_mlp._replace(slew=True)
+                    if device and base.device_mlp is not None else None),
         lower=base.lower,
         upper=base.upper,
         mpc_eps=base.mpc_eps,

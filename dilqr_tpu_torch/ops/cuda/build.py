@@ -11,8 +11,10 @@ A source may be built more than once with preprocessor defines (a
 ``Spec``: the source and its ``(name, value)`` pairs), one library each:
 ``ilqr_lindx.cu`` is built per LinDx shape and cost form
 (``ilqr_fused.lindx_spec``), ``ilqr_jvp.cu`` per device env and
-linearization method (``ilqr_fused.jvp_spec``). The defines are part of
-the library's name and hash, so each is built once and cached.
+linearization method (``ilqr_fused.jvp_spec``), ``ilqr_mlp.cu`` per MLP
+shape (``ilqr_fused.mlp_spec``, whose hidden widths are one define, the
+widths joined by "x": nvcc splits a value at its commas). The defines are part of the library's name and
+hash, so each is built once and cached.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# a source, or a source with its preprocessor defines
-Spec = Union[str, Tuple[str, Tuple[Tuple[str, int], ...]]]
+# a source, or a source with its preprocessor defines (a number, or a
+# token such as 6x6)
+Spec = Union[str, Tuple[str, Tuple[Tuple[str, Union[int, str]], ...]]]
 
 _LOADED: Dict[Spec, ctypes.CDLL] = {}
 

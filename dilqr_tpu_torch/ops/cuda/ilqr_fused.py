@@ -1,15 +1,17 @@
 """Whole-solve batched iLQR on the card: the wrapper of the hand-written
 CUDA kernel (``csrc/ilqr_kernel.cuh``, instantiated in ``csrc/ilqr_fused.cu``,
-per env and method with the Jacobian by forward mode in ``csrc/ilqr_jvp.cu``
-and per LinDx shape in ``csrc/ilqr_lindx.cu``) and its plain PyTorch
-version.
+per env and method with the Jacobian by forward mode in ``csrc/ilqr_jvp.cu``,
+per LinDx shape in ``csrc/ilqr_lindx.cu`` and per MLP shape in
+``csrc/ilqr_mlp.cu``) and its plain PyTorch version.
 
 Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
 the Pallas kernel ``_ilqr_kernel``) for the configurations ``covered``
 admits: f32 and either an env with device code -- cartpole, the simple and
 the complex pendulum (n_ctrl == 1, the closed-form 1-D box-QP), the rocket
 with normalize_quat False or True (n_ctrl == 3, the in-kernel
-projected-Newton box-QP) and the slew-rate wrapper of each
+projected-Newton box-QP), the learned MLP with its widths fixed
+(``nn_dynamics.make(..., hidden_sizes=...)``, up to 256 weights, n_ctrl
+1..8, as ``flat_params`` flattens them) and the slew-rate wrapper of each
 (``models/ctrl_passthrough``) -- under GradMethod.ANALYTIC or AUTO_DIFF, or
 a time-varying affine (LQR) problem,
 ``LinDx`` F [T-1,B,nx,nx+nu] and f [T-1,B,nx] or None, as data (n_ctrl
@@ -35,7 +37,10 @@ forward-mode evaluation per column, of the clamped step under AUTO_DIFF (a
 saturated control's column is 0, torch.clamp's derivative) and of the
 un-clamped physics under ANALYTIC (the complex pendulum, the renormalizing
 rocket and their slew-rate wrappers), ``JvpJac`` in ``csrc/ilqr_jvp.cu``,
-one library per (env, method) built at first use. A LinDx problem's step
+one library per (env, method) built at first use; the MLP's, which has no
+clamp, is the jvp sweep of its one step under either method
+(``JvpJac<Mlp>`` in ``csrc/ilqr_mlp.cu``, one library per shape,
+activation, residual, slew rate and cost form). A LinDx problem's step
 is x' = F_t tau + f_t and its Jacobian F_t (its padded examples' F and f
 are zero, as JAX pads them: they stay at x = 0). The
 variants' arithmetic is JAX's: delta_u intersects the QP bounds with
@@ -50,9 +55,10 @@ blocks, 1024/G examples a block, one thread an example; the tile's
 decisions are cluster votes. G is 8 unless a caller measuring the kernel
 passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
 the LinDx shapes whose shared memory admits 64 examples a block
-(``lindx_clusters``); the result does not depend on G. A LinDx shape's
-library and an (env, method)'s jvp library are built at first use (one
-nvcc each) and cached in ``dilqr_tpu_torch/_build/``. A launch the card
+(``lindx_clusters``, ``mlp_clusters``); the result does not depend on G.
+A LinDx shape's library, an (env, method)'s jvp library and an MLP shape's
+library are built at first use (one nvcc each) and cached in
+``dilqr_tpu_torch/_build/``. A launch the card
 refuses raises: nothing falls back to another geometry or to the plain
 version.
 
@@ -69,7 +75,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.func import jvp, vmap
 
-from ...models.base import Dynamics
+from ...models.base import Dynamics, MlpSpec
 from ...types import GradMethod, ILQRConfig, LinDx
 from ...utils.batch import clamp, inv_small
 from ..pnqp import ARMIJO_DECAY, CONV_TOL, GAMMA, MAX_ARMIJO_ITER, REG
@@ -94,9 +100,14 @@ HAND_JAC_ENVS = (0, 1, 2, 3, 4, 5)
 ENV_CLUSTERS = {5: (16,), 9: (16,)}
 # the slew-rate wrappers are instantiated for the per-example cost only:
 # ``prepare`` expands an example-invariant cost for them
-LANES_ONLY = (3, 4, 5, 8, 9)
+LANES_ONLY = (3, 4, 5, 8, 9, 11)
 # the jvp sweep's kernel: one library per (device env, clamped)
 JVP_SOURCE = "ilqr_jvp.cu"
+# the MLP's kernel: one library per (MlpSpec, cost form); its device ids
+# (EnvId ENV_MLP, ENV_MLP_SLEW) and activation ids (MlpAct)
+MLP_SOURCE = "ilqr_mlp.cu"
+ENV_MLP, ENV_MLP_SLEW = 10, 11
+MLP_ACTS = {"sigmoid": 0, "relu": 1, "elu": 2}
 
 
 class StepOps(NamedTuple):
@@ -117,6 +128,27 @@ class StepOps(NamedTuple):
 STEP_OPS = {0: StepOps(38, 38, 41, 38, 66), 1: StepOps(20, 38, 23, 38, 37),
             2: StepOps(133, 0, 133, 0, 216), 6: StepOps(12, 76, 15, 76, 18),
             7: StepOps(146, 0, 147, 0, 244)}
+# an MLP hidden unit's activation: (operations of its float value, those
+# its derivative adds to the values on a Dual, those of its tangent);
+# exp and expm1 count one, as a division does
+_MLP_ACT_OPS = {"sigmoid": (3, 2, 1), "relu": (0, 0, 0), "elu": (1, 1, 1)}
+
+
+def mlp_step_ops(spec: MlpSpec) -> StepOps:
+    """STEP_OPS of an MLP's step (Mlp in csrc/ilqr_fused.cuh), from its
+    widths: a layer nin -> nout takes 2 nin operations a row (the products,
+    the sums but the first, the bias), each hidden unit its activation and
+    the residual one add a state; on Duals each row's tangent takes 2 nin -
+    1 (the bias adds none), each hidden unit its derivative's and the
+    residual one add a state. No FP64. tests/test_torch_csrc.py holds it to
+    the count of a host build."""
+    sizes = (spec.n_state + spec.n_ctrl,) + spec.hidden + (spec.n_state,)
+    prods = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    rows, units = sum(sizes[1:]), sum(spec.hidden)
+    val, dval, tan = _MLP_ACT_OPS[spec.activation]
+    res = spec.n_state if spec.residual else 0
+    return StepOps(2 * prods + val * units + res, 0, 2 * prods + (val + dval) * units + res, 0,
+                   2 * prods - rows + tan * units + res)
 MAX_NU = 8  # kMaxNu in csrc/ilqr_fused.cuh: the length of the bound arrays
 
 # a LinDx problem's kernel: one library per (n_state, n_ctrl, cost form)
@@ -174,13 +206,35 @@ def static_scalar(v) -> Optional[float]:
     return None
 
 
+def jax_tile_fits(cfg: ILQRConfig, lanes_cost: bool, uz: bool, warm: bool,
+                  dyn_bounds: bool) -> bool:
+    """JAX's per-tile memory admission for a model whose shape is not fixed
+    (fused_supported's test of ``_vmem_bytes``, dilqr_tpu/ops/pallas/
+    ilqr_fused.py:106-171 and :322-328): a 1024-example tile's f32 arrays,
+    in tiles, at most 15 MiB in one of its three residencies (the whole
+    horizon, the gains streamed, everything streamed). The TPU's budget has
+    no CUDA counterpart, but it decides which MLP solves JAX runs on its
+    kernel, so the port's gate holds to it: it binds from about 12 states
+    (tests/test_torch_ilqr_mlp.py holds it to JAX's)."""
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    n = nx + nu
+    inputs = (2 * (n * n + n) if lanes_cost else 0) + 2 * nu * (uz + warm + 2 * dyn_bounds)
+    fixed = nx * nx + nx + 3 + 2 * (n * n + 2 * nx * n + nx * nx)
+    whole = T * (3 * nu + 2 * nx + nu * nx + inputs) + fixed
+    stream_k = T * (3 * nu + 2 * nx + inputs) + 2 * nu * nx + fixed
+    stream_all = 2 * (5 * n + nu * (nx + 1)) + inputs + fixed
+    return min(whole, stream_k, stream_all) <= 15 * 2 ** 20 // (4 * TILE)
+
+
 def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
-            u_lower, u_upper) -> bool:
+            u_lower, u_upper, u_init_zero: bool = False) -> bool:
     """True when the configuration is one the kernel computes (counterpart
     of ``fused_supported`` plus ``lane_compatible`` for the envs with
-    device code, under ANALYTIC or AUTO_DIFF, and for LinDx problems, whose
-    ``params`` are ignored, as in JAX). ``cost_small`` None means the
-    per-example cost."""
+    device code, under ANALYTIC or AUTO_DIFF, the MLP with its widths fixed
+    and its weights flat (``nn_dynamics.flat_params``), and LinDx problems,
+    whose ``params`` are ignored, as in JAX). ``cost_small`` None means the
+    per-example cost; ``u_init_zero``: the warm start is known to be zeros
+    (JAX's, which the MLP's memory admission reads)."""
     nu, nx = cfg.n_ctrl, cfg.n_state
     common = (
         cfg.qp_solver == "auto"
@@ -203,6 +257,22 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             and tuple(F.shape[2:]) == (nx, nx + nu)
             and (f is None or (isinstance(f, torch.Tensor) and f.dim() == 3
                                and f.shape[0] == cfg.T - 1 and f.shape[2] == nx))
+        )
+    mlp = dyn.device_mlp if isinstance(dyn, Dynamics) else None
+    if mlp is not None:
+        return (
+            common
+            and dyn.jacobian is None
+            and cfg.grad_method in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF)
+            and 1 <= nu <= MAX_NU
+            and nu == mlp.n_ctrl
+            and nx == dyn.n_state == mlp.n_state + (nu if mlp.slew else 0)
+            and isinstance(params, torch.Tensor)
+            and params.dim() == 1
+            and params.shape[0] == mlp.n_weights
+            and jax_tile_fits(cfg, cost_small is None, u_zero_I is not None, not u_init_zero,
+                              not (_bound_is_static(u_lower, nu)
+                                   and _bound_is_static(u_upper, nu)))
         )
     return (
         common
@@ -265,10 +335,33 @@ def env_spec(grad_method: GradMethod, device_env: int):
     return SOURCE
 
 
+def mlp_clusters(nx: int, nu: int) -> Tuple[int, ...]:
+    """The cluster sizes an MLP library of n_state ``nx`` (the slew-rate
+    wrapper's: its own) has: those whose blocks fit the shared memory, which
+    holds what a LinDx shape's does (V, Q and F; none on the register
+    path)."""
+    return lindx_clusters(nx, nu)
+
+
+def mlp_spec(spec: MlpSpec, lanes: bool):
+    """The build spec (source, defines) of an MLP's library: its widths,
+    activation, residual, slew rate and cost form (the slew-rate wrapper's
+    is the per-example one)."""
+    defines = [("DILQR_MLP_NX", spec.n_state), ("DILQR_MLP_NU", spec.n_ctrl)]
+    if spec.hidden:
+        defines.append(("DILQR_MLP_HIDDEN", "x".join(str(h) for h in spec.hidden)))
+    defines += [("DILQR_MLP_ACT", MLP_ACTS[spec.activation]),
+                ("DILQR_MLP_RESIDUAL", int(spec.residual)), ("DILQR_MLP_SLEW", int(spec.slew)),
+                ("DILQR_MLP_LANES", int(lanes or spec.slew))]
+    return (MLP_SOURCE, tuple(defines))
+
+
 def kernel_clusters(cfg: ILQRConfig, dyn) -> Tuple[int, ...]:
     """The cluster sizes of the instantiation that solves ``dyn``."""
     if isinstance(dyn, LinDx):
         return lindx_clusters(cfg.n_state, cfg.n_ctrl)
+    if dyn.device_mlp is not None:
+        return mlp_clusters(cfg.n_state, cfg.n_ctrl)
     return clusters(dyn.device_env)
 
 
@@ -380,13 +473,16 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
     transpose, once a solve; a LinDx problem's F and f too)."""
     T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
     lin = isinstance(dyn, LinDx)
-    if lin:
+    mlp = None if lin else dyn.device_mlp
+    if lin or mlp is not None:
         if not 1 <= nu <= MAX_NU:
-            raise ValueError(f"ilqr_fused takes LinDx problems with 1 <= n_ctrl <= {MAX_NU}")
+            raise ValueError(f"ilqr_fused takes LinDx problems and MLPs with 1 <= n_ctrl <= "
+                             f"{MAX_NU}")
     elif dyn.device_env not in DEVICE_ENVS or nu != DEVICE_ENVS[dyn.device_env][1]:
         raise ValueError("ilqr_fused covers cartpole, both pendulums (n_ctrl == 1), the "
-                         "rocket (n_ctrl == 3), their slew-rate wrappers and LinDx problems")
-    elif cfg.grad_method not in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF):
+                         "rocket (n_ctrl == 3), the MLP with hidden_sizes, their slew-rate "
+                         "wrappers and LinDx problems")
+    if not lin and cfg.grad_method not in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF):
         raise ValueError(f"ilqr_fused linearizes by ANALYTIC or AUTO_DIFF, got "
                          f"{cfg.grad_method}")
     if x_init.dtype != torch.float32:
@@ -403,9 +499,11 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
                              f"{tuple(F.shape)}, {None if f is None else tuple(f.shape)}")
         params = None
     else:
-        n_params = DEVICE_ENVS[dyn.device_env][0]
-        if params.dim() != 1 or params.shape[0] != n_params:
-            raise ValueError(f"params must be [{n_params}], got {tuple(params.shape)}")
+        n_params = mlp.n_weights if mlp is not None else DEVICE_ENVS[dyn.device_env][0]
+        if not isinstance(params, torch.Tensor) or params.dim() != 1 \
+                or params.shape[0] != n_params:
+            raise ValueError(f"params must be [{n_params}] (an MLP's flat_params), got "
+                             f"{getattr(params, 'shape', type(params).__name__)}")
     if u_init is not None and tuple(u_init.shape) != (T, B, nu):
         raise ValueError(f"u_init must be [T, B, {nu}], got {tuple(u_init.shape)}")
     if u_zero_I is not None and tuple(u_zero_I.shape) != (T, B, nu):
@@ -511,7 +609,9 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
         fn = _entry(lindx_spec(nx, nu, inp.lanes), "dilqr_ilqr_lindx", 6, 2)
         head = (nx, nu, T, Bp, int(inp.lanes), inp.C.shape[0], ptr(inp.F), ptr(inp.f))
     else:
-        fn = _entry(env_spec(cfg.grad_method, dyn.device_env), "dilqr_ilqr_fused", 5, 1)
+        spec = (mlp_spec(dyn.device_mlp, inp.lanes) if dyn.device_mlp is not None
+                else env_spec(cfg.grad_method, dyn.device_env))
+        fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
         p = params.to(torch.float32).contiguous()
         head = (dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr())
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
@@ -557,6 +657,25 @@ def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False,
         raise RuntimeError(f"ilqr_fused_info (env {device_env}, lanes {lanes}, cluster {G}): "
                            f"CUDA error {rc}")
     return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes)
+
+
+def mlp_info(spec: MlpSpec, cluster: int = 0, lanes: bool = False) -> dict:
+    """kernel_info for an MLP's library (built first if needed), with where
+    V, Q and F live: "registers" or "shared"."""
+    nu = spec.n_ctrl
+    nx = spec.n_state + (nu if spec.slew else 0)
+    G = geometry(TILE, cluster, sizes=mlp_clusters(nx, nu)).cluster
+    lanes = lanes or spec.slew
+    fn = build.load(mlp_spec(spec, lanes)).dilqr_ilqr_fused_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(ENV_MLP_SLEW if spec.slew else ENV_MLP, int(lanes), G, out)
+    if rc != 0:
+        raise RuntimeError(f"ilqr_fused_info ({spec}, lanes {lanes}, cluster {G}): "
+                           f"CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
+                store="shared" if lindx_floats(nx, nu) else "registers")
 
 
 def lindx_info(nx: int, nu: int, cluster: int = 0, lanes: bool = False) -> dict:

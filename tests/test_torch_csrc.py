@@ -7,7 +7,10 @@ csrc/kkt_fused.cuh the whole per-example KKT VJP of a lane team (its
 phases run lane by lane here) and
 csrc/riccati_fused.cuh the per-example reverse Riccati, as
 __host__ __device__ functions; g++ compiles them here (no nvcc needed) into
-a small ctypes library. The env code is held against the port's Python
+a small ctypes library. The learned model's Mlp and JvpJac<Mlp> are held
+against the port's kernel_step and its jvp sweep at f64 (the step on
+double and DualOf<double>) and at f32 (the kernel's own code), with relu
+and elu at pre-activations of exactly 0. The env code is held against the port's Python
 kernel forms (Dynamics.kernel_step, Dynamics.jac_lanes) on the same f32
 inputs, the box-QP against the plain version's (ilqr_fused._pnqp_tiles
 with one example a tile: built for the host, the device code's tile vote is
@@ -30,7 +33,7 @@ import pytest
 import torch
 from torch.func import jacfwd
 
-from dilqr_tpu_torch.models import cartpole, ctrl_passthrough, pendulum, rocket
+from dilqr_tpu_torch.models import cartpole, ctrl_passthrough, nn_dynamics, pendulum, rocket
 from dilqr_tpu_torch.ops.cuda import ilqr_fused, kkt_fused
 from dilqr_tpu_torch.ops.cuda import riccati_fused
 from dilqr_tpu_torch.utils.batch import inv_small
@@ -474,6 +477,9 @@ inline F rsqrt_s(F a) { return rsqrt_f(a); }
 inline F fmax_s(F a, float b) { return fmaxf(a, F(b)); }
 inline F atan2_s(F y, F x) { return atan2f(y, x); }
 inline void cos_sin_s(F a, F* c, F* s) { cos_sin(a, c, s); }
+// the MLP's activations call these (an exp counts one)
+inline F exp_s(F a) { return op(a, a, std::exp(a.v)); }
+inline F expm1_s(F a) { return op(a, a, std::expm1(a.v)); }
 }  // namespace tally
 // out: the float step's FP32 and FP64 operations, then the Dual step's FP32
 // value, FP64 and FP32 tangent operations, at the point (x, u)
@@ -518,6 +524,79 @@ extern "C" int step_ops(int env, int clamped, const float* p, const float* x, co
     case ENV_ROCKET_NORM * 2 + 1: count_ops<RocketNorm, true>(p, x, u, out); return 0;
     default: return 1;
   }
+}
+template <class Env>
+constexpr bool is_mlp = false;
+template <int NX, int NU, int ACT, bool R, int... H>
+constexpr bool is_mlp<Mlp<NX, NU, ACT, R, H...>> = true;
+// The learned model's device code (Mlp, JvpJac<Mlp>) at the shapes the
+// tests take, by index: (3,1,(8,)) sigmoid, (3,1,(6,6)) relu, (3,1,(8,))
+// elu, (3,2,(16,)) sigmoid (the golden's), (13,3,(8,)) sigmoid, all with the
+// residual; (3,1,()) elu and (4,2,(5,3)) relu without it. 7: the slew-rate
+// wrapper Passthrough<JvpJac<Mlp>> of the golden's shape.
+template <class F>
+static int mlp_dispatch(int which, F f) {
+  switch (which) {
+    case 0: return f(Mlp<3, 1, MLP_SIGMOID, true, 8>{});
+    case 1: return f(Mlp<3, 1, MLP_RELU, true, 6, 6>{});
+    case 2: return f(Mlp<3, 1, MLP_ELU, true, 8>{});
+    case 3: return f(Mlp<3, 2, MLP_SIGMOID, true, 16>{});
+    case 4: return f(Mlp<13, 3, MLP_SIGMOID, true, 8>{});
+    case 5: return f(Mlp<3, 1, MLP_ELU, false>{});
+    case 6: return f(Mlp<4, 2, MLP_RELU, false, 5, 3>{});
+    case 7: return f(Passthrough<JvpJac<Mlp<3, 2, MLP_SIGMOID, true, 16>, false>>{});
+    default: return 1;
+  }
+}
+// per example: the f32 step and JvpJac's [NX][N] (the kernel's code), and
+// the step at f64 with its n columns from the step on DualOf<double> (the
+// net only, not the wrapper); returns NP, the weights the net reads
+extern "C" int mlp_eval(int which, const float* w, const double* x, const double* u, int B,
+                        float* xn32, float* D32, double* xn64, double* D64) {
+  return mlp_dispatch(which, [&](auto env) {
+    using Env = decltype(env);
+    constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
+    JvpJac<Env, false> jv;
+    env.load(w);
+    jv.load(w);
+    for (int b = 0; b < B; ++b) {
+      float xf[NX], uf[NU], J[NX][N];
+      for (int i = 0; i < NX; ++i) xf[i] = (float)x[b * NX + i];
+      for (int r = 0; r < NU; ++r) uf[r] = (float)u[b * NU + r];
+      env.step(xf, uf, xn32 + b * NX);
+      if constexpr (is_mlp<Env>) {
+        jv.jac(xf, uf, J);
+      } else {
+        env.jac(xf, uf, J);
+      }
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < N; ++j) D32[(b * NX + i) * N + j] = J[i][j];
+      if constexpr (is_mlp<Env>) {
+        env.step(x + b * NX, u + b * NU, xn64 + b * NX);
+        for (int j = 0; j < N; ++j) {
+          DualOf<double> xd[NX], ud[NU], o[NX];
+          for (int i = 0; i < NX; ++i) xd[i] = DualOf<double>(x[b * NX + i], i == j ? 1.0 : 0.0);
+          for (int r = 0; r < NU; ++r)
+            ud[r] = DualOf<double>(u[b * NU + r], NX + r == j ? 1.0 : 0.0);
+          env.step(xd, ud, o);
+          for (int i = 0; i < NX; ++i) D64[(b * NX + i) * N + j] = o[i].d;
+        }
+      }
+    }
+    return Env::NP;
+  });
+}
+extern "C" int mlp_step_ops(int which, const float* w, const float* x, const float* u,
+                            long* out) {
+  return mlp_dispatch(which, [&](auto env) {
+    using Env = decltype(env);
+    if constexpr (is_mlp<Env>) {
+      count_ops<Env, false>(w, x, u, out);
+      return 0;
+    } else {
+      return 1;
+    }
+  });
 }
 extern "C" int riccati_plan_host(int nx, int block, int force_global, int* out) {
   return riccati_plan(nx, block, force_global, out);
@@ -595,6 +674,10 @@ def lib(tmp_path_factory):
     lib.legacy_step.restype = I
     lib.step_ops.argtypes = [I, I, P, P, P, P]
     lib.step_ops.restype = I
+    lib.mlp_eval.argtypes = [I, P, P, P, I, P, P, P, P]
+    lib.mlp_eval.restype = I
+    lib.mlp_step_ops.argtypes = [I, P, P, P, P]
+    lib.mlp_step_ops.restype = I
     return lib
 
 
@@ -1313,3 +1396,110 @@ def test_step_operation_counts_match_the_table(lib, name, clamped):
     assert lib.step_ops(dyn.device_env, int(clamped), _ptr(params), _ptr(x), _ptr(u),
                         _ptr(out)) == 0
     assert tuple(out) == tuple(ilqr_fused.STEP_OPS[dyn.device_env])
+
+
+# the shim's Mlp instantiations (mlp_dispatch): (n_state, n_ctrl, hidden,
+# activation, residual)
+MLP_HOST = [(3, 1, (8,), "sigmoid", True), (3, 1, (6, 6), "relu", True),
+            (3, 1, (8,), "elu", True), (3, 2, (16,), "sigmoid", True),
+            (13, 3, (8,), "sigmoid", True), (3, 1, (), "elu", False),
+            (4, 2, (5, 3), "relu", False)]
+
+
+def _mlp_case(which, B, rng):
+    """(port model, flat f32 weights, x [B, nx], u [B, nu]) of the shim's
+    Mlp ``which`` at f64 points; the first half of the points is x = 0, u
+    = 0 with zero hidden biases, where every hidden pre-activation is
+    exactly 0."""
+    nx, nu, hidden, act, res = MLP_HOST[which]
+    dyn = nn_dynamics.make(nx, nu, activation=act, passthrough=res, hidden_sizes=hidden)
+    ws = nn_dynamics.init_params(nx, nu, hidden,
+                                 generator=torch.Generator().manual_seed(which))
+    for W, b in ws[:-1]:
+        b.zero_()
+    flat = nn_dynamics.flat_params(ws).numpy()
+    x, u = rng.randn(B, nx), rng.randn(B, nu)
+    x[:B // 2], u[:B // 2] = 0.0, 0.0
+    return dyn, flat, x, u
+
+
+@pytest.mark.parametrize("which", range(len(MLP_HOST)),
+                         ids=[f"{a}_{b}_{c}_{d}" for a, b, c, d, _ in MLP_HOST])
+def test_device_mlp_code_matches_torch_jvp(lib, which):
+    """Mlp<NX, NU, ACT, Residual, H...> and JvpJac<Mlp> against the port's
+    kernel_step and its jvp sweep (torch.func.jvp, one one-hot column):
+    the step on double and DualOf<double> against them at f64 (1e-12), the
+    kernel's f32 step and JvpJac's Jacobian against the f64 ones (4e-6 of
+    the largest entry, at least 1: f32 rounding over at most 17 products a
+    row). Where every hidden pre-activation is exactly 0, relu'(0) = 0 and
+    elu'(0) = 1: with relu the net's Jacobian is 0 there (D = [I | 0] with
+    the residual), with elu it is the product of the weights."""
+    rng = np.random.RandomState(20 + which)
+    B = 16
+    dyn, flat, x, u = _mlp_case(which, B, rng)
+    nx, nu = dyn.n_state, dyn.n_ctrl
+    n = nx + nu
+    xn32, D32 = np.zeros((B, nx), np.float32), np.zeros((B, nx, n), np.float32)
+    xn64, D64 = np.zeros((B, nx)), np.zeros((B, nx, n))
+    assert lib.mlp_eval(which, _ptr(flat), _ptr(x), _ptr(u), B, _ptr(xn32), _ptr(D32),
+                        _ptr(xn64), _ptr(D64)) == dyn.device_mlp.n_weights == flat.size
+    tx, tu, tf = (torch.from_numpy(a) for a in (x, u, flat.astype(np.float64)))
+    want_x = dyn.kernel_step(tx, tu, tf).numpy()
+    want_D = ilqr_fused.jvp_jacobian(dyn.kernel_step)(tx, tu, tf).numpy()
+    np.testing.assert_allclose(xn64, want_x, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(D64, want_D, rtol=0, atol=1e-12)
+    scale = max(1.0, np.abs(want_x).max(), np.abs(want_D).max())
+    np.testing.assert_allclose(xn32, want_x, rtol=0, atol=4e-6 * scale)
+    np.testing.assert_allclose(D32, want_D, rtol=0, atol=4e-6 * scale)
+    act, res = MLP_HOST[which][3], MLP_HOST[which][4]
+    zero = D64[:B // 2]
+    if act == "relu":
+        eye = np.concatenate([np.eye(nx) if res else np.zeros((nx, nx)), np.zeros((nx, nu))], 1)
+        assert (zero == eye).all() and (D32[:B // 2] == eye).all()
+    if act == "elu":
+        ws = nn_dynamics.init_params(nx, nu, MLP_HOST[which][2],
+                                     generator=torch.Generator().manual_seed(which))
+        prod = np.eye(n)
+        for W, _ in ws:
+            prod = W.double().numpy() @ prod
+        want_zero = np.broadcast_to(prod[:nx] + (np.eye(nx, n) if res else 0.0), zero.shape)
+        np.testing.assert_allclose(zero, want_zero, rtol=0, atol=1e-12)
+
+
+def test_device_mlp_passthrough_matches_torch_jvp(lib):
+    """Passthrough<JvpJac<Mlp>>: the slew-rate wrapper of the golden's shape
+    (3, 2, (16,)), its f32 step and Jacobian against the port's wrapped
+    kernel step and its jvp sweep at f64 (the passthrough rows exact)."""
+    rng = np.random.RandomState(30)
+    B = 16
+    dyn, flat, x, u = _mlp_case(3, B, rng)
+    aug = ctrl_passthrough.make(dyn)
+    assert aug.device_env == 11 and aug.device_mlp.slew
+    nx, nu = aug.n_state, aug.n_ctrl
+    xa = np.concatenate([rng.uniform(-1, 1, (B, nu)), x], 1)
+    xn, D = np.zeros((B, nx), np.float32), np.zeros((B, nx, nx + nu), np.float32)
+    assert lib.mlp_eval(7, _ptr(flat), _ptr(xa), _ptr(u), B, _ptr(xn), _ptr(D), None,
+                        None) == flat.size
+    tx, tu, tf = (torch.from_numpy(a) for a in (xa, u, flat.astype(np.float64)))
+    want_x = aug.kernel_step(tx, tu, tf).numpy()
+    want = ilqr_fused.jvp_jacobian(aug.kernel_step)(tx, tu, tf).numpy()
+    scale = max(1.0, np.abs(want_x).max(), np.abs(want).max())
+    np.testing.assert_allclose(xn, want_x, rtol=0, atol=4e-6 * scale)
+    np.testing.assert_allclose(D, want, rtol=0, atol=4e-6 * scale)
+    assert (D[:, :nu, :nx] == 0).all() and (D[:, :nu, nx:] == np.eye(nu)).all()
+
+
+@pytest.mark.parametrize("which", range(len(MLP_HOST)),
+                         ids=[f"{a}_{b}_{c}_{d}" for a, b, c, d, _ in MLP_HOST])
+def test_mlp_step_operation_counts_match_the_formula(lib, which):
+    """ilqr_fused.mlp_step_ops, the MLP's operations the jvp bound counts
+    (chip_smoke.jvp_bound), are those of the Mlp step counted on a host
+    build over the counting scalar, as a float step and on Duals, at a
+    point where every hidden unit is active (positive weights and inputs),
+    so that every tangent operation runs."""
+    dyn, flat, x, u = _mlp_case(which, 2, np.random.RandomState(40))
+    flat = np.abs(flat)
+    out = np.zeros(5, np.int64)
+    xf, uf = (np.ascontiguousarray(np.abs(a[-1:]) + 0.1, np.float32) for a in (x, u))
+    assert lib.mlp_step_ops(which, _ptr(flat), _ptr(xf), _ptr(uf), _ptr(out)) == 0
+    assert tuple(out) == tuple(ilqr_fused.mlp_step_ops(dyn.device_mlp))

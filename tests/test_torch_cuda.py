@@ -1023,6 +1023,92 @@ def test_jvp_ift_gradient_launches_both_kernels(dev):
     assert (g - g_ref).abs().max().item() <= 1e-3 * g_ref.abs().max().item()
 
 
+MLP_CASES = ((3, 1, (8,), "sigmoid"), (3, 2, (16,), "sigmoid"))
+
+
+def _mlp_problem(dev, nx, nu, hidden, act, B=1030, T=12):
+    """(cfg, dyn, flat weights, x0, cost) of one MLP case: random weights
+    from a seed, x0 = 0.3 randn, the identity cost, eps=0 and 4
+    iterations (the random model is chaotic in f32 past a few)."""
+    gen = torch.Generator().manual_seed(12)
+    dyn = nn_dynamics.make(nx, nu, activation=act, hidden_sizes=hidden)
+    ws = nn_dynamics.init_params(nx, nu, hidden, generator=gen, device=dev)
+    x0 = (0.3 * torch.randn(B, nx, generator=gen)).to(dev)
+    n = nx + nu
+    cfg = P.ILQRConfig(n_state=nx, n_ctrl=nu, T=T, lqr_iter=4, eps=0.0, backprop=False)
+    return cfg, dyn, ws, x0, (torch.eye(n, device=dev), torch.zeros(n, device=dev))
+
+
+@pytest.mark.parametrize("slew", [False, True], ids=["plain", "slew"])
+@pytest.mark.parametrize("nx,nu,hidden,act", MLP_CASES)
+def test_mlp_kernel_matches_plain_version(dev, nx, nu, hidden, act, slew):
+    """The small MLP's kernel (csrc/ilqr_mlp.cu, JvpJac<Mlp>) against its
+    plain version on the same CUDA inputs with the flat weights, box +-0.5,
+    one launch, the same bits at every cluster size its library has; with
+    slew the slew-rate wrapper Passthrough<JvpJac<Mlp>>."""
+    from dilqr_tpu_torch.core.ilqr import kernel_params
+    from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
+
+    cfg, dyn, ws, x0, cost = _mlp_problem(dev, nx, nu, hidden, act)
+    if slew:
+        B, T, n = x0.shape[0], cfg.T, nx + nu
+        cfg, a_cost, dyn, ws, x0 = augment_slew_rate(
+            dataclasses.replace(cfg, slew_rate_penalty=1.0),
+            canonicalize_cost(P.QuadCost(*cost), T, B, n), dyn, ws, x0, None)
+        cost = (a_cost.C, a_cost.c)
+    flat = kernel_params(dyn, ws)
+    assert fused.covered(cfg, dyn, flat, torch.float32, None if slew else cost, None, None,
+                         -0.5, 0.5)
+    args = (cfg, dyn, flat, x0, cost, None, -0.5, 0.5)
+    before = fused.LAUNCHES
+    k = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    _assert_variant(k, fused.ilqr_fused_reference(*args), cfg)
+    for G in fused.mlp_clusters(cfg.n_state, cfg.n_ctrl):
+        assert all(torch.equal(a, b) for a, b in zip(fused.ilqr_fused(*args, cluster=G), k))
+
+
+def test_mlp_solves_launch_the_kernel_and_hidden_100_does_not(dev):
+    """MPC on the golden's shape (3, 2, (16,)) with its weights as the
+    pytree: one whole-solve launch a solve and no Riccati launch; its IFT
+    gradient with respect to the weights runs the kernel forward and the
+    KKT kernel backward, within 1e-3 (relative to the largest entry) of the
+    plain backward's; the learned model at hidden 100 (1,205 weights) takes
+    no whole-solve launch."""
+    cfg, dyn, ws, x0, cost = _mlp_problem(dev, 3, 2, (16,), "sigmoid", B=1024, T=10)
+    kw = dict(u_lower=-0.5, u_upper=0.5, lqr_iter=8, eps=1e-3, exit_unconverged=False)
+    before, ric_before = fused.LAUNCHES, riccati_fused.LAUNCHES
+    xs, us, costs = P.MPC(3, 2, 10, backprop=False, **kw)(x0, P.QuadCost(*cost), dyn, params=ws)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1 and riccati_fused.LAUNCHES == ric_before
+    assert torch.isfinite(costs).all() and us.abs().max().item() <= 0.5 + 1e-6
+
+    def grad(backend):
+        wr = [tuple(a.clone().requires_grad_(True) for a in layer) for layer in ws]
+        mpc = P.MPC(3, 2, 10, backward_mode=P.BackwardMode.IFT, **kw)
+        mpc.cfg = dataclasses.replace(mpc.cfg, backward_backend=backend)
+        _, u, _ = mpc(x0, P.QuadCost(*cost), dyn, params=wr)
+        return torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            (u ** 2).mean(), [a for layer in wr for a in layer])])
+
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+    g = grad("auto")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before[0] + 1 and kkt_fused.LAUNCHES > before[1]
+    g_ref = grad("torch")
+    assert torch.isfinite(g).all() and g.abs().max().item() > 0
+    assert (g - g_ref).abs().max().item() <= 1e-3 * g_ref.abs().max().item()
+    big = nn_dynamics.make(3, 2, hidden_sizes=(100,))
+    wb = nn_dynamics.init_params(3, 2, (100,), generator=torch.Generator().manual_seed(13),
+                                 device=dev)
+    before = fused.LAUNCHES
+    out = P.MPC(3, 2, 10, backprop=False, **dict(kw, lqr_iter=2))(x0, P.QuadCost(*cost), big,
+                                                                  params=wb)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before and torch.isfinite(out[2]).all()
+
+
 def _profiled(fn):
     """The device events of fn in a window utils/profiling.profiled opens."""
     from dilqr_tpu_torch.utils.profiling import device_events, profiled

@@ -20,10 +20,12 @@ f32 forks of a converged line search (ROADMAP C). Also the gate: the
 port's ``covered`` against JAX's ``fused_supported`` and ``lane_compatible``
 on each of these configurations, on LinDx problems and on the jvp sweep's
 (GradMethod.AUTO_DIFF on every env, the complex pendulum and the rocket
-with normalize_quat=True under both methods, and slew rates of these),
-since they reach the kernel; and on the ones the port still refuses where
-JAX admits them (a callable cost, the small MLP whose weights JAX flattens
-into its kernel's scalars): the ROADMAP's listed gap (queue B, items 2-3)."""
+with normalize_quat=True under both methods, and slew rates of these) and
+on the small MLP's (its weights flattened into the kernel's params), since
+they reach the kernel; and on the one the port still refuses where JAX
+admits it (a callable cost): the ROADMAP's listed gap (queue B, item 3)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,7 @@ from dilqr_tpu.ops.pallas.ilqr_fused import (_flatten_pytree_params, cost_lane_c
                                              fused_supported, lane_compatible)
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
+from dilqr_tpu_torch.core.ilqr import kernel_params
 from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
 from dilqr_tpu_torch.models import cartpole as tcart
 from dilqr_tpu_torch.models import nn_dynamics as tnn
@@ -284,15 +287,64 @@ def _slew_dyns(name, T, B, models=None):
     return dict(n_state=jcfg.n_state, n_ctrl=jcfg.n_ctrl, T=T), jaug, taug, params
 
 
+def _mlp_gates(nx, nu, hidden, act="sigmoid", slew=False, cost_small=True, dtype=np.float32,
+               auto_diff=False, T=6, B=4):
+    """(JAX's gate, the port's) on the MLP nn_dynamics.make(nx, nu, act,
+    hidden_sizes=hidden) with numpy weights, each given the params its
+    dispatch passes: the weights flattened where they can be (JAX's
+    _flatten_pytree_params, the port's kernel_params), else the pytree;
+    slew: the slew-rate wrapper of the augmented problem (per-example cost);
+    box +-1."""
+    rng = np.random.RandomState(0)
+    sizes = [nx + nu] + list(hidden) + [nx]
+    ws = [(rng.uniform(-1, 1, (o, i)).astype(dtype), rng.uniform(-1, 1, o).astype(dtype))
+          for i, o in zip(sizes[:-1], sizes[1:])]
+    jw = [(jnp.asarray(W), jnp.asarray(b)) for W, b in ws]
+    tw = [(from_numpy(W), from_numpy(b)) for W, b in ws]
+    jdyn = jnn.make(nx, nu, activation=act, hidden_sizes=hidden)
+    tdyn = tnn.make(nx, nu, activation=act, hidden_sizes=hidden)
+    jm, tm = ((J.GradMethod.AUTO_DIFF, P.GradMethod.AUTO_DIFF) if auto_diff
+              else (J.GradMethod.ANALYTIC, P.GradMethod.ANALYTIC))
+    kw = dict(n_state=nx, n_ctrl=nu, T=T)
+    jcfg, tcfg = J.ILQRConfig(grad_method=jm, **kw), P.ILQRConfig(grad_method=tm, **kw)
+    n = nx + nu
+    if slew:
+        x0 = np.zeros((B, nx), dtype)
+        jc = j_canonicalize_cost(J.QuadCost(jnp.eye(n), jnp.zeros(n)), T, B, n)
+        jcfg, _, jdyn, jw, _ = j_augment(dataclasses.replace(jcfg, slew_rate_penalty=1.0),
+                                         jc, jdyn, jw, jnp.asarray(x0), None, None)
+        tc = canonicalize_cost(P.QuadCost(torch.eye(n), torch.zeros(n)), T, B, n)
+        tcfg, _, tdyn, tw, _ = augment_slew_rate(
+            dataclasses.replace(tcfg, slew_rate_penalty=1.0), tc, tdyn, tw, from_numpy(x0), None)
+        n, cost_small = jcfg.n_state + nu, False
+    flat = _flatten_pytree_params(jw)
+    jk = jw if flat is None else flat
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == np.float32 else (jnp.float64,
+                                                                        torch.float64)
+    j_ok = fused_supported(jcfg, J.QuadCost(jnp.eye(n), jnp.zeros(n)), jdyn, jk, None, None,
+                           jdt, cost_small=(jnp.eye(n), jnp.zeros(n)) if cost_small else None,
+                           u_lower=-1.0, u_upper=1.0)
+    if j_ok:
+        j_ok = lane_compatible(jdyn, jk, jcfg.n_state, nu)
+    t_ok = fused.covered(tcfg, tdyn, kernel_params(tdyn, tw), tdt,
+                         (torch.eye(n), torch.zeros(n)) if cost_small else None, None, None,
+                         -1.0, 1.0)
+    return bool(j_ok), bool(t_ok)
+
+
 def test_covered_agrees_with_jax_gate():
     """The port's gate equals JAX's (fused_supported and lane_compatible)
     on every variant the port takes, and on refusals both make, a LinDx
     problem's included (tests/test_torch_ilqr_lindx.py holds its whole
     table); the jvp sweep's configurations agree too (AUTO_DIFF on every
     env, the complex pendulum and the rocket with normalize_quat=True under
-    both methods, their slew rates). A callable cost and the small MLP
-    (hidden (8,), tests/test_fused_nn_dynamics.py:25) JAX's kernel admits
-    and the port still refuses: the gap ROADMAP queue B items 2-3 list."""
+    both methods, their slew rates), and so do the small MLP's: hidden (8,)
+    sigmoid (tests/test_fused_nn_dynamics.py:25), (6, 6) relu, (8,) elu, the
+    reference golden's (3, 2, (16,)) in both cost forms and under AUTO_DIFF,
+    its slew rate, (13, 3, (8,)) at 253 weights, and refused by both: f64,
+    hidden 100 (1,205 weights), 257 weights, a model without hidden_sizes.
+    A callable cost JAX's kernel admits and the port still refuses: the gap
+    ROADMAP queue B item 3 lists."""
     T, B = 6, 4
     rows = []
     for name in ("cartpole", "pendulum", "rocket"):
@@ -360,24 +412,40 @@ def test_covered_agrees_with_jax_gate():
                                  auto_diff=True)))
             rows.append((f"{label} slew rate ANALYTIC",
                          *_gates(skw, jaug, taug, pp, cost_small=False, lo=-1.0, hi=1.0)))
+    # the small MLP, its weights flattened into the kernel's params
+    for label, args, extra in (
+            ("MLP (3,1,(8,)) sigmoid", (3, 1, (8,)), {}),
+            ("MLP (3,1,(6,6)) relu", (3, 1, (6, 6), "relu"), {}),
+            ("MLP (3,1,(8,)) elu", (3, 1, (8,), "elu"), {}),
+            ("MLP (3,2,(16,)) golden", (3, 2, (16,)), {}),
+            ("MLP (3,2,(16,)) golden per-example cost", (3, 2, (16,)), dict(cost_small=False)),
+            ("MLP (3,2,(16,)) golden AUTO_DIFF", (3, 2, (16,)), dict(auto_diff=True)),
+            ("MLP (3,2,(16,)) golden slew rate", (3, 2, (16,)), dict(slew=True)),
+            ("MLP (3,1,(8,)) elu slew rate AUTO_DIFF", (3, 1, (8,), "elu"),
+             dict(slew=True, auto_diff=True)),
+            ("MLP (13,3,(8,)) 253 weights", (13, 3, (8,)), {}),
+            ("MLP (1,2,(51,)) 256 weights", (1, 2, (51,)), {}),
+            ("MLP (3,2,(16,)) f64", (3, 2, (16,)), dict(dtype=np.float64)),
+            ("MLP (5,1,(100,)) hidden 100 past the gate", (5, 1, (100,)), {}),
+            ("MLP (1,1,(64,)) 257 weights past the gate", (1, 1, (64,)), {})):
+        rows.append((label, *_mlp_gates(*args, **extra)))
+    jmlp, tmlp = jnn.make(3, 1), tnn.make(3, 1)  # no hidden_sizes: the array step only
+    jw = jnn.init_params(jax.random.PRNGKey(0), 3, 1, (8,))
+    flat = _flatten_pytree_params(jw)
+    j_ok = fused_supported(J.ILQRConfig(n_state=3, n_ctrl=1, T=T),
+                           J.QuadCost(jnp.eye(4), jnp.zeros(4)), jmlp, flat, None, None,
+                           jnp.float32, cost_small=(jnp.eye(4), jnp.zeros(4)), u_lower=-1.0,
+                           u_upper=1.0) and lane_compatible(jmlp, flat, 3, 1)
+    tw = [(from_numpy(np.asarray(W)), from_numpy(np.asarray(b))) for W, b in jw]
+    t_ok = fused.covered(P.ILQRConfig(n_state=3, n_ctrl=1, T=T), tmlp, kernel_params(tmlp, tw),
+                         torch.float32, (torch.eye(4), torch.zeros(4)), None, None, -1.0, 1.0)
+    rows.append(("MLP without hidden_sizes past the gate", bool(j_ok), bool(t_ok)))
     for label, j_ok, t_ok in rows:
         want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate"))
         assert (j_ok, t_ok) == (want, want), label
 
     # the port's listed gap: JAX admits, the port refuses
     gap = []
-    # the small MLP, its weights flattened into JAX's kernel scalars
-    # (ROADMAP B2); the port's MLP has no device code
-    jmlp, tmlp = jnn.make(3, 1, hidden_sizes=(8,)), tnn.make(3, 1, hidden_sizes=(8,))
-    flat = _flatten_pytree_params(jnn.init_params(jax.random.PRNGKey(0), 3, 1, (8,)))
-    kw = dict(n_state=3, n_ctrl=1, T=T)
-    j_ok = fused_supported(J.ILQRConfig(**kw), J.QuadCost(jnp.eye(4), jnp.zeros(4)), jmlp, flat,
-                           None, None, jnp.float32, cost_small=(jnp.eye(4), jnp.zeros(4)),
-                           u_lower=-1.0, u_upper=1.0) and lane_compatible(jmlp, flat, 3, 1)
-    t_ok = fused.covered(P.ILQRConfig(**kw), tmlp,
-                         tnn.init_params(3, 1, (8,), generator=torch.Generator().manual_seed(0)),
-                         torch.float32, (torch.eye(4), torch.zeros(4)), None, None, -1.0, 1.0)
-    gap.append(("small MLP", bool(j_ok), bool(t_ok)))
     jdyn = jcart.make()
     cp = np.asarray(jcart.default_params())
     gap.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jdyn, tcart.make(),
