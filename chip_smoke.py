@@ -122,7 +122,16 @@ Phases, in order; any failure exits non-zero before the last line:
      the idle share of one call; the IFT gradient with respect to its weights
      against the plain backward; the learned model at hidden 100 (1,205
      weights) taking no whole-solve launch;
- 11. print the JSON line, the nvidia-smi line, then the result line
+ 11. the batch sharded over ranks and devices (see multihost_paths;
+     parallel/{multihost,mesh,audit}.py): multihost_solve and one
+     multihost_train_step in a one-rank NCCL group, with the bits of solve
+     and within 1e-6 of the one-process step, their collectives audited,
+     multihost_solve's host time against solve's in turns, sharded_solve
+     over the card twice; then two ranks over gloo on the one card, one
+     process each (tools/multihost_demo.py): 4096 + 4096 with the
+     one-process kernel solve's bits, the train step at 2 x 1024, the padded
+     uneven 4096 + 1000, every rank's launches and collectives;
+ 12. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -870,7 +879,16 @@ def main():
     kkt_row["launches"] += rows[-1].pop("kkt_launches")
     print(f"phase 10 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
-    # ---- 11) the card's line, then the result line ----
+    # ---- 11) the batch sharded over ranks and devices ----
+    hgen = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    h_launches = multihost_paths(torch, P, dev, kernels, card, cp_dyn, cp_params, cp_q, cp_p,
+                                 bench_cfg, hgen)
+    rows[0]["launches"] += h_launches["ilqr_fused"]
+    rows[0]["multihost_launches"] = h_launches["ilqr_fused"]
+    kkt_row["launches"] += h_launches["kkt_fused"]
+    print(f"phase 11 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+
+    # ---- 12) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3330,6 +3348,160 @@ def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None, "cases": cases, "paths": figures,
             "kkt_launches": total["kkt_fused"]}
+
+
+def multihost_paths(torch, P, dev, kernels, card, dyn, params, q, p, cfg, gen):
+    """Phase 11: the batch sharded over ranks (parallel/multihost.py) and
+    devices (parallel/mesh.py) on bench.py's cartpole (``cfg``, f32).
+
+    (a) In this process, a one-rank NCCL group: multihost_solve at B=4096
+    (one whole-solve launch) with the bits of ``solve`` on the same inputs,
+    its collectives audited (none past B elements) and its host time
+    against solve's in turns (the wrapper's own cost); one
+    multihost_train_step at B=1024 (whole-solve and KKT launches) within
+    1e-6 of the one-process step; sharded_solve over the card twice at
+    2 x 4096 with the bits of the one-device solve of 8192.
+    (b) Two ranks over gloo on the one card, each a process of
+    tools/multihost_demo.py (NCCL refuses two ranks on one device, and
+    gloo runs its collectives on the host): the solve and the warm-started
+    solve at 4096 + 4096 with the one-process kernel solve's bits on every
+    example (whole tiles a rank, and the kernel decides per tile), the
+    train step at 2 x 1024 within 1e-6 of the one-process step; and the
+    padded uneven 4096 + 1000 (2548 a rank, tiles cut otherwise) held on
+    the examples converged in both, with its strict 1024-a-rank solve at
+    the same bits. Each rank checks itself, exits 0 and reports its
+    launches and collectives; a rank that fails, or a cluster past 240 s,
+    fails the run. Returns the launches of (a) and of every rank of (b)."""
+    import concurrent.futures
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dilqr_tpu_torch.parallel import audit
+    from dilqr_tpu_torch.parallel import multihost as mh
+    from dilqr_tpu_torch.parallel.mesh import batch_mesh, sharded_solve
+    from dilqr_tpu_torch.tools import multihost_demo as demo
+    from dilqr_tpu_torch.utils.optim import rmsprop
+
+    total = {name: 0 for name in kernels}
+    cost = P.QuadCost(torch.diag(q), p)
+    box = dict(u_lower=dyn.lower, u_upper=dyn.upper)
+
+    def run(label, fn, want):
+        return drive(torch, kernels, total, f"phase 11 {label}", fn, want)
+
+    def audited(label, recs, B):
+        colls, big = audit.audit_collectives(recs, B)
+        sizes = sorted({c.numel for c in colls})
+        print(f"phase 11 {label}: {len(colls)} collectives, {sum(c.numel for c in colls)} "
+              f"elements (sizes {sizes}; sites {sorted({c.site for c in colls})})", flush=True)
+        if big:
+            fail(f"phase 11 {label}: per-example collectives {big}")
+
+    # ---- (a) one rank, NCCL, in this process ----
+    with tempfile.TemporaryDirectory() as tmp:
+        mh.initialize(f"file://{os.path.join(tmp, 'store')}", 1, 0, device=dev, timeout=120)
+        try:
+            mesh = mh.global_batch_mesh()
+            x0 = cartpole_start(torch, gen, 4096, dev)
+            one = P.solve(cfg, x0, cost, dyn, params=params, **box)
+
+            def sharded():
+                return mh.multihost_solve(mesh, cfg, x0, cost, dyn, params=params, **box)
+
+            with audit.recording() as recs:
+                res, _ = run("(a) multihost_solve cartpole B=4096, NCCL, one rank", sharded,
+                             {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0})
+            if not all(torch.equal(getattr(res, f), getattr(one, f)) for f in one._fields):
+                fail("phase 11 (a): multihost_solve differs from solve on the same inputs")
+            audited("(a) multihost_solve B=4096", recs, 4096)
+            turns = host_ms_in_turns({"multihost_solve": sharded, "solve": lambda: P.solve(
+                cfg, x0, cost, dyn, params=params, **box)}, rounds=5)
+            (m_ms, m_runs), (s_ms, s_runs) = turns["multihost_solve"], turns["solve"]
+            print(f"time phase 11 (a) cartpole B=4096: multihost_solve {m_ms:.3f} ms, solve "
+                  f"{s_ms:.3f} ms (host clock, synchronized, median of {len(m_runs)} in turns: "
+                  f"{', '.join(f'{r:.3f}' for r in m_runs)} / "
+                  f"{', '.join(f'{r:.3f}' for r in s_runs)}) [{card}]", flush=True)
+
+            c_ift = dataclasses.replace(cfg, backprop=True, backward_mode=P.BackwardMode.IFT)
+            opt = rmsprop(1e-2, decay=0.5)
+            xt = cartpole_start(torch, gen, 1024, dev)
+            ue = torch.zeros(xt.shape[0], cfg.T, 1, device=dev)
+            ref, _, ref_loss = demo.one_process_step(c_ift, dyn, opt, params, opt.init(params),
+                                                     xt, ue, q, p)
+            step = mh.multihost_train_step(mesh, c_ift, dyn, opt)
+            with audit.recording() as recs:
+                (new, _, loss), got = run(
+                    "(a) multihost_train_step cartpole B=1024, NCCL, one rank",
+                    lambda: step(params, opt.init(params), xt, ue, q, p),
+                    {"ilqr_fused": None, "kkt_fused": None})
+            err = (new - ref).abs().max().item()
+            print(f"phase 11 (a) train step: params {new.tolist()}, max |diff| to the one-process "
+                  f"step {err:.2e} (same bits: {torch.equal(new, ref)}), loss {loss.item():.6f} "
+                  f"vs {ref_loss.item():.6f}", flush=True)
+            if err > 1e-6 or not torch.isfinite(loss):
+                fail(f"phase 11 (a): the train step is {err:.2e} from the one-process step")
+            audited("(a) multihost_train_step B=1024", recs, 1024)
+        finally:
+            mh.shutdown()
+
+    # the single-process mesh: the card twice, a chunk of 4096 each
+    x8 = cartpole_start(torch, gen, 8192, dev)
+    one = P.solve(cfg, x8, cost, dyn, params=params, **box)
+    sres, _ = run("(a) sharded_solve cartpole 2 x 4096 on one card",
+                  lambda: sharded_solve(batch_mesh([dev, dev]), cfg, x8, cost, dyn,
+                                        params=params, **box),
+                  {"ilqr_fused": 2, "kkt_fused": 0, "riccati_fused": 0})
+    whole = sres.gather()
+    if not all(torch.equal(getattr(whole, f), getattr(one, f)) for f in one._fields):
+        fail("phase 11 (a): sharded_solve differs from the one-device solve")
+    print(f"phase 11 (a) sharded_solve: chunks at {sres.starts}, the one-device bits", flush=True)
+
+    # ---- (b) two ranks over gloo on the one card, one process each ----
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--device", str(dev), "--backend", "gloo", "--problem", "cartpole",
+                  "--timeout", "120"]
+        jobs = {"4096 + 4096": ["--batches", "4096,4096", "--train-batch", "1024"],
+                "padded 4096 + 1000": ["--batches", "4096,1000"]}
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+            futs = {k: ex.submit(demo.launch, 2, common + argv + [
+                "--out", os.path.join(tmp, f"{i}.npz")], timeout=240.0)
+                for i, (k, argv) in enumerate(jobs.items())}
+            outs = {}
+            for k, fut in futs.items():
+                try:
+                    outs[k] = fut.result()
+                except RuntimeError as e:
+                    fail(f"phase 11 (b) {k}: {e}")
+        print(f"phase 11 (b): both clusters done in {time.perf_counter() - t1:.1f} s", flush=True)
+        res = {k: dict(np.load(os.path.join(tmp, f"{i}.npz"))) for i, k in enumerate(jobs)}
+    for k, lines in outs.items():
+        for line in lines:
+            print(f"phase 11 (b) {k}: {line.strip().splitlines()[-1]}", flush=True)
+    even, uneven = res["4096 + 4096"], res["padded 4096 + 1000"]
+    # launches: [rank, (ilqr, kkt, riccati) of the solve (, of the step)]
+    le, lu = even["launches"], uneven["launches"]
+    if not (bool(even["bits_solve"]) and bool(even["bits_warm"]) and bool(uneven["bits_strict"])):
+        fail("phase 11 (b): a whole-tile sharded solve differs from the one-process bits")
+    if float(even["err_params"]) > 1e-6:
+        fail(f"phase 11 (b): the train step is {float(even['err_params']):.2e} off")
+    if (le[:, 0] < 1).any() or (le[:, 3] < 1).any() or (le[:, 4] < 1).any() or (lu[:, 0] < 1).any():
+        fail(f"phase 11 (b): a rank did not launch its kernels: {le.tolist()}, {lu.tolist()}")
+    print(f"phase 11 (b) 4096 + 4096: collectives a rank per solve {even['collectives_solve']}, "
+          f"per train step {even['collectives_step']} (count, elements); launches a rank "
+          f"(ilqr, kkt, riccati) solve / step {le.tolist()}; train step params "
+          f"{even['params'].tolist()}, max |diff| {float(even['err_params']):.2e}", flush=True)
+    print(f"phase 11 (b) padded 4096 + 1000: {int(uneven['converged_pad'])} of "
+          f"{int(uneven['counts'].sum())} examples "
+          f"converged in both, u max {float(uneven['err_pad']):.2e} on them; collectives a rank "
+          f"per solve {uneven['collectives_solve']}; launches a rank {lu.tolist()}", flush=True)
+    for name, col in (("ilqr_fused", (0, 3)), ("kkt_fused", (1, 4)), ("riccati_fused", (2, 5))):
+        total[name] += int(le[:, col[0]].sum() + le[:, col[1]].sum() + lu[:, col[0]].sum())
+    print(f"phase 11 launches (a and every rank of b): {total}", flush=True)
+    return total
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

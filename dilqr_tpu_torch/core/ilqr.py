@@ -5,7 +5,8 @@
    a line-searched forward;
  * per-example best-so-far tracking with the best_cost_eps tolerance;
  * stop when max(full_du_norm) < eps or no improvement for
-   not_improved_lim iterations.
+   not_improved_lim iterations; both decisions are the whole batch's, over
+   every rank of an open ``parallel.comm.batch_global``.
 
 ``ilqr_loop`` sends a covered configuration on CUDA tensors to the
 whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``; an MLP's weights
@@ -28,6 +29,7 @@ from ..models.nn_dynamics import flat_params
 from ..ops.cuda import ilqr_fused as fused
 from ..ops.riccati import lqr_backward
 from ..ops.rollout import get_traj, lqr_forward
+from ..parallel.comm import decide
 from ..types import GradMethod, ILQRConfig, LinDx, QuadCost
 from ..utils.batch import bmv
 from ..utils.logging import table_log
@@ -162,7 +164,7 @@ def ilqr_loop(
     i = 0
     while i < cfg.lqr_iter:
         # NaN compares False, so a NaN max does not stop, as in the reference
-        if bool(cur_du.max() < cfg.eps) or nni > cfg.not_improved_lim:
+        if decide(cur_du.max() < cfg.eps, "all") or nni > cfg.not_improved_lim:
             break
         x = get_traj(T, u, x_init, dyn_roll)
         new_x, new_u, out, _ = lqr_step(
@@ -182,7 +184,7 @@ def ilqr_loop(
         bdu = torch.where(improved, out.full_du_norm, bdu)
         # the reference increments, then resets if any example improved,
         # except on the very first iteration (mpc.py:266, 281)
-        nni = 0 if (i > 0 and bool(improved.any())) else nni + 1
+        nni = 0 if (i > 0 and decide(improved.any())) else nni + 1
         u, cur_du = new_u, out.full_du_norm
         i += 1
     return ILQRInternal(bx, bu, bc, bdu,

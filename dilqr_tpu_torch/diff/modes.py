@@ -28,6 +28,7 @@ from torch.utils import _pytree as pytree
 from ..core.ilqr import ilqr_loop
 from ..core.linearize import approximate_cost, linearize_dynamics
 from ..models.base import Dynamics
+from ..parallel import comm
 from ..types import BackwardMode, ILQRConfig, LinDx, QuadCost
 from ..utils.batch import bmv
 from .ift import solve_adjoint_dense, solve_adjoint_fixed_point
@@ -100,6 +101,7 @@ class _SolveWithGrad(torch.autograd.Function):
                                               _detach(dyn_in))
         ctx.mark_non_differentiable(costs, du, n_iter)
         ctx.prob = prob
+        ctx.mesh = comm.active()  # the backward's GMRES decides over the same ranks
         ctx.is_tensor = [isinstance(a, torch.Tensor) for a in leaves]
         ctx.others = [None if t else a for a, t in zip(leaves, ctx.is_tensor)]
         ctx.save_for_backward(x, u, du, *[a for a, t in zip(leaves, ctx.is_tensor) if t])
@@ -112,8 +114,9 @@ class _SolveWithGrad(torch.autograd.Function):
         leaves = [next(it).detach() if t else o for t, o in zip(ctx.is_tensor, ctx.others)]
         prob = ctx.prob
         cost_in, dyn_in = pytree.tree_unflatten(leaves, prob.treedef)
-        d_x_init, d_cost_in, d_dyn_in = _backward(prob, x, u, du_norm, cost_in, dyn_in,
-                                                  g_x, g_u)
+        with comm.batch_global(ctx.mesh):
+            d_x_init, d_cost_in, d_dyn_in = _backward(prob, x, u, du_norm, cost_in, dyn_in,
+                                                      g_x, g_u)
         grads = pytree.tree_leaves((d_cost_in, d_dyn_in), is_leaf=lambda a: a is None)
         if len(grads) != len(leaves):
             raise RuntimeError("internal: cotangent structure differs from the inputs'")

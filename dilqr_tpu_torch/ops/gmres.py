@@ -9,7 +9,8 @@ side and reports its own residual. Both carry the residual vector between
 cycles (m+1 matvecs a cycle). The batched form rotates each new Hessenberg
 column at once (progressive Givens), so |g_{i+1}| is every example's
 least-squares residual after i+1 directions and a cycle stops as soon as
-all examples meet their tolerance; each such test is a host sync. It runs
+all examples meet their tolerance; each such test is a host sync, and a
+decision of every rank of an open ``parallel.comm.batch_global``. It runs
 without autograd (the IFT backward calls it inside a backward pass).
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.comm import decide
 
 _EPS = 1e-30
 
@@ -146,7 +149,7 @@ def gmres_batched(matvec: Callable, b: Sequence[torch.Tensor],
         g[:, 0] = beta
         res = beta
         i = 0
-        while i < m and bool((res > atol).any()):
+        while i < m and decide((res > atol).any()):
             w = mv(V[i])
             h = torch.einsum("ibd,bd->bi", V, w)  # rows j > i of V are zero
             w = w - torch.einsum("bi,ibd->bd", h, V)
@@ -176,7 +179,7 @@ def gmres_batched(matvec: Callable, b: Sequence[torch.Tensor],
     r = b_flat - mv(x)
     res = torch.linalg.vector_norm(r, dim=1)
     it = 0
-    while bool((res > atol).any()) and it < maxiter:
+    while decide((res > atol).any()) and it < maxiter:
         x, r, res = cycle(x, r)
         it += 1
     return unflatten(x), res, b_norm

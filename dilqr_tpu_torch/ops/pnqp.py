@@ -9,7 +9,9 @@ algorithm and constants:
    max(armijo) > GAMMA over the batch (inactive examples carry
    GAMMA+1e-6) -- a reference quirk kept for trajectory parity.
 
-The loops are plain Python loops with data-dependent exits.
+The loops are plain Python loops with data-dependent exits; both exits
+are decisions of the whole batch, over every rank of an open
+``parallel.comm.batch_global``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel.comm import decide
 from ..utils.batch import bdot, bger, bmv, bquad, clamp, solve_psd
 
 GAMMA = 0.1
@@ -79,7 +82,7 @@ def pnqp(
             armijos = torch.where(J, num / den, sentinel)
             alpha = torch.where(armijos <= GAMMA, alpha * ARMIJO_DECAY, alpha)
             # NaN compares False, so a NaN max leaves like the reference
-            if not bool(torch.max(armijos) <= GAMMA):
+            if not decide(torch.max(armijos) <= GAMMA, "all"):
                 break
         return maybe_x
 
@@ -88,7 +91,7 @@ def pnqp(
     while not done and i < n_iter:
         g, If, H_free, dx = newton(x)
         J = torch.linalg.vector_norm(dx, dim=-1) >= CONV_TOL
-        done = not bool(J.any())
+        done = not decide(J.any())
         if not done:
             # the reference returns x un-updated on the convergence iteration
             x = armijo_search(x, g, dx, J)

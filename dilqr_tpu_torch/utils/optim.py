@@ -10,7 +10,9 @@ of bench.py's train step:
     update = -lr * g / sqrt(nu + eps)
 
 eps sits inside the square root, unlike ``torch.optim.RMSprop``, which adds
-it outside.
+it outside. ``rmsprop(learning_rate, decay, eps)`` is optax's constructor:
+an ``Optimizer`` whose init and update take any pytree of tensors (the
+multi-rank train step's, parallel/multihost.py).
 
 ``adam_*``: ``optax.adam(learning_rate)`` with b1 0.9, b2 0.999, eps 1e-8
 and eps_root 0, the optimizer of the trainer's mode 'nn'
@@ -23,9 +25,10 @@ and eps_root 0, the optimizer of the trainer's mode 'nn'
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 
 def rmsprop_init(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -40,6 +43,28 @@ def rmsprop_update(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tenso
     new_nu = {k: decay * nu[k] + (1.0 - decay) * grads[k] * grads[k] for k in params}
     new_params = {k: params[k] - lr * grads[k] / torch.sqrt(new_nu[k] + eps) for k in params}
     return new_params, new_nu
+
+
+class Optimizer(NamedTuple):
+    init: Callable  # params -> state
+    update: Callable  # (params, grads, state) -> (new params, new state)
+
+
+def rmsprop(learning_rate: float, decay: float = 0.9, eps: float = 1e-8) -> Optimizer:
+    """``optax.rmsprop(learning_rate, decay, eps)`` over a pytree of
+    tensors, by ``rmsprop_update`` on its leaves."""
+
+    def init(params):
+        return pytree.tree_map(torch.zeros_like, params)
+
+    def update(params, grads, nu):
+        spec = pytree.tree_structure(params)
+        new, new_nu = rmsprop_update(*(dict(enumerate(pytree.tree_leaves(t)))
+                                       for t in (params, grads, nu)),
+                                     lr=learning_rate, decay=decay, eps=eps)
+        return tuple(pytree.tree_unflatten(list(d.values()), spec) for d in (new, new_nu))
+
+    return Optimizer(init, update)
 
 
 def adam_init(params: Dict[str, torch.Tensor]) -> dict:

@@ -33,7 +33,9 @@ print(len(names), bad)
 assert len(names) >= 39, names
 new = {"dilqr_tpu_torch.ops.parallel_riccati", "dilqr_tpu_torch.il.lstm",
        "dilqr_tpu_torch.utils.logging", "dilqr_tpu_torch.utils.numdiff",
-       "dilqr_tpu_torch.utils.profiling"}
+       "dilqr_tpu_torch.utils.profiling", "dilqr_tpu_torch.parallel.audit",
+       "dilqr_tpu_torch.parallel.comm", "dilqr_tpu_torch.parallel.mesh",
+       "dilqr_tpu_torch.parallel.multihost", "dilqr_tpu_torch.tools.multihost_demo"}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
