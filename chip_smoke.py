@@ -131,7 +131,16 @@ Phases, in order; any failure exits non-zero before the last line:
      process each (tools/multihost_demo.py): 4096 + 4096 with the
      one-process kernel solve's bits, the train step at 2 x 1024, the padded
      uneven 4096 + 1000, every rank's launches and collectives;
- 12. print the JSON line, the nvidia-smi line, then the result line
+ 12. torch.func.vmap over the solve (see vmap_paths; the vmap rule of
+     diff/modes._SolveWithGrad) on bench.py's cartpole: 8 control weights x
+     B=4096 through MPC.solve as one whole-solve launch with each
+     candidate's bits, a ragged x_init sweep with the hand-folded solve's
+     bits, a params sweep at one launch a candidate, the IFT gradient
+     through a sweep (one backward on the folded batch) against the
+     hand-folded solve's, the sweep against a loop of its solves in turns,
+     the folded launch beside its bound and plain version, the idle share
+     of one sweep and examples.cost_sweep once;
+ 13. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -733,15 +742,9 @@ def main():
     out = fused.ilqr_fused(bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0)
     nx, nu, B = 5, 1, 4096
     n = nx + nu
-    step_f = 40.0
-    per_t = (n * step_f + 2 * nx * nx * n + 2 * n * nx * n + 2 * n * nx + 10 + 250
-             + 2 * (2 * nu * nx + 2 * n * n + step_f))
     tile_iters = _tile_iters(fused, bench_cfg, cp_dyn, cp_params, x0, cs)
-    flops = per_t * T * sum(int(it) * min(fused.TILE, B - g * fused.TILE)
-                            for g, it in enumerate(tile_iters))
     bytes_ = 4 * (B * nx + n * n + n + 4) + 4 * (T * B * n + 2 * B + len(tile_iters))
-    bound_ms = max(flops / FP32_PEAK, bytes_ / HBM_RATE) * 1e3
-    bound_by = "operations" if flops / FP32_PEAK >= bytes_ / HBM_RATE else "bytes"
+    bound_ms, bound_by, flops = cartpole_bound(fused, T, B, tile_iters, bytes_)
     print(f"bound ilqr_fused B=4096: {flops:.3e} FLOP, {bytes_} bytes -> {bound_ms:.4f} ms "
           f"({bound_by}); tile iterations {tile_iters}; no single PyTorch call computes "
           f"an iLQR solve, so library_ms is null", flush=True)
@@ -888,7 +891,16 @@ def main():
     kkt_row["launches"] += h_launches["kkt_fused"]
     print(f"phase 11 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
-    # ---- 12) the card's line, then the result line ----
+    # ---- 12) torch.func.vmap over the solve ----
+    vgen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    w_launches, rows[0]["vmap_sweep"] = vmap_paths(torch, P, dev, kernels, card, fused, cp_dyn,
+                                                   cp_params, cp_q, cp_p, bench_cfg, vgen)
+    rows[0]["launches"] += w_launches["ilqr_fused"]
+    rows[0]["vmap_launches"] = w_launches["ilqr_fused"]
+    kkt_row["launches"] += w_launches["kkt_fused"]
+    print(f"phase 12 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+
+    # ---- 13) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3502,6 +3514,192 @@ def multihost_paths(torch, P, dev, kernels, card, dyn, params, q, p, cfg, gen):
         total[name] += int(le[:, col[0]].sum() + le[:, col[1]].sum() + lu[:, col[0]].sum())
     print(f"phase 11 launches (a and every rank of b): {total}", flush=True)
     return total
+
+
+def cartpole_bound(fused, T, B, tile_iters, by):
+    """The least time of one cartpole solve on the hand Jacobian: (ms,
+    "bytes" or "operations", FLOP) for ``by`` bytes moved. Operations:
+    bench.py's FLOP model of the solve per example, step and iteration
+    (the step, its Jacobian, the Riccati step, the box-QP and one
+    line-search trial) times the iterations each tile ran."""
+    nx, nu, step_f = 5, 1, 40.0
+    n = nx + nu
+    per_t = (n * step_f + 2 * nx * nx * n + 2 * n * nx * n + 2 * n * nx + 10 + 250
+             + 2 * (2 * nu * nx + 2 * n * n + step_f))
+    flops = per_t * T * sum(int(it) * min(fused.TILE, B - g * fused.TILE)
+                            for g, it in enumerate(tile_iters))
+    t_ops, t_by = flops / FP32_PEAK, by / HBM_RATE
+    return max(t_ops, t_by) * 1e3, ("operations" if t_ops >= t_by else "bytes"), flops
+
+
+def vmap_paths(torch, P, dev, kernels, card, fused, dyn, params, q, p, cfg, gen):
+    """Phase 12: torch.func.vmap over the solve (the vmap rule of
+    diff/modes._SolveWithGrad) on bench.py's cartpole (``cfg``: T=20, box
+    +-100, lqr_iter 20, f32), every launch counter set to 0 before each step
+    and read after, and the rule's route counted (modes.VMAP_STATS).
+
+    (a) vmap over MPC.solve, 8 control-weight candidates at B=4096: one
+    whole-solve launch on the folded 32768 examples (the merged route), each
+    candidate's x, u, costs and du the bits of its own solve (a 4096 batch
+    is whole tiles, and the kernel decides per tile), n_iter the max of the
+    eight; (b) an x_init sweep S=3 at B=1000 (tiles mixing candidates): the
+    bits of the hand-folded 3000-example solve; (c) a params sweep S=2: one
+    launch a candidate (the mapped route: the kernel reads one params
+    vector a launch), each the bits of its own solve; (d) the IFT gradient
+    of a loss summed over a sweep S=4 at B=1024: one whole-solve launch and
+    one backward on the folded batch, the KKT launches of the hand-folded
+    4096-example solve's backward, the gradient within 1e-6 relative of that
+    solve's; (e) the sweep against a loop of its 8 solves in turns (host
+    clock), the folded launch alone by CUDA events beside its bound and its
+    plain version (one run), one profiled sweep (the idle share), and
+    examples.cost_sweep.main() once, its numbers finite. Returns (the
+    launches, the kernel table's sweep row)."""
+    import dataclasses
+
+    from dilqr_tpu_torch.diff import modes
+    from dilqr_tpu_torch.examples import cost_sweep
+
+    total = {name: 0 for name in kernels}
+    box = dict(u_lower=-100.0, u_upper=100.0)
+    T, n = cfg.T, cfg.n_tau
+    stats = modes.VMAP_STATS
+    merged, mapped = {"vmap_merged": 1, "vmap_mapped": 0}, {"vmap_merged": 0, "vmap_mapped": 1}
+
+    def run(label, fn, want, route, into=total):
+        before = dict(stats)
+        out, got = drive(torch, kernels, into, f"phase 12 {label}", fn, want)
+        moved = {k: stats[k] - before[k] for k in stats}
+        if moved != route:
+            fail(f"phase 12 {label}: routes {moved}, want {route}")
+        return out, got
+
+    def same(label, got, want, s=None):
+        for name in ("x", "u", "costs", "full_du_norm"):
+            a, b = getattr(got, name), getattr(want, name)
+            a = a[s] if s is not None else a.reshape(b.shape)
+            if not torch.equal(a, b):
+                fail(f"phase 12 {label}: {name} differs from its own solve by "
+                     f"{(a - b).abs().max().item():.3e}")
+
+    def cost_of(w):
+        return P.QuadCost(torch.diag(torch.cat([q[:-1], w[None]])), p)
+
+    mpc = P.MPC(5, 1, T, lqr_iter=cfg.lqr_iter, eps=cfg.eps,
+                linesearch_decay=cfg.linesearch_decay, max_linesearch_iter=cfg.max_linesearch_iter,
+                exit_unconverged=False, backprop=False, **box)
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+
+    # ---- (a) 8 control weights x 4096, one launch ----
+    S, B = 8, 4096
+    ws = torch.logspace(-3, 0, S, device=dev)
+    x0 = cartpole_start(torch, gen, B, dev)
+
+    def sweep():
+        return torch.func.vmap(lambda w: mpc.solve(x0, cost_of(w), dyn, params=params))(ws)
+
+    label = f"(a) vmap over MPC.solve, {S} control weights x B={B}"
+    res, _ = run(label, sweep, one, merged)
+    its = []
+    for s in range(S):
+        own = mpc.solve(x0, cost_of(ws[s]), dyn, params=params)
+        same(f"{label}, candidate {s}", res, own, s)
+        its.append(int(own.n_iter))
+    if res.n_iter.tolist() != [max(its)] * S:
+        fail(f"phase 12 {label}: n_iter {res.n_iter.tolist()}, the candidates' {its}")
+    print(f"phase 12 {label}: each candidate's bits, n_iter {int(res.n_iter[0])} (candidates "
+          f"{its}), mean cost by candidate {[round(c, 4) for c in res.costs.mean(1).tolist()]}",
+          flush=True)
+
+    # ---- (b) an x_init sweep at a ragged B, the hand-folded solve's bits ----
+    cost = P.QuadCost(torch.diag(q), p)
+    xs = torch.stack([cartpole_start(torch, gen, 1000, dev) for _ in range(3)])
+    label = "(b) vmap over MPC.solve, 3 starts x B=1000"
+    res_b, _ = run(label, lambda: torch.func.vmap(
+        lambda x: mpc.solve(x, cost, dyn, params=params))(xs), one, merged)
+    same(f"{label} against the folded 3000", res_b, mpc.solve(xs.reshape(3000, 5), cost, dyn,
+                                                              params=params))
+    print(f"phase 12 {label}: the hand-folded 3000-example solve's bits, n_iter "
+          f"{int(res_b.n_iter[0])}", flush=True)
+
+    # ---- (c) a params sweep: one launch a candidate ----
+    ps = torch.stack([params, params * 1.1])
+    label = "(c) vmap over MPC.solve, 2 params x B=4096"
+    res_c, _ = run(label, lambda: torch.func.vmap(
+        lambda pp: mpc.solve(x0, cost, dyn, params=pp))(ps),
+        {"ilqr_fused": 2, "kkt_fused": 0, "riccati_fused": 0}, mapped)
+    for s in range(2):
+        same(f"{label}, candidate {s}", res_c, mpc.solve(x0, cost, dyn, params=ps[s]), s)
+    print(f"phase 12 {label}: each candidate's bits, n_iter {res_c.n_iter.tolist()}", flush=True)
+
+    # ---- (d) the IFT gradient through a sweep, one backward ----
+    g_cfg = dataclasses.replace(cfg, backprop=True, backward_mode=P.BackwardMode.IFT)
+    S4, B4 = 4, 1024
+    w4 = torch.logspace(-2, 0, S4, device=dev)
+    x4 = cartpole_start(torch, gen, B4, dev)
+
+    def grad(folded):
+        pr = params.clone().requires_grad_(True)
+        if folded:
+            C = torch.stack([cost_of(w).C for w in w4]).repeat_interleave(B4, 0)
+            r = P.solve(g_cfg, x4.repeat(S4, 1), P.QuadCost(C[:, None].expand(-1, T, -1, -1),
+                                                             p.expand(S4 * B4, T, n)),
+                        dyn, params=pr, **box)
+        else:
+            r = torch.func.vmap(lambda w: P.solve(g_cfg, x4, cost_of(w), dyn, params=pr,
+                                                  **box))(w4)
+        return torch.autograd.grad((r.u ** 2).mean(), pr)[0]
+
+    both = {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0}
+    label = f"(d) IFT gradient through vmap, {S4} control weights x B={B4}"
+    g, got = run(label, lambda: grad(False), both, merged)
+    g_f, got_f = run(f"{label}, hand-folded", lambda: grad(True), both,
+                     {"vmap_merged": 0, "vmap_mapped": 0}, into={name: 0 for name in kernels})
+    rel = ((g - g_f).abs().max() / g_f.abs().max()).item()
+    print(f"phase 12 {label}: grad params {g.tolist()}, rel. diff to the hand-folded solve's "
+          f"{rel:.3e}; KKT launches {got['kkt_fused']} (hand-folded {got_f['kkt_fused']})",
+          flush=True)
+    if not (torch.isfinite(g).all() and rel <= 1e-6):
+        fail(f"phase 12 {label}: gradient off the hand-folded solve's by {rel:.3e}")
+    if got["kkt_fused"] != got_f["kkt_fused"]:
+        fail(f"phase 12 {label}: {got['kkt_fused']} KKT launches, the folded backward "
+             f"{got_f['kkt_fused']}")
+
+    # ---- (e) times ----
+    turns = host_ms_in_turns({
+        "vmap sweep": sweep,
+        "loop of 8 solves": lambda: [mpc.solve(x0, cost_of(w), dyn, params=params) for w in ws]})
+    print_turns(card, f"phase 12 (e) vmap over MPC.solve {S} x B={B} against a loop of its "
+                f"{S} solves", turns)
+    xf = x0.repeat(S, 1)
+    cf = (torch.stack([cost_of(w).C for w in ws]).repeat_interleave(B, 0)[None].expand(
+        T, -1, -1, -1), p.expand(T, S * B, n))
+    args = (cfg, dyn, params, xf, cf, None, -100.0, 100.0)
+    k_out = fused.ilqr_fused(*args)
+    for a, b in zip(k_out[:4], (res.x, res.u, res.costs, res.full_du_norm)):
+        b = b.reshape(S * B, *b.shape[2:])  # candidate-major, batch-major
+        if not torch.equal(a, b.transpose(0, 1) if b.dim() > 1 else b):
+            fail("phase 12 (e): the folded launch's bits differ from the sweep's")
+    ms, runs = cuda_ms(lambda: fused.ilqr_fused(*args), 2, 7)
+    plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(*args), 0, 1)
+    its = [int(fused.ilqr_fused(cfg, dyn, params, xf[g:g + fused.TILE],
+                                tuple(a[:, g:g + fused.TILE] for a in cf), None, -100.0,
+                                100.0)[4]) for g in range(0, S * B, fused.TILE)]
+    bound, by_what, flops = cartpole_bound(fused, T, S * B, its,
+                                           variant_work(cfg, S * B, cf, -100.0, 100.0, None, {}))
+    print(f"time phase 12 ilqr_fused the folded sweep B={S * B} T={T} (per-example cost): "
+          f"{ms:.3f} ms median of {len(runs)} ({', '.join(f'{r:.3f}' for r in runs)}), the "
+          f"plain version {plain_ms:.1f} ms (one run); bound {flops:.3e} FLOP -> {bound:.4f} ms "
+          f"({by_what}); tile iterations {its} [{card}]", flush=True)
+    profile_step(torch, f"phase 12 (a) vmap over MPC.solve {S} x B={B}", sweep,
+                 counted=(fused, "ilqr_fused_kernel"))
+    out, _ = run("(e) examples.cost_sweep.main()", lambda: cost_sweep.main(["--device", "cuda"]),
+                 one, merged)
+    if not all(math.isfinite(v) for v in out["tracking"] + out["effort"]):
+        fail(f"phase 12 (e) cost_sweep: non-finite numbers {out}")
+    print(f"phase 12 launches: {total}", flush=True)
+    return total, {"name": f"vmap sweep, cartpole S={S} x B={B} folded", "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by_what,
+                   "sweep_ms": turns["vmap sweep"][0], "loop_ms": turns["loop of 8 solves"][0]}
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

@@ -23,6 +23,11 @@ Public API:
     models.{affine,ctrl_passthrough}  affine dynamics, the slew-rate wrapper
     convert.from_numpy           JAX-side parameters and data -> tensors
     il.exp.ILExp, il.lstm        the trainer (modes nn, empc, imempc, sysid)
+    viz                          renderers (matplotlib, imported when drawing)
+    examples.*                   the six example scripts (python -m ...)
+
+torch.func.vmap over solve / MPC folds a sweep into one solve where the
+whole-solve kernel takes it (diff/modes.py).
 """
 
 from . import models

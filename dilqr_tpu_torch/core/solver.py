@@ -11,7 +11,6 @@ mpc.py:339-445).
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Optional
 
 import numpy as np
@@ -86,17 +85,16 @@ def canonicalize_u_init(u_init, T: int, B: int, n_ctrl: int, like: torch.Tensor)
 
 
 def canonicalize_bound(v, T: int, B: int, n_ctrl: int, like: torch.Tensor):
-    """Scalar -> python float; [nu] -> tensor [nu]; [T,nu] | [B,T,nu] ->
-    time-major [T,B,nu]. Python floats are what the kernel takes as its
-    static bounds."""
+    """A number -> python float; a 0-d tensor stays one (no host read: under
+    vmap it may be a sweep's bound) and [nu] too; [T,nu] | [B,T,nu] ->
+    time-major [T,B,nu]. The kernel reads a number, 0-d or [nu] bound as
+    its static bounds (ops/cuda/ilqr_fused.static_bounds)."""
     if v is None:
         return None
     if isinstance(v, (int, float, np.floating, np.integer)):
         return float(v)
     v = torch.as_tensor(v, device=like.device).to(like.dtype)
-    if v.dim() == 0:
-        return float(v)
-    if v.dim() == 1:
+    if v.dim() <= 1:
         return v
     if v.dim() == 2:
         return v[:, None].expand(T, B, n_ctrl)
@@ -232,20 +230,13 @@ def solve(
     if unaug is not None:
         x = x[:, :, unaug:]
 
-    converged = full_du_norm < cfg.eps
-    if cfg.exit_unconverged:
-        n_bad = int((~converged).sum())
-        if n_bad:
-            warnings.warn(
-                f"iLQR did not converge for {n_bad}/{B} examples "
-                "(exit_unconverged is set; the reference asserts here, "
-                "mpc.py:323-324)"
-            )
+    # exit_unconverged warns inside the solve (diff/modes.py), where the
+    # tensors are real under torch.func.vmap
     return SolveResult(
         x=x.transpose(0, 1),
         u=u.transpose(0, 1),
         costs=costs.detach(),
-        converged=converged,
+        converged=full_du_norm < cfg.eps,
         full_du_norm=full_du_norm.detach(),
         n_iter=n_iter,
     )

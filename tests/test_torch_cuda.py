@@ -1157,3 +1157,63 @@ def test_profiler_records_every_kernel_launch(dev):
     assert fused.LAUNCHES - before == 1
     assert sum("ilqr_fused_kernel" in e.name for e in events) == 1
     assert len(events) > 1
+
+
+def _sweep_problem(dev, B):
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    th = 3.0 + 0.1 * torch.randn(B, generator=torch.Generator().manual_seed(14))
+    z = torch.zeros(B)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    mpc = P.MPC(5, 1, 12, u_lower=-100.0, u_upper=100.0, lqr_iter=10, eps=1e-4,
+                linesearch_decay=dyn.linesearch_decay,
+                max_linesearch_iter=dyn.max_linesearch_iter, exit_unconverged=False,
+                backprop=False)
+    return dyn, params, q, p, x0, mpc
+
+
+def _candidate_bits(got, want, s):
+    for name in ("x", "u", "costs", "full_du_norm"):
+        assert torch.equal(getattr(got, name)[s], getattr(want, name)), name
+
+
+def test_vmap_cost_sweep_is_one_launch_with_each_candidates_bits(dev):
+    """torch.func.vmap over MPC.solve with 4 control weights at B=2048
+    (whole tiles): the merged route, one whole-solve launch on the 8192
+    folded examples, each candidate's x, u, costs and du the bits of its
+    own solve, n_iter the max of the four (chip_smoke.py's phase 12 (a))."""
+    from dilqr_tpu_torch.diff import modes
+
+    dyn, params, q, p, x0, mpc = _sweep_problem(dev, 2048)
+    ws = torch.logspace(-3, 0, 4, device=dev)
+
+    def cost_of(w):
+        return P.QuadCost(torch.diag(torch.cat([q[:-1], w[None]])), p)
+
+    before, merged = fused.LAUNCHES, modes.VMAP_STATS["vmap_merged"]
+    res = torch.func.vmap(lambda w: mpc.solve(x0, cost_of(w), dyn, params=params))(ws)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1 and modes.VMAP_STATS["vmap_merged"] == merged + 1
+    its = []
+    for s in range(4):
+        own = mpc.solve(x0, cost_of(ws[s]), dyn, params=params)
+        _candidate_bits(res, own, s)
+        its.append(int(own.n_iter))
+    assert res.n_iter.tolist() == [max(its)] * 4
+
+
+def test_vmap_params_sweep_launches_once_a_candidate(dev):
+    """A batched dynamics param takes the mapped route (the kernel reads one
+    params vector a launch): one launch a candidate, each candidate the bits
+    of its own solve (chip_smoke.py's phase 12 (c))."""
+    from dilqr_tpu_torch.diff import modes
+
+    dyn, params, q, p, x0, mpc = _sweep_problem(dev, 1030)
+    ps = torch.stack([params, params * 1.1, params * 0.9])
+    cost = P.QuadCost(torch.diag(q), p)
+    before, mapped = fused.LAUNCHES, modes.VMAP_STATS["vmap_mapped"]
+    res = torch.func.vmap(lambda pp: mpc.solve(x0, cost, dyn, params=pp))(ps)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 3 and modes.VMAP_STATS["vmap_mapped"] == mapped + 1
+    for s in range(3):
+        _candidate_bits(res, mpc.solve(x0, cost, dyn, params=ps[s]), s)

@@ -30,14 +30,20 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "dilqr_tpu" or m.startswith("dilqr_tpu.")]
 print(len(names), bad)
-assert len(names) >= 39, names
+assert len(names) >= 47, names
 new = {"dilqr_tpu_torch.ops.parallel_riccati", "dilqr_tpu_torch.il.lstm",
        "dilqr_tpu_torch.utils.logging", "dilqr_tpu_torch.utils.numdiff",
        "dilqr_tpu_torch.utils.profiling", "dilqr_tpu_torch.parallel.audit",
        "dilqr_tpu_torch.parallel.comm", "dilqr_tpu_torch.parallel.mesh",
-       "dilqr_tpu_torch.parallel.multihost", "dilqr_tpu_torch.tools.multihost_demo"}
+       "dilqr_tpu_torch.parallel.multihost", "dilqr_tpu_torch.tools.multihost_demo",
+       "dilqr_tpu_torch.viz"}
+new |= {"dilqr_tpu_torch.examples." + e for e in (
+    "cost_sweep", "closed_loop", "mismatch_loop", "rocket_landing", "sysid_pendulum",
+    "external_plant")}
 assert new <= set(names), new - set(names)
 assert not bad, bad
+# viz imports matplotlib when it draws, never at import: the card's machine has none
+assert "matplotlib" not in sys.modules
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
