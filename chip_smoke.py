@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero before the last line:
      card's name and power limit;
   2. build every CUDA kernel of the main paths from csrc/ (nvcc, sm_90a),
      one nvcc per source, all started together (the whole-solve iLQR, the
-     KKT VJP, the reverse Riccati, phase 8's LinDx shapes, phase 9's
-     jvp libraries and phase 10's MLP shapes, one library each), and print
+     KKT VJP, the reverse Riccati, phase 8's LinDx shapes and the three
+     phase 13's gradient fuzz draws, phase 9's jvp libraries and phase
+     10's MLP shapes, one library each), and print
      the build seconds and the
      ptxas report, with each whole-solve and KKT instantiation's registers,
      stack and spills; a whole-solve instantiation missing (17: the envs
@@ -140,7 +141,17 @@ Phases, in order; any failure exits non-zero before the last line:
      hand-folded solve's, the sweep against a loop of its solves in turns,
      the folded launch beside its bound and plain version, the idle share
      of one sweep and examples.cost_sweep once;
- 13. print the JSON line, the nvidia-smi line, then the result line
+ 13. per-candidate gradients (see pergrad_paths; the vmap rules of
+     diff/modes._SolveBackward and _Unrolled) on bench.py's cartpole:
+     vmap(grad) over 8 control weights x B=4096 as one whole-solve launch
+     and one folded backward, with the hand-folded backward's KKT launches
+     and gradients (the params' reduced per candidate) and each candidate
+     near its solo gradient; jacrev of the mean terminal state as one
+     folded backward against the one-hot loop; UNROLL and delta_u sweeps
+     with each candidate's bits; tools/fuzz_gradients on the card (6 cases,
+     --vmap 2); the sweep against the loop of its solo gradients in turns,
+     the idle share of one sweep and the folded KKT call beside its bound;
+ 14. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -204,20 +215,23 @@ def host_ms(fn, reps: int = 3, warmup: bool = True):
     return statistics.median(ts)
 
 
-def host_ms_in_turns(fns, rounds: int = 3, warm_both: bool = True):
+def host_ms_in_turns(fns, rounds: int = 3, warm_both: bool = True, b_once: bool = False):
     """Median host-clock milliseconds of each of two calls, timed in turns
     (a b b a, a b b a, ...) after one warm-up run of each, so that a slow
     stretch of the host falls on both. warm_both False warms the first
     only: the kernel paths against the plain loop, whose second is a
     host-bound PyTorch loop of seconds on kernels every earlier phase ran
-    (its discarded warm-up took a minute of the run's time limit)."""
+    (its discarded warm-up took a minute of the run's time limit). b_once:
+    a round is a b a, the second call once between two of the first (the
+    plain loop of phases 7 and 9, whose second run took a minute of the
+    script's fixed time limit, which phase 13 needed)."""
     (na, fa), (nb, fb) = fns.items()
     fa()
     if warm_both:
         fb()
     ts = {na: [], nb: []}
     for _ in range(rounds):
-        for name in (na, nb, nb, na):
+        for name in (na, nb, na) if b_once else (na, nb, nb, na):
             ts[name].append(host_ms(fns[name], reps=1, warmup=False))
     return {name: (statistics.median(v), v) for name, v in ts.items()}
 
@@ -900,7 +914,18 @@ def main():
     kkt_row["launches"] += w_launches["kkt_fused"]
     print(f"phase 12 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
-    # ---- 13) the card's line, then the result line ----
+    # ---- 13) per-candidate gradients ----
+    pgen = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    g_launches, kkt_row["pergrad_sweep"] = pergrad_paths(torch, P, dev, kernels, card, kkt,
+                                                         cp_dyn, cp_params, cp_q, cp_p,
+                                                         bench_cfg, pgen)
+    rows[0]["launches"] += g_launches["ilqr_fused"]
+    rows[0]["pergrad_launches"] = g_launches["ilqr_fused"]
+    kkt_row["launches"] += g_launches["kkt_fused"]
+    kkt_row["pergrad_launches"] = g_launches["kkt_fused"]
+    print(f"phase 13 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+
+    # ---- 14) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2383,11 +2408,11 @@ def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
     for label, (call, B, nx, nu, box, n) in paths.items():
         if label.startswith("receding_horizon slew rate rocket"):
             continue  # driven in (b); its solves are the rocket MPC.solve's
-        # one round (a b b a): the plain loop takes seconds a call, and the
+        # one round, a b a: the plain loop takes seconds a call, and the
         # script's time limit is fixed
         got = host_ms_in_turns({"kernel": lambda: call("auto"),
                                 "plain loop": lambda: call("torch")}, rounds=1,
-                               warm_both=False)
+                               warm_both=False, b_once=True)
         (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
         per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
         print(f"time phase 7 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
@@ -2455,7 +2480,9 @@ def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, 
 # (15,2) and (11,8), and one control in registers (6,1) and past them (15,1)
 LINDX_SHAPES = ((3, 2, True), (3, 2, False), (5, 2, True), (4, 4, True), (4, 5, True),
                 (4, 6, True), (4, 7, True), (4, 8, True), (15, 2, True), (11, 8, True),
-                (6, 1, True), (15, 1, True))
+                (6, 1, True), (15, 1, True),
+                # phase 13 (d)'s gradient fuzz draws these
+                (3, 1, True), (4, 1, True), (4, 2, True))
 # LinDx<NX, NU> in the whole-solve kernel's mangled name
 LINDX_NAME = r"LinDxILi(\d+)ELi(\d+)EE"
 
@@ -3068,7 +3095,7 @@ def jvp_paths(torch, P, dev, kernels, card, fused, gen):
     for label, (call, B, nx, nu, box, n) in paths.items():
         got = host_ms_in_turns({"kernel": lambda: call("auto"),
                                 "plain loop": lambda: call("torch")}, rounds=1,
-                               warm_both=False)
+                               warm_both=False, b_once=True)
         (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
         per = f" ({k_ms / n:.3f} ms a step)" if n > 1 else ""
         print(f"time phase 9 {label}: {k_ms:.3f} ms{per} with the whole-solve kernel, "
@@ -3569,6 +3596,7 @@ def vmap_paths(torch, P, dev, kernels, card, fused, dyn, params, q, p, cfg, gen)
         before = dict(stats)
         out, got = drive(torch, kernels, into, f"phase 12 {label}", fn, want)
         moved = {k: stats[k] - before[k] for k in stats}
+        route = dict(dict.fromkeys(stats, 0), **route)  # no backward is vmapped here
         if moved != route:
             fail(f"phase 12 {label}: routes {moved}, want {route}")
         return out, got
@@ -3700,6 +3728,255 @@ def vmap_paths(torch, P, dev, kernels, card, fused, dyn, params, q, p, cfg, gen)
     return total, {"name": f"vmap sweep, cartpole S={S} x B={B} folded", "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by_what,
                    "sweep_ms": turns["vmap sweep"][0], "loop_ms": turns["loop of 8 solves"][0]}
+
+
+# phase 13's bar for a candidate's gradient on the merged route against its
+# solo gradient (f32): the folded GMRES runs until every candidate meets the
+# IFT tolerance (backward_tol, 1e-4 relative to each example's right-hand
+# side), so a candidate may take more iterations than it would alone
+# (ROADMAP C); ten times that tolerance, of the largest entry
+PERGRAD_SOLO_BAR = 1e-3
+
+
+def pergrad_paths(torch, P, dev, kernels, card, kkt, dyn, params, q, p, cfg, gen):
+    """Phase 13: per-candidate gradients -- torch.func.vmap over
+    torch.func.grad, jacrev, UNROLL and delta_u under vmap -- on bench.py's
+    cartpole (``cfg``: T=20, box +-100, lqr_iter 20, f32; IFT unless
+    named), every launch counter and modes.VMAP_STATS set to 0 before each
+    step and read after.
+
+    (a) vmap(grad) of each candidate's imitation loss (sum (u - u*)^2,
+    targets from ``gen``) with respect to its control weight and the shared
+    params, 8 control weights (examples/cost_sweep.py's logspace) x B=4096:
+    one whole-solve launch and one folded backward (vmap_merged and
+    bwd_merged once each), whose KKT launches equal the hand-folded
+    32768-example backward's; the weights' gradients and the params' summed
+    over the candidates within 1e-6 relative of the hand-folded backward's,
+    the params' per candidate within 1e-6 of that backward with the
+    per-candidate param reduction (modes._backward with the params given
+    per example, each candidate's examples summed); each candidate within
+    PERGRAD_SOLO_BAR of its solo torch.func.grad, whose KKT launches (the
+    GMRES matvecs plus the full call) are printed beside the folded one's;
+    (b) jacrev of the batch-mean terminal state (5 outputs) with respect to
+    the params at B=4096: one whole-solve launch, one folded backward on the
+    5 x 4096 one-hot cotangents, within 1e-5 relative of 5 autograd.grad
+    calls on one-hot cotangents (retain_graph), one run of each timed; (c) at S=2, B=256,
+    lqr_iter 5, the plain loop: vmap over the UNROLL solve and vmap(grad)
+    through it, each candidate the bits of its own solve and gradient (no
+    kernel launch); a delta_u sweep S=3 on the mapped route, one
+    whole-solve launch a candidate, each with its own solve's bits; (d)
+    tools/fuzz_gradients on the card, 6 cases with --vmap 2, every case
+    passing; (e) (a) against a Python loop of its 8 solo gradients in
+    turns (host clock), one profiled sweep (the idle share, the KKT
+    launches recorded), and the folded backward's KKT "Ff" call at 32768
+    examples (CUDA events) beside its bound (kkt_work) and plain version.
+    Returns (the launches, the kernel table's sub-row 2a)."""
+    import dataclasses
+
+    from dilqr_tpu_torch.core.linearize import linearize_dynamics
+    from dilqr_tpu_torch.diff import modes
+    from dilqr_tpu_torch.tools import fuzz_gradients
+
+    total = {name: 0 for name in kernels}
+    box = dict(u_lower=-100.0, u_upper=100.0)
+    T, n = cfg.T, cfg.n_tau
+    stats = modes.VMAP_STATS
+    g_cfg = dataclasses.replace(cfg, backprop=True, backward_mode=P.BackwardMode.IFT)
+    some = {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0}
+    none = {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": 0}
+
+    def run(label, fn, want, route, into=total):
+        stats.update(dict.fromkeys(stats, 0))
+        t1 = time.perf_counter()
+        out, got = drive(torch, kernels, into, f"phase 13 {label}", fn, want)
+        run.ms = (time.perf_counter() - t1) * 1e3  # one run, host clock, synchronized
+        moved = {k: v for k, v in stats.items() if v}
+        if moved != route:
+            fail(f"phase 13 {label}: routes {moved}, want {route}")
+        return out, got
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def check(label, err, bar):
+        print(f"phase 13 {label}: rel. diff {err:.3e} (bar {bar:g})", flush=True)
+        if not err <= bar:
+            fail(f"phase 13 {label}: rel. diff {err:.3e} past {bar:g}")
+
+    def cost_of(w):
+        return P.QuadCost(torch.diag(torch.cat([q[:-1], w[None]])), p)
+
+    # ---- (a) vmap(grad) at full width ----
+    S, B = 8, 4096
+    ws = torch.logspace(-3, 0, S, device=dev)
+    x0 = cartpole_start(torch, gen, B, dev)
+    target = 0.5 * torch.randn(B, T, 1, generator=gen).to(dev)
+
+    def loss(pr, w):
+        r = P.solve(g_cfg, x0, cost_of(w), dyn, params=pr, **box)
+        return ((r.u - target) ** 2).sum()
+
+    def sweep():
+        return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(None, 0))(
+            params, ws)
+
+    def folded():
+        pr, wl = params.clone().requires_grad_(True), ws.clone().requires_grad_(True)
+        C = torch.stack([cost_of(w).C for w in wl]).repeat_interleave(B, 0)
+        r = P.solve(g_cfg, x0.repeat(S, 1), P.QuadCost(C[:, None].expand(-1, T, -1, -1),
+                                                        p.expand(S * B, T, n)),
+                    dyn, params=pr, **box)
+        return torch.autograd.grad(((r.u.reshape(S, B, T, 1) - target) ** 2).sum(), (pr, wl)), r
+
+    label = f"(a) vmap(grad) over {S} control weights x B={B}"
+    (g_p, g_w), got = run(label, sweep, some, {"vmap_merged": 1, "bwd_merged": 1})
+    ((f_p, f_w), r_f), got_f = run(f"{label}, hand-folded", folded, some, {},
+                                   into={name: 0 for name in kernels})
+    if got["kkt_fused"] != got_f["kkt_fused"]:
+        fail(f"phase 13 {label}: {got['kkt_fused']} KKT launches, the hand-folded backward "
+             f"{got_f['kkt_fused']}")
+    if not (torch.isfinite(g_p).all() and torch.isfinite(g_w).all()):
+        fail(f"phase 13 {label}: non-finite gradients")
+    check(f"{label}: d/dw against the hand-folded backward", rel(g_w, f_w), 1e-6)
+    check(f"{label}: d/dparams summed over the candidates against the hand-folded backward",
+          rel(g_p.sum(0), f_p), 1e-6)
+    # the hand-folded backward with the per-candidate param reduction: the
+    # params given per example, each candidate's examples summed
+    x_t, u_t = r_f.x.detach().transpose(0, 1), r_f.u.detach().transpose(0, 1)
+    C_t = torch.stack([cost_of(w).C for w in ws]).repeat_interleave(B, 0)[None].expand(
+        T, -1, -1, -1)
+    c_t = p.expand(T, S * B, n)
+    gu = 2.0 * (u_t - target.transpose(0, 1).repeat(1, S, 1))
+    prob, _ = modes._problem(g_cfg, P.QuadCost(C_t, c_t), dyn, params)
+    (_, _, d_pe), got_r = run(f"{label}, hand-folded with the params per example", lambda: (
+        modes._backward(prob, x_t, u_t, r_f.full_du_norm, -100.0, 100.0, (C_t, c_t),
+                        params.expand(S * B, -1), torch.zeros_like(x_t), gu)),
+        {"ilqr_fused": 0, "kkt_fused": None, "riccati_fused": 0}, {},
+        into={name: 0 for name in kernels})
+    check(f"{label}: d/dparams per candidate against the hand-folded backward's "
+          f"per-candidate reduction ({got_r['kkt_fused']} KKT launches)",
+          rel(g_p, d_pe.unflatten(0, (S, B)).sum(1)), 1e-6)
+    solo_kkt, worst = [], 0.0
+    for s in range(S):
+        (s_p, s_w), got_s = run(f"{label}, candidate {s} alone",
+                                lambda: torch.func.grad(loss, argnums=(0, 1))(params, ws[s]),
+                                some, {}, into={name: 0 for name in kernels})
+        solo_kkt.append(got_s["kkt_fused"])
+        worst = max(worst, rel(g_p[s], s_p), ((g_w[s] - s_w).abs() / s_w.abs()).item())
+    print(f"phase 13 {label}: KKT launches (GMRES matvecs + the full call) of the folded "
+          f"backward {got['kkt_fused']}, of each candidate alone {solo_kkt}; grad params by "
+          f"candidate {[[round(v, 4) for v in r] for r in g_p.tolist()]}, d/dw "
+          f"{[f'{v:.4e}' for v in g_w.tolist()]}", flush=True)
+    check(f"{label}: each candidate against its solo gradient (largest)", worst,
+          PERGRAD_SOLO_BAR)
+
+    # ---- (b) jacrev of the batch-mean terminal state ----
+    cost = P.QuadCost(torch.diag(q), p)
+
+    def terminal(pr):
+        return P.solve(g_cfg, x0, cost, dyn, params=pr, **box).x[:, -1].mean(0)
+
+    def one_hot():
+        pr = params.clone().requires_grad_(True)
+        out = terminal(pr)
+        return torch.stack([torch.autograd.grad(out, pr, e, retain_graph=True)[0]
+                            for e in torch.eye(5, device=dev)])
+
+    label = f"(b) jacrev of the mean terminal state (5) w.r.t. the params, B={B}"
+    jac, got_j = run(label, lambda: torch.func.jacrev(terminal)(params), some,
+                     {"bwd_merged": 1})
+    jac_ms = run.ms
+    rows, got_o = run(f"{label}, 5 one-hot backwards", one_hot, some, {},
+                      into={name: 0 for name in kernels})
+    print(f"phase 13 {label}: KKT launches {got_j['kkt_fused']} (one folded backward of "
+          f"{5 * B} examples), the one-hot loop's {got_o['kkt_fused']}; {jac_ms:.1f} ms against "
+          f"{run.ms:.1f} ms (one run each, forward included, host clock) [{card}]", flush=True)
+    if not torch.isfinite(jac).all() or tuple(jac.shape) != (5, 4):
+        fail(f"phase 13 {label}: jacobian of shape {tuple(jac.shape)}, finite "
+             f"{bool(torch.isfinite(jac).all())}")
+    check(f"{label} against the one-hot loop", rel(jac, rows), 1e-5)
+
+    # ---- (c) UNROLL and delta_u under vmap ----
+    B2 = 256
+    xc, tc = cartpole_start(torch, gen, B2, dev), target[:B2]
+    w2 = torch.tensor([0.01, 0.1], device=dev)
+    u_cfg = dataclasses.replace(g_cfg, lqr_iter=5, backward_mode=P.BackwardMode.UNROLL,
+                                unroll=True)
+
+    def unrolled(w, pr=params):
+        return P.solve(u_cfg, xc, cost_of(w), dyn, params=pr, **box)
+
+    def loss_u(pr, w):
+        return ((unrolled(w, pr).u - tc) ** 2).sum()
+
+    def same(label, got, want, s):
+        for name in ("x", "u", "costs", "full_du_norm"):
+            if not torch.equal(getattr(got, name)[s], getattr(want, name)):
+                fail(f"phase 13 {label}: {name} of candidate {s} differs from its own solve's")
+
+    label = f"(c) vmap over the UNROLL solve, 2 x B={B2}, lqr_iter 5"
+    res, _ = run(label, lambda: torch.func.vmap(unrolled)(w2), none, {"vmap_mapped": 1})
+    for s in range(2):
+        same(label, res, unrolled(w2[s]), s)
+    label = f"(c) vmap(grad) through the UNROLL solve, 2 x B={B2}"
+    g_u, _ = run(label, lambda: torch.func.vmap(torch.func.grad(loss_u), in_dims=(None, 0))(
+        params, w2), none, {"vmap_mapped": 1, "bwd_mapped": 1})
+    for s in range(2):
+        if not torch.equal(g_u[s], torch.func.grad(loss_u)(params, w2[s])):
+            fail(f"phase 13 {label}: candidate {s}'s gradient differs from its own")
+    print(f"phase 13 (c): UNROLL solves and gradients with each candidate's bits, grad params "
+          f"{g_u.tolist()}", flush=True)
+    d_cfg = dataclasses.replace(cfg, lqr_iter=5)
+    dus = torch.tensor([0.5, 1.0, 2.0], device=dev)
+
+    def trust(du):
+        return P.solve(d_cfg, xc, cost, dyn, params=params, delta_u=du, **box)
+
+    label = f"(c) a delta_u sweep, 3 x B={B2}"
+    res, _ = run(label, lambda: torch.func.vmap(trust)(dus),
+                 {"ilqr_fused": 3, "kkt_fused": 0, "riccati_fused": 0}, {"vmap_mapped": 1})
+    for s in range(3):
+        same(label, res, trust(dus[s]), s)
+    print(f"phase 13 {label}: each candidate's bits, mean cost by candidate "
+          f"{[round(c, 4) for c in res.costs.mean(1).tolist()]}", flush=True)
+
+    # ---- (d) the gradient fuzzer on the card ----
+    t1 = time.perf_counter()
+    rc, _ = drive(torch, kernels, total, "phase 13 (d) tools/fuzz_gradients, 6 cases, --vmap 2",
+                  lambda: fuzz_gradients.main(["--device", "cuda", "--cases", "6", "--vmap", "2",
+                                               "--seed", str(SEED)]),
+                  {"ilqr_fused": None, "kkt_fused": None})
+    if rc != 0:
+        fail(f"phase 13 (d): tools/fuzz_gradients returned {rc}")
+    print(f"phase 13 (d): 6 fuzz cases passed in {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # ---- (e) times ----
+    turns = host_ms_in_turns({
+        "vmap(grad) sweep": sweep,
+        f"loop of {S} solo grads": lambda: [torch.func.grad(loss, argnums=(0, 1))(params, w)
+                                            for w in ws]}, warm_both=False)
+    print_turns(card, f"phase 13 (e) vmap(grad) {S} x B={B} against a loop of its {S} solo "
+                f"gradients", turns)
+    profile_step(torch, f"phase 13 (a) vmap(grad) {S} x B={B}", sweep,
+                 counted=(kkt, "kkt_fused_kernel"))
+    F, _ = linearize_dynamics(dyn.step, params, x_t, u_t, linearize_fn=dyn.linearize_point)
+    ops = kkt.prepare(5, 1, C_t, c_t, F, x_t, u_t, modes._active_set(u_t, -100.0, 100.0))
+    gx = torch.zeros_like(x_t)
+    ms, runs = cuda_ms(lambda: kkt.kkt_fused(ops, gx, gu, False), 3, 10)
+    plain_ms, _ = cuda_ms(lambda: kkt.kkt_fused_reference(ops, gx, gu, False), 0, 1)
+    flops, by = kkt_work(ops, False)
+    t_ops, t_by = flops / FP32_PEAK, by / HBM_RATE
+    bound, by_what = max(t_ops, t_by) * 1e3, ("operations" if t_ops >= t_by else "bytes")
+    print(f"time phase 13 kkt_fused the folded backward's Ff call B={S * B} T={T} (5,1): "
+          f"{ms:.4f} ms median of {len(runs)} ({', '.join(f'{r:.4f}' for r in runs)}), the plain "
+          f"version {plain_ms:.2f} ms (one run); bound {bound:.5f} ms ({by_what}: {flops:.3e} "
+          f"FLOP, {by:.3e} bytes) [{card}]", flush=True)
+    print(f"phase 13 launches: {total}", flush=True)
+    return total, {"name": f"folded vmap(grad) backward, cartpole S={S} x B={B} (Ff call at "
+                           f"B={S * B})", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": by_what, "launches": got["kkt_fused"], "solo_launches": solo_kkt,
+                   "sweep_ms": turns["vmap(grad) sweep"][0],
+                   "loop_ms": turns[f"loop of {S} solo grads"][0]}
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

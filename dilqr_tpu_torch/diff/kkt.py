@@ -99,6 +99,26 @@ def _adjoint_scan(n_state: int, C, F, x, u, cvec, parallel: bool = False):
     return torch.stack(lams)
 
 
+def use_kernel(T: int, n_state: int, n_ctrl: int, like: torch.Tensor, backend: str = "auto",
+               parallel: bool = False) -> bool:
+    """make_kkt_vjp's dispatch (see there): True when the KKT VJP of this
+    shape on ``like``'s device and dtype is the CUDA kernel. "cuda" raises
+    where it cannot take it."""
+    if backend not in ("auto", "cuda", "torch"):
+        raise ValueError(f"backward backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
+    if backend == "torch" or parallel:
+        return False
+    ok = kkt_fused.covered(T, n_state, n_ctrl, like.dtype)
+    if backend == "cuda":
+        if not like.is_cuda:
+            raise ValueError("backward_backend='cuda' needs CUDA tensors; CPU tensors "
+                             "take 'auto' or 'torch'")
+        if not ok:
+            raise ValueError("backward_backend='cuda': this shape is not covered by "
+                             "the CUDA kernel (see ops/cuda/kkt_fused.covered)")
+    return ok and like.is_cuda
+
+
 def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
                  u_zero_I: Optional[torch.Tensor] = None, with_f: bool = True,
                  backend: str = "auto", parallel: bool = False):
@@ -119,26 +139,14 @@ def make_kkt_vjp(n_state: int, n_ctrl: int, C, c, F, x, u,
     ``parallel`` (cfg.riccati_parallel) takes precedence over the kernel,
     as in JAX: the auxiliary solve and both adjoint recursions run as
     associative scans of O(log T) depth, whatever the backend."""
-    if backend not in ("auto", "cuda", "torch"):
-        raise ValueError(f"backward backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
-    T = C.shape[0]
-    if backend != "torch" and not parallel:
-        ok = kkt_fused.covered(T, n_state, n_ctrl, C.dtype)
-        if backend == "cuda":
-            if not C.is_cuda:
-                raise ValueError("backward_backend='cuda' needs CUDA tensors; CPU tensors "
-                                 "take 'auto' or 'torch'")
-            if not ok:
-                raise ValueError("backward_backend='cuda': this shape is not covered by "
-                                 "the CUDA kernel (see ops/cuda/kkt_fused.covered)")
-        if ok and C.is_cuda:
-            call = kkt_fused.make_kkt_vjp_cuda(n_state, n_ctrl, C, c, F, x, u, u_zero_I)
+    if use_kernel(C.shape[0], n_state, n_ctrl, C, backend, parallel):
+        call = kkt_fused.make_kkt_vjp_cuda(n_state, n_ctrl, C, c, F, x, u, u_zero_I)
 
-            def vjp_fused(g_x, g_u, wants: str = "full") -> KKTGrads:
-                dxi, dC, dc, dF, df = call(g_x, g_u, wants == "full")
-                return KKTGrads(dxi, dC, dc, dF, df if with_f else torch.zeros_like(df))
+        def vjp_fused(g_x, g_u, wants: str = "full") -> KKTGrads:
+            dxi, dC, dc, dF, df = call(g_x, g_u, wants == "full")
+            return KKTGrads(dxi, dC, dc, dF, df if with_f else torch.zeros_like(df))
 
-            return vjp_fused
+        return vjp_fused
 
     tau = torch.cat([x, u], -1)
     lams = _adjoint_scan(n_state, C, F, x, u, c, parallel)  # invariant in the cotangent

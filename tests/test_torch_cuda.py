@@ -1217,3 +1217,143 @@ def test_vmap_params_sweep_launches_once_a_candidate(dev):
     assert fused.LAUNCHES == before + 3 and modes.VMAP_STATS["vmap_mapped"] == mapped + 1
     for s in range(3):
         _candidate_bits(res, mpc.solve(x0, cost, dyn, params=ps[s]), s)
+
+
+def _pergrad_problem(dev, B, T=12):
+    """bench.py's cartpole at T=12, box +-100, lqr_iter 10, the IFT backward;
+    imitation targets from a seed."""
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(15)
+    th = 3.0 + 0.1 * torch.randn(B, generator=gen)
+    z = torch.zeros(B)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    target = (0.5 * torch.randn(B, T, 1, generator=gen)).to(dev)
+    cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=T, lqr_iter=10, eps=1e-4,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, exit_unconverged=False,
+                       detach_unconverged=False, backward_mode=P.BackwardMode.IFT)
+
+    def cost_of(w):
+        return P.QuadCost(torch.diag(torch.cat([q[:-1], w[None]])), p)
+
+    return dyn, params, p, x0, target, cfg, cost_of
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def test_vmap_grad_is_one_launch_and_one_folded_backward(dev):
+    """vmap(grad) of an imitation loss over 3 control weights at B=2048
+    (chip_smoke.py's phase 13 (a)): one whole-solve launch and one folded
+    backward (the merged routes), with the hand-folded backward's KKT
+    launches; the weights' gradients and the params' summed over the
+    candidates within 1e-6 relative of the hand-folded backward's, the
+    params' per candidate within 1e-6 of that backward with the params given
+    per example and each candidate's examples summed."""
+    from dilqr_tpu_torch.diff import modes
+
+    S, B, T = 3, 2048, 12
+    dyn, params, p, x0, target, cfg, cost_of = _pergrad_problem(dev, B, T)
+    ws = torch.tensor([0.001, 0.03, 1.0], device=dev)
+    box = dict(u_lower=-100.0, u_upper=100.0)
+
+    def loss(pr, w):
+        return ((P.solve(cfg, x0, cost_of(w), dyn, params=pr, **box).u - target) ** 2).sum()
+
+    modes.VMAP_STATS.update(dict.fromkeys(modes.VMAP_STATS, 0))
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES)
+    g_p, g_w = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(None, 0))(
+        params, ws)
+    torch.cuda.synchronize()
+    n_kkt = kkt_fused.LAUNCHES - before[1]
+    assert fused.LAUNCHES == before[0] + 1 and n_kkt > 0
+    assert {k: v for k, v in modes.VMAP_STATS.items() if v} == {"vmap_merged": 1,
+                                                                 "bwd_merged": 1}
+    pr, wl = params.clone().requires_grad_(True), ws.clone().requires_grad_(True)
+    C = torch.stack([cost_of(w).C for w in wl]).repeat_interleave(B, 0)
+    before = kkt_fused.LAUNCHES
+    r = P.solve(cfg, x0.repeat(S, 1), P.QuadCost(C[:, None].expand(-1, T, -1, -1),
+                                                 p.expand(S * B, T, 6)), dyn, params=pr, **box)
+    f_p, f_w = torch.autograd.grad(((r.u.reshape(S, B, T, 1) - target) ** 2).sum(), (pr, wl))
+    torch.cuda.synchronize()
+    assert kkt_fused.LAUNCHES - before == n_kkt
+    assert _rel(g_w, f_w) <= 1e-6 and _rel(g_p.sum(0), f_p) <= 1e-6
+    x_t, u_t = r.x.detach().transpose(0, 1), r.u.detach().transpose(0, 1)
+    C_t = C.detach()[None].expand(T, -1, -1, -1)
+    c_t = p.expand(T, S * B, 6)
+    prob, _ = modes._problem(cfg, P.QuadCost(C_t, c_t), dyn, params)
+    _, _, d_pe = modes._backward(prob, x_t, u_t, r.full_du_norm, -100.0, 100.0, (C_t, c_t),
+                                 params.expand(S * B, -1), torch.zeros_like(x_t),
+                                 2.0 * (u_t - target.transpose(0, 1).repeat(1, S, 1)))
+    assert _rel(g_p, d_pe.unflatten(0, (S, B)).sum(1)) <= 1e-6
+
+
+def test_jacrev_is_one_folded_backward(dev):
+    """jacrev of the batch-mean terminal state (5 outputs) with respect to
+    the params at B=1030 (chip_smoke.py's phase 13 (b)): one whole-solve
+    launch and one backward folded over the 5 one-hot cotangents, within
+    1e-5 relative of 5 autograd.grad calls on them."""
+    from dilqr_tpu_torch.diff import modes
+
+    dyn, params, p, x0, _, cfg, cost_of = _pergrad_problem(dev, 1030)
+    cost = cost_of(torch.tensor(1e-3, device=dev))
+
+    def terminal(pr):
+        return P.solve(cfg, x0, cost, dyn, params=pr, u_lower=-100.0,
+                       u_upper=100.0).x[:, -1].mean(0)
+
+    modes.VMAP_STATS.update(dict.fromkeys(modes.VMAP_STATS, 0))
+    before = fused.LAUNCHES
+    jac = torch.func.jacrev(terminal)(params)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    assert {k: v for k, v in modes.VMAP_STATS.items() if v} == {"bwd_merged": 1}
+    pr = params.clone().requires_grad_(True)
+    out = terminal(pr)
+    rows = torch.stack([torch.autograd.grad(out, pr, e, retain_graph=True)[0]
+                        for e in torch.eye(5, device=dev)])
+    assert jac.shape == (5, 4) and _rel(jac, rows) <= 1e-5
+
+
+def test_unroll_and_delta_u_sweeps_keep_each_candidates_bits(dev):
+    """chip_smoke.py's phase 13 (c) at B=256: vmap over the UNROLL solve and
+    vmap(grad) through it on the plain loop (no kernel launch), each
+    candidate the bits of its own solve and gradient; a delta_u sweep on the
+    mapped route, one whole-solve launch a candidate, each candidate its
+    own solve's bits."""
+    import dataclasses
+
+    dyn, params, p, x0, target, cfg, cost_of = _pergrad_problem(dev, 256)
+    box = dict(u_lower=-100.0, u_upper=100.0)
+    u_cfg = dataclasses.replace(cfg, lqr_iter=5, backward_mode=P.BackwardMode.UNROLL,
+                                unroll=True)
+    w2 = torch.tensor([0.01, 0.1], device=dev)
+
+    def unrolled(w, pr=params):
+        return P.solve(u_cfg, x0, cost_of(w), dyn, params=pr, **box)
+
+    def loss(pr, w):
+        return ((unrolled(w, pr).u - target) ** 2).sum()
+
+    before = (fused.LAUNCHES, kkt_fused.LAUNCHES, riccati_fused.LAUNCHES)
+    res = torch.func.vmap(unrolled)(w2)
+    g = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(params, w2)
+    torch.cuda.synchronize()
+    assert (fused.LAUNCHES, kkt_fused.LAUNCHES, riccati_fused.LAUNCHES) == before
+    for s in range(2):
+        _candidate_bits(res, unrolled(w2[s]), s)
+        assert torch.equal(g[s], torch.func.grad(loss)(params, w2[s]))
+    d_cfg = dataclasses.replace(cfg, lqr_iter=5, backprop=False)
+    dus = torch.tensor([0.5, 1.0, 2.0], device=dev)
+
+    def trust(du):
+        return P.solve(d_cfg, x0, cost_of(w2[0]), dyn, params=params, delta_u=du, **box)
+
+    before = fused.LAUNCHES
+    res = torch.func.vmap(trust)(dus)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 3
+    for s in range(3):
+        _candidate_bits(res, trust(dus[s]), s)

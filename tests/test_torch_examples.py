@@ -20,9 +20,9 @@ def _finite(*vals):
 
 
 def test_cost_sweep_is_its_per_candidate_loop():
-    M.VMAP_STATS.update(vmap_merged=0, vmap_mapped=0)
+    M.VMAP_STATS.update(dict.fromkeys(M.VMAP_STATS, 0))
     out = cost_sweep.main(CPU + ["--batch", "4", "--candidates", "2", "--lqr-iter", "3"])
-    assert M.VMAP_STATS == {"vmap_merged": 0, "vmap_mapped": 1}
+    assert M.VMAP_STATS == {"vmap_merged": 0, "vmap_mapped": 1, "bwd_merged": 0, "bwd_mapped": 0}
     weights, one = cost_sweep.sweep(torch.device("cpu"), 4, 2, 3)
     loop = [one(w) for w in weights]
     torch.testing.assert_close(torch.tensor(out["tracking"]), torch.stack([t for t, _ in loop]),

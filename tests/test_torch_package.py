@@ -36,7 +36,7 @@ new = {"dilqr_tpu_torch.ops.parallel_riccati", "dilqr_tpu_torch.il.lstm",
        "dilqr_tpu_torch.utils.profiling", "dilqr_tpu_torch.parallel.audit",
        "dilqr_tpu_torch.parallel.comm", "dilqr_tpu_torch.parallel.mesh",
        "dilqr_tpu_torch.parallel.multihost", "dilqr_tpu_torch.tools.multihost_demo",
-       "dilqr_tpu_torch.viz"}
+       "dilqr_tpu_torch.tools.fuzz_gradients", "dilqr_tpu_torch.viz"}
 new |= {"dilqr_tpu_torch.examples." + e for e in (
     "cost_sweep", "closed_loop", "mismatch_loop", "rocket_landing", "sysid_pendulum",
     "external_plant")}

@@ -71,8 +71,14 @@ def _sides(dtype=torch.float64):
 
 
 def _reset():
-    M.VMAP_STATS.update(vmap_merged=0, vmap_mapped=0)
+    M.VMAP_STATS.update(dict.fromkeys(M.VMAP_STATS, 0))
     jfused.DISPATCH_STATS.update(fused=0, vmap_merged=0, vmap_mapped=0)
+
+
+def _routes(**moved):
+    """VMAP_STATS after _reset when the routes named moved: every other
+    count 0 (the backward's too)."""
+    return dict(dict.fromkeys(M.VMAP_STATS, 0), **moved)
 
 
 # the sweeps of tests/test_vmap_fused.py: (the swept input, what one solve
@@ -154,7 +160,7 @@ def test_vmap_sweep_matches_jax_xla_f64(sweep):
     td = _problem(d, tc)
     got = torch.func.vmap(lambda v: fn(P, tpend, td, v, P.ILQRConfig(**_kw())))(
         tc(_swept(d, key)))
-    assert M.VMAP_STATS == {"vmap_merged": 0, "vmap_mapped": 1}
+    assert M.VMAP_STATS == _routes(vmap_mapped=1)
     _assert_close(got, want)
     assert tuple(got.n_iter.shape) == (S,)
 
@@ -249,7 +255,7 @@ def test_merged_route_matches_jax_pallas_vmap(monkeypatch):
     assert jfused.DISPATCH_STATS["vmap_merged"] == 1
     got = torch.func.vmap(lambda *a: run(P, tpend, td, P.ILQRConfig(**kw), *a))(
         *(tc(0.1 * d[k] if k == "shifts" else d[k]) for k in args))
-    assert M.VMAP_STATS == {"vmap_merged": 1, "vmap_mapped": 0}
+    assert M.VMAP_STATS == _routes(vmap_merged=1)
     for n, atol in (("u", 2e-3), ("x", 5e-3), ("costs", 1e-5)):
         np.testing.assert_allclose(getattr(got, n).numpy(), np.asarray(getattr(want, n)),
                                    atol=atol, rtol=1e-5 if n == "costs" else 0, err_msg=n)
@@ -296,7 +302,7 @@ def test_merged_route_has_the_hand_folded_bits(monkeypatch, sweep):
         Ff = (F * s[:, None, None, None]).repeat_interleave(B, 0)
         want = P.solve(cfg, td["x0"].repeat(S, 1), P.QuadCost(C, p), P.LinDx(Ff, f),
                        u_lower=-2.0, u_upper=2.0)
-    assert M.VMAP_STATS == {"vmap_merged": 1, "vmap_mapped": 0}
+    assert M.VMAP_STATS == _routes(vmap_merged=1)
     for n in ("x", "u", "costs", "full_du_norm"):
         a = getattr(got, n)
         assert torch.equal(a.reshape((S * B,) + a.shape[2:]), getattr(want, n)), n
@@ -328,11 +334,16 @@ def test_zero_dim_bound_keeps_the_static_bounds(monkeypatch):
 
 
 def test_unroll_under_vmap_raises_torchs_error():
-    """BackwardMode.UNROLL is plain autograd through the plain loop, whose
-    host reads vmap refuses: torch's own error, no silent other route."""
+    """BackwardMode.UNROLL under vmap no longer raises torch's
+    data-dependent control-flow error: the unrolled solve is a Function
+    (diff/modes._Unrolled) whose vmap rule maps, one plain-loop solve a
+    candidate with its own stopping rule, each with its own solve's bits."""
     d = _data()
     _, tc = _sides()
     td = _problem(d, tc)
     cfg = P.ILQRConfig(**_kw(backprop=True, backward_mode=P.BackwardMode.UNROLL, unroll=True))
-    with pytest.raises(RuntimeError, match="data-dependent control flow"):
-        torch.func.vmap(lambda s: _cost_sweep(P, tpend, td, s, cfg).u)(tc(d["scales"]))
+    _reset()
+    got = torch.func.vmap(lambda s: _cost_sweep(P, tpend, td, s, cfg).u)(tc(d["scales"]))
+    assert M.VMAP_STATS == _routes(vmap_mapped=1)
+    for s, scale in enumerate(tc(d["scales"])):
+        assert torch.equal(got[s], _cost_sweep(P, tpend, td, scale, cfg).u)
