@@ -151,7 +151,24 @@ Phases, in order; any failure exits non-zero before the last line:
      with each candidate's bits; tools/fuzz_gradients on the card (6 cases,
      --vmap 2); the sweep against the loop of its solo gradients in turns,
      the idle share of one sweep and the folded KKT call beside its bound;
- 14. print the JSON line, the nvidia-smi line, then the result line
+ 14. a user's own model and a callable cost on the whole-solve kernel (see
+     user_paths; ops/cuda/traced.py traces them with torch.fx into C++,
+     csrc/ilqr_user.cu for the model, the DILQR_CALLABLE_COST build of
+     csrc/ilqr_fused.cu for the cost, built in phase 2 with the rest, their
+     ptxas registers and spills printed, not gated): the 4-state, 2-control
+     double pendulum written here as a user writes it, box +-1.5, under
+     ANALYTIC and AUTO_DIFF at B=4096, T=20, lqr_iter 20 against its plain
+     version on the converged examples (phase 9's bar) and at each cluster
+     size, MPC.solve through the kernel (one launch) against
+     backend="torch" in turns, each beside the bound from traced.py's
+     operation count; a traced copy of the cartpole step (no device code)
+     under AUTO_DIFF against env 0's jvp library, the two times side by
+     side; the pendulum with a callable cost with params against its plain
+     version, and the IFT gradient with respect to the cost params with
+     the forward on the kernel against backend="torch"; and the route
+     check: a step that captures an array takes no whole-solve launch and
+     backend="cuda" raises;
+ 15. print the JSON line, the nvidia-smi line, then the result line
      {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the JAX package. The weights of
@@ -275,7 +292,7 @@ def drive(torch, kernels, total, label, fn, want=None):
 
 
 def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi,
-           converged_only=False, **kw):
+           converged_only=False, conv_eps=None, **kw):
     """The whole-solve kernel against its plain version on the same inputs.
     Tolerances (f32). n_iter must be equal. Per-example costs must agree to
     rtol 1e-4 on at least 99% of the examples and to 1e-2 on all: an
@@ -291,7 +308,10 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi,
     converged_only: the x and u bounds hold on the examples converged in
     both versions (du < eps); an example still iterating when lqr_iter ends
     may pass them (ROADMAP C: f32 rounding alone moves such an example's u
-    by up to ~1e-1), which is counted and printed (``parity.past``)."""
+    by up to ~1e-1), which is counted and printed (``parity.past``).
+    conv_eps: the du below which an example counts as converged, by default
+    cfg.eps (a solve compared at eps=0, where every tile runs lqr_iter
+    iterations in both versions, names its own)."""
     k_out = fused.ilqr_fused(cfg, dyn, params, x0, cost_small, u0, lo, hi, **kw)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -317,7 +337,8 @@ def parity(torch, fused, name, dyn, params, cfg, x0, cost_small, u0, lo, hi,
     past = (ex_x > 1e-2) | (ex_u > 2e-2)
     parity.past = past
     if converged_only:
-        conv = (kdu < cfg.eps) & (rdu < cfg.eps)
+        ce = cfg.eps if conv_eps is None else conv_eps
+        conv = (kdu < ce) & (rdu < ce)
         if bool((past & conv).any()):
             fail(f"{name}: x or u past its bound (1e-2, 2e-2) on a converged example")
         if bool(past.any()):
@@ -361,7 +382,7 @@ def ptxas_entries(report: str, entry: str, what: str):
 # the whole-solve kernel as <Env, NU, block threads>; the KKT kernel as
 # <NU, team lanes>
 ILQR_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)INS_\d+(\w+?)ELi(\d+)"
-              r"ELi(\d+)ELb(\d)E(?:Li\d+E)?EEv")
+              r"ELi(\d+)ELb(\d)E\w*?EEv")
 # <Env, NU, block threads, per-example cost>: cartpole, pendulum and the
 # rocket with either cost form and their slew-rate wrappers with the
 # per-example one, at 128 and 64 threads a block, but the rocket's wrapper
@@ -455,15 +476,18 @@ def main():
 
     dev = torch.device("cuda:0")
     kernels = {"ilqr_fused": fused, "kkt_fused": kkt, "riccati_fused": ric}
+    user = user_problem(torch, P, fused)
 
     # ---- 2) build ----
     t0 = time.perf_counter()
     reports = build.build_all([m.SOURCE for m in kernels.values()]
                               + [fused.lindx_spec(*shape) for shape in LINDX_SHAPES]
-                              + fused.jvp_specs() + small_mlp_specs(fused))
+                              + fused.jvp_specs() + small_mlp_specs(fused)
+                              + list(user["specs"].values()))
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources, "
-          f"{len(LINDX_SHAPES)} LinDx shapes, {len(fused.jvp_specs())} jvp libraries and "
-          f"{len(SMALL_MLP_CASES)} MLP shapes)", flush=True)
+          f"{len(LINDX_SHAPES)} LinDx shapes, {len(fused.jvp_specs())} jvp libraries, "
+          f"{len(SMALL_MLP_CASES)} MLP shapes and {len(user['specs'])} traced libraries)",
+          flush=True)
     for spec, rep in reports.items():
         src = spec if isinstance(spec, str) else build.library_path(spec).split("/")[-1]
         for line in rep.splitlines():
@@ -505,6 +529,7 @@ def main():
     lindx_ptxas(fused, reports)
     jvp_ptxas(fused, reports)
     small_mlp_ptxas(fused, reports)
+    user_ptxas(fused, reports, user)
     print(f"phase 2 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
@@ -745,10 +770,11 @@ def main():
     print(f"time receding_horizon cartpole B=1024: {statistics.median(t_rh):.3f} ms per step, "
           f"median of 3 episodes of 5 steps (host clock) [{card}]", flush=True)
     x0 = cartpole_x0(4096)
+    # one run: a host-bound loop of seconds (phase 14's time came from here)
     plain_ms, runs = cuda_ms(lambda: fused.ilqr_fused_reference(
-        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 1, 3)
+        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 0, 1)
     print(f"time ilqr_fused_reference (plain) cartpole B=4096: {plain_ms:.1f} ms "
-          f"median of 3 [{card}]", flush=True)
+          f"(one run) [{card}]", flush=True)
 
     # bound: bench.py's FLOP model of the solve (per example, per step, per
     # iteration) times the iterations this run's tiles ran, over the
@@ -818,8 +844,8 @@ def main():
                     r_dyn.lower, r_dyn.upper), r_ms[1024])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
-        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)
-    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms median of 3 "
+        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 0, 1)
+    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms (one run) "
           f"[{card}]", flush=True)
     r_flops, r_bytes, counts = rocket_work(torch, fused, r_cfg, r_dyn, r_params, x0, r_cs)
     r_bound = max(r_flops / FP32_PEAK, r_bytes / HBM_RATE) * 1e3
@@ -827,7 +853,7 @@ def main():
     print(f"bound ilqr_fused rocket B=1024: {r_flops:.3e} FLOP, {r_bytes} bytes -> "
           f"{r_bound:.4f} ms ({r_by}); {counts}; no single PyTorch call computes an iLQR "
           f"solve, so library_ms is null", flush=True)
-    print(f"time rocket IFT forward+backward B=1024 (host clock, synchronized, median of 3): "
+    print(f"time rocket IFT forward+backward B=1024 (host clock, synchronized, one run): "
           f"{rk['ift_ms']:.2f} ms; KKT launches per IFT backward {rk['kkt_per_ift']} "
           f"[{card}]", flush=True)
     rows.append({
@@ -925,7 +951,14 @@ def main():
     kkt_row["pergrad_launches"] = g_launches["kkt_fused"]
     print(f"phase 13 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
 
-    # ---- 14) the card's line, then the result line ----
+    # ---- 14) a user's own model and a callable cost ----
+    ugen = torch.Generator(device="cpu").manual_seed(SEED + 14)
+    u_rows, u_launches = user_paths(torch, P, dev, kernels, card, fused, user, ugen)
+    rows.extend(u_rows)
+    kkt_row["launches"] += u_launches["kkt_fused"]
+    print(f"phase 14 ends {time.perf_counter() - t_start:.0f} s into the run", flush=True)
+
+    # ---- 15) the card's line, then the result line ----
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1206,14 +1239,13 @@ def rocket_paths(torch, P, dev, kernels, dyn, params, cs, cfg, gen):
 
     profile_step(torch, "rocket IFT forward+backward B=1024 detach_unconverged=True",
                  lambda: grad(c_ift))
-    ts = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grad(c_ift)
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t1) * 1e3)
-    return {"launches": total, "kkt_per_ift": got["kkt_fused"], "ift_ms": statistics.median(ts)}
+    # one run after the profiled one: each takes seconds
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grad(c_ift)
+    torch.cuda.synchronize()
+    return {"launches": total, "kkt_per_ift": got["kkt_fused"],
+            "ift_ms": (time.perf_counter() - t1) * 1e3}
 
 
 def rocket_work(torch, fused, cfg, dyn, params, x0, cs):
@@ -1929,8 +1961,9 @@ def lqr_problem(torch, gen, T, B, nx, nu, dev, dtype):
 def print_turns(card, label, turns):
     figs = [f"{name} {ms:.2f} ms ({', '.join(f'{t:.2f}' for t in runs)})"
             for name, (ms, runs) in turns.items()]
-    print(f"time {label} (host clock, synchronized, in turns a b b a x3, medians of 6): "
-          f"{'; '.join(figs)} [{card}]", flush=True)
+    n = len(next(iter(turns.values()))[1])
+    print(f"time {label} (host clock, synchronized, in turns a b b a x{n // 2}, medians of "
+          f"{n}): {'; '.join(figs)} [{card}]", flush=True)
 
 
 # phase 6 (a)'s f32 bar: JAX holds the f32 scan to 5e-4 of the sequential
@@ -2430,7 +2463,7 @@ def variant_paths(torch, P, dev, kernels, card, fused, cfgs, envs, gen):
 
 
 def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, hi, kw,
-                 rocket=True):
+                 rocket=True, conv_eps=None):
     """One (a) case of phase 7 (and of phases 9 and 10, by jvp_case and
     small_mlp_case): parity, the same bits at every cluster size, rocket_checks
     for three controls (unless ``rocket`` is False), the masked u exactly
@@ -2439,7 +2472,7 @@ def variant_case(torch, fused, card, label, cfg, dyn, params, x0, cost, u0, lo, 
     (one run, host clock) and the byte bound. Returns the JSON figures and
     the kernel's u."""
     err, k_out, r_out = parity(torch, fused, label, dyn, params, cfg, x0, cost, u0, lo, hi,
-                               converged_only=True, **kw)
+                               converged_only=True, conv_eps=conv_eps, **kw)
     plain_ms = parity.plain_ms
     past = parity.past
     if bool(past.any()):
@@ -2781,7 +2814,7 @@ JVP_ENV_NAMES = {0: "cartpole", 1: "pendulum", 2: "rocket", 3: "cartpole slew",
 JVP_SLEW_BASE = {3: 0, 4: 1, 5: 2, 8: 6, 9: 7, 11: 10}
 # the whole-solve kernel in a jvp library, as <NU, block threads, per-example cost>
 JVP_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)I\w+?ELi(\d+)ELi(\d+)"
-             r"ELb(\d)E(?:Li\d+E)?EEv")
+             r"ELb(\d)E\w*?EEv")
 
 
 def jvp_label(spec):
@@ -3954,7 +3987,7 @@ def pergrad_paths(torch, P, dev, kernels, card, kkt, dyn, params, q, p, cfg, gen
     turns = host_ms_in_turns({
         "vmap(grad) sweep": sweep,
         f"loop of {S} solo grads": lambda: [torch.func.grad(loss, argnums=(0, 1))(params, w)
-                                            for w in ws]}, warm_both=False)
+                                            for w in ws]}, rounds=1, warm_both=False)
     print_turns(card, f"phase 13 (e) vmap(grad) {S} x B={B} against a loop of its {S} solo "
                 f"gradients", turns)
     profile_step(torch, f"phase 13 (a) vmap(grad) {S} x B={B}", sweep,
@@ -3977,6 +4010,339 @@ def pergrad_paths(torch, P, dev, kernels, card, kkt, dyn, params, q, p, cfg, gen
                    "bound_by": by_what, "launches": got["kkt_fused"], "solo_launches": solo_kkt,
                    "sweep_ms": turns["vmap(grad) sweep"][0],
                    "loop_ms": turns[f"loop of {S} solo grads"][0]}
+
+
+# ---- phase 14: a user's own model and a callable cost ----
+# the double pendulum (k1, k2, d) and its box, as the JAX package's test
+# writes it (tests/test_fused_edge_cases.py:68-92; tests/traced_models.py)
+USER_PARAMS = (2.0, 1.5, 0.1)
+USER_BOX = 1.5
+USER_Q = (1.0, 1.0, 0.1, 0.1, 1e-3, 1e-3)
+# the pendulum's callable cost's params: weights, then targets
+PEND_COST_PARAMS = (0.5, 0.625, 0.75, 0.875, 0.15, -0.3, 0.06, 0.21)
+
+
+def user_problem(torch, P, fused):
+    """Phase 14's models and cost, written as a user writes them -- plain
+    PyTorch on [B, n] (the cost on one point tau [n]) -- their traces and
+    the build specs of their libraries."""
+    from dilqr_tpu_torch.models import cartpole
+    from dilqr_tpu_torch.models.base import Dynamics
+    from dilqr_tpu_torch.ops.cuda import traced
+
+    def clip(v):  # jnp.clip's form: the mean of both sides' derivative at a tie
+        return torch.minimum(torch.maximum(v, torch.tensor(-USER_BOX)), torch.tensor(USER_BOX))
+
+    def physics(x, u0, u1, params):
+        k1, k2, d = params.unbind(-1)
+        q0, q1, v0, v1 = x.unbind(-1)
+        a0 = -k1 * torch.sin(q0) - d * v0 + u0 + 0.3 * u1
+        a1 = -k2 * torch.sin(q1) - d * v1 + u1 - 0.2 * u0
+        return torch.stack([q0 + 0.05 * v0, q1 + 0.05 * v1, v0 + 0.05 * a0, v1 + 0.05 * a1], -1)
+
+    def step(x, u, params):
+        return physics(x, clip(u[..., 0]), clip(u[..., 1]), params)
+
+    def step_unclamped(x, u, params):
+        return physics(x, u[..., 0], u[..., 1], params)
+
+    def pendulum_cost(tau, p):
+        acc = None
+        for i in range(4):
+            d = tau[i] - p[4 + i]
+            acc = 0.5 * p[i] * d * d if acc is None else acc + 0.5 * p[i] * d * d
+        return acc + 0.01 * tau[3] ** 4
+
+    A = torch.eye(4) + 0.05 * torch.diag(torch.ones(3), 1)
+
+    def capture_step(x, u, params):  # captures a [4, 4] matrix: refused
+        return x @ A.to(x).T + 0.05 * torch.cat([u, u], -1)
+
+    dp = Dynamics(n_state=4, n_ctrl=2, step=step, step_unclamped=step_unclamped,
+                  lower=-USER_BOX, upper=USER_BOX, linesearch_decay=0.5, max_linesearch_iter=4)
+    cp = cartpole.make()
+    tcp = Dynamics(n_state=5, n_ctrl=1, step=cp.step, lower=cp.lower, upper=cp.upper,
+                   linesearch_decay=cp.linesearch_decay,
+                   max_linesearch_iter=cp.max_linesearch_iter)
+    m, mc = traced.model(dp, 4, 2, 3), traced.model(tcp, 5, 1, 4)
+    pc = traced.cost(pendulum_cost, 4, len(PEND_COST_PARAMS))
+    if m is None or mc is None or pc is None:
+        fail("phase 14: a model or cost of the traced set does not trace")
+    AN, AD = P.GradMethod.ANALYTIC, P.GradMethod.AUTO_DIFF
+    specs = {"double pendulum ANALYTIC": fused.user_spec(m, None, False, False),
+             "double pendulum AUTO_DIFF": fused.user_spec(m, None, True, False),
+             "traced cartpole AUTO_DIFF": fused.user_spec(mc, None, True, False),
+             "pendulum callable cost": fused.with_cost(fused.env_spec(AN, 1), pc)}
+    return dict(dp=dp, tcp=tcp, m=m, mc=mc, pc=pc, cost_fn=pendulum_cost,
+                capture=Dynamics(n_state=4, n_ctrl=2, step=capture_step, lower=-USER_BOX,
+                                 upper=USER_BOX),
+                specs=specs, methods={"ANALYTIC": AN, "AUTO_DIFF": AD})
+
+
+def user_ptxas(fused, reports, user):
+    """Phase 2 for the traced libraries: each instantiation's registers,
+    stack and spills, printed and not gated (generated straight-line code);
+    a missing instantiation (one a cluster size whose shared memory fits)
+    fails."""
+    for label, spec in user["specs"].items():
+        seen = 0
+        for name, regs, stack, st, ld in ptxas_entries(reports[spec], JVP_ENTRY, "traced"):
+            print(f"ptxas {label} <NU, threads, lanes> {name}: {regs} registers, {stack} bytes "
+                  f"stack, {st}/{ld} bytes spill stores/loads", flush=True)
+            seen += 1
+        want = (len(fused.clusters(1)) if label.startswith("pendulum")
+                else len(fused.lindx_clusters(*((4, 2) if "double" in label else (5, 1)))))
+        if seen != want:
+            fail(f"{label}: {seen} instantiations, want {want}")
+
+
+def callable_bound(fused, cfg, B, step_ops, ctr, tile_iters):
+    """The least time of one solve with a callable cost: (ms, "bytes" or
+    "operations", FP32 and FP64 operations, bytes). Operations, per example,
+    step and iteration its tile ran: quad_at's n (n + 1) / 2 evaluations of
+    the cost on nested Duals (traced.py's CostOps), the Riccati step's
+    products and one line-search trial as lindx_bound counts them, the
+    trial's float step (STEP_OPS) and its objective, the true cost; the
+    env's hand Jacobian, the box-QP and further trials are not counted.
+    Bytes: x_init and the cost params read, x, u, costs and du written."""
+    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    o = ctr.ops
+    per_t = o.hess_evals * o.hess_f32 + o.f32 + riccati_trial_flops(nx, nu) + step_ops.f32
+    per_t64 = o.hess_evals * o.hess_f64 + o.f64 + step_ops.f64
+    count = T * sum(it * min(fused.TILE, B - g * fused.TILE) for g, it in enumerate(tile_iters))
+    by = 4 * B * nx + 4 * ctr.n_params + 4 * (T * B * (nx + nu) + 2 * B)
+    t_ops = (per_t * count / FP32_PEAK + per_t64 * count / FP64_PEAK) * 1e3
+    t_by = by / HBM_RATE * 1e3
+    return (max(t_ops, t_by), "operations" if t_ops >= t_by else "bytes", per_t * count,
+            per_t64 * count, by)
+
+
+def user_paths(torch, P, dev, kernels, card, fused, user, gen):
+    """Phase 14 (see the module docstring), B=4096, T=20, lqr_iter 20, f32.
+    The kernel is held against its plain version (and the traced cartpole
+    against env 0) at eps=0, where every tile runs all lqr_iter iterations
+    in both: at eps=1e-4 a tile whose largest du lands within rounding of
+    eps stops one iteration apart (PERF.md; ROADMAP C); x and u on
+    the examples with du < 1e-4 in both. The serving paths keep eps=1e-4.
+    (a) the double pendulum, box +-1.5, under ANALYTIC and AUTO_DIFF:
+        MPC.solve through the entry points (one whole-solve launch, no other
+        kernel), variant_case's parity against the plain version (x and u
+        on the converged examples, with its witness), the same bits at
+        every cluster size and the kernel's time beside the plain
+        version's and the bound by jvp_bound with traced.py's counts;
+        MPC.solve against backend="torch" in turns (a b a);
+    (b) the traced copy of cartpole's step under AUTO_DIFF against device
+        env 0's jvp library (costs at parity's bar) and against its plain
+        version (parity), both kernels' times, the bound;
+    (c) the pendulum with its callable cost with params: parity against
+        the plain version, the same bits at every cluster size, the time
+        beside callable_bound; the IFT gradient of mean(u^2) with respect
+        to the cost params at B=1024 (eps=1e-4), the forward on the kernel,
+        against backend="torch", within 1e-3 of the largest entry;
+    (d) a step that captures an array: MPC.solve at B=1024 takes no
+        whole-solve launch, and backend="cuda" raises.
+    Returns (the JSON rows of the traced model and of the callable cost,
+    the launches of every kernel)."""
+    import dataclasses
+
+    from dilqr_tpu_torch.models import cartpole, pendulum
+
+    B, T, iters = 4096, 20, 20
+    total = {name: 0 for name in kernels}
+    one = {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}
+    dp, m = user["dp"], user["m"]
+    params = torch.tensor(USER_PARAMS, device=dev)
+    q = torch.tensor(USER_Q, device=dev)
+    cost = (torch.diag(q), torch.zeros(6, device=dev))
+    x0 = (2.0 * torch.rand(B, 4, generator=gen) - 1.0).to(dev)
+
+    # ---- (a) the double pendulum ----
+    cases, worst = [], 0.0
+    for method, gm in user["methods"].items():
+        label = f"phase 14 (a) double pendulum {method} B={B} T={T}"
+        cfg = P.ILQRConfig(n_state=4, n_ctrl=2, T=T, lqr_iter=iters, eps=1e-4, grad_method=gm,
+                           linesearch_decay=0.5, max_linesearch_iter=4, backprop=False,
+                           exit_unconverged=False, detach_unconverged=False)
+        if not fused.covered(cfg, dp, params, torch.float32, cost, None, None, -USER_BOX,
+                             USER_BOX):
+            fail(f"{label}: not covered")
+        mkw = dict(u_lower=-USER_BOX, u_upper=USER_BOX, lqr_iter=iters, eps=1e-4,
+                   grad_method=gm, linesearch_decay=0.5, max_linesearch_iter=4, backprop=False,
+                   exit_unconverged=False)
+
+        def solve(be, mkw=mkw):
+            return P.MPC(4, 2, T, backend=be, **mkw).solve(x0, P.QuadCost(*cost), dp,
+                                                            params=params)
+
+        out, _ = drive(torch, kernels, total, f"{label} MPC.solve", lambda: solve("auto"), one)
+        if not (torch.isfinite(out.costs).all() and (out.u.abs() <= USER_BOX + 1e-6).all()):
+            fail(f"{label}: non-finite costs or controls outside the box")
+        cmp = dataclasses.replace(cfg, eps=0.0)
+        fig = variant_case(torch, fused, card, f"{label} eps=0", cmp, dp, params, x0, cost,
+                           None, -USER_BOX, USER_BOX, {}, rocket=False, conv_eps=1e-4)
+        its = [int(fused.ilqr_fused(cmp, dp, params, x0[g:g + fused.TILE], cost, None,
+                                    -USER_BOX, USER_BOX)[4])
+               for g in range(0, B, fused.TILE)]
+        bound, by_what, flops, flops64, by = jvp_bound(
+            fused, cmp, B, fused.ENV_TRACED, cost, -USER_BOX, USER_BOX, its,
+            ops=m.ops(gm is P.GradMethod.AUTO_DIFF))
+        info = fused.user_info(m, None, gm)
+        print(f"bound {label}: {flops:.3e} FP32 and {flops64:.3e} FP64 operations (traced.py's "
+              f"{m.ops(gm is P.GradMethod.AUTO_DIFF)}), {by} bytes -> {bound:.4f} ms "
+              f"({by_what}); tile iterations {its}; G={info['cluster']}, {info['registers']} "
+              f"registers, {info['local_bytes']} local bytes, V/Q/F in {info['store']}, "
+              f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']} [{card}]",
+              flush=True)
+        got = host_ms_in_turns({"kernel": lambda: solve("auto"),
+                                "plain loop": lambda: solve("torch")}, rounds=1,
+                               warm_both=False, b_once=True)
+        (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
+        print(f"time phase 14 (a) MPC.solve double pendulum {method} B={B}: {k_ms:.3f} ms with "
+              f"the whole-solve kernel, {t_ms:.3f} ms with backend='torch' (host clock, "
+              f"synchronized, in turns a b a: {', '.join(f'{r:.3f}' for r in k_runs)} / "
+              f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        cases.append({"name": label.replace("phase 14 (a) ", ""), "ms": fig["ms"],
+                      "plain_ms": fig["plain_ms"], "bound_ms": bound, "bound_by": by_what,
+                      "max_abs_err": fig["max_abs_err"], "n_iter": fig["n_iter"],
+                      "registers": info["registers"], "mpc_ms": k_ms, "mpc_torch_ms": t_ms})
+        worst = max(worst, fig["max_abs_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) the traced copy of cartpole against env 0's jvp library ----
+    tcp, cpd = user["tcp"], cartpole.make()
+    cprm = cartpole.default_params(device=dev)
+    cq, cpp = cartpole.get_true_obj(device=dev)
+    ccost = (torch.diag(cq), cpp)
+    ccfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=T, lqr_iter=iters, eps=0.0,
+                        grad_method=P.GradMethod.AUTO_DIFF, linesearch_decay=cpd.linesearch_decay,
+                        max_linesearch_iter=cpd.max_linesearch_iter, backprop=False,
+                        exit_unconverged=False, detach_unconverged=False)
+    xc = cartpole_start(torch, gen, B, dev)
+    label = f"phase 14 (b) traced cartpole AUTO_DIFF B={B} T={T} eps=0"
+    kt, _ = drive(torch, kernels, total, label, lambda: fused.ilqr_fused(
+        ccfg, tcp, cprm, xc, ccost, None, cpd.lower, cpd.upper), one)
+    ke = fused.ilqr_fused(ccfg, cpd, cprm, xc, ccost, None, cpd.lower, cpd.upper)
+    rel = (kt[2] - ke[2]).abs() / ke[2].abs().clamp(min=1e-6)
+    n_rel = int((rel > 1e-4).sum())
+    print(f"{label}: costs against env 0's jvp library rel max {rel.max().item():.2e} (past "
+          f"1e-4: {n_rel}/{B}), n_iter {int(kt[4])} vs {int(ke[4])}", flush=True)
+    if rel.max().item() > 1e-2 or n_rel > 0.01 * B:
+        fail(f"{label}: costs disagree with env 0's past parity's bar")
+    b_err, _, _ = parity(torch, fused, label, tcp, cprm, ccfg, xc, ccost, None, cpd.lower,
+                         cpd.upper, converged_only=True, conv_eps=1e-4)
+    b_plain = parity.plain_ms
+    # at eps=0 every tile runs lqr_iter iterations
+    b_bound, b_by, b_flops, b_flops64, b_bytes = jvp_bound(
+        fused, ccfg, B, fused.ENV_TRACED, ccost, cpd.lower, cpd.upper, [iters] * (B // fused.TILE),
+        ops=user["mc"].ops(True))
+    print(f"bound {label}: {b_flops:.3e} FP32 and {b_flops64:.3e} FP64 operations (traced.py's "
+          f"{user['mc'].ops(True)}), {b_bytes} bytes -> {b_bound:.4f} ms ({b_by}) [{card}]",
+          flush=True)
+    t_ms, _ = cuda_ms(lambda: fused.ilqr_fused(ccfg, tcp, cprm, xc, ccost, None, cpd.lower,
+                                               cpd.upper), 1, 5)
+    e_ms, _ = cuda_ms(lambda: fused.ilqr_fused(ccfg, cpd, cprm, xc, ccost, None, cpd.lower,
+                                               cpd.upper), 1, 5)
+    info = fused.user_info(user["mc"], None, P.GradMethod.AUTO_DIFF)
+    print(f"time {label}: {t_ms:.3f} ms generated against {e_ms:.3f} ms hand-written (env 0's "
+          f"jvp library; ratio {t_ms / e_ms:.2f}, CUDA events, median of 5; "
+          f"{info['registers']} against {fused.kernel_info(0, 0, False, P.GradMethod.AUTO_DIFF)['registers']} "
+          f"registers) [{card}]", flush=True)
+    cases.append({"name": label.replace("phase 14 (b) ", ""), "ms": t_ms, "env0_ms": e_ms,
+                  "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+                  "max_abs_err": b_err, "cost_rel_max": rel.max().item(),
+                  "registers": info["registers"]})
+    worst = max(worst, b_err)
+    head = cases[0]
+    user_row = {"name": "ilqr_fused_user", "route": "cuda",
+                "source": "dilqr_tpu_torch/csrc/ilqr_user.cu",
+                "replaces": "dilqr_tpu/ops/pallas/ilqr_fused.py:699",
+                "launches": total["ilqr_fused"], "max_abs_err": worst, "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": None, "cases": cases}
+    launches_a = dict(total)
+
+    # ---- (c) the pendulum with a callable cost ----
+    pdyn, pprm = pendulum.make(), pendulum.default_params(device=dev)
+    pc, cost_fn = user["pc"], user["cost_fn"]
+    cp = torch.tensor(PEND_COST_PARAMS, device=dev)
+    cc = fused.CallableCost(pc, cost_fn, cp)
+    pcfg = P.ILQRConfig(n_state=3, n_ctrl=1, T=T, lqr_iter=iters, eps=1e-4,
+                        linesearch_decay=pdyn.linesearch_decay,
+                        max_linesearch_iter=pdyn.max_linesearch_iter, backprop=False,
+                        exit_unconverged=False, detach_unconverged=False)
+    th = 4.0 * torch.rand(B, generator=gen) - 2.0
+    xp = torch.stack([th.cos(), th.sin(), torch.zeros(B)], 1).to(dev)
+    label = f"phase 14 (c) pendulum callable cost B={B} T={T}"
+    if not fused.covered(pcfg, pdyn, pprm, torch.float32, None, None, None, -2.0, 2.0,
+                         cost_callable=True):
+        fail(f"{label}: not covered")
+    out, _ = drive(torch, kernels, total, f"{label} solve", lambda: P.solve(
+        pcfg, xp, (cost_fn, cp), pdyn, params=pprm, u_lower=-2.0, u_upper=2.0), one)
+    if not torch.isfinite(out.costs).all():
+        fail(f"{label}: non-finite costs")
+    cmp = dataclasses.replace(pcfg, eps=0.0)
+    err, k_out, _ = parity(torch, fused, f"{label} eps=0", pdyn, pprm, cmp, xp, cc, None, -2.0,
+                           2.0, converged_only=True, conv_eps=1e-4)
+    plain_ms = parity.plain_ms
+    same_bits(torch, fused, label, k_out, (cmp, pdyn, pprm, xp, cc, None, -2.0, 2.0))
+    ms, runs = cuda_ms(lambda: fused.ilqr_fused(cmp, pdyn, pprm, xp, cc, None, -2.0, 2.0), 1, 5)
+    its = [int(fused.ilqr_fused(cmp, pdyn, pprm, xp[g:g + fused.TILE], cc, None, -2.0,
+                                2.0)[4]) for g in range(0, B, fused.TILE)]
+    bound, by_what, flops, flops64, by = callable_bound(fused, cmp, B, fused.STEP_OPS[1], pc, its)
+    info = fused.kernel_info(1, 0, False, P.GradMethod.ANALYTIC, cost=pc)
+    print(f"time {label}: {ms:.3f} ms median of {len(runs)} ({', '.join(f'{r:.3f}' for r in runs)}); "
+          f"plain version {plain_ms:.1f} ms (one run, host clock); bound {flops:.3e} FP32 and "
+          f"{flops64:.3e} FP64 operations (traced.py's {pc.ops}), {by} bytes -> {bound:.4f} ms "
+          f"({by_what}); tile iterations {its}; G={info['cluster']}, {info['registers']} "
+          f"registers, {info['local_bytes']} local bytes [{card}]", flush=True)
+
+    xg = xp[:1024]
+
+    def grad(backend):
+        cpr = cp.clone().requires_grad_(True)
+        c = dataclasses.replace(pcfg, backprop=True, backward_mode=P.BackwardMode.IFT,
+                                backend=backend)
+        res = P.solve(c, xg, (cost_fn, cpr), pdyn, params=pprm, u_lower=-2.0, u_upper=2.0)
+        return torch.autograd.grad((res.u ** 2).mean(), cpr)[0]
+
+    glabel = "phase 14 (c) IFT grad wrt the callable cost's params B=1024"
+    g, _ = drive(torch, kernels, total, glabel, lambda: grad("auto"),
+                 {"ilqr_fused": 1, "kkt_fused": None, "riccati_fused": 0})
+    g_ref = grad("torch")
+    gerr = (g - g_ref).abs().max().item()
+    print(f"{glabel}: |grad| max {g.abs().max().item():.4e}, abs. diff to backend='torch' "
+          f"{gerr:.2e} over {g.numel()} params", flush=True)
+    if not torch.isfinite(g).all() or g.abs().max().item() == 0.0:
+        fail(f"{glabel}: a non-finite or zero gradient")
+    if gerr > 1e-3 * g_ref.abs().max().item() + 1e-8:
+        fail(f"{glabel}: the gradient differs from backend='torch''s by {gerr:.3e}")
+    callable_row = {"name": "ilqr_fused_callable", "route": "cuda",
+                    "source": "dilqr_tpu_torch/csrc/callable_cost.cuh",
+                    "replaces": "dilqr_tpu/ops/pallas/ilqr_fused.py:699",
+                    "launches": total["ilqr_fused"] - launches_a["ilqr_fused"],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by_what, "library_ms": None, "registers": info["registers"],
+                    "grad_abs_diff": gerr}
+
+    # ---- (d) the route check ----
+    label = "phase 14 (d) array-capturing step MPC.solve B=1024"
+    bad = user["capture"]
+    mkw = dict(u_lower=-USER_BOX, u_upper=USER_BOX, lqr_iter=2, eps=1e-4, backprop=False,
+               exit_unconverged=False)
+    out, _ = drive(torch, kernels, total, label, lambda: P.MPC(4, 2, T, **mkw).solve(
+        x0[:1024], P.QuadCost(*cost), bad, params=params), {"ilqr_fused": 0})
+    if not torch.isfinite(out.costs).all():
+        fail(f"{label}: non-finite costs")
+    try:
+        P.MPC(4, 2, T, backend="cuda", **mkw).solve(x0[:1024], P.QuadCost(*cost), bad,
+                                                     params=params)
+    except ValueError as e:
+        print(f"{label}: backend='cuda' raises: {e}", flush=True)
+    else:
+        fail(f"{label}: backend='cuda' did not raise")
+    print(f"phase 14 launches: {total}", flush=True)
+    return [user_row, callable_row], total
 
 
 def _tile_iters(fused, cfg, dyn, params, x0, cs):

@@ -10,7 +10,10 @@
 
 ``ilqr_loop`` sends a covered configuration on CUDA tensors to the
 whole-solve CUDA kernel (``ops/cuda/ilqr_fused.py``; an MLP's weights
-[(W, b), ...] flattened into its params vector, ``kernel_params``) and
+[(W, b), ...] flattened into its params vector, ``kernel_params``; a
+user's own model and a callable cost traced into C++ by
+``ops/cuda/traced.py``, the cost as the (cost_fn, cost_params) pair
+``cost_struct`` the solve hands down, ``callable_cost``) and
 everything else to
 the plain loop below on the tensors' own device, whose Riccati backward
 ``ops/riccati.lqr_backward`` takes the CUDA Riccati kernel where that one
@@ -27,6 +30,7 @@ import torch
 
 from ..models.nn_dynamics import flat_params
 from ..ops.cuda import ilqr_fused as fused
+from ..ops.cuda import traced
 from ..ops.riccati import lqr_backward
 from ..ops.rollout import get_traj, lqr_forward
 from ..parallel.comm import decide
@@ -99,16 +103,34 @@ def kernel_params(dyn, params):
     return params if flat is None else flat
 
 
+def callable_cost(cfg: ILQRConfig, cost_struct):
+    """The kernel's form of a (cost_fn, cost_params) pair, or None (JAX's
+    probe, dilqr_tpu/core/ilqr.py:196-205): flat params or none (an empty
+    tuple), and a cost that traces (``traced.cost``, JAX's
+    cost_lane_compatible)."""
+    if cost_struct is None:
+        return None
+    fn, cin = cost_struct
+    empty = isinstance(cin, (tuple, list)) and len(cin) == 0
+    if not (empty or (isinstance(cin, torch.Tensor) and cin.dim() == 1)):
+        return None
+    trace = traced.cost(fn, cfg.n_tau, None if empty else cin.shape[0])
+    return None if trace is None else fused.CallableCost(trace, fn, None if empty else cin)
+
+
 def use_kernel(cfg: ILQRConfig, cost, dyn, params, x_init, u_zero_I, delta_u,
-               cost_small, u_lower, u_upper, u_init_zero: bool = False) -> bool:
+               cost_small, u_lower, u_upper, u_init_zero: bool = False,
+               cost_callable=None) -> bool:
     """Backend dispatch. "torch" never takes the kernel; "auto" takes it
     for CUDA tensors in the covered configuration; "cuda" must take it and
-    raises where it cannot. ``params``: the kernel's (kernel_params)."""
+    raises where it cannot. ``params``: the kernel's (kernel_params);
+    ``cost_callable``: a callable cost's kernel form (``callable_cost``),
+    with which a cost that is no QuadCost may take the kernel."""
     if cfg.backend == "torch":
         return False
-    ok = isinstance(cost, QuadCost) and fused.covered(
+    ok = (isinstance(cost, QuadCost) or cost_callable is not None) and fused.covered(
         cfg, dyn, params, x_init.dtype, cost_small, u_zero_I, delta_u,
-        u_lower, u_upper, u_init_zero=u_init_zero)
+        u_lower, u_upper, u_init_zero=u_init_zero, cost_callable=cost_callable is not None)
     if cfg.backend == "cuda":
         if not x_init.is_cuda:
             raise ValueError(
@@ -135,20 +157,27 @@ def ilqr_loop(
     delta_u=None,
     cost_small=None,
     u_init_zero: bool = False,
+    cost_struct=None,
 ) -> ILQRInternal:
     """Run up to cfg.lqr_iter iterations with best tracking and the
     reference's stopping rule. u_init: [T, B, nu] (already broadcast).
     cost_small: the user's example-invariant (C, c), [n,n]+[n] or
     [T,n,n]+[T,n], when there is one; u_init_zero: the warm start is known
-    to be zeros. Both are hints for the kernel."""
+    to be zeros; cost_struct: a callable cost's (cost_fn, cost_params),
+    whose trace the kernel runs where it can (the plain loop calls
+    ``cost``). All three are hints for the kernel."""
     kparams = kernel_params(dyn, params)
+    cc = None if cfg.backend == "torch" or isinstance(cost, QuadCost) \
+        else callable_cost(cfg, cost_struct)
     if use_kernel(cfg, cost, dyn, kparams, x_init, u_zero_I, delta_u,
-                  cost_small, u_lower, u_upper, u_init_zero):
-        # the user's example-invariant cost where there is one, else the
-        # per-example [T, B, ...] pair
+                  cost_small, u_lower, u_upper, u_init_zero,
+                  **({} if cc is None else {"cost_callable": cc})):
+        # a callable cost's trace; the user's example-invariant cost where
+        # there is one; else the per-example [T, B, ...] pair
         return ILQRInternal(*fused.ilqr_fused(
             cfg, dyn, kparams, x_init,
-            cost_small if cost_small is not None else (cost.C, cost.c),
+            cc if cc is not None else cost_small if cost_small is not None
+            else (cost.C, cost.c),
             None if u_init_zero else u_init,
             u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
         ))

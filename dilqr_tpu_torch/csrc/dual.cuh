@@ -24,6 +24,15 @@
 //  * sqrt, rsqrt, atan2, cos and sin: the value by the float function the
 //    step uses (rsqrt_f is rsqrtf on the card), the tangent by the
 //    derivative at that value.
+//
+// Every Dual form computes its value by the same function of the value
+// part, so the forms recurse: DualOf<DualOf<float>> carries a second
+// tangent, the forward-over-forward a callable cost's Hessian needs
+// (ilqr_fused.cuh, quad_at). A constant beside a Dual has the real type
+// underneath it, real_t (float on the card, double in a host build), so
+// a host build at double keeps every digit of a constant. The code that
+// ops/cuda/traced.py generates from a user's PyTorch step or cost calls
+// the functions below by name and compares values with rv().
 #pragma once
 
 #include <math.h>
@@ -82,90 +91,131 @@ struct DualOf {
 };
 using Dual = DualOf<float>;
 
+// the real type under a scalar: float for float and Dual, double for
+// double and DualOf<double>
+template <class S>
+struct RealOf {
+  using type = S;
+};
+template <class R>
+struct RealOf<DualOf<R>> {
+  using type = typename RealOf<R>::type;
+};
+template <class S>
+using real_t = typename RealOf<S>::type;
+
+// the innermost value of a scalar (what a comparison reads)
+template <class S>
+DILQR_HD real_t<S> rv(S a) { return a; }
+template <class R>
+DILQR_HD real_t<R> rv(DualOf<R> a) { return rv(a.v); }
+
+// a parameter read: through the read-only cache on the card (every thread
+// of a warp reads the same one), a double as it is in a host build
+DILQR_HD float ld_param(const float* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+DILQR_HD double ld_param(const double* p) { return *p; }
+
 template <class R>
 DILQR_HD DualOf<R> operator-(DualOf<R> a) { return {-a.v, -a.d}; }
 template <class R>
 DILQR_HD DualOf<R> operator+(DualOf<R> a, DualOf<R> b) { return {a.v + b.v, a.d + b.d}; }
 template <class R>
-DILQR_HD DualOf<R> operator+(DualOf<R> a, float b) { return {a.v + b, a.d}; }
+DILQR_HD DualOf<R> operator+(DualOf<R> a, real_t<R> b) { return {a.v + b, a.d}; }
 template <class R>
-DILQR_HD DualOf<R> operator+(float a, DualOf<R> b) { return {a + b.v, b.d}; }
+DILQR_HD DualOf<R> operator+(real_t<R> a, DualOf<R> b) { return {a + b.v, b.d}; }
 template <class R>
 DILQR_HD DualOf<R> operator-(DualOf<R> a, DualOf<R> b) { return {a.v - b.v, a.d - b.d}; }
 template <class R>
-DILQR_HD DualOf<R> operator-(DualOf<R> a, float b) { return {a.v - b, a.d}; }
+DILQR_HD DualOf<R> operator-(DualOf<R> a, real_t<R> b) { return {a.v - b, a.d}; }
 template <class R>
-DILQR_HD DualOf<R> operator-(float a, DualOf<R> b) { return {a - b.v, -b.d}; }
+DILQR_HD DualOf<R> operator-(real_t<R> a, DualOf<R> b) { return {a - b.v, -b.d}; }
 template <class R>
 DILQR_HD DualOf<R> operator*(DualOf<R> a, DualOf<R> b) {
   return {a.v * b.v, a.d * b.v + a.v * b.d};
 }
 template <class R>
-DILQR_HD DualOf<R> operator*(DualOf<R> a, float b) { return {a.v * b, a.d * b}; }
+DILQR_HD DualOf<R> operator*(DualOf<R> a, real_t<R> b) { return {a.v * b, a.d * b}; }
 template <class R>
-DILQR_HD DualOf<R> operator*(float a, DualOf<R> b) { return {a * b.v, a * b.d}; }
+DILQR_HD DualOf<R> operator*(real_t<R> a, DualOf<R> b) { return {a * b.v, a * b.d}; }
 template <class R>
 DILQR_HD DualOf<R> operator/(DualOf<R> a, DualOf<R> b) {
   const R q = a.v / b.v;
   return {q, (a.d - q * b.d) / b.v};
 }
 template <class R>
-DILQR_HD DualOf<R> operator/(DualOf<R> a, float b) { return {a.v / b, a.d / b}; }
+DILQR_HD DualOf<R> operator/(DualOf<R> a, real_t<R> b) { return {a.v / b, a.d / b}; }
 template <class R>
-DILQR_HD DualOf<R> operator/(float a, DualOf<R> b) {
+DILQR_HD DualOf<R> operator/(real_t<R> a, DualOf<R> b) {
   const R q = a / b.v;
   return {q, -q * b.d / b.v};
 }
 
 // comparisons read the values (a NaN compares false, as for floats)
 template <class R>
-DILQR_HD bool operator<(DualOf<R> a, float b) { return a.v < b; }
+DILQR_HD bool operator<(DualOf<R> a, real_t<R> b) { return a.v < b; }
 template <class R>
-DILQR_HD bool operator>(DualOf<R> a, float b) { return a.v > b; }
+DILQR_HD bool operator>(DualOf<R> a, real_t<R> b) { return a.v > b; }
 template <class R>
-DILQR_HD bool operator==(DualOf<R> a, float b) { return a.v == b; }
+DILQR_HD bool operator==(DualOf<R> a, real_t<R> b) { return a.v == b; }
 
 // u > hi ? hi : (u < lo ? lo : u): the in-step control clamp, with
 // torch.clamp's derivative on a Dual (tangent 1 on [lo, hi], bounds
 // included; 0 outside; NaN passes through)
 template <class S>
-DILQR_HD S clamp_sel(S u, float lo, float hi) {
+DILQR_HD S clamp_sel(S u, real_t<S> lo, real_t<S> hi) {
   return u > hi ? S(hi) : (u < lo ? S(lo) : u);
 }
 
+// The real forms first (float on the card, double in a host build), then
+// the Dual forms, each computing its value by the real form of the value
+// part, so that they recurse
 DILQR_HD float sqrt_s(float a) { return sqrtf(a); }
+DILQR_HD double sqrt_s(double a) { return sqrt(a); }
+DILQR_HD float rsqrt_s(float a) { return rsqrt_f(a); }
+DILQR_HD double rsqrt_s(double a) { return 1.0 / sqrt(a); }
+DILQR_HD float atan2_s(float y, float x) { return atan2f(y, x); }
+DILQR_HD double atan2_s(double y, double x) { return atan2(y, x); }
+// (cos a, sin a): by cos_sin for a float, by the library for a double
+DILQR_HD void cos_sin_s(float a, float* oc, float* os) { cos_sin(a, oc, os); }
+DILQR_HD void cos_sin_s(double a, double* oc, double* os) {
+  *oc = cos(a);
+  *os = sin(a);
+}
+
 template <class R>
 DILQR_HD DualOf<R> sqrt_s(DualOf<R> a) {
-  const R r = sqrtf(a.v);
+  const R r = sqrt_s(a.v);
   return {r, a.d / (2.0f * r)};
 }
 
-DILQR_HD float rsqrt_s(float a) { return rsqrt_f(a); }
 template <class R>
 DILQR_HD DualOf<R> rsqrt_s(DualOf<R> a) {
-  const R r = rsqrt_f(a.v);
+  const R r = rsqrt_s(a.v);
   return {r, -0.5f * (r * r * r) * a.d};
 }
 
 // fmaxf(a, b) for a constant b: torch.clamp(a, min=b) on a Dual
 DILQR_HD float fmax_s(float a, float b) { return fmaxf(a, b); }
 template <class R>
-DILQR_HD DualOf<R> fmax_s(DualOf<R> a, float b) {
+DILQR_HD DualOf<R> fmax_s(DualOf<R> a, real_t<R> b) {
   return {fmaxf(a.v, b), a.v >= b ? a.d : R(0.0f)};
 }
 
-DILQR_HD float atan2_s(float y, float x) { return atan2f(y, x); }
 template <class R>
 DILQR_HD DualOf<R> atan2_s(DualOf<R> y, DualOf<R> x) {
-  return {atan2f(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
+  return {atan2_s(y.v, x.v), (x.v * y.d - y.v * x.d) / (x.v * x.v + y.v * y.v)};
 }
 
-// (cos a, sin a) by cos_sin
-DILQR_HD void cos_sin_s(float a, float* oc, float* os) { cos_sin(a, oc, os); }
 template <class R>
 DILQR_HD void cos_sin_s(DualOf<R> a, DualOf<R>* oc, DualOf<R>* os) {
   R c, s;
-  cos_sin(a.v, &c, &s);
+  cos_sin_s(a.v, &c, &s);
   *oc = DualOf<R>(c, -s * a.d);
   *os = DualOf<R>(s, c * a.d);
 }
@@ -217,6 +267,70 @@ DILQR_HD DualOf<R> elu_s(DualOf<R> a) {
   const R de = a.d * (e + 1.0f);
   const bool pos = a.v > 0.0f;
   return {pos ? a.v : e, pos ? a.d : de};
+}
+
+// The rest of the elementwise set a traced step or cost may use
+// (ops/cuda/traced.py), with PyTorch's forward-mode derivatives:
+//  * log, tanh: tangent d / a and (1 - t^2) d;
+//  * abs: tangent d sgn(a) (0 at a == 0), by selection;
+//  * pow_s(a, e) for a constant exponent: tangent e a^(e-1) d;
+//  * max_s / min_s: torch.maximum / minimum, NaN propagating, the tangent
+//    of the larger (smaller) one and the mean of both at a tie, both sides
+//    computed so that the operation count does not depend on the data;
+//  * clamp_lo / clamp_hi: torch.clamp with one bound, tangent 1 at the
+//    bound, as clamp_sel.
+DILQR_HD float log_s(float a) { return logf(a); }
+DILQR_HD double log_s(double a) { return log(a); }
+DILQR_HD float tanh_s(float a) { return tanhf(a); }
+DILQR_HD double tanh_s(double a) { return tanh(a); }
+DILQR_HD float abs_s(float a) { return fabsf(a); }
+DILQR_HD double abs_s(double a) { return fabs(a); }
+DILQR_HD float pow_s(float a, double e) { return powf(a, (float)e); }
+DILQR_HD double pow_s(double a, double e) { return pow(a, e); }
+DILQR_HD float max_s(float a, float b) { return a != a ? a : (b != b ? b : (a > b ? a : b)); }
+DILQR_HD double max_s(double a, double b) { return a != a ? a : (b != b ? b : (a > b ? a : b)); }
+DILQR_HD float min_s(float a, float b) { return a != a ? a : (b != b ? b : (a < b ? a : b)); }
+DILQR_HD double min_s(double a, double b) { return a != a ? a : (b != b ? b : (a < b ? a : b)); }
+
+template <class R>
+DILQR_HD DualOf<R> exp_s(DualOf<R> a) {
+  const R e = exp_s(a.v);
+  return {e, a.d * e};
+}
+template <class R>
+DILQR_HD DualOf<R> log_s(DualOf<R> a) {
+  return {log_s(a.v), a.d / a.v};
+}
+template <class R>
+DILQR_HD DualOf<R> tanh_s(DualOf<R> a) {
+  const R t = tanh_s(a.v);
+  return {t, a.d * (1.0f - t * t)};
+}
+template <class R>
+DILQR_HD DualOf<R> abs_s(DualOf<R> a) {
+  return {abs_s(a.v), rv(a.v) > 0.0f ? a.d : (rv(a.v) < 0.0f ? -a.d : R(0.0f))};
+}
+template <class R>
+DILQR_HD DualOf<R> pow_s(DualOf<R> a, double e) {
+  return {pow_s(a.v, e), a.d * (real_t<R>(e) * pow_s(a.v, e - 1.0))};
+}
+template <class R>
+DILQR_HD DualOf<R> max_s(DualOf<R> a, DualOf<R> b) {
+  const R tie = (a.d + b.d) * 0.5f;
+  return {max_s(a.v, b.v), rv(a.v) == rv(b.v) ? tie : (rv(a.v) > rv(b.v) ? a.d : b.d)};
+}
+template <class R>
+DILQR_HD DualOf<R> min_s(DualOf<R> a, DualOf<R> b) {
+  const R tie = (a.d + b.d) * 0.5f;
+  return {min_s(a.v, b.v), rv(a.v) == rv(b.v) ? tie : (rv(a.v) < rv(b.v) ? a.d : b.d)};
+}
+template <class S>
+DILQR_HD S clamp_lo(S u, real_t<S> lo) {
+  return u < lo ? S(lo) : u;
+}
+template <class S>
+DILQR_HD S clamp_hi(S u, real_t<S> hi) {
+  return u > hi ? S(hi) : u;
 }
 
 }  // namespace dilqr

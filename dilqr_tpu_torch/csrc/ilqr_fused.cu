@@ -3,14 +3,32 @@
 // with normalize_quat=False and the slew-rate wrapper Passthrough<Env> of
 // each) and their C interface. The kernel, its design and what bounds it
 // are in ilqr_kernel.cuh; a LinDx problem's instantiation is ilqr_lindx.cu.
-#include "ilqr_kernel.cuh"
+// Built as it is, the library has the QuadCost forms; built with
+// -DDILQR_CALLABLE_COST=1 beside a generated callable cost
+// (callable_cost.cuh, ops/cuda/ilqr_fused.with_cost), the base envs'
+// instantiations for that cost and nothing else.
+#include "callable_cost.cuh"
 
 namespace dilqr {
 
-// the env's instantiations for both cost forms
+// the env's instantiations for both cost forms, or for the callable cost
 template <class Env, int NU, int EX, class F>
 cudaError_t launch_either(int lanes, F f) {
-  return lanes ? launch_if_fits<Env, NU, EX, true>(f) : launch_if_fits<Env, NU, EX, false>(f);
+  if constexpr (kCallableCost) {
+    return lanes ? cudaErrorInvalidValue : launch_if_fits<Env, NU, EX, false, KernelCost>(f);
+  } else {
+    return lanes ? launch_if_fits<Env, NU, EX, true>(f) : launch_if_fits<Env, NU, EX, false>(f);
+  }
+}
+
+// a slew-rate wrapper's instantiation (the per-example cost only)
+template <class Env, int NU, int EX, class F>
+cudaError_t launch_slew(int lanes, F f) {
+  if constexpr (kCallableCost) {
+    return cudaErrorInvalidValue;
+  } else {
+    return lanes ? launch_if_fits<Env, NU, EX, true>(f) : cudaErrorInvalidValue;
+  }
 }
 
 // Calls f(Launch<Env, NU, 1024 / G, LANES>{}) for the env, the cost form
@@ -31,14 +49,11 @@ cudaError_t dispatch_env(int env, int lanes, F f) {
     case ENV_ROCKET:
       return launch_either<Rocket, 3, EX>(lanes, f);
     case ENV_CARTPOLE_SLEW:
-      return lanes ? launch_if_fits<Passthrough<Cartpole>, 1, EX, true>(f)
-                   : cudaErrorInvalidValue;
+      return launch_slew<Passthrough<Cartpole>, 1, EX>(lanes, f);
     case ENV_PENDULUM_SLEW:
-      return lanes ? launch_if_fits<Passthrough<Pendulum>, 1, EX, true>(f)
-                   : cudaErrorInvalidValue;
+      return launch_slew<Passthrough<Pendulum>, 1, EX>(lanes, f);
     case ENV_ROCKET_SLEW:
-      return lanes ? launch_if_fits<Passthrough<Rocket>, 3, EX, true>(f)
-                   : cudaErrorInvalidValue;
+      return launch_slew<Passthrough<Rocket>, 3, EX>(lanes, f);
     default:
       return cudaErrorInvalidValue;
   }
@@ -54,7 +69,8 @@ cudaError_t dispatch(int env, int lanes, int G, F f) {
 }  // namespace dilqr
 
 // cost_lanes: 0 for the example-invariant cost C [Tc, N*N], c [Tc, N]; 1
-// for the per-example C [T, N*N, Bp], c [T, N, Bp]. lo/hi: host arrays of
+// for the per-example C [T, N*N, Bp], c [T, N, Bp]. A callable-cost
+// library takes 0, its cost's params as C (null for none) and no c. lo/hi: host arrays of
 // kMaxNu floats (the env's bounds first, padded), copied into the kernel's
 // arguments; lb/ub: [T, NU, Bp] per-time and per-example bounds, or null
 // for lo/hi. uz: the u_zero_I mask [T, NU, Bp] as bytes, or null;

@@ -16,8 +16,9 @@
 // Rocket carry the hand-derived Jacobian of the un-clamped step;
 // PendulumComplex and RocketNorm have none and take JvpJac's, and so does
 // Mlp, the learned model (models/nn_dynamics.py) with its widths as
-// template parameters. The functions are __host__ __device__ so a host
-// compiler can build them too.
+// template parameters, and Traced, a user's model whose step
+// ops/cuda/traced.py generated from its PyTorch code. The functions are
+// __host__ __device__ so a host compiler can build them too.
 #pragma once
 
 #include <math.h>
@@ -50,6 +51,7 @@ enum EnvId {
   ENV_ROCKET_NORM_SLEW = 9,
   ENV_MLP = 10,  // any Mlp<...> (ilqr_mlp.cu, one library per shape)
   ENV_MLP_SLEW = 11,
+  ENV_TRACED = 12,  // a user's model traced into C++ (ilqr_user.cu, one library per model)
 };
 
 // the most controls the kernel takes (JAX's MAX_NU): a LinDx problem's;
@@ -623,6 +625,36 @@ struct Mlp {
   }
 };
 
+// A user's own model (a Dynamics with neither device code nor MLP
+// widths), its step and linearization point traced by torch.fx and
+// generated as straight-line C++ (ops/cuda/traced.py): M is the generated
+// traced::Model, whose step<S, P>(x, u, p, x') and step_unclamped<S, P>
+// (the model's linearize_point) are templates over the scalar S (float,
+// or a Dual for the jvp sweep) and the params' type P. The params are read
+// in place through the read-only cache at each evaluation, as Mlp's
+// weights are. kClamp: the step (GradMethod.AUTO_DIFF's, and the rollout's)
+// or the linearization point (ANALYTIC). No hand Jacobian: JvpJac<Traced,
+// C> forms it, as the JAX kernel's lin_at does for a user's model.
+template <class M>
+struct Traced {
+  static constexpr int NX = M::NX;
+  static constexpr int NU = M::NU;
+  static constexpr int NP = M::NP;
+  static constexpr bool kColumnwiseQ = false;
+  const float* p;
+
+  DILQR_HD void load(const float* params) { p = params; }
+
+  template <bool kClamp = true, class S>
+  DILQR_HD void step(const S* xs, const S* us, S* xn) const {
+    if constexpr (kClamp) {
+      M::step(xs, us, p, xn);
+    } else {
+      M::step_unclamped(xs, us, p, xn);
+    }
+  }
+};
+
 // The Jacobian by forward mode, as the JAX kernel's jvp sweep forms it
 // (lin_at, dilqr_tpu/ops/pallas/ilqr_fused.py:1258-1266): Env's step
 // evaluated on Duals n = NX + NU times, column j with the one-hot tangent
@@ -945,7 +977,60 @@ struct CostView {
   int stride;
   DILQR_HD float Ce(int e) const { return ldg_f(C + (size_t)e * stride); }
   DILQR_HD float ce(int i) const { return ldg_f(c + (size_t)i * stride); }
+  // (C tau + c)_i, the delta-space shift of the Riccati step's q
+  template <int N>
+  DILQR_HD float shift(int i, const float* tau) const {
+    float cb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) cb += Ce(i * N + j) * tau[j];
+    return cb + ce(i);
+  }
 };
+
+// A callable cost's quadratic model at tau (the JAX kernel's quad_at,
+// dilqr_tpu/ops/pallas/ilqr_fused.py:1063-1080): its Hessian H, kept as the
+// upper triangle, in place of C, and its gradient g in place of the shift
+// C tau + c (in delta space C tau + c collapses to g, :1285-1289). Read as
+// a CostView is, so the Riccati step takes either.
+template <int N, class T = float>
+struct CostQuad {
+  T h[N * (N + 1) / 2];
+  T g[N];
+  DILQR_HD T Ce(int e) const {
+    const int i = e / N, j = e % N;
+    return h[i <= j ? i * N - i * (i - 1) / 2 + (j - i) : j * N - j * (j - 1) / 2 + (i - j)];
+  }
+  template <int M>
+  DILQR_HD T shift(int i, const T*) const { return g[i]; }
+};
+
+// (H, g) of Cost at tau by forward over forward: Cost::cost on
+// DualOf<Dual> once for each i <= j, tau + e_i eps1 + e_j eps2, whose
+// (eps1 eps2) part is H[i][j] and whose eps1 part at i == j is g[i] -- the
+// same derivatives as JAX's n jvps for g and n of the gradient map for H.
+// cp: the cost's params [Cost::NP]. T: float on the card (double in a
+// host build).
+template <class Cost, int N, class T = float>
+DILQR_HD CostQuad<N, T> quad_at(const T* tau, const T* cp) {
+  using DT = DualOf<T>;
+  using DD = DualOf<DT>;
+  CostQuad<N, T> q;
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = i; j < N; ++j, ++e) {
+      DD td[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        td[k] = DD(DT(tau[k], T(k == i ? 1 : 0)), DT(T(k == j ? 1 : 0), T(0)));
+      const DD r = Cost::cost(td, cp);
+      q.h[e] = r.d.d;
+      if (i == j) q.g[i] = r.v.d;
+    }
+  }
+  return q;
+}
 
 // 0.5 tau^T C tau + c^T tau for tau = (x, u)
 template <int N>
@@ -1003,14 +1088,16 @@ struct BoxStepLayout {
 // - u, intersected with +-delta_u) warm-started with `warm` (k_{t+1}; at
 // T-1 the clipped ridged Newton point), the gains K = -inv(H_free) (Q_ux *
 // If) and k, and the update V' = Qxx + M + M^T + K^T Quu K (M = Qxu K), v'
-// = qx + Qxu k + K^T (qu + Quu k). An unboxed solve with a u_zero_I mask
+// = qx + Qxu k + K^T (qu + Quu k). `cost` is a CostView or, for a callable
+// cost, its CostQuad (H in place of C, g in place of C tau + c). An unboxed
+// solve with a u_zero_I mask
 // (var.masked) takes the free subspace instead (:1313-1334): If = 1 - Iz,
 // H_free = Quu * If If^T + 1e-8 diag(Iz), k = -inv(H_free) (qu * If), and
 // no box-QP. One control takes the closed-form 1-D QP (or, masked, k =
 // -(qu If) / Quu) instead. V and v are read and overwritten; `store` holds V, Q, F with
 // `stride` between entries (BoxStepLayout); lo/hi are this step's bounds.
-template <class Env, int NU>
-DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const CostView& cost,
+template <class Env, int NU, class Cost = CostView>
+DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const Cost& cost,
                                const float* lo, const float* hi, const StepVariant<NU>& var,
                                const float* warm, int pnqp_iter, TileVote& vote, float* store,
                                int stride, float* v, float K[NU][Env::NX], float* kt) {
@@ -1021,14 +1108,9 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
   const SymMat<N> Q{{store + L::kQ * stride, stride}};
   const DenseMat<NX, N> F{{store + L::kF * stride, stride}};
 
-  float q[N];  // C tau + c here, F^T v added below
+  float q[N];  // C tau + c (a callable cost's g) here, F^T v added below
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float cb = 0.0f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) cb += cost.Ce(i * N + j) * tau[j];
-    q[i] = cb + cost.ce(i);
-  }
+  for (int i = 0; i < N; ++i) q[i] = cost.template shift<N>(i, tau);
   if (last) {
 #pragma unroll
     for (int i = 0; i < N; ++i)

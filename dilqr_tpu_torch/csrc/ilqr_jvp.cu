@@ -23,9 +23,11 @@
 // What bounds it is what bounds the kernel: a serial recursion per example,
 // now with n step evaluations on Duals at each Riccati step in place of the
 // hand Jacobian -- operations, not bytes.
+// Built with -DDILQR_CALLABLE_COST=1 beside a generated callable cost
+// (callable_cost.cuh), the library solves the env with that cost instead.
 #include <type_traits>
 
-#include "ilqr_kernel.cuh"
+#include "callable_cost.cuh"
 
 #if !defined(DILQR_JVP_ENV) || !defined(DILQR_JVP_CLAMPED)
 #error "build with -DDILQR_JVP_ENV=<device env id 0..9> -DDILQR_JVP_CLAMPED=<0|1>"
@@ -78,11 +80,16 @@ using Env = std::conditional_t<Base::slew, Passthrough<Jvp>, Jvp>;
 // wrapper expands an example-invariant one)
 template <int EX, class F>
 cudaError_t dispatch_ex(int lanes, F f) {
-  if (lanes) return launch_if_fits<Env, Env::NU, EX, true>(f);
-  if constexpr (Base::slew) {
-    return cudaErrorInvalidValue;
+  if constexpr (kCallableCost) {
+    if (lanes || Base::slew) return cudaErrorInvalidValue;
+    return launch_if_fits<Env, Env::NU, EX, false, KernelCost>(f);
   } else {
-    return launch_if_fits<Env, Env::NU, EX, false>(f);
+    if (lanes) return launch_if_fits<Env, Env::NU, EX, true>(f);
+    if constexpr (Base::slew) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_if_fits<Env, Env::NU, EX, false>(f);
+    }
   }
 }
 

@@ -94,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "ilqr_fused.cuh"
 
 namespace cg = cooperative_groups;
@@ -107,7 +109,8 @@ struct Args {
   int Tc;               // example-invariant cost: 1 or T steps
   const float* params;  // [P]
   const float* x_init;  // [NX, Bp]
-  const float* C;       // [Tc, N*N] or, per example, [T, N*N, Bp]
+  const float* C;       // [Tc, N*N] or, per example, [T, N*N, Bp]; a callable
+                        // cost's params [Cost::NP] (or null for none)
   const float* c;       // [Tc, N] or, per example, [T, N, Bp]
   const float* u_init;  // [T, NU, Bp] or null (zeros)
   float lo[kMaxNu], hi[kMaxNu];  // static per-control bounds, +-inf for none
@@ -147,10 +150,20 @@ constexpr size_t smem_bytes(int EX) {
   return kRegisterPath<Env, NU> ? 0 : sizeof(float) * BoxStepLayout<Env, NU>::kFloats * EX;
 }
 
+// The cost form of a QuadCost (LANES picks which); any other Cost is a
+// callable cost generated by ops/cuda/traced.py (traced::Cost, its
+// cost<S, P>(tau, params) a template over the scalar).
+struct QuadForm {};
+
 // The solve of one example (one thread). LANES: the per-example cost
 // (entries Bp apart), else the example-invariant one (adjacent entries,
-// compile-time offsets).
-template <class Env, int NU, int EX, bool LANES>
+// compile-time offsets). Cost: QuadForm, or a callable cost, whose true
+// value is the objective of the rollouts and the line search and whose
+// (H, g) at tau (quad_at, forward over forward) the Riccati step takes in
+// place of (C, C tau + c) -- the JAX kernel's cost_mode "callable"
+// (ilqr_fused.py:734, :1045-1080, :1188, :1285); its params are a.C,
+// read through the read-only cache.
+template <class Env, int NU, int EX, bool LANES, class Cost = QuadForm>
 __device__ __forceinline__ void ilqr_solve(const Args& a) {
   static_assert(NU == Env::NU, "the env's control count");
   static_assert(EX % 32 == 0 && EX <= 32 * kMaxWarps, "whole warps, at most kMaxWarps");
@@ -207,6 +220,23 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
       return CostView{a.C + (size_t)tc * N * N, a.c + (size_t)tc * N, 1};
     }
   };
+  // step t's objective at tau, and what the Riccati step reads of the cost
+  // (a CostView, or a callable cost's CostQuad at tau)
+  constexpr bool kCallable = !std::is_same_v<Cost, QuadForm>;
+  auto obj_at = [&](int t, const float* tau) {
+    if constexpr (kCallable) {
+      return Cost::cost(tau, a.C);
+    } else {
+      return objective<N>(tau, cost_at(t));
+    }
+  };
+  auto quad_of = [&](int t, const float* tau) {
+    if constexpr (kCallable) {
+      return quad_at<Cost, N>(tau, a.C);
+    } else {
+      return cost_at(t);
+    }
+  };
 
   // ---- 1) initial open-loop rollout and objective ----
   float oc = 0.0f;
@@ -227,7 +257,7 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
         ur[t * sU + j * Bp + b] = ut;
         tau[NX + j] = ut;
       }
-      oc += objective<N>(tau, cost_at(t));
+      oc += obj_at(t, tau);
       if constexpr (kDataEnv<Env>) {
         if (t == T - 1) break;  // no F at T-1: the step would be discarded
         env.at(t);
@@ -263,7 +293,7 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
       for (int i = 0; i < NX; ++i) tau[i] = xr[t * sX + i * Bp + b];
 #pragma unroll
       for (int j = 0; j < NU; ++j) tau[NX + j] = ur[t * sU + j * Bp + b];
-      const CostView cost = cost_at(t);
+      const auto cost = quad_of(t, tau);
       float lo[NU], hi[NU];
       bounds_at(t, lo, hi);
       if constexpr (kDataEnv<Env>) {
@@ -283,10 +313,7 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
 
         // q_i = (C tau + c)_i + (F^T v)_i
         auto q_entry = [&](int i) {
-          float cb = 0.0f;
-#pragma unroll
-          for (int j = 0; j < N; ++j) cb += cost.Ce(i * N + j) * tau[j];
-          cb += cost.ce(i);
+          const float cb = cost.template shift<N>(i, tau);
           float fv = 0.0f;
 #pragma unroll
           for (int k = 0; k < NX; ++k) fv += F[k][i] * v[k];
@@ -458,7 +485,7 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
             xq[t * sX + j * Bp + b] = xt[j];
             tau[j] = xt[j];
           }
-          cost += objective<N>(tau, cost_at(t));
+          cost += obj_at(t, tau);
           if constexpr (kDataEnv<Env>) {
             if (t == T - 1) break;
             env.at(t);
@@ -527,16 +554,16 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
 }
 
 // The kernel, with the registers ptxas chooses.
-template <class Env, int NU, int EX, bool LANES>
+template <class Env, int NU, int EX, bool LANES, class Cost>
 __global__ void __launch_bounds__(EX) ilqr_fused_kernel(const Args a) {
-  ilqr_solve<Env, NU, EX, LANES>(a);
+  ilqr_solve<Env, NU, EX, LANES, Cost>(a);
 }
 
 // The kernel for at least MINB blocks an SM: ptxas then uses the registers
 // that leaves instead of trading a spill for more blocks.
-template <class Env, int NU, int EX, bool LANES, int MINB>
+template <class Env, int NU, int EX, bool LANES, class Cost, int MINB>
 __global__ void __launch_bounds__(EX, MINB) ilqr_fused_kernel_mb(const Args a) {
-  ilqr_solve<Env, NU, EX, LANES>(a);
+  ilqr_solve<Env, NU, EX, LANES, Cost>(a);
 }
 
 // Blocks of 128 threads an SM to state to ptxas, 0 for none: the
@@ -564,23 +591,28 @@ template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
 constexpr int kMinBlocks128<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>, LANES> = 2;
 template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
 constexpr int kMinBlocks128<Passthrough<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>>, LANES> = 2;
+// and so does a traced user model's (ilqr_user.cu), whose generated step is
+// long straight-line code: ptxas may use up to 255 registers a thread
+// rather than trade spills for occupancy
+template <bool C, bool LANES, class M>
+constexpr int kMinBlocks128<JvpJac<Traced<M>, C>, LANES> = 2;
 
-template <class Env, int NU, int EX, bool LANES>
+template <class Env, int NU, int EX, bool LANES, class Cost>
 constexpr auto kernel_of() {
   constexpr int mb = kMinBlocks128<Env, LANES> * 128 / EX;
   if constexpr (mb > 0) {
-    return ilqr_fused_kernel_mb<Env, NU, EX, LANES, mb>;
+    return ilqr_fused_kernel_mb<Env, NU, EX, LANES, Cost, mb>;
   } else {
-    return ilqr_fused_kernel<Env, NU, EX, LANES>;
+    return ilqr_fused_kernel<Env, NU, EX, LANES, Cost>;
   }
 }
 
 // The kernel of (Env, NU, cost form) for a tile of G blocks, with its
 // launch shape.
-template <class Env, int NU, int EX, bool LANES>
+template <class Env, int NU, int EX, bool LANES, class Cost = QuadForm>
 struct Launch {
   static cudaError_t configure(int G, size_t smem) {
-    auto kernel = kernel_of<Env, NU, EX, LANES>();
+    auto kernel = kernel_of<Env, NU, EX, LANES, Cost>();
     cudaError_t e = cudaSuccess;
     if (smem > 0)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -611,7 +643,7 @@ struct Launch {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(a.Bp / EX, G, smem, st, &cfg, &attr);
-    e = cudaLaunchKernelEx(&cfg, kernel_of<Env, NU, EX, LANES>(), a);
+    e = cudaLaunchKernelEx(&cfg, kernel_of<Env, NU, EX, LANES, Cost>(), a);
     return e != cudaSuccess ? e : cudaGetLastError();
   }
 
@@ -624,7 +656,7 @@ struct Launch {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
     config(G, G, smem, nullptr, &cfg, &attr);
-    auto kernel = kernel_of<Env, NU, EX, LANES>();
+    auto kernel = kernel_of<Env, NU, EX, LANES, Cost>();
     int clusters = 0;
     e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg);
     if (e != cudaSuccess) return e;
@@ -642,12 +674,24 @@ struct Launch {
 
 constexpr size_t kMaxSmem = 232448;  // dynamic shared bytes a Hopper block may have
 
-// f(Launch<Env, NU, EX, LANES>{}) where a block of EX examples fits the
-// shared memory, else cudaErrorInvalidValue (no such instantiation)
-template <class Env, int NU, int EX, bool LANES, class F>
+// the cost form takes the env's tau: a QuadCost any, a callable cost one of
+// its own length
+template <class Env, int NU, class Cost>
+constexpr bool cost_fits() {
+  if constexpr (std::is_same_v<Cost, QuadForm>) {
+    return true;
+  } else {
+    return Cost::N == Env::NX + NU;
+  }
+}
+
+// f(Launch<Env, NU, EX, LANES, Cost>{}) where a block of EX examples fits
+// the shared memory and the cost the env, else cudaErrorInvalidValue (no
+// such instantiation)
+template <class Env, int NU, int EX, bool LANES, class Cost = QuadForm, class F>
 cudaError_t launch_if_fits(F f) {
-  if constexpr (smem_bytes<Env, NU>(EX) <= kMaxSmem) {
-    return f(Launch<Env, NU, EX, LANES>{});
+  if constexpr (smem_bytes<Env, NU>(EX) <= kMaxSmem && cost_fits<Env, NU, Cost>()) {
+    return f(Launch<Env, NU, EX, LANES, Cost>{});
   } else {
     return cudaErrorInvalidValue;
   }

@@ -18,7 +18,7 @@
 // recursion per example, T steps x lqr_iter iterations, little data; a
 // sweep reads F and f once more than a physics env's solve, which the L2
 // holds at B=4096.
-#include "ilqr_kernel.cuh"
+#include "callable_cost.cuh"
 
 #if !defined(DILQR_LINDX_NX) || !defined(DILQR_LINDX_NU) || !defined(DILQR_LINDX_LANES)
 #error "build with -DDILQR_LINDX_NX=<n_state> -DDILQR_LINDX_NU=<n_ctrl> -DDILQR_LINDX_LANES=<0|1>"
@@ -33,8 +33,8 @@ constexpr bool kLanes = DILQR_LINDX_LANES != 0;
 // f(Launch<Lin, NU, 1024 / G, kLanes>{}) for G in {8, 16} where it fits
 template <class F>
 cudaError_t dispatch_lindx(int G, F f) {
-  if (G == 8) return launch_if_fits<Lin, Lin::NU, kTile / 8, kLanes>(f);
-  if (G == 16) return launch_if_fits<Lin, Lin::NU, kTile / 16, kLanes>(f);
+  if (G == 8) return launch_if_fits<Lin, Lin::NU, kTile / 8, kLanes, KernelCost>(f);
+  if (G == 16) return launch_if_fits<Lin, Lin::NU, kTile / 16, kLanes, KernelCost>(f);
   return cudaErrorInvalidValue;
 }
 

@@ -27,7 +27,7 @@
 #include <type_traits>
 #include <utility>
 
-#include "ilqr_kernel.cuh"
+#include "callable_cost.cuh"
 
 #if !defined(DILQR_MLP_NX) || !defined(DILQR_MLP_NU) || !defined(DILQR_MLP_ACT) || \
     !defined(DILQR_MLP_RESIDUAL) || !defined(DILQR_MLP_SLEW) || !defined(DILQR_MLP_LANES)
@@ -77,8 +77,8 @@ using Env = std::conditional_t<kSlew, Passthrough<Jvp>, Jvp>;
 // f(Launch<Env, NU, 1024 / G, kLanes>{}) for G in {8, 16} where it fits
 template <class F>
 cudaError_t dispatch_mlp(int G, F f) {
-  if (G == 8) return launch_if_fits<Env, Env::NU, kTile / 8, kLanes>(f);
-  if (G == 16) return launch_if_fits<Env, Env::NU, kTile / 16, kLanes>(f);
+  if (G == 8) return launch_if_fits<Env, Env::NU, kTile / 8, kLanes, KernelCost>(f);
+  if (G == 16) return launch_if_fits<Env, Env::NU, kTile / 16, kLanes, KernelCost>(f);
   return cudaErrorInvalidValue;
 }
 

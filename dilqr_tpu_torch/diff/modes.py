@@ -112,9 +112,12 @@ class _Problem:
                warn: bool = True):
         dyn_obj, p = self.dyn_obj(dyn_in)
         cfg = self.cfg
+        # a callable cost also goes down as its (cost_fn, cost_params), whose
+        # trace the kernel runs (JAX's cost_struct, modes.py:137-139)
         out = ilqr_loop(cfg, self.cost_obj(cost_in), dyn_obj, p, x_init, u_init,
                         u_lower=lb, u_upper=ub, u_zero_I=uz, delta_u=delta_u,
-                        cost_small=cost_small, u_init_zero=self.u_init_zero)
+                        cost_small=cost_small, u_init_zero=self.u_init_zero,
+                        cost_struct=None if self.quad else (self.cost_fn, cost_in))
         if cfg.exit_unconverged and warn:
             # a host read, so here, where the tensors are real (under vmap:
             # the folded sweep or one candidate)
@@ -586,6 +589,20 @@ def _backward(prob: _Problem, x, u, du_norm, lb, ub, cost_in, dyn_in, g_x, g_u,
     return kg.dx_init, d_cost_in, d_dyn_in
 
 
+# a parameterless callable cost as cost_fn(tau, ()), one wrapper a callable
+# (by its id, the callable kept beside it), so that the kernel's trace
+# cache (ops/cuda/traced.cost) finds it again on the next solve
+_PARAM_FREE = {}
+
+
+def _param_free(base):
+    hit = _PARAM_FREE.get(id(base))
+    if hit is None or hit[0] is not base:
+        hit = (base, lambda tau, _p: base(tau))
+        _PARAM_FREE[id(base)] = hit
+    return hit[1]
+
+
 def _problem(cfg: ILQRConfig, cost, dyn, params, u_init_zero: bool = False):
     """(the _Problem of a solve, its differentiable leaves)."""
     lin = isinstance(dyn, LinDx)
@@ -596,9 +613,7 @@ def _problem(cfg: ILQRConfig, cost, dyn, params, u_init_zero: bool = False):
     elif isinstance(cost, tuple):
         cost_fn, cost_in = cost
     else:
-        base = cost
-        cost_fn = lambda tau, _p: base(tau)  # noqa: E731
-        cost_in = ()
+        cost_fn, cost_in = _param_free(cost), ()
     dyn_in = tuple(dyn) if lin else params
     leaves, treedef = pytree.tree_flatten((cost_in, dyn_in))
     return _Problem(cfg, quad, cost_fn, lin, None if lin else dyn, treedef,

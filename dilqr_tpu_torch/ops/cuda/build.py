@@ -15,6 +15,18 @@ linearization method (``ilqr_fused.jvp_spec``), ``ilqr_mlp.cu`` per MLP
 shape (``ilqr_fused.mlp_spec``, whose hidden widths are one define, the
 widths joined by "x": nvcc splits a value at its commas). The defines are part of the library's name and
 hash, so each is built once and cached.
+
+A spec may also carry the text of a generated header (a third element):
+``ilqr_user.cu`` for a user's model and any source built with a callable
+cost (``ilqr_fused.user_spec``, ``ilqr_fused.with_cost``) include
+``dilqr_traced.cuh``, the C++ that ``traced.py`` generated from the user's
+PyTorch code. The text enters the library's hash, hence its name; it is
+written into a directory of the library's own, put on nvcc's include path.
+
+Several processes (the ranks of a multi-process job) may build the same
+library at once: each compiles into a file of its own and moves it into
+place with one rename, and so writes the header and the nvcc report, so
+none reads another's half-written file.
 """
 from __future__ import annotations
 
@@ -35,14 +47,20 @@ NVCC_FLAGS = (
 )
 
 # a source, or a source with its preprocessor defines (a number, or a
-# token such as 6x6)
-Spec = Union[str, Tuple[str, Tuple[Tuple[str, Union[int, str]], ...]]]
+# token such as 6x6), and optionally a generated header's text
+Spec = Union[str, Tuple[str, Tuple[Tuple[str, Union[int, str]], ...]],
+             Tuple[str, Tuple[Tuple[str, Union[int, str]], ...], str]]
+# the name a generated header is included by
+GENERATED_HEADER = "dilqr_traced.cuh"
 
 _LOADED: Dict[Spec, ctypes.CDLL] = {}
 
 
 def _split(spec: Spec):
-    return (spec, ()) if isinstance(spec, str) else spec
+    """(source, defines, generated header text or None)."""
+    if isinstance(spec, str):
+        return spec, (), None
+    return (spec + (None,))[:3]
 
 
 def nvcc_path() -> str:
@@ -58,36 +76,53 @@ def _define_flags(defines) -> list:
     return [f"-D{name}={value}" for name, value in defines]
 
 
-def _digest(source: str, defines=()) -> str:
+def _digest(source: str, defines=(), header=None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(_define_flags(defines))).encode())
     for name in sorted(os.listdir(CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, name), "rb") as f:
                 h.update(name.encode() + f.read())
     h.update(source.encode())
+    if header is not None:
+        h.update(b"generated header\0" + header.encode())
     return h.hexdigest()[:16]
 
 
 def library_path(spec: Spec) -> str:
-    source, defines = _split(spec)
+    source, defines, header = _split(spec)
     stem = os.path.splitext(source)[0]
     tag = "".join(f"_{name.split('_')[-1].lower()}{value}" for name, value in defines)
-    return os.path.join(BUILD_DIR, f"lib{stem}{tag}_{_digest(source, defines)}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}{tag}_{_digest(source, defines, header)}.so")
+
+
+def _write_atomic(path: str, text: str):
+    """Write ``text`` to ``path`` by a rename, so that a concurrent reader
+    sees the old file or the whole new one."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".part")
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
 
 
 def start_build(spec: Spec):
     """Start nvcc on ``csrc/<source>`` (with its defines) unless its library
     is built already. Returns (library path, Popen or None, temp path)."""
-    source, defines = _split(spec)
+    source, defines, header = _split(spec)
     out = library_path(spec)
     if os.path.exists(out):
         return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    include = ["-I", CSRC]
+    if header is not None:
+        gen = os.path.splitext(out)[0] + "_gen"
+        os.makedirs(gen, exist_ok=True)
+        _write_atomic(os.path.join(gen, GENERATED_HEADER), header)
+        include += ["-I", gen]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     log = open(tmp + ".log", "w")
     proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), "-I", CSRC, "-o", tmp,
+        [nvcc_path(), *NVCC_FLAGS, *_define_flags(defines), *include, "-o", tmp,
          os.path.join(CSRC, source)],
         stdout=log, stderr=subprocess.STDOUT)
     log.close()
@@ -107,8 +142,7 @@ def finish_build(out: str, proc, tmp) -> str:
     if rc != 0:
         os.remove(tmp)
         raise RuntimeError(f"nvcc failed on {out} (exit {rc}):\n{report}")
-    with open(out + ".log", "w") as f:
-        f.write(report)
+    _write_atomic(out + ".log", report)
     os.replace(tmp, out)
     return report
 

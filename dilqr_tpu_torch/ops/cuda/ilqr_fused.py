@@ -1,8 +1,9 @@
 """Whole-solve batched iLQR on the card: the wrapper of the hand-written
 CUDA kernel (``csrc/ilqr_kernel.cuh``, instantiated in ``csrc/ilqr_fused.cu``,
 per env and method with the Jacobian by forward mode in ``csrc/ilqr_jvp.cu``,
-per LinDx shape in ``csrc/ilqr_lindx.cu`` and per MLP shape in
-``csrc/ilqr_mlp.cu``) and its plain PyTorch version.
+per LinDx shape in ``csrc/ilqr_lindx.cu``, per MLP shape in
+``csrc/ilqr_mlp.cu`` and per traced user model in ``csrc/ilqr_user.cu``)
+and its plain PyTorch version.
 
 Counterpart of ``dilqr_tpu/ops/pallas/ilqr_fused.py`` (``ilqr_fused`` and
 the Pallas kernel ``_ilqr_kernel``) for the configurations ``covered``
@@ -12,16 +13,25 @@ with normalize_quat False or True (n_ctrl == 3, the in-kernel
 projected-Newton box-QP), the learned MLP with its widths fixed
 (``nn_dynamics.make(..., hidden_sizes=...)``, up to 256 weights, n_ctrl
 1..8, as ``flat_params`` flattens them) and the slew-rate wrapper of each
-(``models/ctrl_passthrough``) -- under GradMethod.ANALYTIC or AUTO_DIFF, or
+(``models/ctrl_passthrough``), or a user's own model whose step and
+linearize_point ``traced.py`` traces into C++ (flat params, n_ctrl 1..8,
+JAX's per-tile memory admission; its slew-rate wrapper is traced as it
+stands) -- under GradMethod.ANALYTIC or AUTO_DIFF, or
 a time-varying affine (LQR) problem,
 ``LinDx`` F [T-1,B,nx,nx+nu] and f [T-1,B,nx] or None, as data (n_ctrl
 1..8 and n_state up to JAX's gate, ``LINDX_MAX_NX``; the box-QP's inverse
 by Gauss-Jordan past 3 controls) -- and, as data, a QuadCost that is
 example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
-([T,B,n,n]+[T,B,n], "the lanes cost"), bounds that are static (None, a
-number or [nu]) or per time and example (anything that broadcasts to
-[T,B,nu]), a u_zero_I mask [T,B,nu], a static scalar delta_u, and a zero
-or given warm start.
+([T,B,n,n]+[T,B,n], "the lanes cost"), or a callable cost that ``traced.py``
+traces (``CallableCost``: flat or no params; with any of the models above
+but the slew-rate wrappers, whose augmented cost captures a matrix), bounds
+that are static (None, a number or [nu]) or per time and example (anything
+that broadcasts to [T,B,nu]), a u_zero_I mask [T,B,nu], a static scalar
+delta_u, and a zero or given warm start. A callable cost's true value is
+the objective of the rollouts and the line search, and each Riccati step
+takes its (H, g) at tau by forward over forward (JAX's quad_at,
+:1063-1080) in place of (C, C tau + c); the model's library is built once
+more with the cost's generated header for it (``with_cost``).
 
 Semantics, shared by the kernel and ``ilqr_fused_reference``: the batch is
 zero-padded to a multiple of 1024 (the lanes cost's padded examples get the
@@ -40,7 +50,10 @@ rocket and their slew-rate wrappers), ``JvpJac`` in ``csrc/ilqr_jvp.cu``,
 one library per (env, method) built at first use; the MLP's, which has no
 clamp, is the jvp sweep of its one step under either method
 (``JvpJac<Mlp>`` in ``csrc/ilqr_mlp.cu``, one library per shape,
-activation, residual, slew rate and cost form). A LinDx problem's step
+activation, residual, slew rate and cost form); a traced user model's,
+likewise, is the jvp sweep of its generated step (``JvpJac<Traced>`` in
+``csrc/ilqr_user.cu``, one library per model, method and cost form). A
+LinDx problem's step
 is x' = F_t tau + f_t and its Jacobian F_t (its padded examples' F and f
 are zero, as JAX pads them: they stay at x = 0). The
 variants' arithmetic is JAX's: delta_u intersects the QP bounds with
@@ -56,9 +69,9 @@ decisions are cluster votes. G is 8 unless a caller measuring the kernel
 passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
 the LinDx shapes whose shared memory admits 64 examples a block
 (``lindx_clusters``, ``mlp_clusters``); the result does not depend on G.
-A LinDx shape's library, an (env, method)'s jvp library and an MLP shape's
-library are built at first use (one nvcc each) and cached in
-``dilqr_tpu_torch/_build/``. A launch the card
+A LinDx shape's library, an (env, method)'s jvp library, an MLP shape's,
+a traced model's and a callable cost's libraries are built at first use
+(one nvcc each) and cached in ``dilqr_tpu_torch/_build/``. A launch the card
 refuses raises: nothing falls back to another geometry or to the plain
 version.
 
@@ -70,7 +83,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import jvp, vmap
@@ -79,7 +92,8 @@ from ...models.base import Dynamics, MlpSpec
 from ...types import GradMethod, ILQRConfig, LinDx
 from ...utils.batch import clamp, inv_small
 from ..pnqp import ARMIJO_DECAY, CONV_TOL, GAMMA, MAX_ARMIJO_ITER, REG
-from . import build
+from . import build, traced
+from .traced import StepOps
 
 SOURCE = "ilqr_fused.cu"
 TILE = 1024  # examples per tile: the JAX kernel's base tile
@@ -108,19 +122,9 @@ JVP_SOURCE = "ilqr_jvp.cu"
 MLP_SOURCE = "ilqr_mlp.cu"
 ENV_MLP, ENV_MLP_SLEW = 10, 11
 MLP_ACTS = {"sigmoid": 0, "relu": 1, "elu": 2}
-
-
-class StepOps(NamedTuple):
-    """Operations of one evaluation of a device env's step: as float (FP32,
-    and FP64 in cos_sin, which evaluates in double), and on Duals as
-    JvpJac evaluates it (FP32 on the values, computed once for the n
-    columns; FP64; FP32 of one column's tangent). A division, square root,
-    rsqrt, fmax or atan2 counts one, an FMA two."""
-    f32: int
-    f64: int
-    jvp_f32: int
-    jvp_f64: int
-    tangent: int
+# a traced user model's kernel: one library per (model, method, cost form)
+USER_SOURCE = "ilqr_user.cu"
+ENV_TRACED = 12
 
 
 # each base env's, the clamped and the un-clamped step alike, counted on a
@@ -226,15 +230,34 @@ def jax_tile_fits(cfg: ILQRConfig, lanes_cost: bool, uz: bool, warm: bool,
     return min(whole, stream_k, stream_all) <= 15 * 2 ** 20 // (4 * TILE)
 
 
+class CallableCost(NamedTuple):
+    """A callable cost as the kernel takes it: its trace (``traced.cost``),
+    the function ``fn(tau [n], params)`` the plain version evaluates, and
+    its flat params [Pc] (None for a cost without params, called with ())."""
+    trace: traced.TracedCost
+    fn: Callable
+    params: Optional[torch.Tensor]
+
+
+def is_traced(dyn) -> bool:
+    """A user's own model: a Dynamics with neither device code nor MLP
+    widths, whose step the kernel runs as traced.py generates it."""
+    return isinstance(dyn, Dynamics) and dyn.device_env is None and dyn.device_mlp is None
+
+
 def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
-            u_lower, u_upper, u_init_zero: bool = False) -> bool:
+            u_lower, u_upper, u_init_zero: bool = False, cost_callable: bool = False) -> bool:
     """True when the configuration is one the kernel computes (counterpart
     of ``fused_supported`` plus ``lane_compatible`` for the envs with
     device code, under ANALYTIC or AUTO_DIFF, the MLP with its widths fixed
-    and its weights flat (``nn_dynamics.flat_params``), and LinDx problems,
-    whose ``params`` are ignored, as in JAX). ``cost_small`` None means the
-    per-example cost; ``u_init_zero``: the warm start is known to be zeros
-    (JAX's, which the MLP's memory admission reads)."""
+    and its weights flat (``nn_dynamics.flat_params``), a user's own model
+    with flat params whose step and linearize_point trace (``traced.model``:
+    JAX's lane_compatible), and LinDx problems, whose ``params`` are
+    ignored, as in JAX). ``cost_small`` None means the per-example cost;
+    ``u_init_zero``: the warm start is known to be zeros (JAX's, which the
+    memory admission reads); ``cost_callable``: the cost is a callable that
+    traces (``traced.cost``: JAX's cost_lane_compatible), which the memory
+    admission counts as no cost input."""
     nu, nx = cfg.n_ctrl, cfg.n_state
     common = (
         cfg.qp_solver == "auto"
@@ -252,7 +275,7 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
         return (
             common
             and 1 <= nu <= MAX_NU
-            and nx <= LINDX_MAX_NX[cost_small is not None][nu - 1]
+            and nx <= LINDX_MAX_NX[cost_small is not None or cost_callable][nu - 1]
             and isinstance(F, torch.Tensor) and F.dim() == 4 and F.shape[0] == cfg.T - 1
             and tuple(F.shape[2:]) == (nx, nx + nu)
             and (f is None or (isinstance(f, torch.Tensor) and f.dim() == 3
@@ -270,9 +293,26 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             and isinstance(params, torch.Tensor)
             and params.dim() == 1
             and params.shape[0] == mlp.n_weights
-            and jax_tile_fits(cfg, cost_small is None, u_zero_I is not None, not u_init_zero,
+            and jax_tile_fits(cfg, cost_small is None and not cost_callable,
+                              u_zero_I is not None, not u_init_zero,
                               not (_bound_is_static(u_lower, nu)
                                    and _bound_is_static(u_upper, nu)))
+        )
+    if is_traced(dyn):
+        return (
+            common
+            and dyn.jacobian is None
+            and cfg.grad_method in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF)
+            and 1 <= nu <= MAX_NU
+            and nu == dyn.n_ctrl
+            and nx == dyn.n_state
+            and isinstance(params, torch.Tensor)
+            and params.dim() == 1
+            and jax_tile_fits(cfg, cost_small is None and not cost_callable,
+                              u_zero_I is not None, not u_init_zero,
+                              not (_bound_is_static(u_lower, nu)
+                                   and _bound_is_static(u_upper, nu)))
+            and traced.model(dyn, nx, nu, params.shape[0]) is not None
         )
     return (
         common
@@ -285,6 +325,7 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
         and isinstance(params, torch.Tensor)
         and params.dim() == 1
         and params.shape[0] == DEVICE_ENVS[dyn.device_env][0]
+        and not (cost_callable and dyn.device_env in LANES_ONLY)
     )
 
 
@@ -356,9 +397,31 @@ def mlp_spec(spec: MlpSpec, lanes: bool):
     return (MLP_SOURCE, tuple(defines))
 
 
+def user_spec(model: traced.TracedModel, cost: Optional[traced.TracedCost], clamped: bool,
+              lanes: bool):
+    """The build spec (source, defines, generated header) of a traced user
+    model's library: the clamped step's Jacobian (AUTO_DIFF) or the
+    linearization point's, and the cost form (a callable cost's, traced
+    into the same header, or a QuadCost's)."""
+    defines = (("DILQR_USER_CLAMPED", int(clamped)), ("DILQR_USER_LANES", int(lanes)))
+    if cost is not None:
+        defines += (("DILQR_CALLABLE_COST", 1),)
+    return (USER_SOURCE, defines, traced.header(model, cost))
+
+
+def with_cost(spec, cost: Optional[traced.TracedCost]):
+    """``spec`` built for a callable cost (csrc/callable_cost.cuh): the
+    source with -DDILQR_CALLABLE_COST=1 and the cost's generated header;
+    ``spec`` itself for cost None."""
+    if cost is None:
+        return spec
+    source, defines, _ = build._split(spec)
+    return (source, tuple(defines) + (("DILQR_CALLABLE_COST", 1),), traced.header(cost=cost))
+
+
 def kernel_clusters(cfg: ILQRConfig, dyn) -> Tuple[int, ...]:
     """The cluster sizes of the instantiation that solves ``dyn``."""
-    if isinstance(dyn, LinDx):
+    if isinstance(dyn, LinDx) or is_traced(dyn):
         return lindx_clusters(cfg.n_state, cfg.n_ctrl)
     if dyn.device_mlp is not None:
         return mlp_clusters(cfg.n_state, cfg.n_ctrl)
@@ -413,6 +476,7 @@ class Inputs(NamedTuple):
     du: Optional[float]               # the static delta_u
     F: Optional[torch.Tensor] = None  # LinDx: [T-1, nx*n, Bp]
     f: Optional[torch.Tensor] = None  # LinDx: [T-1, nx, Bp] or None
+    cost: Optional[CallableCost] = None  # a callable cost (C: its params)
 
 
 def _lanes(a: torch.Tensor, B: int, Bp: int, fill: float = 0.0) -> torch.Tensor:
@@ -474,14 +538,15 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
     T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
     lin = isinstance(dyn, LinDx)
     mlp = None if lin else dyn.device_mlp
-    if lin or mlp is not None:
+    user = not lin and is_traced(dyn)
+    if lin or mlp is not None or user:
         if not 1 <= nu <= MAX_NU:
-            raise ValueError(f"ilqr_fused takes LinDx problems and MLPs with 1 <= n_ctrl <= "
-                             f"{MAX_NU}")
+            raise ValueError(f"ilqr_fused takes LinDx problems, MLPs and traced models with "
+                             f"1 <= n_ctrl <= {MAX_NU}")
     elif dyn.device_env not in DEVICE_ENVS or nu != DEVICE_ENVS[dyn.device_env][1]:
         raise ValueError("ilqr_fused covers cartpole, both pendulums (n_ctrl == 1), the "
                          "rocket (n_ctrl == 3), the MLP with hidden_sizes, their slew-rate "
-                         "wrappers and LinDx problems")
+                         "wrappers, traced user models and LinDx problems")
     if not lin and cfg.grad_method not in (GradMethod.ANALYTIC, GradMethod.AUTO_DIFF):
         raise ValueError(f"ilqr_fused linearizes by ANALYTIC or AUTO_DIFF, got "
                          f"{cfg.grad_method}")
@@ -498,6 +563,10 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
                              f"{(T - 1, B, nx, nx + nu)} and f [T-1, B, nx] or None; got "
                              f"{tuple(F.shape)}, {None if f is None else tuple(f.shape)}")
         params = None
+    elif user:
+        if not isinstance(params, torch.Tensor) or params.dim() != 1:
+            raise ValueError(f"a traced model's params must be one flat tensor [P], got "
+                             f"{getattr(params, 'shape', type(params).__name__)}")
     else:
         n_params = mlp.n_weights if mlp is not None else DEVICE_ENVS[dyn.device_env][0]
         if not isinstance(params, torch.Tensor) or params.dim() != 1 \
@@ -519,8 +588,23 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
             raise ValueError("ilqr_fused takes a static scalar delta_u (a number or a 0-d "
                              f"tensor), got {type(delta_u).__name__}")
     dev = x_init.device
-    lanes, C, c = _cost_inputs(cost, T, B, Bp, nx + nu, dev,
-                               lanes_only=not lin and dyn.device_env in LANES_ONLY)
+    cc = cost if isinstance(cost, CallableCost) else None
+    if cc is not None:
+        if not lin and dyn.device_env in LANES_ONLY:
+            raise ValueError("a callable cost does not run on a slew-rate wrapper")
+        if cc.trace.n != nx + nu:
+            raise ValueError(f"the callable cost was traced for n = {cc.trace.n}, the problem "
+                             f"has {nx + nu}")
+        lanes = False
+        C = (torch.empty(0, dtype=torch.float32, device=dev) if cc.params is None
+             else cc.params.to(device=dev, dtype=torch.float32).contiguous())
+        if C.shape != (cc.trace.n_params,):
+            raise ValueError(f"the callable cost's params must be [{cc.trace.n_params}], got "
+                             f"{tuple(C.shape)}")
+        c = C
+    else:
+        lanes, C, c = _cost_inputs(cost, T, B, Bp, nx + nu, dev,
+                                   lanes_only=not lin and dyn.device_env in LANES_ONLY)
     bounds = static_bounds(u_lower, u_upper, nu)
     lb = ub = None
     if bounds is None:
@@ -540,17 +624,18 @@ def prepare(cfg: ILQRConfig, dyn, params, x_init, cost, u_init, u_lower, u_upper
         Fl = _lanes(dyn[0].to(torch.float32), B, Bp)
         fl = None if dyn[1] is None else _lanes(dyn[1].to(torch.float32), B, Bp)
     return Inputs(xi, u0, lanes, C, c, bounds[0], bounds[1], lb, ub, uz,
-                  uz is not None and u_lower is None, du, Fl, fl)
+                  uz is not None and u_lower is None, du, Fl, fl, cc)
 
 
 def ilqr_fused(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
                u_init: Optional[torch.Tensor] = None, u_lower=None, u_upper=None,
                u_zero_I: Optional[torch.Tensor] = None, delta_u=None, cluster: int = 0):
-    """Run the whole solve. dyn: a Dynamics with device code and its params
-    [P], or a time-major LinDx (F [T-1,B,nx,n], f [T-1,B,nx] or None; params
-    ignored). x_init [B, nx]; cost the pair (C, c), either
-    example-invariant ([n,n]+[n] or [T,n,n]+[T,n]) or per example
-    ([T,B,n,n]+[T,B,n]); u_init [T, B, nu] time-major or None (zeros);
+    """Run the whole solve. dyn: a Dynamics with device code, or a user's
+    model that traces (``covered``), and its params [P], or a time-major
+    LinDx (F [T-1,B,nx,n], f [T-1,B,nx] or None; params ignored). x_init
+    [B, nx]; cost the pair (C, c), either example-invariant ([n,n]+[n] or
+    [T,n,n]+[T,n]) or per example ([T,B,n,n]+[T,B,n]), or a
+    ``CallableCost``; u_init [T, B, nu] time-major or None (zeros);
     u_lower/u_upper None, a number, [nu] or anything that broadcasts to
     [T, B, nu]; u_zero_I a [T, B, nu] bool mask or None; delta_u None, a
     number or a 0-d tensor. Returns time-major (x [T,B,nx], u [T,B,nu],
@@ -605,21 +690,31 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
 
     # the head of the arguments: the LinDx shape's library and its F/f, or
     # the env's and its params
+    ctr = None if inp.cost is None else inp.cost.trace
+    Tc = 1 if ctr is not None else inp.C.shape[0]
     if lin:
-        fn = _entry(lindx_spec(nx, nu, inp.lanes), "dilqr_ilqr_lindx", 6, 2)
-        head = (nx, nu, T, Bp, int(inp.lanes), inp.C.shape[0], ptr(inp.F), ptr(inp.f))
+        fn = _entry(with_cost(lindx_spec(nx, nu, inp.lanes), ctr), "dilqr_ilqr_lindx", 6, 2)
+        head = (nx, nu, T, Bp, int(inp.lanes), Tc, ptr(inp.F), ptr(inp.f))
     else:
-        spec = (mlp_spec(dyn.device_mlp, inp.lanes) if dyn.device_mlp is not None
-                else env_spec(cfg.grad_method, dyn.device_env))
+        env = dyn.device_env
+        if is_traced(dyn):
+            spec = user_spec(traced.model(dyn, nx, nu, params.shape[0]), ctr,
+                             cfg.grad_method is GradMethod.AUTO_DIFF, inp.lanes)
+            env = ENV_TRACED
+        elif dyn.device_mlp is not None:
+            spec = with_cost(mlp_spec(dyn.device_mlp, inp.lanes), ctr)
+        else:
+            spec = with_cost(env_spec(cfg.grad_method, dyn.device_env), ctr)
         fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
         p = params.to(torch.float32).contiguous()
-        head = (dyn.device_env, T, Bp, int(inp.lanes), inp.C.shape[0], p.data_ptr())
+        head = (env, T, Bp, int(inp.lanes), Tc, p.data_ptr())
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
     pad = (0.0,) * (MAX_NU - nu)
     lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*head, inp.x_init.data_ptr(), inp.C.data_ptr(), inp.c.data_ptr(), ptr(inp.u_init),
+        rc = fn(*head, inp.x_init.data_ptr(), inp.C.data_ptr(),
+                0 if ctr is not None else inp.c.data_ptr(), ptr(inp.u_init),
                 lo_c, hi_c, ptr(inp.lb), ptr(inp.ub), ptr(inp.uz), int(inp.uz_free),
                 int(inp.du is not None), 0.0 if inp.du is None else inp.du,
                 cfg.lqr_iter, cfg.eps, cfg.linesearch_decay, cfg.max_linesearch_iter,
@@ -640,15 +735,17 @@ _INFO_KEYS = ("max_active_clusters", "registers", "local_bytes", "static_smem",
 
 
 def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False,
-                grad_method: GradMethod = GradMethod.ANALYTIC) -> dict:
+                grad_method: GradMethod = GradMethod.ANALYTIC,
+                cost: Optional[traced.TracedCost] = None) -> dict:
     """What the card says of one instantiation (``lanes``: the per-example
     cost's; the slew-rate wrappers have no other; ``grad_method`` picks the
-    hand Jacobian's or the jvp sweep's, ``env_spec``): the clusters of G
-    blocks it can hold at once (cudaOccupancyMaxActiveClusters), registers
-    and local bytes a thread, static and dynamic shared bytes a block."""
+    hand Jacobian's or the jvp sweep's, ``env_spec``; ``cost``: a callable
+    cost's library, ``with_cost``): the clusters of G blocks it can hold at
+    once (cudaOccupancyMaxActiveClusters), registers and local bytes a
+    thread, static and dynamic shared bytes a block."""
     G = geometry(TILE, cluster, device_env).cluster
-    lanes = lanes or device_env in LANES_ONLY
-    fn = build.load(env_spec(grad_method, device_env)).dilqr_ilqr_fused_info
+    lanes = (lanes or device_env in LANES_ONLY) and cost is None
+    fn = build.load(with_cost(env_spec(grad_method, device_env), cost)).dilqr_ilqr_fused_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
@@ -674,6 +771,26 @@ def mlp_info(spec: MlpSpec, cluster: int = 0, lanes: bool = False) -> dict:
     if rc != 0:
         raise RuntimeError(f"ilqr_fused_info ({spec}, lanes {lanes}, cluster {G}): "
                            f"CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
+                store="shared" if lindx_floats(nx, nu) else "registers")
+
+
+def user_info(model: traced.TracedModel, cost: Optional[traced.TracedCost],
+              grad_method: GradMethod, cluster: int = 0, lanes: bool = False) -> dict:
+    """kernel_info for a traced model's library (built first if needed),
+    with where V, Q and F live: "registers" or "shared"."""
+    nx, nu = model.n_state, model.n_ctrl
+    G = geometry(TILE, cluster, sizes=lindx_clusters(nx, nu)).cluster
+    lanes = lanes and cost is None
+    fn = build.load(user_spec(model, cost, grad_method is GradMethod.AUTO_DIFF,
+                              lanes)).dilqr_ilqr_fused_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(ENV_TRACED, int(lanes), G, out)
+    if rc != 0:
+        raise RuntimeError(f"ilqr_fused_info (traced model {nx}x{nu}, lanes {lanes}, cluster "
+                           f"{G}): CUDA error {rc}")
     return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
                 store="shared" if lindx_floats(nx, nu) else "registers")
 
@@ -779,6 +896,24 @@ def _pnqp_tiles(H, q, lb, ub, x0, n_iter: int, tile: int):
     return x, If, Hf
 
 
+def cost_quad(cost_b, n: int):
+    """(H [Bp, n, n], g [Bp, n]) of a batched cost cost_b(tau [Bp, n]) ->
+    [Bp] at tau, as the kernel's quad_at forms them (JAX's forward-over-
+    forward one-hot probes, :1063-1080): g by n jvps, H[:, i, j] the jvp of
+    g_i along e_j."""
+
+    def grad_at(tv):
+        eye = torch.eye(n, dtype=tv.dtype, device=tv.device)[:, None].expand(n, *tv.shape)
+        return vmap(lambda e: jvp(cost_b, (tv,), (e,))[1])(eye).movedim(0, -1)
+
+    def quad(tau):
+        eye = torch.eye(n, dtype=tau.dtype, device=tau.device)[:, None].expand(n, *tau.shape)
+        H = vmap(lambda e: jvp(grad_at, (tau,), (e,))[1])(eye).movedim(0, -1)
+        return H, grad_at(tau)
+
+    return quad
+
+
 def _q_terms(C, c, tau, F, V, v):
     """Q = C + F^T (V F) and q = C tau + c + F^T v over the batch (C [n,n]
     or [Bp,n,n])."""
@@ -877,15 +1012,21 @@ def jvp_jacobian(step_fn):
     return jac
 
 
+def _kernel_step(dyn: Dynamics):
+    """The step the kernel takes: the env's kernel form, or a traced
+    model's own step."""
+    return dyn.kernel_step if dyn.kernel_step is not None else dyn.step
+
+
 def _jacobian(grad_method: GradMethod, dyn: Dynamics):
-    """The kernel's Jacobian of a device env: the hand-derived ``jac_lanes``
-    under ANALYTIC where the env has one, else the jvp sweep of the clamped
-    kernel step (AUTO_DIFF) or of the un-clamped physics (ANALYTIC; an env
-    with no hand Jacobian has no kernel form of its own, so that is
-    ``linearize_point``)."""
+    """The kernel's Jacobian of a device env or a traced model: the
+    hand-derived ``jac_lanes`` under ANALYTIC where the env has one, else
+    the jvp sweep of the clamped kernel step (AUTO_DIFF) or of the
+    un-clamped physics (ANALYTIC; an env with no hand Jacobian has no
+    kernel form of its own, so that is ``linearize_point``)."""
     if not uses_jvp(grad_method, dyn.device_env):
         return dyn.jac_lanes
-    return jvp_jacobian(dyn.kernel_step if grad_method is GradMethod.AUTO_DIFF
+    return jvp_jacobian(_kernel_step(dyn) if grad_method is GradMethod.AUTO_DIFF
                         else dyn.linearize_point)
 
 
@@ -896,7 +1037,9 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
     """The kernel's function in plain PyTorch, on the tensors' own device:
     the same padding, per-tile decisions, kernel-form step and Jacobian (the
     hand one or the jvp sweep, ``_jacobian``; a LinDx problem's F_t tau +
-    f_t and F_t), Riccati arithmetic (the
+    f_t and F_t), objective (a callable cost's true value) and, for a
+    callable cost, its (H, g) at each step (``cost_quad``) in place of (C,
+    C tau + c), Riccati arithmetic (the
     closed-form QP for n_ctrl == 1, the per-tile box-QP with the explicit
     inverses of inv_lanes and the kernel's warm start otherwise,
     the free-subspace gains of an unboxed masked solve), the variants'
@@ -909,7 +1052,15 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
     G = Bp // TILE
     inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
                   Bp)
-    if inp.lanes:  # [T, Bp, n, n] and [T, Bp, n]
+    ucost = inp.cost
+    if ucost is not None:  # [Bp, n] -> [Bp]
+        cpa = () if ucost.params is None else inp.C
+
+        def cost_b(tau):
+            return vmap(lambda t: ucost.fn(t, cpa))(tau)
+
+        quad = cost_quad(cost_b, n)
+    elif inp.lanes:  # [T, Bp, n, n] and [T, Bp, n]
         Cl = inp.C.permute(0, 2, 1).reshape(T, Bp, n, n)
         cl = inp.c.permute(0, 2, 1)
         Cf, cf = (lambda t: Cl[t]), (lambda t: cl[t])
@@ -938,9 +1089,10 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
     else:
         p = params.to(f32)
         jac_p = _jacobian(cfg.grad_method, dyn)
+        kstep = _kernel_step(dyn)
 
         def step(t, xt, ut):
-            return dyn.kernel_step(xt, ut, p)
+            return kstep(xt, ut, p)
 
         def jac(t, xt, ut):
             return jac_p(xt, ut, p)
@@ -952,6 +1104,8 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
 
     def obj(t, xt, ut):
         tau = torch.cat([xt, ut], -1)
+        if ucost is not None:
+            return cost_b(tau)
         Ctau = (Cf(t) * tau[:, None, :]).sum(-1)
         return 0.5 * (tau * Ctau).sum(-1) + (cf(t) * tau).sum(-1)
 
@@ -994,7 +1148,13 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
             xt, ut = x[t], u[t]
             tau = torch.cat([xt, ut], -1)
             F = jac(t, xt, ut) if t < T - 1 else zF
-            Q, q = _q_terms(Cf(t), cf(t), tau, F, V, v)
+            if ucost is not None:
+                H, g = quad(tau)
+                FT = F.transpose(-1, -2)
+                Q = H + FT @ (V.transpose(-1, -2) @ F)
+                q = g + (FT @ v[..., None])[..., 0]
+            else:
+                Q, q = _q_terms(Cf(t), cf(t), tau, F, V, v)
             lo, hi = bounds(t)
             K[t], k[t], V, v = riccati_step(
                 Q, q, nx, ut, lo, hi, k[t + 1] if t < T - 1 else None, cfg.pnqp_iter, TILE,

@@ -1357,3 +1357,169 @@ def test_unroll_and_delta_u_sweeps_keep_each_candidates_bits(dev):
     assert fused.LAUNCHES == before + 3
     for s in range(3):
         _candidate_bits(res, trust(dus[s]), s)
+
+
+# ---- a user's own model and a callable cost, traced into C++ ----
+
+def _traced_problem(dev, B, seed):
+    import traced_models as tm
+
+    gen = torch.Generator().manual_seed(seed)
+    x0 = (2.0 * torch.rand(B, 4, generator=gen) - 1.0).to(dev)
+    q = torch.tensor(tm.DP_COST, device=dev)
+    return tm, x0, (torch.diag(q), torch.zeros(6, device=dev)), torch.tensor(tm.DP_PARAMS,
+                                                                               device=dev)
+
+
+@pytest.mark.parametrize("method", ["ANALYTIC", "AUTO_DIFF"])
+def test_traced_model_kernel_matches_plain_version(dev, method):
+    """The double pendulum (tests/traced_models.py, a user's own model) on
+    its generated library (csrc/ilqr_user.cu) against the plain version at
+    B=2048: costs and n_iter, x and u on the examples converged in both."""
+    tm, x0, cost, params = _traced_problem(dev, 2048, 3)
+    dyn = tm.double_pendulum()
+    cfg = P.ILQRConfig(n_state=4, n_ctrl=2, T=12, lqr_iter=10, eps=1e-4,
+                       grad_method=getattr(P.GradMethod, method), linesearch_decay=0.5,
+                       max_linesearch_iter=4, backprop=False)
+    args = (cfg, dyn, params, x0, cost, None, -tm.DP_BOX, tm.DP_BOX)
+    assert fused.covered(cfg, dyn, params, torch.float32, cost, None, None, -tm.DP_BOX,
+                         tm.DP_BOX)
+    before = fused.LAUNCHES
+    kx, ku, kc, kdu, kn = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    rx, ru, rc, rdu, rn = fused.ilqr_fused_reference(*args)
+    assert int(kn) == int(rn)
+    rel = (kc - rc).abs() / rc.abs().clamp(min=1e-6)
+    assert rel.max().item() <= 1e-2 and int((rel > 1e-4).sum()) <= 0.01 * x0.shape[0]
+    conv = (kdu < cfg.eps) & (rdu < cfg.eps)
+    assert bool(conv.any())
+    assert (ku - ru).abs().amax(dim=(0, 2))[conv].max().item() <= 2e-2
+    assert (kx - rx).abs().amax(dim=(0, 2))[conv].max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("with_params", [True, False])
+def test_callable_cost_kernel_matches_plain_version(dev, with_params):
+    """The pendulum with the callable costs of tests/traced_models.py on the
+    callable-cost build of csrc/ilqr_fused.cu against the plain version at
+    B=2048, and solve's dispatch to it (one launch)."""
+    import traced_models as tm
+    from dilqr_tpu_torch.core import ilqr as tilqr
+
+    dyn, params = pendulum.make(), pendulum.default_params(device=dev)
+    gen = torch.Generator().manual_seed(4)
+    th = 4.0 * torch.rand(2048, generator=gen) - 2.0
+    x0 = torch.stack([th.cos(), th.sin(), torch.zeros(2048)], 1).to(dev)
+    cfg = P.ILQRConfig(n_state=3, n_ctrl=1, T=12, lqr_iter=8, eps=1e-4,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    if with_params:
+        cin = torch.tensor([0.5, 0.625, 0.75, 0.875, 0.15, -0.3, 0.06, 0.21], device=dev)
+        fn = tm.pendulum_cost
+    else:
+        cin, fn = (), (lambda tau, _p: tm.pendulum_cost_plain(tau))
+    cc = tilqr.callable_cost(cfg, (fn, cin))
+    assert cc is not None
+    args = (cfg, dyn, params, x0, cc, None, -2.0, 2.0)
+    before = fused.LAUNCHES
+    kx, ku, kc, kdu, kn = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    rx, ru, rc, rdu, rn = fused.ilqr_fused_reference(*args)
+    assert int(kn) == int(rn)
+    rel = (kc - rc).abs() / rc.abs().clamp(min=1e-6)
+    assert rel.max().item() <= 1e-2 and int((rel > 1e-4).sum()) <= 0.01 * x0.shape[0]
+    conv = (kdu < cfg.eps) & (rdu < cfg.eps)
+    assert (ku - ru).abs().amax(dim=(0, 2))[conv].max().item() <= 2e-2
+    before = fused.LAUNCHES
+    res = P.solve(cfg, x0, (fn, cin) if with_params else tm.pendulum_cost_plain, dyn,
+                  params=params, u_lower=-2.0, u_upper=2.0)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    assert torch.equal(res.costs, kc)
+
+
+def test_traced_cartpole_matches_its_device_code(dev):
+    """The port's cartpole step traced as a user's model (no device_env) under
+    AUTO_DIFF against device env 0's jvp library: the same costs to 1e-4 on
+    every example of bench.py's start and the same n_iter."""
+    from dilqr_tpu_torch.models.base import Dynamics
+
+    cp = cartpole.make()
+    user = Dynamics(n_state=5, n_ctrl=1, step=cp.step, lower=cp.lower, upper=cp.upper,
+                    linesearch_decay=cp.linesearch_decay,
+                    max_linesearch_iter=cp.max_linesearch_iter)
+    params = cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(5)
+    th = 3.0 + 0.1 * torch.randn(2048, generator=gen)
+    z = torch.zeros(2048)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=12, lqr_iter=10, eps=1e-4,
+                       grad_method=P.GradMethod.AUTO_DIFF, linesearch_decay=0.5,
+                       max_linesearch_iter=2, backprop=False)
+    k = fused.ilqr_fused(cfg, user, params, x0, (torch.diag(q), p), None, -100.0, 100.0)
+    e = fused.ilqr_fused(cfg, cp, params, x0, (torch.diag(q), p), None, -100.0, 100.0)
+    assert int(k[4]) == int(e[4])
+    torch.testing.assert_close(k[2], e[2], rtol=1e-4, atol=1e-5)
+
+
+def test_traced_solves_launch_the_kernel_and_refuse_the_rest(dev):
+    """MPC.solve on the double pendulum is one whole-solve launch; a step
+    that captures an array takes none, and backend="cuda" raises for it."""
+    tm, x0, cost, params = _traced_problem(dev, 1024, 6)
+    kw = dict(u_lower=-tm.DP_BOX, u_upper=tm.DP_BOX, lqr_iter=4, eps=1e-4, backprop=False)
+    before = fused.LAUNCHES
+    res = P.MPC(4, 2, 8, **kw).solve(x0, P.QuadCost(*cost), tm.double_pendulum(), params=params)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1 and bool(torch.isfinite(res.costs).all())
+    bad = tm.double_pendulum(tm.array_capture_step, tm.array_capture_step)
+    before = fused.LAUNCHES
+    res = P.MPC(4, 2, 8, **kw).solve(x0, P.QuadCost(*cost), bad, params=params)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before and bool(torch.isfinite(res.costs).all())
+    with pytest.raises(ValueError, match="not covered"):
+        P.MPC(4, 2, 8, backend="cuda", **kw).solve(x0, P.QuadCost(*cost), bad, params=params)
+
+
+@pytest.mark.parametrize("model", ["LinDx", "MLP"])
+def test_callable_cost_on_lindx_and_mlp_matches_plain_version(dev, model):
+    """A callable cost with params on a LinDx problem (4, 2) and on the
+    golden-shape MLP (3, 2, (16,)), each library built with the traced
+    cost, against the plain version at B=2048."""
+    import traced_models as tm
+    from dilqr_tpu_torch.core import ilqr as tilqr
+
+    gen = torch.Generator().manual_seed(7)
+    B, T = 2048, 10
+    cfg = P.ILQRConfig(n_state=4, n_ctrl=2, T=T, lqr_iter=6, eps=0.0, backprop=False,
+                       exit_unconverged=False)
+    if model == "LinDx":
+        F = (0.1 * torch.randn(T - 1, B, 4, 6, generator=gen)
+             + torch.cat([torch.eye(4), torch.zeros(4, 2)], 1)).to(dev)
+        dyn, params = P.LinDx(F, None), None
+        x0 = (2.0 * torch.rand(B, 4, generator=gen) - 1.0).to(dev)
+        fn = tm.dp_cost
+        cin = torch.tensor(tm.DP_COST + (0.1, -0.2, 0.3, 0.0), device=dev)
+    else:
+        cfg = dataclasses.replace(cfg, n_state=3)
+        dyn = nn_dynamics.make(3, 2, activation="sigmoid", hidden_sizes=(16,))
+        params = nn_dynamics.flat_params(nn_dynamics.init_params(3, 2, (16,), generator=gen,
+                                                                 device=dev))
+        x0 = torch.randn(B, 3, generator=gen).to(dev)
+        fn = (lambda tau, p: 0.5 * (p[0] * (tau[0] ** 2 + tau[1] ** 2 + tau[2] ** 2)
+                                    + p[1] * (tau[3] ** 2 + tau[4] ** 2)))
+        cin = torch.tensor([1.0, 0.1], device=dev)
+    cc = tilqr.callable_cost(cfg, (fn, cin))
+    assert cc is not None
+    assert fused.covered(cfg, dyn, params, torch.float32, None, None, None, -1.5, 1.5,
+                         cost_callable=True)
+    args = (cfg, dyn, params, x0, cc, None, -1.5, 1.5)
+    before = fused.LAUNCHES
+    kx, ku, kc, _, kn = fused.ilqr_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == before + 1
+    rx, ru, rc, _, rn = fused.ilqr_fused_reference(*args)
+    assert int(kn) == int(rn)
+    rel = (kc - rc).abs() / rc.abs().clamp(min=1e-6)
+    assert rel.max().item() <= 1e-2 and int((rel > 1e-4).sum()) <= 0.01 * B

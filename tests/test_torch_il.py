@@ -162,7 +162,7 @@ def test_run_one_epoch_on_shipped_data(tmp_path):
     assert torch.equal(exp.params["dx"], state["params"]["dx"])
 
 
-def test_from_cli_and_unported_mode(tmp_path):
+def test_from_cli_and_mode_nn(tmp_path):
     """The CLI, and mode 'nn': the LSTM policy at the reference width with
     Adam's state, from the CLI too."""
     data = os.path.join(REPO, "data", "pendulum.npz")

@@ -22,8 +22,10 @@ on each of these configurations, on LinDx problems and on the jvp sweep's
 (GradMethod.AUTO_DIFF on every env, the complex pendulum and the rocket
 with normalize_quat=True under both methods, and slew rates of these) and
 on the small MLP's (its weights flattened into the kernel's params), since
-they reach the kernel; and on the one the port still refuses where JAX
-admits it (a callable cost): the ROADMAP's listed gap (queue B, item 3)."""
+they reach the kernel; and on a user's own model (the double pendulum of
+tests/traced_models.py) and callable costs, which both packages trace into
+their kernels, with the ways to break the tracing contract that both
+refuse."""
 import dataclasses
 
 import jax
@@ -44,6 +46,7 @@ from dilqr_tpu.ops.pallas.ilqr_fused import (_flatten_pytree_params, cost_lane_c
                                              fused_supported, lane_compatible)
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
+from dilqr_tpu_torch.core import ilqr as tilqr
 from dilqr_tpu_torch.core.ilqr import kernel_params
 from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
 from dilqr_tpu_torch.models import cartpole as tcart
@@ -52,6 +55,8 @@ from dilqr_tpu_torch.models import pendulum as tpend
 from dilqr_tpu_torch.models import rocket as trock
 from dilqr_tpu_torch.ops.cuda import ilqr_fused as fused
 from rocket_bench_start import bench_start
+from test_fused_edge_cases import _double_pendulum_style
+import traced_models as tmod
 
 ENVS = {"cartpole": (jcart, tcart), "pendulum": (jpend, tpend), "rocket": (jrock, trock)}
 
@@ -233,18 +238,22 @@ def test_slew_rate(name, B, T, lqr_iter):
 
 def _gates(cfg_kw, jdyn, tdyn, params, cost_small=True, uz=None, du=None, lo=None, hi=None,
            dtype=np.float32, qp_solver="auto", callable_cost=False, auto_diff=False):
-    """(JAX's fused_supported and lane_compatible, the port's covered) on
-    one configuration; cost_small False is the per-example cost, auto_diff
-    GradMethod.AUTO_DIFF (else ANALYTIC)."""
+    """(JAX's fused_supported with lane_compatible and cost_lane_compatible,
+    the port's covered with its traces) on one configuration; cost_small
+    False is the per-example cost, auto_diff GradMethod.AUTO_DIFF (else
+    ANALYTIC); callable_cost True a parameterless sum of squares, or (JAX's
+    cost_fn, the port's, the number of cost params)."""
     kw = dict(cfg_kw, qp_solver=qp_solver)
     jm, tm = ((J.GradMethod.AUTO_DIFF, P.GradMethod.AUTO_DIFF) if auto_diff
               else (J.GradMethod.ANALYTIC, P.GradMethod.ANALYTIC))
     jcfg, tcfg = J.ILQRConfig(grad_method=jm, **kw), P.ILQRConfig(grad_method=tm, **kw)
     n, nu = kw["n_state"] + kw["n_ctrl"], kw["n_ctrl"]
-    jcost = (lambda tau, p: 0.5 * (tau * tau).sum(0)) if callable_cost \
-        else J.QuadCost(jnp.eye(n), jnp.zeros(n))
+    jcost, j_clc, t_cc = J.QuadCost(jnp.eye(n), jnp.zeros(n)), False, None
     if callable_cost:
-        assert cost_lane_compatible(jcost, n, 0)
+        jfn, tfn, n_cp = callable_cost if isinstance(callable_cost, tuple) else (
+            lambda tau, p: 0.5 * (tau * tau).sum(0), lambda tau, p: 0.5 * (tau * tau).sum(-1), 0)
+        jcost, j_clc = jfn, cost_lane_compatible(jfn, n, n_cp)
+        t_cc = tilqr.callable_cost(tcfg, (tfn, torch.zeros(n_cp) if n_cp else ()))
     jsmall = (jnp.eye(n), jnp.zeros(n)) if cost_small and not callable_cost else None
     tsmall = (torch.eye(n), torch.zeros(n)) if cost_small and not callable_cost else None
 
@@ -259,13 +268,14 @@ def _gates(cfg_kw, jdyn, tdyn, params, cost_small=True, uz=None, du=None, lo=Non
     j_ok = fused_supported(jcfg, jcost, jdyn, jparams, jb(uz), du,
                            jnp.float32 if dtype == np.float32 else jnp.float64,
                            cost_small=jsmall, u_lower=jb(lo), u_upper=jb(hi),
-                           callable_cost=callable_cost)
+                           callable_cost=j_clc)
     if j_ok and isinstance(jdyn, JDynamics):
         j_ok = lane_compatible(jdyn, jparams, kw["n_state"], nu)
-    t_ok = (not callable_cost and tdyn is not None and fused.covered(
+    t_ok = ((not callable_cost or t_cc is not None) and tdyn is not None and fused.covered(
         tcfg, tdyn, from_numpy(np.asarray(params)),
         torch.float32 if dtype == np.float32 else torch.float64, tsmall,
-        None if uz is None else from_numpy(uz), tb(du), tb(lo), tb(hi)))
+        None if uz is None else from_numpy(uz), tb(du), tb(lo), tb(hi),
+        cost_callable=t_cc is not None))
     return bool(j_ok), bool(t_ok)
 
 
@@ -288,13 +298,13 @@ def _slew_dyns(name, T, B, models=None):
 
 
 def _mlp_gates(nx, nu, hidden, act="sigmoid", slew=False, cost_small=True, dtype=np.float32,
-               auto_diff=False, T=6, B=4):
+               auto_diff=False, T=6, B=4, callable_cost=False):
     """(JAX's gate, the port's) on the MLP nn_dynamics.make(nx, nu, act,
     hidden_sizes=hidden) with numpy weights, each given the params its
     dispatch passes: the weights flattened where they can be (JAX's
     _flatten_pytree_params, the port's kernel_params), else the pytree;
     slew: the slew-rate wrapper of the augmented problem (per-example cost);
-    box +-1."""
+    callable_cost: a parameterless sum of squares that both trace; box +-1."""
     rng = np.random.RandomState(0)
     sizes = [nx + nu] + list(hidden) + [nx]
     ws = [(rng.uniform(-1, 1, (o, i)).astype(dtype), rng.uniform(-1, 1, o).astype(dtype))
@@ -321,14 +331,21 @@ def _mlp_gates(nx, nu, hidden, act="sigmoid", slew=False, cost_small=True, dtype
     jk = jw if flat is None else flat
     jdt, tdt = (jnp.float32, torch.float32) if dtype == np.float32 else (jnp.float64,
                                                                         torch.float64)
-    j_ok = fused_supported(jcfg, J.QuadCost(jnp.eye(n), jnp.zeros(n)), jdyn, jk, None, None,
+    if callable_cost:
+        jcost, cost_small = (lambda tau, p: 0.5 * (tau * tau).sum(0)), False
+        assert cost_lane_compatible(jcost, n, 0)
+        assert tilqr.callable_cost(
+            tcfg, (lambda tau, p: 0.5 * (tau * tau).sum(-1), ())) is not None
+    else:
+        jcost = J.QuadCost(jnp.eye(n), jnp.zeros(n))
+    j_ok = fused_supported(jcfg, jcost, jdyn, jk, None, None,
                            jdt, cost_small=(jnp.eye(n), jnp.zeros(n)) if cost_small else None,
-                           u_lower=-1.0, u_upper=1.0)
+                           u_lower=-1.0, u_upper=1.0, callable_cost=callable_cost)
     if j_ok:
         j_ok = lane_compatible(jdyn, jk, jcfg.n_state, nu)
     t_ok = fused.covered(tcfg, tdyn, kernel_params(tdyn, tw), tdt,
                          (torch.eye(n), torch.zeros(n)) if cost_small else None, None, None,
-                         -1.0, 1.0)
+                         -1.0, 1.0, cost_callable=callable_cost)
     return bool(j_ok), bool(t_ok)
 
 
@@ -343,8 +360,14 @@ def test_covered_agrees_with_jax_gate():
     reference golden's (3, 2, (16,)) in both cost forms and under AUTO_DIFF,
     its slew rate, (13, 3, (8,)) at 253 weights, and refused by both: f64,
     hidden 100 (1,205 weights), 257 weights, a model without hidden_sizes.
-    A callable cost JAX's kernel admits and the port still refuses: the gap
-    ROADMAP queue B item 3 lists."""
+    A user's own model (the double pendulum) under both methods and its
+    slew rate, a callable cost on cartpole, on a LinDx (16, 2) (past the
+    per-example cost's gate, which a callable cost does not count) and on
+    the golden MLP, and one with params on the user model: admitted by
+    both, each package tracing them into its kernel; and
+    refused by both: a step that captures an array, branches on data or
+    calls an operation outside the set (a determinant), f64, pytree params,
+    and a callable cost that captures an array."""
     T, B = 6, 4
     rows = []
     for name in ("cartpole", "pendulum", "rocket"):
@@ -381,6 +404,8 @@ def test_covered_agrees_with_jax_gate():
                                     ("LinDx n_ctrl 8", 13, 8, False, {}),
                                     ("LinDx past the gate", 16, 2, True,
                                      dict(cost_small=False)),
+                                    ("LinDx callable cost", 16, 2, True,
+                                     dict(callable_cost=True)),
                                     ("LinDx f64", 3, 2, False, dict(dtype=np.float64))):
         n = nx + nu
         jlin = J.LinDx(jnp.zeros((B, T - 1, nx, n)), jnp.zeros((B, T - 1, nx)) if f else None)
@@ -420,6 +445,7 @@ def test_covered_agrees_with_jax_gate():
             ("MLP (3,2,(16,)) golden", (3, 2, (16,)), {}),
             ("MLP (3,2,(16,)) golden per-example cost", (3, 2, (16,)), dict(cost_small=False)),
             ("MLP (3,2,(16,)) golden AUTO_DIFF", (3, 2, (16,)), dict(auto_diff=True)),
+            ("MLP (3,2,(16,)) golden callable cost", (3, 2, (16,)), dict(callable_cost=True)),
             ("MLP (3,2,(16,)) golden slew rate", (3, 2, (16,)), dict(slew=True)),
             ("MLP (3,1,(8,)) elu slew rate AUTO_DIFF", (3, 1, (8,), "elu"),
              dict(slew=True, auto_diff=True)),
@@ -440,15 +466,65 @@ def test_covered_agrees_with_jax_gate():
     t_ok = fused.covered(P.ILQRConfig(n_state=3, n_ctrl=1, T=T), tmlp, kernel_params(tmlp, tw),
                          torch.float32, (torch.eye(4), torch.zeros(4)), None, None, -1.0, 1.0)
     rows.append(("MLP without hidden_sizes past the gate", bool(j_ok), bool(t_ok)))
-    for label, j_ok, t_ok in rows:
-        want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate"))
-        assert (j_ok, t_ok) == (want, want), label
+    # a user's own model, traced by both packages; a callable cost on an env
+    # with device code and on the user model
+    dkw = dict(n_state=4, n_ctrl=2, T=T)
+    jdp, tdp = _double_pendulum_style(), tmod.double_pendulum()
+    dpp = np.array(tmod.DP_PARAMS, np.float32)
+    for auto in (False, True):
+        rows.append((f"user model {'AUTO_DIFF' if auto else 'ANALYTIC'}",
+                     *_gates(dkw, jdp, tdp, dpp, lo=-1.5, hi=1.5, auto_diff=auto)))
+    rows.append(("user model per-example cost", *_gates(dkw, jdp, tdp, dpp, cost_small=False)))
+    skw, jaug, taug, _ = _slew_dyns("user model", T, B, models=(jdp, tdp, dpp))
+    rows.append(("user model slew rate", *_gates(skw, jaug, taug, dpp, cost_small=False,
+                                                 lo=-1.5, hi=1.5)))
+    rows.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jcart.make(),
+                                          tcart.make(), np.asarray(jcart.default_params()),
+                                          callable_cost=True)))
+    rows.append(("user model callable cost", *_gates(dkw, jdp, tdp, dpp, lo=-1.5, hi=1.5,
+                                                     callable_cost=(tmod.dp_cost, tmod.dp_cost,
+                                                                    10))))
+    # the ways to break the contract: refused by both
+    A = jnp.asarray(tmod._A.numpy())
 
-    # the port's listed gap: JAX admits, the port refuses
-    gap = []
-    jdyn = jcart.make()
-    cp = np.asarray(jcart.default_params())
-    gap.append(("callable cost", *_gates(dict(n_state=5, n_ctrl=1, T=T), jdyn, tcart.make(),
-                                          cp, callable_cost=True)))
-    for label, j_ok, t_ok in gap:
-        assert (j_ok, t_ok) == (True, False), label
+    def j_capture(x, u, p):
+        return jnp.tensordot(A, x, axes=1) + 0.05 * jnp.concatenate([u, u], axis=0)
+
+    def j_branch(x, u, p):
+        if x[0].mean() > 10.0:
+            return jnp.zeros_like(x)
+        return jdp.step(x, u, p)
+
+    def j_det(x, u, p):
+        m = jnp.stack([jnp.stack([x[0], x[1]]), jnp.stack([x[2], x[3]])])
+        return jdp.step(x, u, p) + 1e-3 * jnp.linalg.det(m)
+
+    for label, jstep, tstep in (("array capture", j_capture, tmod.array_capture_step),
+                                ("branch on data", j_branch, tmod.branching_step),
+                                ("op outside the set", j_det, tmod.det_step)):
+        jd = dataclasses.replace(jdp, step=jstep, step_unclamped=jstep)
+        rows.append((f"user model {label} refused",
+                     *_gates(dkw, jd, tmod.double_pendulum(tstep, tstep), dpp, lo=-1.5, hi=1.5)))
+    rows.append(("user model f64 refused", *_gates(dkw, jdp, tdp, dpp, dtype=np.float64)))
+    jpy = dataclasses.replace(jdp, step=lambda x, u, p: _double_pendulum_style().step(
+        x, u, jnp.concatenate([p["k"], p["d"]])))
+    jpy = dataclasses.replace(jpy, step_unclamped=jpy.step)
+    pk = {"k": jnp.asarray(dpp[:2]), "d": jnp.asarray(dpp[2:])}
+    jflat = _flatten_pytree_params(pk)
+    j_ok = fused_supported(J.ILQRConfig(**dkw), J.QuadCost(jnp.eye(6), jnp.zeros(6)), jpy,
+                           jflat, None, None, jnp.float32, cost_small=(jnp.eye(6), jnp.zeros(6)),
+                           u_lower=-1.5, u_upper=1.5) and lane_compatible(jpy, jflat, 4, 2)
+    tpy = tmod.double_pendulum(tmod.dp_step_pytree, tmod.dp_step_pytree)
+    tpk = {"k": from_numpy(dpp[:2]), "d": from_numpy(dpp[2:])}
+    t_ok = fused.covered(P.ILQRConfig(**dkw), tpy, kernel_params(tpy, tpk), torch.float32,
+                         (torch.eye(6), torch.zeros(6)), None, None, -1.5, 1.5)
+    rows.append(("user model pytree params refused", bool(j_ok), bool(t_ok)))
+    jw = jnp.asarray(tmod._W.numpy())
+    rows.append(("callable cost array capture refused", *_gates(
+        dict(n_state=3, n_ctrl=1, T=T), jpend.make(), tpend.make(),
+        np.asarray(jpend.default_params()), callable_cost=(
+            lambda tau, p: 0.5 * jnp.sum(jw * tau * tau, axis=0),
+            lambda tau, p: tmod.array_capture_cost(tau), 0))))
+    for label, j_ok, t_ok in rows:
+        want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate", "refused"))
+        assert (j_ok, t_ok) == (want, want), label

@@ -333,7 +333,7 @@ def test_zero_dim_bound_keeps_the_static_bounds(monkeypatch):
             assert torch.equal(getattr(got, n), getattr(want, n)), (backend, n)
 
 
-def test_unroll_under_vmap_raises_torchs_error():
+def test_unroll_under_vmap_maps_each_candidate():
     """BackwardMode.UNROLL under vmap no longer raises torch's
     data-dependent control-flow error: the unrolled solve is a Function
     (diff/modes._Unrolled) whose vmap rule maps, one plain-loop solve a
