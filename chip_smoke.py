@@ -160,12 +160,13 @@ Phases, in order; any failure exits non-zero before the last line:
      ANALYTIC and AUTO_DIFF at B=4096, T=20, lqr_iter 20 against its plain
      version on the converged examples (phase 9's bar) and at each cluster
      size, MPC.solve through the kernel (one launch) against
-     backend="torch" in turns, each beside the bound from traced.py's
-     operation count; a traced copy of the cartpole step (no device code)
-     under AUTO_DIFF against env 0's jvp library, the two times side by
-     side; the pendulum with a callable cost with params against its plain
-     version, and the IFT gradient with respect to the cost params with
-     the forward on the kernel against backend="torch"; and the route
+     backend="torch" in turns (under ANALYTIC), each beside the bound from
+     traced.py's operation count; a traced copy of the cartpole step (no
+     device code) under AUTO_DIFF against env 0's jvp library, the two
+     times side by side; the pendulum with a callable cost with params
+     against its plain version, the IFT gradient with respect to the cost
+     params with the forward on the kernel against backend="torch", and a
+     weight the cost captures changed in place between solves; and the route
      check: a step that captures an array takes no whole-solve launch and
      backend="cuda" raises;
  15. print the JSON line, the nvidia-smi line, then the result line
@@ -476,7 +477,7 @@ def main():
 
     dev = torch.device("cuda:0")
     kernels = {"ilqr_fused": fused, "kkt_fused": kkt, "riccati_fused": ric}
-    user = user_problem(torch, P, fused)
+    user = user_problem(torch, P, fused, dev)
 
     # ---- 2) build ----
     t0 = time.perf_counter()
@@ -770,11 +771,10 @@ def main():
     print(f"time receding_horizon cartpole B=1024: {statistics.median(t_rh):.3f} ms per step, "
           f"median of 3 episodes of 5 steps (host clock) [{card}]", flush=True)
     x0 = cartpole_x0(4096)
-    # one run: a host-bound loop of seconds (phase 14's time came from here)
     plain_ms, runs = cuda_ms(lambda: fused.ilqr_fused_reference(
-        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 0, 1)
+        bench_cfg, cp_dyn, cp_params, x0, cs, None, -100.0, 100.0), 1, 3)
     print(f"time ilqr_fused_reference (plain) cartpole B=4096: {plain_ms:.1f} ms "
-          f"(one run) [{card}]", flush=True)
+          f"median of 3 [{card}]", flush=True)
 
     # bound: bench.py's FLOP model of the solve (per example, per step, per
     # iteration) times the iterations this run's tiles ran, over the
@@ -844,8 +844,8 @@ def main():
                     r_dyn.lower, r_dyn.upper), r_ms[1024])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
-        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 0, 1)
-    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms (one run) "
+        r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)
+    print(f"time ilqr_fused_reference (plain) rocket B=1024: {r_plain_ms:.1f} ms median of 3 "
           f"[{card}]", flush=True)
     r_flops, r_bytes, counts = rocket_work(torch, fused, r_cfg, r_dyn, r_params, x0, r_cs)
     r_bound = max(r_flops / FP32_PEAK, r_bytes / HBM_RATE) * 1e3
@@ -853,7 +853,7 @@ def main():
     print(f"bound ilqr_fused rocket B=1024: {r_flops:.3e} FLOP, {r_bytes} bytes -> "
           f"{r_bound:.4f} ms ({r_by}); {counts}; no single PyTorch call computes an iLQR "
           f"solve, so library_ms is null", flush=True)
-    print(f"time rocket IFT forward+backward B=1024 (host clock, synchronized, one run): "
+    print(f"time rocket IFT forward+backward B=1024 (host clock, synchronized, median of 3): "
           f"{rk['ift_ms']:.2f} ms; KKT launches per IFT backward {rk['kkt_per_ift']} "
           f"[{card}]", flush=True)
     rows.append({
@@ -1239,13 +1239,14 @@ def rocket_paths(torch, P, dev, kernels, dyn, params, cs, cfg, gen):
 
     profile_step(torch, "rocket IFT forward+backward B=1024 detach_unconverged=True",
                  lambda: grad(c_ift))
-    # one run after the profiled one: each takes seconds
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    grad(c_ift)
-    torch.cuda.synchronize()
-    return {"launches": total, "kkt_per_ift": got["kkt_fused"],
-            "ift_ms": (time.perf_counter() - t1) * 1e3}
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grad(c_ift)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t1) * 1e3)
+    return {"launches": total, "kkt_per_ift": got["kkt_fused"], "ift_ms": statistics.median(ts)}
 
 
 def rocket_work(torch, fused, cfg, dyn, params, x0, cs):
@@ -3987,7 +3988,7 @@ def pergrad_paths(torch, P, dev, kernels, card, kkt, dyn, params, q, p, cfg, gen
     turns = host_ms_in_turns({
         "vmap(grad) sweep": sweep,
         f"loop of {S} solo grads": lambda: [torch.func.grad(loss, argnums=(0, 1))(params, w)
-                                            for w in ws]}, rounds=1, warm_both=False)
+                                            for w in ws]}, warm_both=False)
     print_turns(card, f"phase 13 (e) vmap(grad) {S} x B={B} against a loop of its {S} solo "
                 f"gradients", turns)
     profile_step(torch, f"phase 13 (a) vmap(grad) {S} x B={B}", sweep,
@@ -4022,10 +4023,11 @@ USER_Q = (1.0, 1.0, 0.1, 0.1, 1e-3, 1e-3)
 PEND_COST_PARAMS = (0.5, 0.625, 0.75, 0.875, 0.15, -0.3, 0.06, 0.21)
 
 
-def user_problem(torch, P, fused):
+def user_problem(torch, P, fused, dev):
     """Phase 14's models and cost, written as a user writes them -- plain
-    PyTorch on [B, n] (the cost on one point tau [n]) -- their traces and
-    the build specs of their libraries."""
+    PyTorch on [B, n] (the cost on one point tau [n]) -- their traces on
+    ``dev``, the ones the solves find in the cache, and the build specs of
+    their libraries."""
     from dilqr_tpu_torch.models import cartpole
     from dilqr_tpu_torch.models.base import Dynamics
     from dilqr_tpu_torch.ops.cuda import traced
@@ -4064,8 +4066,8 @@ def user_problem(torch, P, fused):
     tcp = Dynamics(n_state=5, n_ctrl=1, step=cp.step, lower=cp.lower, upper=cp.upper,
                    linesearch_decay=cp.linesearch_decay,
                    max_linesearch_iter=cp.max_linesearch_iter)
-    m, mc = traced.model(dp, 4, 2, 3), traced.model(tcp, 5, 1, 4)
-    pc = traced.cost(pendulum_cost, 4, len(PEND_COST_PARAMS))
+    m, mc = traced.model(dp, 4, 2, 3, dev), traced.model(tcp, 5, 1, 4, dev)
+    pc = traced.cost(pendulum_cost, 4, len(PEND_COST_PARAMS), device=dev)
     if m is None or mc is None or pc is None:
         fail("phase 14: a model or cost of the traced set does not trace")
     AN, AD = P.GradMethod.ANALYTIC, P.GradMethod.AUTO_DIFF
@@ -4130,7 +4132,8 @@ def user_paths(torch, P, dev, kernels, card, fused, user, gen):
         on the converged examples, with its witness), the same bits at
         every cluster size and the kernel's time beside the plain
         version's and the bound by jvp_bound with traced.py's counts;
-        MPC.solve against backend="torch" in turns (a b a);
+        MPC.solve against backend="torch" in turns (a b a) under ANALYTIC
+        (the plain loop takes seconds), the kernel's alone under AUTO_DIFF;
     (b) the traced copy of cartpole's step under AUTO_DIFF against device
         env 0's jvp library (costs at parity's bar) and against its plain
         version (parity), both kernels' times, the bound;
@@ -4139,6 +4142,9 @@ def user_paths(torch, P, dev, kernels, card, fused, user, gen):
         beside callable_bound; the IFT gradient of mean(u^2) with respect
         to the cost params at B=1024 (eps=1e-4), the forward on the kernel,
         against backend="torch", within 1e-3 of the largest entry;
+        a weight the cost captures as a one-element tensor, changed in
+        place between two solves at B=1024: no new trace, a new u, and the
+        bits of a cost made with the new weight;
     (d) a step that captures an array: MPC.solve at B=1024 takes no
         whole-solve launch, and backend="cuda" raises.
     Returns (the JSON rows of the traced model and of the callable cost,
@@ -4146,6 +4152,7 @@ def user_paths(torch, P, dev, kernels, card, fused, user, gen):
     import dataclasses
 
     from dilqr_tpu_torch.models import cartpole, pendulum
+    from dilqr_tpu_torch.ops.cuda import traced
 
     B, T, iters = 4096, 20, 20
     total = {name: 0 for name in kernels}
@@ -4193,14 +4200,21 @@ def user_paths(torch, P, dev, kernels, card, fused, user, gen):
               f"registers, {info['local_bytes']} local bytes, V/Q/F in {info['store']}, "
               f"cudaOccupancyMaxActiveClusters {info['max_active_clusters']} [{card}]",
               flush=True)
-        got = host_ms_in_turns({"kernel": lambda: solve("auto"),
-                                "plain loop": lambda: solve("torch")}, rounds=1,
-                               warm_both=False, b_once=True)
-        (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
-        print(f"time phase 14 (a) MPC.solve double pendulum {method} B={B}: {k_ms:.3f} ms with "
-              f"the whole-solve kernel, {t_ms:.3f} ms with backend='torch' (host clock, "
-              f"synchronized, in turns a b a: {', '.join(f'{r:.3f}' for r in k_runs)} / "
-              f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        if method == "ANALYTIC":  # the plain loop takes seconds: for one method
+            got = host_ms_in_turns({"kernel": lambda: solve("auto"),
+                                    "plain loop": lambda: solve("torch")}, rounds=1,
+                                   warm_both=False, b_once=True)
+            (k_ms, k_runs), (t_ms, t_runs) = got["kernel"], got["plain loop"]
+            print(f"time phase 14 (a) MPC.solve double pendulum {method} B={B}: {k_ms:.3f} ms "
+                  f"with the whole-solve kernel, {t_ms:.3f} ms with backend='torch' (host "
+                  f"clock, synchronized, in turns a b a: "
+                  f"{', '.join(f'{r:.3f}' for r in k_runs)} / "
+                  f"{', '.join(f'{r:.3f}' for r in t_runs)}) [{card}]", flush=True)
+        else:
+            k_ms, t_ms = host_ms(lambda: solve("auto"), reps=3, warmup=False), None
+            print(f"time phase 14 (a) MPC.solve double pendulum {method} B={B}: {k_ms:.3f} ms "
+                  f"with the whole-solve kernel (host clock, synchronized, median of 3; "
+                  f"backend='torch' is timed under ANALYTIC only) [{card}]", flush=True)
         cases.append({"name": label.replace("phase 14 (a) ", ""), "ms": fig["ms"],
                       "plain_ms": fig["plain_ms"], "bound_ms": bound, "bound_by": by_what,
                       "max_abs_err": fig["max_abs_err"], "n_iter": fig["n_iter"],
@@ -4317,6 +4331,35 @@ def user_paths(torch, P, dev, kernels, card, fused, user, gen):
         fail(f"{glabel}: a non-finite or zero gradient")
     if gerr > 1e-3 * g_ref.abs().max().item() + 1e-8:
         fail(f"{glabel}: the gradient differs from backend='torch''s by {gerr:.3e}")
+    # a one-element tensor the cost captures (a weight on the control) is
+    # read at each launch: changed in place, the next solve takes the new
+    # value with no new trace, bit for bit as a cost made with that value
+    slabel = "phase 14 (c) a captured weight changed in place B=1024"
+    w = torch.full((), 0.1, device=dev)
+
+    def weighted(tau, p):
+        return cost_fn(tau, p) + w * tau[3] * tau[3]
+
+    def run(f):
+        return P.solve(pcfg, xg, (f, cp), pdyn, params=pprm, u_lower=-2.0, u_upper=2.0)
+
+    first, _ = drive(torch, kernels, total, slabel, lambda: run(weighted), one)
+    w.fill_(2.0)
+    n_traces = traced.TRACES
+    second = run(weighted)
+    w2 = torch.full((), 2.0, device=dev)
+    fresh = run(lambda tau, p: cost_fn(tau, p) + w2 * tau[3] * tau[3])
+    print(f"{slabel}: traces made for the second solve {traced.TRACES - n_traces - 1} (the "
+          f"fresh cost's one apart); u moved by up to "
+          f"{(second.u - first.u).abs().max().item():.3e}; the same bits as a cost made with the "
+          f"new weight: {torch.equal(second.u, fresh.u) and torch.equal(second.costs, fresh.costs)}",
+          flush=True)
+    if traced.TRACES != n_traces + 1:
+        fail(f"{slabel}: the second solve traced the cost again")
+    if torch.equal(first.u, second.u):
+        fail(f"{slabel}: the kernel kept the old weight")
+    if not (torch.equal(second.u, fresh.u) and torch.equal(second.costs, fresh.costs)):
+        fail(f"{slabel}: the changed weight and a cost made with it disagree")
     callable_row = {"name": "ilqr_fused_callable", "route": "cuda",
                     "source": "dilqr_tpu_torch/csrc/callable_cost.cuh",
                     "replaces": "dilqr_tpu/ops/pallas/ilqr_fused.py:699",

@@ -103,18 +103,21 @@ def kernel_params(dyn, params):
     return params if flat is None else flat
 
 
-def callable_cost(cfg: ILQRConfig, cost_struct):
+def callable_cost(cfg: ILQRConfig, cost_struct, device=None):
     """The kernel's form of a (cost_fn, cost_params) pair, or None (JAX's
     probe, dilqr_tpu/core/ilqr.py:196-205): flat params or none (an empty
-    tuple), and a cost that traces (``traced.cost``, JAX's
-    cost_lane_compatible)."""
+    tuple, or None for a cost of tau alone), and a cost that traces
+    (``traced.cost``, JAX's cost_lane_compatible). ``device``: where the
+    solve runs, on which the trace's samples are made."""
     if cost_struct is None:
         return None
     fn, cin = cost_struct
-    empty = isinstance(cin, (tuple, list)) and len(cin) == 0
+    unary = cin is None
+    empty = unary or (isinstance(cin, (tuple, list)) and len(cin) == 0)
     if not (empty or (isinstance(cin, torch.Tensor) and cin.dim() == 1)):
         return None
-    trace = traced.cost(fn, cfg.n_tau, None if empty else cin.shape[0])
+    trace = traced.cost(fn, cfg.n_tau, None if empty else cin.shape[0], unary=unary,
+                        device=device)
     return None if trace is None else fused.CallableCost(trace, fn, None if empty else cin)
 
 
@@ -125,23 +128,24 @@ def use_kernel(cfg: ILQRConfig, cost, dyn, params, x_init, u_zero_I, delta_u,
     for CUDA tensors in the covered configuration; "cuda" must take it and
     raises where it cannot. ``params``: the kernel's (kernel_params);
     ``cost_callable``: a callable cost's kernel form (``callable_cost``),
-    with which a cost that is no QuadCost may take the kernel."""
+    with which a cost that is no QuadCost may take the kernel. The device
+    is read first: CPU tensors never reach ``covered``, which may trace."""
     if cfg.backend == "torch":
+        return False
+    if not x_init.is_cuda:
+        if cfg.backend == "cuda":
+            raise ValueError(
+                "backend='cuda' needs CUDA tensors; CPU tensors take "
+                "backend='auto' or 'torch'")
         return False
     ok = (isinstance(cost, QuadCost) or cost_callable is not None) and fused.covered(
         cfg, dyn, params, x_init.dtype, cost_small, u_zero_I, delta_u,
         u_lower, u_upper, u_init_zero=u_init_zero, cost_callable=cost_callable is not None)
-    if cfg.backend == "cuda":
-        if not x_init.is_cuda:
-            raise ValueError(
-                "backend='cuda' needs CUDA tensors; CPU tensors take "
-                "backend='auto' or 'torch'")
-        if not ok:
-            raise ValueError(
-                "backend='cuda': this configuration is not covered by the "
-                "CUDA kernel (see ops/cuda/ilqr_fused.covered)")
-        return True
-    return ok and x_init.is_cuda
+    if cfg.backend == "cuda" and not ok:
+        raise ValueError(
+            "backend='cuda': this configuration is not covered by the "
+            "CUDA kernel (see ops/cuda/ilqr_fused.covered)")
+    return ok
 
 
 def ilqr_loop(
@@ -165,10 +169,12 @@ def ilqr_loop(
     [T,n,n]+[T,n], when there is one; u_init_zero: the warm start is known
     to be zeros; cost_struct: a callable cost's (cost_fn, cost_params),
     whose trace the kernel runs where it can (the plain loop calls
-    ``cost``). All three are hints for the kernel."""
+    ``cost``). All three are hints for the kernel, read (and a model or
+    cost traced) only for CUDA tensors."""
     kparams = kernel_params(dyn, params)
-    cc = None if cfg.backend == "torch" or isinstance(cost, QuadCost) \
-        else callable_cost(cfg, cost_struct)
+    card = cfg.backend != "torch" and x_init.is_cuda
+    cc = callable_cost(cfg, cost_struct, x_init.device) \
+        if card and not isinstance(cost, QuadCost) else None
     if use_kernel(cfg, cost, dyn, kparams, x_init, u_zero_I, delta_u,
                   cost_small, u_lower, u_upper, u_init_zero,
                   **({} if cc is None else {"cost_callable": cc})):

@@ -89,10 +89,21 @@ class _Problem:
     an argument of the Functions instead, so that ``torch.func.vmap`` sees
     its batch dimension."""
 
-    def __init__(self, cfg, quad, cost_fn, lin, dyn_static, treedef, n_cost, u_init_zero):
+    def __init__(self, cfg, quad, cost_fn, lin, dyn_static, treedef, n_cost, u_init_zero,
+                 cost_of_tau=None):
         self.cfg, self.quad, self.cost_fn = cfg, quad, cost_fn
         self.lin, self.dyn_static, self.treedef = lin, dyn_static, treedef
         self.n_cost, self.u_init_zero = n_cost, u_init_zero
+        # a cost the user gave as a function of tau alone, which the kernel
+        # traces as it is (cost_fn wraps it anew each solve)
+        self.cost_of_tau = cost_of_tau
+
+    def cost_struct(self, cost_in):
+        """What the kernel traces of a callable cost: (cost_fn, cost_params),
+        or (the user's cost of tau, None); None for a QuadCost."""
+        if self.quad:
+            return None
+        return (self.cost_fn, cost_in) if self.cost_of_tau is None else (self.cost_of_tau, None)
 
     def n_time(self, n_leaves: int) -> int:
         """How many leaves are time-major [T(-1), B, ...]: C, c and a
@@ -117,7 +128,7 @@ class _Problem:
         out = ilqr_loop(cfg, self.cost_obj(cost_in), dyn_obj, p, x_init, u_init,
                         u_lower=lb, u_upper=ub, u_zero_I=uz, delta_u=delta_u,
                         cost_small=cost_small, u_init_zero=self.u_init_zero,
-                        cost_struct=None if self.quad else (self.cost_fn, cost_in))
+                        cost_struct=self.cost_struct(cost_in))
         if cfg.exit_unconverged and warn:
             # a host read, so here, where the tensors are real (under vmap:
             # the folded sweep or one candidate)
@@ -589,35 +600,23 @@ def _backward(prob: _Problem, x, u, du_norm, lb, ub, cost_in, dyn_in, g_x, g_u,
     return kg.dx_init, d_cost_in, d_dyn_in
 
 
-# a parameterless callable cost as cost_fn(tau, ()), one wrapper a callable
-# (by its id, the callable kept beside it), so that the kernel's trace
-# cache (ops/cuda/traced.cost) finds it again on the next solve
-_PARAM_FREE = {}
-
-
-def _param_free(base):
-    hit = _PARAM_FREE.get(id(base))
-    if hit is None or hit[0] is not base:
-        hit = (base, lambda tau, _p: base(tau))
-        _PARAM_FREE[id(base)] = hit
-    return hit[1]
-
-
 def _problem(cfg: ILQRConfig, cost, dyn, params, u_init_zero: bool = False):
     """(the _Problem of a solve, its differentiable leaves)."""
     lin = isinstance(dyn, LinDx)
     quad = isinstance(cost, QuadCost)
-    cost_fn = None
+    cost_fn = cost_of_tau = None
     if quad:
         cost_in = tuple(cost)
     elif isinstance(cost, tuple):
         cost_fn, cost_in = cost
     else:
-        cost_fn, cost_in = _param_free(cost), ()
+        cost_of_tau = cost
+        cost_fn = lambda tau, _p: cost_of_tau(tau)  # noqa: E731
+        cost_in = ()
     dyn_in = tuple(dyn) if lin else params
     leaves, treedef = pytree.tree_flatten((cost_in, dyn_in))
     return _Problem(cfg, quad, cost_fn, lin, None if lin else dyn, treedef,
-                    len(pytree.tree_leaves(cost_in)), u_init_zero), leaves
+                    len(pytree.tree_leaves(cost_in)), u_init_zero, cost_of_tau), leaves
 
 
 def solve_with_grad(cfg: ILQRConfig, cost, dyn, params, x_init, u_init, lb, ub, uz,

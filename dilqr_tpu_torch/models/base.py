@@ -66,6 +66,9 @@ class Dynamics:
     mpc_eps: float = 1e-3
     linesearch_decay: float = 0.2
     max_linesearch_iter: int = 10
+    # a slew-rate wrapper's base model (models/ctrl_passthrough), by which
+    # the kernel's trace of the wrapper is cached (ops/cuda/traced.model)
+    wraps: Optional["Dynamics"] = None
 
     @property
     def linearize_point(self) -> Callable:

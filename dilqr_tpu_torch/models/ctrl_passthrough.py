@@ -8,9 +8,8 @@ MLP with hidden_sizes) has device code too, ``Passthrough<Env>`` in
 ``csrc/ilqr_fused.cuh``, so its solves run the whole-solve kernel (its
 Jacobian from the base's: the hand one, or the jvp sweep's where the base
 has none); the wrapper of a user's own model is one too, whose wrapped
-step the kernel traces as it stands (``ops/cuda/traced.py``). ``make``
-returns the same wrapper for the same base model, so the trace of a
-wrapped model is made once."""
+step the kernel traces as it stands (``ops/cuda/traced.py``), cached by
+the base model the wrapper names (``wraps``)."""
 from __future__ import annotations
 
 import torch
@@ -45,20 +44,8 @@ def _aug_jac(jac, nu: int):
     return jac_aug
 
 
-# id(base) -> (base, its wrapper)
-_MADE = {}
-
-
 def make(base: Dynamics) -> Dynamics:
     """Wrap ``base`` for the augmented state (u_{t-1}, x)."""
-    hit = _MADE.get(id(base))
-    if hit is None or hit[0] is not base:
-        hit = (base, _make(base))
-        _MADE[id(base)] = hit
-    return hit[1]
-
-
-def _make(base: Dynamics) -> Dynamics:
     nu = base.n_ctrl
     device = base.device_env in DEVICE_ENVS and base.kernel_step is not None
     return Dynamics(
@@ -78,4 +65,5 @@ def _make(base: Dynamics) -> Dynamics:
         mpc_eps=base.mpc_eps,
         linesearch_decay=base.linesearch_decay,
         max_linesearch_iter=base.max_linesearch_iter,
+        wraps=base,
     )

@@ -312,7 +312,7 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
                               u_zero_I is not None, not u_init_zero,
                               not (_bound_is_static(u_lower, nu)
                                    and _bound_is_static(u_upper, nu)))
-            and traced.model(dyn, nx, nu, params.shape[0]) is not None
+            and traced.model(dyn, nx, nu, params.shape[0], params.device) is not None
         )
     return (
         common
@@ -692,28 +692,34 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
     # the env's and its params
     ctr = None if inp.cost is None else inp.cost.trace
     Tc = 1 if ctr is not None else inp.C.shape[0]
+    # a callable cost's params, then what its captured tensors hold now
+    cp = None if ctr is None else traced.launch_params(inp.C, ctr.captured, dev)
     if lin:
         fn = _entry(with_cost(lindx_spec(nx, nu, inp.lanes), ctr), "dilqr_ilqr_lindx", 6, 2)
         head = (nx, nu, T, Bp, int(inp.lanes), Tc, ptr(inp.F), ptr(inp.f))
     else:
         env = dyn.device_env
+        p = params.to(torch.float32).contiguous()
         if is_traced(dyn):
-            spec = user_spec(traced.model(dyn, nx, nu, params.shape[0]), ctr,
-                             cfg.grad_method is GradMethod.AUTO_DIFF, inp.lanes)
+            model = traced.model(dyn, nx, nu, params.shape[0], dev)
+            if model is None:
+                raise ValueError("the model's step or linearize_point does not trace into the "
+                                 "kernel (ops/cuda/traced.py)")
+            spec = user_spec(model, ctr, cfg.grad_method is GradMethod.AUTO_DIFF, inp.lanes)
             env = ENV_TRACED
+            p = traced.launch_params(p, model.captured, dev)
         elif dyn.device_mlp is not None:
             spec = with_cost(mlp_spec(dyn.device_mlp, inp.lanes), ctr)
         else:
             spec = with_cost(env_spec(cfg.grad_method, dyn.device_env), ctr)
         fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
-        p = params.to(torch.float32).contiguous()
         head = (env, T, Bp, int(inp.lanes), Tc, p.data_ptr())
     # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
     pad = (0.0,) * (MAX_NU - nu)
     lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*head, inp.x_init.data_ptr(), inp.C.data_ptr(),
+        rc = fn(*head, inp.x_init.data_ptr(), (inp.C if cp is None else cp).data_ptr(),
                 0 if ctr is not None else inp.c.data_ptr(), ptr(inp.u_init),
                 lo_c, hi_c, ptr(inp.lb), ptr(inp.ub), ptr(inp.uz), int(inp.uz_free),
                 int(inp.du is not None), 0.0 if inp.du is None else inp.du,
@@ -1055,9 +1061,10 @@ def ilqr_fused_reference(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cos
     ucost = inp.cost
     if ucost is not None:  # [Bp, n] -> [Bp]
         cpa = () if ucost.params is None else inp.C
+        one = ucost.fn if ucost.trace.unary else (lambda t: ucost.fn(t, cpa))
 
         def cost_b(tau):
-            return vmap(lambda t: ucost.fn(t, cpa))(tau)
+            return vmap(one)(tau)
 
         quad = cost_quad(cost_b, n)
     elif inp.lanes:  # [T, Bp, n, n] and [T, Bp, n]

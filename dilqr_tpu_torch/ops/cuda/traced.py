@@ -24,14 +24,21 @@ stacks with its params as a list of scalars and captures no array):
    number, sin, cos, atan2, exp, log, sqrt, rsqrt, tanh, sigmoid, abs,
    clamp by numbers, minimum, maximum, the comparisons, logical and, or and
    not, where, and constants;
- * no captured tensor has more than one element;
+ * no captured tensor has more than one element; a one-element tensor
+   the function captures is read at each launch (a slot after the params),
+   so one changed in place between two solves is seen by the kernel as by
+   the plain loop, and a tensor the function makes (``torch.tensor(1.5)``)
+   is a constant;
  * the step returns [2, nx] and the cost [2], in float32.
 
 Anything else -- an array capture, a branch on data, an operation outside
 the set, pytree params -- is refused: the caller keeps the plain loop, as
 JAX keeps XLA. ``model`` and ``cost`` cache their result (the refusals
 too) by the model or function object and the shapes, so a serving loop
-traces once; ``TRACES`` counts the traces made.
+traces once; the object is held weakly, so its traces go when it does (a
+slew-rate wrapper's by the model it wraps, which outlives the wrapper made
+each solve). ``TRACES`` counts the traces made. The dispatch traces only
+for CUDA tensors: a solve on the CPU never traces.
 
 The generated functions are templates over the scalar S (float in the
 kernel's line search, a Dual for the jvp sweep, DualOf<Dual> for a
@@ -47,6 +54,7 @@ tests/test_torch_ilqr_traced.py holds it to a host build of the header.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -90,6 +98,7 @@ class TracedModel(NamedTuple):
     source: str     # struct Model { step, step_unclamped } in namespace traced
     step: StepOps   # the step's operations
     lin: StepOps    # the linearization point's (step_unclamped)
+    captured: Tuple[torch.Tensor, ...] = ()  # read after the params (launch_params)
 
     def ops(self, clamped: bool) -> StepOps:
         """The bound's counts under a method: the float step is the
@@ -104,6 +113,8 @@ class TracedCost(NamedTuple):
     n_params: int
     source: str     # struct Cost { cost } in namespace traced
     ops: CostOps
+    captured: Tuple[torch.Tensor, ...] = ()  # read after the params (launch_params)
+    unary: bool = False  # called fn(tau), not fn(tau, params)
 
 
 class Refused(Exception):
@@ -122,9 +133,24 @@ _CMP = {"gt": ">", "lt": "<", "ge": ">=", "le": "<=", "eq": "==", "ne": "!="}
 
 
 class _Prog:
-    def __init__(self):
+    def __init__(self, params: str, n_params: int):
         self.stmts: List[Tuple[str, tuple, str, tuple]] = []  # (op, args, kind, extra)
         self._memo: Dict[tuple, tuple] = {}
+        # captured tensors, read from the params input after its n_params
+        self.params, self.n_params = params, n_params
+        self.captured: List[torch.Tensor] = []
+
+    def capture(self, t: torch.Tensor) -> tuple:
+        """The component a captured one-element tensor reads: its slot
+        after the params (a bool's as slot != 0)."""
+        for j, c in enumerate(self.captured):
+            if c is t:
+                break
+        else:
+            j = len(self.captured)
+            self.captured.append(t)
+        ref = ("in", self.params, self.n_params + j)
+        return self.emit("ne", (ref, ("c", 0.0))) if t.dtype == torch.bool else ref
 
     def kind(self, ref) -> str:
         if ref[0] == "in":
@@ -300,8 +326,13 @@ def _lower(gm, prog: _Prog, inputs: List[_Val]) -> List[_Val]:
                                torch.int32):
                 raise Refused(f"a captured {t.dtype}")
             a = np.empty(tuple(t.shape), dtype=object)
+            # a tensor the function makes (torch.tensor(1.5): lifted) is a
+            # constant; one it captures is read at each launch
+            made = bool(node.users) and all(
+                u.target is aten.lift_fresh_copy.default for u in node.users)
             for idx in np.ndindex(a.shape):
-                a[idx] = ("c", bool(t[idx]) if t.dtype == torch.bool else float(t[idx]))
+                a[idx] = (("c", bool(t[idx]) if t.dtype == torch.bool else float(t[idx]))
+                          if made else prog.capture(t))
             env[node] = _Val(False, a)
             continue
         if node.op == "output":
@@ -740,10 +771,11 @@ def _trace(fn, samples):
     return gm
 
 
-def _lower_model(fn, nx: int, nu: int, P: int):
-    prog = _Prog()
+def _lower_model(fn, nx: int, nu: int, P: int, device, captured: List[torch.Tensor]):
+    prog = _Prog("p", P)
+    prog.captured = captured
     gm = _trace(lambda x, u, p: fn(x, u, p),
-                (torch.zeros(2, nx), torch.zeros(2, nu), torch.zeros(P)))
+                tuple(torch.zeros(*s, device=device) for s in ((2, nx), (2, nu), (P,))))
     outs = _lower(gm, prog, [_inputs("x", nx, True), _inputs("u", nu, True),
                              _inputs("p", P, False)])
     if len(outs) != 1 or not outs[0].batched or outs[0].comps.shape != (nx,):
@@ -751,63 +783,107 @@ def _lower_model(fn, nx: int, nu: int, P: int):
     return prog, list(outs[0].comps)
 
 
-_MODELS: Dict[tuple, tuple] = {}
-_COSTS: Dict[tuple, tuple] = {}
+class _Cache:
+    """Traces by the object traced (a model or a cost function) and a key
+    of shapes. The object is held weakly and its entries go when it does;
+    one that takes no weak reference is traced at each call."""
+
+    def __init__(self):
+        self._by_id: Dict[int, tuple] = {}  # id(obj) -> (weakref to obj, {key: trace})
+
+    def get(self, obj, key, make):
+        hit = self._by_id.get(id(obj))
+        if hit is None or hit[0]() is not obj:
+            try:
+                ref = weakref.ref(obj)
+            except TypeError:
+                return make()
+            hit = self._by_id[id(obj)] = (ref, {})
+            weakref.finalize(obj, self._by_id.pop, id(obj), None)
+        if key not in hit[1]:
+            hit[1][key] = make()
+        return hit[1][key]
+
+    def __len__(self) -> int:
+        return len(self._by_id)
 
 
-def model(dyn, nx: int, nu: int, n_params: int) -> Optional[TracedModel]:
+_MODELS = _Cache()
+_COSTS = _Cache()
+
+
+def _device(device) -> str:
+    return torch.device(device if device is not None else "cpu").type
+
+
+def model(dyn, nx: int, nu: int, n_params: int, device=None) -> Optional[TracedModel]:
     """The traced form of a Dynamics' step and linearize_point, or None
-    where they break the contract. Cached by (the model object, nx, nu,
-    n_params)."""
-    key = (id(dyn), nx, nu, n_params)
-    hit = _MODELS.get(key)
-    if hit is not None and hit[0] is dyn:
-        return hit[1]
-    try:
-        fns = (dyn.step, dyn.linearize_point)
-        bodies, ops = [], []
-        for fn in fns:
-            prog, outs = _lower_model(fn, nx, nu, n_params)
-            bodies.append(_emit_cpp(prog, outs, "p", {"x": "x", "u": "u"}, "out"))
-            ops.append(_step_ops(prog, outs))
-        src = MODEL_TEMPLATE.format(nx=nx, nu=nu, P=n_params, step=bodies[0], lin=bodies[1])
-        out = TracedModel(nx, nu, n_params, src, ops[0], ops[1])
-    except Exception:  # a refusal, or a trace that fails: the plain loop
-        out = None
-    _MODELS[key] = (dyn, out)
-    return out
+    where they break the contract. Cached by the model object (a slew-rate
+    wrapper's by the model it wraps, ``Dynamics.wraps``) and (nx, nu,
+    n_params, the device type the samples are made on)."""
+    wraps = getattr(dyn, "wraps", None)
+    key = (wraps is not None, nx, nu, n_params, _device(device))
+
+    def make():
+        try:
+            bodies, ops, captured = [], [], []
+            for fn in (dyn.step, dyn.linearize_point):
+                # both functions read one list of captured slots
+                prog, outs = _lower_model(fn, nx, nu, n_params, _device(device), captured)
+                bodies.append(_emit_cpp(prog, outs, "p", {"x": "x", "u": "u"}, "out"))
+                ops.append(_step_ops(prog, outs))
+            src = MODEL_TEMPLATE.format(nx=nx, nu=nu, P=n_params + len(captured),
+                                        step=bodies[0], lin=bodies[1])
+            return TracedModel(nx, nu, n_params, src, ops[0], ops[1], tuple(captured))
+        except Exception:  # a refusal, or a trace that fails: the plain loop
+            return None
+
+    return _MODELS.get(dyn if wraps is None else wraps, key, make)
 
 
-def cost(fn, n: int, n_params: Optional[int]) -> Optional[TracedCost]:
+def cost(fn, n: int, n_params: Optional[int], unary: bool = False,
+         device=None) -> Optional[TracedCost]:
     """The traced form of a callable cost ``fn(tau [n], cost_params)``, or
     None where it breaks the contract. n_params: the flat params' length,
-    or None for a cost without params (called with ()). Cached by (fn, n,
-    n_params)."""
-    key = (id(fn), n, n_params)
-    hit = _COSTS.get(key)
-    if hit is not None and hit[0] is fn:
-        return hit[1]
-    try:
-        prog = _Prog()
-        if n_params is None:
-            gm = _trace(lambda tau: torch.func.vmap(lambda t: fn(t, ()))(tau),
-                        (torch.zeros(2, n),))
-            ins = [_inputs("tau", n, True)]
-        else:
-            gm = _trace(lambda tau, cp: torch.func.vmap(lambda t: fn(t, cp))(tau),
-                        (torch.zeros(2, n), torch.zeros(n_params)))
-            ins = [_inputs("tau", n, True), _inputs("cp", n_params, False)]
-        outs = _lower(gm, prog, ins)
-        if len(outs) != 1 or not outs[0].batched or outs[0].comps.shape != ():
-            raise Refused("the cost does not return one value a point")
-        outs = [outs[0].comps[()]]
-        body = _emit_cpp(prog, outs, "cp", {"tau": "tau"}, None)
-        src = COST_TEMPLATE.format(n=n, P=n_params or 0, body=body)
-        out = TracedCost(n, n_params or 0, src, _cost_ops(prog, outs, n))
-    except Exception:
-        out = None
-    _COSTS[key] = (fn, out)
-    return out
+    or None for a cost without params, called fn(tau, ()) or, ``unary``,
+    fn(tau). Cached by fn and (n, n_params, unary, the device type the
+    samples are made on)."""
+    dev = _device(device)
+
+    def call(t, cp):
+        return fn(t) if unary else fn(t, cp)
+
+    def make():
+        try:
+            prog = _Prog("cp", n_params or 0)
+            if n_params is None:
+                gm = _trace(lambda tau: torch.func.vmap(lambda t: call(t, ()))(tau),
+                            (torch.zeros(2, n, device=dev),))
+                ins = [_inputs("tau", n, True)]
+            else:
+                gm = _trace(lambda tau, cp: torch.func.vmap(lambda t: call(t, cp))(tau),
+                            (torch.zeros(2, n, device=dev), torch.zeros(n_params, device=dev)))
+                ins = [_inputs("tau", n, True), _inputs("cp", n_params, False)]
+            outs = _lower(gm, prog, ins)
+            if len(outs) != 1 or not outs[0].batched or outs[0].comps.shape != ():
+                raise Refused("the cost does not return one value a point")
+            outs = [outs[0].comps[()]]
+            body = _emit_cpp(prog, outs, "cp", {"tau": "tau"}, None)
+            src = COST_TEMPLATE.format(n=n, P=(n_params or 0) + len(prog.captured), body=body)
+            return TracedCost(n, n_params or 0, src, _cost_ops(prog, outs, n),
+                              tuple(prog.captured), unary)
+        except Exception:
+            return None
+
+    return _COSTS.get(fn, (n, n_params, unary, dev), make)
+
+
+def launch_params(params: Optional[torch.Tensor], captured, device) -> torch.Tensor:
+    """The params vector a launch reads: the flat params (None for none),
+    then the values the captured tensors hold now, read at each launch."""
+    parts = [] if params is None else [params.to(device=device, dtype=torch.float32).reshape(-1)]
+    parts += [t.detach().to(device=device, dtype=torch.float32).reshape(1) for t in captured]
+    return (torch.cat(parts) if parts else torch.empty(0, dtype=torch.float32, device=device))
 
 
 MODEL_TEMPLATE = """struct Model {{

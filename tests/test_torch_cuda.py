@@ -1439,6 +1439,47 @@ def test_callable_cost_kernel_matches_plain_version(dev, with_params):
     assert torch.equal(res.costs, kc)
 
 
+def test_captured_weight_changed_in_place_reaches_the_kernel(dev):
+    """A cost that captures a one-element CUDA tensor (a weight on the
+    control) reads it at each launch: changed in place between two solves,
+    the second solve takes the new value with no new trace, matches the
+    plain version at the new value, and has the bits of a cost made with
+    it."""
+    import traced_models as tm
+    from dilqr_tpu_torch.core import ilqr as tilqr
+    from dilqr_tpu_torch.ops.cuda import traced
+
+    dyn, params = pendulum.make(), pendulum.default_params(device=dev)
+    gen = torch.Generator().manual_seed(6)
+    th = 4.0 * torch.rand(2048, generator=gen) - 2.0
+    x0 = torch.stack([th.cos(), th.sin(), torch.zeros(2048)], 1).to(dev)
+    cfg = P.ILQRConfig(n_state=3, n_ctrl=1, T=12, lqr_iter=8, eps=1e-4,
+                       linesearch_decay=dyn.linesearch_decay,
+                       max_linesearch_iter=dyn.max_linesearch_iter, backprop=False)
+    w = torch.full((), 0.1, device=dev)
+
+    def cost(tau):
+        return tm.pendulum_cost_plain(tau) + w * tau[3] * tau[3]
+
+    def solve(f):
+        return P.solve(cfg, x0, f, dyn, params=params, u_lower=-2.0, u_upper=2.0)
+
+    first = solve(cost)
+    w.fill_(2.0)
+    n_traces, before = traced.TRACES, fused.LAUNCHES
+    second = solve(cost)
+    torch.cuda.synchronize()
+    assert traced.TRACES == n_traces and fused.LAUNCHES == before + 1
+    assert not torch.equal(first.u, second.u)
+    cc = tilqr.callable_cost(cfg, (cost, None), dev)
+    rx, ru, rc, rdu, rn = fused.ilqr_fused_reference(cfg, dyn, params, x0, cc, None, -2.0, 2.0)
+    rel = (second.costs - rc).abs() / rc.abs().clamp(min=1e-6)
+    assert rel.max().item() <= 1e-2 and int((rel > 1e-4).sum()) <= 0.01 * x0.shape[0]
+    w2 = torch.full((), 2.0, device=dev)
+    fresh = solve(lambda tau: tm.pendulum_cost_plain(tau) + w2 * tau[3] * tau[3])
+    assert torch.equal(second.u, fresh.u) and torch.equal(second.costs, fresh.costs)
+
+
 def test_traced_cartpole_matches_its_device_code(dev):
     """The port's cartpole step traced as a user's model (no device_env) under
     AUTO_DIFF against device env 0's jvp library: the same costs to 1e-4 on

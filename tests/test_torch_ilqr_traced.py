@@ -20,10 +20,13 @@ into C++ (dilqr_tpu_torch/ops/cuda/traced.py), on the CPU:
    dynamics params and the cost params, the double pendulum with a
    callable cost, against JAX's solve and jax.grad at f64 (rtol 1e-6 of
    the largest entry);
- * the trace cache (a second solve traces nothing), and the refusals: a
-   step that captures an array, branches on data, or calls an operation
-   outside the set, f64, pytree params and a cost that captures an array
-   keep the plain loop, and backend="cuda" raises for them."""
+ * the trace cache (a second solve's dispatch traces nothing, a solve on
+   the CPU never traces, an entry goes with its model or cost, a slew-rate
+   wrapper's trace is its base's), a captured one-element tensor read at
+   each call, and the refusals: a step that captures an array, branches on
+   data, or calls an operation outside the set, f64, pytree params and a
+   cost that captures an array keep the plain loop, and backend="cuda"
+   raises for them."""
 import ctypes
 import dataclasses
 import os
@@ -242,19 +245,26 @@ def host_libs(tmp_path_factory):
         m = traced.model(dyn, dyn.n_state, dyn.n_ctrl, len(prm))
         c = traced.cost(cfn, 4 if cfn is not tm.dp_cost else 6, None if cp is None else len(cp))
         assert m is not None and c is not None, name
-        d = tmp_path_factory.mktemp(name.replace(" ", "_"))
-        (d / "dilqr_traced.cuh").write_text(traced.header(m, c))
-        (d / "shim.cpp").write_text(SHIM)
-        out = d / "libshim.so"
-        procs[name] = (m, c, out, subprocess.Popen(
-            [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-I", str(d), "-o",
-             str(out), str(d / "shim.cpp")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    libs = {}
-    for name, (m, c, out, proc) in procs.items():
-        log = proc.communicate(timeout=300)[0]
-        assert proc.returncode == 0, log.decode()[-3000:]
-        libs[name] = (ctypes.CDLL(str(out)), m, c)
-    return libs
+        procs[name] = (m, c) + _gxx(gxx, tmp_path_factory.mktemp(name.replace(" ", "_")),
+                                    traced.header(m, c))
+    return {name: (_loaded(out, proc), m, c) for name, (m, c, out, proc) in procs.items()}
+
+
+def _gxx(gxx, d, header):
+    """Start g++ on the shim over ``header`` in directory d: (the library's
+    path, the process)."""
+    (d / "dilqr_traced.cuh").write_text(header)
+    (d / "shim.cpp").write_text(SHIM)
+    out = d / "libshim.so"
+    return out, subprocess.Popen(
+        [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", CSRC, "-I", str(d), "-o",
+         str(out), str(d / "shim.cpp")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _loaded(out, proc):
+    log = proc.communicate(timeout=300)[0]
+    assert proc.returncode == 0, log.decode()[-3000:]
+    return ctypes.CDLL(str(out))
 
 
 def _dp(a):
@@ -464,28 +474,157 @@ def test_user_model_callable_cost_ift_grads_match_jax_f64():
         assert np.abs(w).max() > 1e-3
 
 
+def _card_like():
+    """A stand-in for CUDA tensors at the dispatch (use_kernel reads only
+    is_cuda and dtype), the trace's samples on the CPU."""
+    return types.SimpleNamespace(is_cuda=True, dtype=torch.float32, device=torch.device("cpu"))
+
+
 def test_trace_cache_serves_the_second_solve():
-    """The first solve traces the model's two functions and the cost once;
-    a second solve of the same model and cost traces nothing."""
+    """The dispatch of a solve on the card (callable_cost, then use_kernel's
+    covered) traces the model's two functions and the cost once; a second
+    solve's dispatch traces nothing. A cost of tau alone is traced as the
+    user wrote it, the function solve was given."""
     dyn = tm.double_pendulum()
-    x0 = from_numpy(np.random.RandomState(2).uniform(-1, 1, (3, 4)).astype(np.float32))
     cp = from_numpy(np.concatenate([tm.DP_COST, [0.0] * 4]).astype(np.float32))
     cfg = P.ILQRConfig(n_state=4, n_ctrl=2, T=5, lqr_iter=2, eps=0.0, backprop=False,
                        exit_unconverged=False)
+    kp = from_numpy(np.array(tm.DP_PARAMS, np.float32))
 
     def cost(tau, p):  # a function of its own: no earlier test traced it
         return tm.dp_cost(tau, p)
 
-    def run():
-        return P.solve(cfg, x0, (cost, cp), dyn, params=from_numpy(
-            np.array(tm.DP_PARAMS, np.float32)), u_lower=-1.5, u_upper=1.5)
+    def dispatch():
+        cc = tilqr.callable_cost(cfg, (cost, cp), torch.device("cpu"))
+        return cc is not None and tilqr.use_kernel(
+            cfg, lambda tau: cost(tau, cp), dyn, kp, _card_like(), None, None, None, -1.5, 1.5,
+            cost_callable=cc)
 
     before = traced.TRACES
-    first = run()
+    assert dispatch()
     assert traced.TRACES == before + 3
-    second = run()
+    assert dispatch()
     assert traced.TRACES == before + 3
-    assert torch.equal(first.u, second.u)
+
+    def of_tau(tau):
+        return 0.5 * (tau * tau).sum(-1)
+
+    prob, _ = P.diff.modes._problem(cfg, of_tau, dyn, kp)
+    assert prob.cost_struct(()) == (of_tau, None)
+    cc = tilqr.callable_cost(cfg, prob.cost_struct(()))
+    assert cc is not None and cc.trace.unary and cc.params is None
+    assert traced.TRACES == before + 4
+    assert tilqr.callable_cost(cfg, prob.cost_struct(())).trace is cc.trace
+    assert traced.TRACES == before + 4
+
+
+def test_cpu_solve_traces_nothing():
+    """A solve on CPU tensors runs the plain loop and never traces: a model
+    and a cost made anew for the solve, as an MPC loop makes a tracking
+    cost each step (a closure over its reference), leave TRACES as it was,
+    under backend "auto" and "torch" alike, with the same bits."""
+    dyn = tm.double_pendulum(lambda x, u, p: tm.dp_step(x, u, p),
+                             lambda x, u, p: tm.dp_step_unclamped(x, u, p))
+    x0 = from_numpy(np.random.RandomState(2).uniform(-1, 1, (3, 4)).astype(np.float32))
+    ref = from_numpy(np.random.RandomState(5).uniform(-0.2, 0.2, 6).astype(np.float32))
+    kp = from_numpy(np.array(tm.DP_PARAMS, np.float32))
+    cfg = P.ILQRConfig(n_state=4, n_ctrl=2, T=5, lqr_iter=2, eps=0.0, backprop=False,
+                       exit_unconverged=False)
+    before = traced.TRACES
+    out = [P.solve(dataclasses.replace(cfg, backend=be), x0,
+                   lambda tau: ((tau - ref) ** 2).sum(), dyn, params=kp,
+                   u_lower=-1.5, u_upper=1.5) for be in ("auto", "torch")]
+    assert traced.TRACES == before
+    assert torch.equal(out[0].u, out[1].u) and torch.equal(out[0].costs, out[1].costs)
+
+
+def test_trace_cache_lets_a_dead_model_and_cost_go():
+    """The cache holds a model or cost function weakly: once the caller lets
+    it go, its entry (a refusal too) goes with it, and the tensor it
+    captured with it."""
+    import gc
+    import weakref
+
+    n_models, n_costs = len(traced._MODELS), len(traced._COSTS)
+    dyn = tm.double_pendulum(lambda x, u, p: tm.dp_step(x, u, p))
+    ref = torch.zeros(6)
+    cost = lambda tau: ((tau - ref) ** 2).sum()  # noqa: E731 (an array capture: refused)
+    assert traced.model(dyn, 4, 2, 3) is not None
+    assert traced.cost(cost, 6, None, unary=True) is None
+    assert (len(traced._MODELS), len(traced._COSTS)) == (n_models + 1, n_costs + 1)
+    gone = weakref.ref(ref)
+    del dyn, cost, ref
+    gc.collect()
+    assert (len(traced._MODELS), len(traced._COSTS)) == (n_models, n_costs)
+    assert gone() is None
+
+
+def test_slew_wrapper_trace_is_cached_by_its_base():
+    """augment_slew_rate wraps the model anew each solve; the wrappers of
+    one model share one trace, which is not the model's own."""
+    from dilqr_tpu_torch.models import ctrl_passthrough
+
+    base = tm.double_pendulum(lambda x, u, p: tm.dp_step(x, u, p))
+    before = traced.TRACES
+    first, second = ctrl_passthrough.make(base), ctrl_passthrough.make(base)
+    assert first is not second and first.wraps is base
+    m = traced.model(first, 6, 2, 3)
+    assert m is not None and traced.TRACES == before + 2
+    assert traced.model(second, 6, 2, 3) is m and traced.TRACES == before + 2
+    own = traced.model(base, 4, 2, 3)
+    assert own is not None and own is not m and traced.TRACES == before + 4
+
+
+def test_captured_scalar_is_read_at_each_call(tmp_path):
+    """A one-element tensor a step or a cost captures is a slot after the
+    params that each launch fills with the value it holds then
+    (traced.launch_params); a tensor the function makes is a constant. The
+    generated code, built for the host, follows an in-place change of the
+    captured tensors as the torch functions do, with no new trace."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the generated header for the host")
+    gain, weight = torch.tensor(1.5), torch.tensor(0.25)
+
+    def step(x, u, p):  # torch.tensor(0.5): made in the function, a constant
+        return tm.dp_step(x, u, p) * gain + torch.tensor(0.5) * x
+
+    def cost(tau, cp):
+        return tm.dp_cost(tau, cp) + weight * tau[4] * tau[4]
+
+    dyn = tm.double_pendulum(step, step)
+    m = traced.model(dyn, 4, 2, 3)
+    c = traced.cost(cost, 6, 10)
+    assert m is not None and c is not None
+    assert len(m.captured) == 1 and m.captured[0] is gain
+    assert len(c.captured) == 1 and c.captured[0] is weight
+    out, proc = _gxx(gxx, tmp_path, traced.header(m, c))
+    lib = _loaded(out, proc)
+    n_traces = traced.TRACES
+    prm = np.array(tm.DP_PARAMS)
+    cp = np.concatenate([tm.DP_COST, [0.1, -0.2, 0.3, 0.0]])
+    x, u = _point("double pendulum", 4, 6)
+    tau = np.concatenate([x, u], 1)
+    for g, w in ((1.5, 0.25), (-0.75, 2.0)):
+        gain.fill_(g)
+        weight.fill_(w)
+        assert traced.model(dyn, 4, 2, 3) is m and traced.cost(cost, 6, 10) is c
+        # the launch's vector (f32, as the card reads it), then the params
+        # at f64 before the captured values it holds
+        pl = traced.launch_params(torch.from_numpy(prm), m.captured, "cpu")
+        cl = traced.launch_params(torch.from_numpy(cp), c.captured, "cpu")
+        assert pl.dtype == torch.float32 and pl.tolist()[3:] == [g]
+        assert cl.dtype == torch.float32 and cl.tolist()[10:] == [w]
+        pl, cl = np.append(prm, pl[3:].double()), np.append(cp, cl[10:].double())
+        xn, D = np.zeros((4, 4)), np.zeros((4, 4, 6))
+        lib.model_eval(1, _dp(pl), _dp(x), _dp(u), 4, _dp(xn), _dp(D))
+        want = step(*(from_numpy(a) for a in (x, u, prm))).numpy()
+        np.testing.assert_allclose(xn, want, rtol=0, atol=1e-12 * max(1.0, np.abs(want).max()))
+        got_c, H, gv = np.zeros(4), np.zeros((4, 6, 6)), np.zeros((4, 6))
+        lib.cost_eval(_dp(cl), _dp(tau), 4, _dp(got_c), _dp(H), _dp(gv))
+        want_c = torch.func.vmap(lambda t: cost(t, from_numpy(cp)))(from_numpy(tau)).numpy()
+        np.testing.assert_allclose(got_c, want_c, rtol=1e-12)
+    assert traced.TRACES == n_traces
 
 
 def _refusals():
