@@ -37,6 +37,7 @@ from ..parallel.comm import decide
 from ..types import GradMethod, ILQRConfig, LinDx, QuadCost
 from ..utils.batch import bmv
 from ..utils.logging import table_log
+from ..utils.profiling import span
 from .linearize import approximate_cost, linearize_dynamics
 
 
@@ -171,13 +172,15 @@ def ilqr_loop(
     whose trace the kernel runs where it can (the plain loop calls
     ``cost``). All three are hints for the kernel, read (and a model or
     cost traced) only for CUDA tensors."""
-    kparams = kernel_params(dyn, params)
-    card = cfg.backend != "torch" and x_init.is_cuda
-    cc = callable_cost(cfg, cost_struct, x_init.device) \
-        if card and not isinstance(cost, QuadCost) else None
-    if use_kernel(cfg, cost, dyn, kparams, x_init, u_zero_I, delta_u,
-                  cost_small, u_lower, u_upper, u_init_zero,
-                  **({} if cc is None else {"cost_callable": cc})):
+    with span("ilqr.gate"):
+        kparams = kernel_params(dyn, params)
+        card = cfg.backend != "torch" and x_init.is_cuda
+        cc = callable_cost(cfg, cost_struct, x_init.device) \
+            if card and not isinstance(cost, QuadCost) else None
+        on_card = use_kernel(cfg, cost, dyn, kparams, x_init, u_zero_I, delta_u,
+                             cost_small, u_lower, u_upper, u_init_zero,
+                             **({} if cc is None else {"cost_callable": cc}))
+    if on_card:
         # a callable cost's trace; the user's example-invariant cost where
         # there is one; else the per-example [T, B, ...] pair
         return ILQRInternal(*fused.ilqr_fused(

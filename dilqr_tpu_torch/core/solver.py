@@ -21,6 +21,7 @@ from torch.utils import _pytree as pytree
 from ..diff.modes import solve_with_grad
 from ..models import ctrl_passthrough
 from ..types import ILQRConfig, LinDx, QuadCost, SolveResult
+from ..utils.profiling import span
 
 
 def params_to(params, device, dtype):
@@ -176,67 +177,71 @@ def solve(
       prev_ctrl: the previous action, read only by the slew-rate penalty.
     Returns SolveResult with batch-major x [B,T,nx], u [B,T,nu].
     """
-    B = x_init.shape[0]
-    T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
+    with span("solve"):
+        with span("solve.canonicalize"):
+            B = x_init.shape[0]
+            T, nx, nu = cfg.T, cfg.n_state, cfg.n_ctrl
 
-    if x_init.dim() != 2 or x_init.shape[1] != nx:
-        raise ValueError(f"x_init must be [n_batch, n_state={nx}], got {tuple(x_init.shape)}")
-    if (u_lower is None) != (u_upper is None):
-        raise ValueError("u_lower and u_upper must both be set or both None")
-    if delta_u is not None and u_lower is None:
-        raise ValueError("delta_u requires box bounds (u_lower/u_upper)")
+            if x_init.dim() != 2 or x_init.shape[1] != nx:
+                raise ValueError(f"x_init must be [n_batch, n_state={nx}], "
+                                 f"got {tuple(x_init.shape)}")
+            if (u_lower is None) != (u_upper is None):
+                raise ValueError("u_lower and u_upper must both be set or both None")
+            if delta_u is not None and u_lower is None:
+                raise ValueError("delta_u requires box bounds (u_lower/u_upper)")
 
-    dev, dtype = x_init.device, x_init.dtype
-    if isinstance(cost, QuadCost):
-        cost = QuadCost(cost.C.to(dev, dtype), cost.c.to(dev, dtype))
-    # a (cost_fn, cost_params) pair passes through as it is: the backward
-    # returns the cost parameters' gradients
-    if isinstance(dynamics, LinDx):
-        dynamics = LinDx(dynamics.F.to(dev, dtype),
-                         None if dynamics.f is None else dynamics.f.to(dev, dtype))
-    elif params is not None:
-        params = params_to(params, dev, dtype)
+            dev, dtype = x_init.device, x_init.dtype
+            if isinstance(cost, QuadCost):
+                cost = QuadCost(cost.C.to(dev, dtype), cost.c.to(dev, dtype))
+            # a (cost_fn, cost_params) pair passes through as it is: the
+            # backward returns the cost parameters' gradients
+            if isinstance(dynamics, LinDx):
+                dynamics = LinDx(dynamics.F.to(dev, dtype),
+                                 None if dynamics.f is None else dynamics.f.to(dev, dtype))
+            elif params is not None:
+                params = params_to(params, dev, dtype)
 
-    # hints for the kernel: the user's compact example-invariant cost and a
-    # known-zeros warm start; only exactly conforming pairs qualify
-    cost_small = None
-    if isinstance(cost, QuadCost):
-        Cs_, cs_ = cost.C, cost.c
-        if (Cs_.dim() == 2 and cs_.dim() == 1) or (
-            Cs_.dim() == 3 and cs_.dim() == 2
-            and Cs_.shape[0] == T and cs_.shape[0] == T
-        ):
-            cost_small = (Cs_, cs_)
-    u_init_zero = u_init is None
+            # hints for the kernel: the user's compact example-invariant cost
+            # and a known-zeros warm start; only exactly conforming pairs
+            # qualify
+            cost_small = None
+            if isinstance(cost, QuadCost):
+                Cs_, cs_ = cost.C, cost.c
+                if (Cs_.dim() == 2 and cs_.dim() == 1) or (
+                    Cs_.dim() == 3 and cs_.dim() == 2
+                    and Cs_.shape[0] == T and cs_.shape[0] == T
+                ):
+                    cost_small = (Cs_, cs_)
+            u_init_zero = u_init is None
 
-    cost = canonicalize_cost(cost, T, B, cfg.n_tau)
-    dynamics = canonicalize_lindx(dynamics, T, B)
-    u_init_tm = canonicalize_u_init(u_init, T, B, nu, x_init)
-    lb = canonicalize_bound(u_lower, T, B, nu, x_init)
-    ub = canonicalize_bound(u_upper, T, B, nu, x_init)
-    uz = u_zero_I.transpose(0, 1).to(dev) if u_zero_I is not None else None
+            cost = canonicalize_cost(cost, T, B, cfg.n_tau)
+            dynamics = canonicalize_lindx(dynamics, T, B)
+            u_init_tm = canonicalize_u_init(u_init, T, B, nu, x_init)
+            lb = canonicalize_bound(u_lower, T, B, nu, x_init)
+            ub = canonicalize_bound(u_upper, T, B, nu, x_init)
+            uz = u_zero_I.transpose(0, 1).to(dev) if u_zero_I is not None else None
 
-    unaug = None
-    if cfg.slew_rate_penalty is not None:
-        cfg, cost, dynamics, params, x_init = augment_slew_rate(
-            cfg, cost, dynamics, params, x_init, prev_ctrl)
-        unaug = nu  # strip the first nu state coordinates on return
-        cost_small = None  # the augmented cost is rebuilt at [T,B,...]
+            unaug = None
+            if cfg.slew_rate_penalty is not None:
+                cfg, cost, dynamics, params, x_init = augment_slew_rate(
+                    cfg, cost, dynamics, params, x_init, prev_ctrl)
+                unaug = nu  # strip the first nu state coordinates on return
+                cost_small = None  # the augmented cost is rebuilt at [T,B,...]
 
-    x, u, costs, full_du_norm, n_iter = solve_with_grad(
-        cfg, cost, dynamics, params, x_init, u_init_tm, lb, ub, uz, delta_u,
-        cost_small=cost_small, u_init_zero=u_init_zero,
-    )
-    if unaug is not None:
-        x = x[:, :, unaug:]
+        x, u, costs, full_du_norm, n_iter = solve_with_grad(
+            cfg, cost, dynamics, params, x_init, u_init_tm, lb, ub, uz, delta_u,
+            cost_small=cost_small, u_init_zero=u_init_zero,
+        )
+        if unaug is not None:
+            x = x[:, :, unaug:]
 
-    # exit_unconverged warns inside the solve (diff/modes.py), where the
-    # tensors are real under torch.func.vmap
-    return SolveResult(
-        x=x.transpose(0, 1),
-        u=u.transpose(0, 1),
-        costs=costs.detach(),
-        converged=full_du_norm < cfg.eps,
-        full_du_norm=full_du_norm.detach(),
-        n_iter=n_iter,
-    )
+        # exit_unconverged warns inside the solve (diff/modes.py), where the
+        # tensors are real under torch.func.vmap
+        return SolveResult(
+            x=x.transpose(0, 1),
+            u=u.transpose(0, 1),
+            costs=costs.detach(),
+            converged=full_du_norm < cfg.eps,
+            full_du_norm=full_du_norm.detach(),
+            n_iter=n_iter,
+        )

@@ -91,6 +91,7 @@ from torch.func import jvp, vmap
 from ...models.base import Dynamics, MlpSpec
 from ...types import GradMethod, ILQRConfig, LinDx
 from ...utils.batch import clamp, inv_small
+from ...utils.profiling import span
 from ..pnqp import ARMIJO_DECAY, CONV_TOL, GAMMA, MAX_ARMIJO_ITER, REG
 from . import build, traced
 from .traced import StepOps
@@ -667,58 +668,60 @@ def ilqr_fused_probe(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
 def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
             cluster, probe=False):
     global LAUNCHES
-    T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
-    lin = isinstance(dyn, LinDx)
-    geo = geometry(B, cluster, sizes=kernel_clusters(cfg, dyn))
-    Bp = geo.Bp
-    inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
-                  Bp)
-    dev = x_init.device
+    with span("ilqr_fused.prepare"):
+        T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
+        lin = isinstance(dyn, LinDx)
+        geo = geometry(B, cluster, sizes=kernel_clusters(cfg, dyn))
+        Bp = geo.Bp
+        inp = prepare(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
+                      Bp)
+        dev = x_init.device
 
-    # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
-    work = torch.empty(T * (3 * (nx + nu) + nu * nx + nu) * Bp, dtype=torch.float32, device=dev)
-    bx = torch.zeros(T, nx, Bp, dtype=torch.float32, device=dev)
-    bu = torch.zeros(T, nu, Bp, dtype=torch.float32, device=dev)
-    bc = torch.empty(Bp, dtype=torch.float32, device=dev)
-    bdu = torch.empty(Bp, dtype=torch.float32, device=dev)
-    iters = torch.empty(geo.tiles, dtype=torch.int32, device=dev)
-    stats = torch.zeros(geo.tiles, 3, dtype=torch.int64, device=dev) if probe else None
-    smids = torch.full((geo.blocks,), -1, dtype=torch.int32, device=dev) if probe else None
+        # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
+        work = torch.empty(T * (3 * (nx + nu) + nu * nx + nu) * Bp, dtype=torch.float32,
+                           device=dev)
+        bx = torch.zeros(T, nx, Bp, dtype=torch.float32, device=dev)
+        bu = torch.zeros(T, nu, Bp, dtype=torch.float32, device=dev)
+        bc = torch.empty(Bp, dtype=torch.float32, device=dev)
+        bdu = torch.empty(Bp, dtype=torch.float32, device=dev)
+        iters = torch.empty(geo.tiles, dtype=torch.int32, device=dev)
+        stats = torch.zeros(geo.tiles, 3, dtype=torch.int64, device=dev) if probe else None
+        smids = torch.full((geo.blocks,), -1, dtype=torch.int32, device=dev) if probe else None
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
+        def ptr(t):
+            return 0 if t is None else t.data_ptr()
 
-    # the head of the arguments: the LinDx shape's library and its F/f, or
-    # the env's and its params
-    ctr = None if inp.cost is None else inp.cost.trace
-    Tc = 1 if ctr is not None else inp.C.shape[0]
-    # a callable cost's params, then what its captured tensors hold now
-    cp = None if ctr is None else traced.launch_params(inp.C, ctr.captured, dev)
-    if lin:
-        fn = _entry(with_cost(lindx_spec(nx, nu, inp.lanes), ctr), "dilqr_ilqr_lindx", 6, 2)
-        head = (nx, nu, T, Bp, int(inp.lanes), Tc, ptr(inp.F), ptr(inp.f))
-    else:
-        env = dyn.device_env
-        p = params.to(torch.float32).contiguous()
-        if is_traced(dyn):
-            model = traced.model(dyn, nx, nu, params.shape[0], dev)
-            if model is None:
-                raise ValueError("the model's step or linearize_point does not trace into the "
-                                 "kernel (ops/cuda/traced.py)")
-            spec = user_spec(model, ctr, cfg.grad_method is GradMethod.AUTO_DIFF, inp.lanes)
-            env = ENV_TRACED
-            p = traced.launch_params(p, model.captured, dev)
-        elif dyn.device_mlp is not None:
-            spec = with_cost(mlp_spec(dyn.device_mlp, inp.lanes), ctr)
+        # the head of the arguments: the LinDx shape's library and its F/f, or
+        # the env's and its params
+        ctr = None if inp.cost is None else inp.cost.trace
+        Tc = 1 if ctr is not None else inp.C.shape[0]
+        # a callable cost's params, then what its captured tensors hold now
+        cp = None if ctr is None else traced.launch_params(inp.C, ctr.captured, dev)
+        if lin:
+            fn = _entry(with_cost(lindx_spec(nx, nu, inp.lanes), ctr), "dilqr_ilqr_lindx", 6, 2)
+            head = (nx, nu, T, Bp, int(inp.lanes), Tc, ptr(inp.F), ptr(inp.f))
         else:
-            spec = with_cost(env_spec(cfg.grad_method, dyn.device_env), ctr)
-        fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
-        head = (env, T, Bp, int(inp.lanes), Tc, p.data_ptr())
-    # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
-    pad = (0.0,) * (MAX_NU - nu)
-    lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
-    with torch.cuda.device(dev):
+            env = dyn.device_env
+            p = params.to(torch.float32).contiguous()
+            if is_traced(dyn):
+                model = traced.model(dyn, nx, nu, params.shape[0], dev)
+                if model is None:
+                    raise ValueError("the model's step or linearize_point does not trace into the "
+                                     "kernel (ops/cuda/traced.py)")
+                spec = user_spec(model, ctr, cfg.grad_method is GradMethod.AUTO_DIFF, inp.lanes)
+                env = ENV_TRACED
+                p = traced.launch_params(p, model.captured, dev)
+            elif dyn.device_mlp is not None:
+                spec = with_cost(mlp_spec(dyn.device_mlp, inp.lanes), ctr)
+            else:
+                spec = with_cost(env_spec(cfg.grad_method, dyn.device_env), ctr)
+            fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
+            head = (env, T, Bp, int(inp.lanes), Tc, p.data_ptr())
+        # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
+        pad = (0.0,) * (MAX_NU - nu)
+        lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
         stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev), span("ilqr_fused.launch"):
         rc = fn(*head, inp.x_init.data_ptr(), (inp.C if cp is None else cp).data_ptr(),
                 0 if ctr is not None else inp.c.data_ptr(), ptr(inp.u_init),
                 lo_c, hi_c, ptr(inp.lb), ptr(inp.ub), ptr(inp.uz), int(inp.uz_free),

@@ -1,13 +1,23 @@
 """Profiling helpers (counterpart of ``dilqr_tpu/utils/profiling.py``):
-torch.profiler traces, pipelined wall times, a throughput summary and the
-device's own time read from a trace.
+torch.profiler traces, the program's own spans, pipelined wall times and
+the device's own time read from a trace.
 
     with trace("/tmp/ilqr_trace"):
         run_solves()
-    # -> /tmp/ilqr_trace/trace.json, for chrome://tracing or Perfetto
+    # -> /tmp/ilqr_trace/trace.json, for chrome://tracing or Perfetto, with
+    #    the solve path's spans (dilqr.solve, ...) beside the kernels they launched
+    span_totals()  # {"solve": (count, host ms), "ilqr.gate": ..., ...}
 
-    report = throughput_report(fn, *args, batch=B, flops_per_example=...,
-                               peak_flops=...)
+**Spans.** The solve path opens ``span(name)`` where its host work lies:
+``solve`` (``core/solver.solve``), ``solve.canonicalize`` inside it,
+``ilqr.gate`` (``core/ilqr.ilqr_loop`` until the kernel is chosen),
+``ilqr_fused.prepare`` and ``ilqr_fused.launch`` (``ops/cuda/ilqr_fused``).
+The profiler session is the switch: with none active a span reads one flag
+and does nothing more; under one it is the range ``SPAN_PREFIX + name`` and
+one entry ``(name, start_ns, end_ns)`` of ``span_log``, stamped on the
+host's clock (``time.time_ns``, which the profiler's host timestamps
+follow) inside the range. The log keeps the newest ``SPAN_LOG_LEN``
+entries; ``span_totals`` sums them by name.
 
 A device time is the union of the device activities' intervals: the
 profiler also gives each host operator and annotated range the device time
@@ -28,13 +38,86 @@ last window that is still short as not measured (``kernel_ms``).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import os
 import time
-from typing import Any, Callable, Optional
+from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "dilqr."  # a span's range in the profiler: the prefix, then its name
+SPAN_LOG_LEN = 1 << 17  # the span log keeps the newest this many entries
+
+_SPAN_LOG: collections.deque = collections.deque(maxlen=SPAN_LOG_LEN)
+# a span's range: the profiler's direct range where torch has it, else
+# record_function. Under a CPU-only session the direct range costs about a
+# microsecond, where the dispatched record_function op took 5-90 us once the
+# session held a thousand ops, its timestamps as far from a stamp taken
+# inside it; under a CUDA session each costs some 20-27 us
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None) \
+    or _autograd_profiler.record_function
+
+
+class _NoSpan:
+    """A span with no profiler session active: nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """A span under a profiler session: its range, and its log entry
+    stamped inside the range."""
+
+    __slots__ = ("name", "_range", "_start")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = _RANGE(SPAN_PREFIX + name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _SPAN_LOG.append((self.name, self._start, time.time_ns()))
+        return self._range.__exit__(*exc)
+
+
+def span(name: str):
+    """The span ``name`` around a block of the solve path: under an active
+    torch.profiler session the range ``SPAN_PREFIX + name`` and an entry
+    of ``span_log``; otherwise the one shared object that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def span_log() -> List[Tuple[str, int, int]]:
+    """A copy of the span log: ``(name, start_ns, end_ns)`` in the order
+    the spans ended (an inner span before the one around it)."""
+    return list(_SPAN_LOG)
+
+
+def span_totals() -> Dict[str, Tuple[int, float]]:
+    """The span log summed by name: ``{name: (count, host ms)}``."""
+    out: Dict[str, Tuple[int, float]] = {}
+    for name, start, end in list(_SPAN_LOG):
+        n, ms = out.get(name, (0, 0.0))
+        out[name] = (n + 1, ms + (end - start) / 1e6)
+    return out
 
 
 def _sync() -> None:
@@ -109,21 +192,6 @@ def timeit(fn: Callable, *args, n: int = 20, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) / n
 
 
-def throughput_report(fn: Callable, *args, batch: int,
-                      flops_per_example: Optional[float] = None,
-                      peak_flops: Optional[float] = None, n: int = 20) -> dict:
-    """Solves a second for a batched call; with a FLOP count per example
-    the achieved FLOP/s, and with the device's peak FLOP/s (from its data
-    sheet, for its dtype) the share of that peak. No peak, no share."""
-    dt = timeit(fn, *args, n=n)
-    rep: dict[str, Any] = {"wall_s_per_call": dt, "examples_per_s": batch / dt}
-    if flops_per_example is not None:
-        rep["achieved_flops"] = batch * flops_per_example / dt
-        if peak_flops is not None:
-            rep["peak_fraction"] = rep["achieved_flops"] / peak_flops
-    return rep
-
-
 def device_events(prof):
     """The device's own activities in a torch.profiler trace: kernels and
     copies, without the host operators and ranges the profiler also gives
@@ -173,38 +241,3 @@ def kernel_ms(fn: Callable, name: str, calls: int = 20):
             break
     others = sorted({e.name for e in device if name not in e.name})
     return (sum(runs) / len(runs) / 1e3 if len(runs) >= calls else math.nan), len(runs), others
-
-
-def device_kernel_ms(fn: Callable, *args, n: int = 10, match: str = "ilqr") -> dict:
-    """Device time a call from a torch.profiler trace of ``n`` pipelined
-    calls: ``matched_ms`` (the activities whose name contains ``match``,
-    e.g. a kernel), ``device_busy_ms`` (the union of all device
-    activities) and ``top`` (the 5 device activities with the most time,
-    by name). Host gaps and dispatch are left out, so matched_ms is the
-    time a roofline share divides by."""
-    fn(*args)
-    with profiled() as prof:
-        for _ in range(n):
-            fn(*args)
-    device = device_events(prof)
-    durs: dict = {}
-    for e in device:
-        durs[e.name] = durs.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    matched = sum(v for k, v in durs.items() if match in k.lower())
-    top = sorted(durs.items(), key=lambda kv: -kv[1])[:5]
-    return {"matched_ms": matched / 1e3 / n, "device_busy_ms": busy_ms(device) / n,
-            "top": [(k, v / 1e3 / n) for k, v in top]}
-
-
-def ilqr_flops_per_example(T: int, nx: int, nu: int, lqr_iter: int,
-                           ls_trials: int = 2) -> float:
-    """Rough FLOP count of one iLQR solve per example (rollout, n-probe
-    linearization, Riccati and line search), for roofline context."""
-    n = nx + nu
-    step = 8 * nx  # envs are a few dozen elementwise ops
-    lin = n * 2 * step
-    ric = 2 * (nx * n * nx + n * n * nx) + 4 * n * n
-    obj = 2 * n * n
-    trial = nu * nx * 2 + step + obj
-    per_iter = T * (step + obj + lin + ric + ls_trials * trial)
-    return float(lqr_iter * per_iter)

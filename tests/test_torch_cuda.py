@@ -11,6 +11,7 @@ loose on-device bound of docs/DESIGN.md:103-107 (u moves by about 1e-2 at
 bang-bang switching points between two equally converged optima); the
 Riccati kernel within 2e-6 + 1e-5 max|plain| of its plain version (JAX's
 2e-6 plus FMA contraction over a 20-step recursion)."""
+import collections
 import dataclasses
 import os
 
@@ -1157,6 +1158,52 @@ def test_profiler_records_every_kernel_launch(dev):
     assert fused.LAUNCHES - before == 1
     assert sum("ilqr_fused_kernel" in e.name for e in events) == 1
     assert len(events) > 1
+
+
+def test_kernel_solve_logs_its_spans_and_each_kernel_starts_after_its_launch(dev, monkeypatch):
+    """Five MPC solves on kernel 1 in a ``profiled`` window: each logs
+    ``solve`` around ``solve.canonicalize``, ``ilqr.gate``,
+    ``ilqr_fused.prepare`` and ``ilqr_fused.launch``, each launch entry
+    within 20 us of the profiler's ``dilqr.ilqr_fused.launch`` range, and
+    each kernel's device interval starts after that range does."""
+    from dilqr_tpu_torch.utils import profiling
+
+    dyn, params = cartpole.make(), cartpole.default_params(device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    th = 3.0 + 0.2 * torch.randn(4096, generator=torch.Generator().manual_seed(19))
+    z = torch.zeros(4096)
+    x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+    mpc = P.MPC(5, 1, 20, u_lower=-100.0, u_upper=100.0, lqr_iter=5, eps=1e-4,
+                backprop=False, exit_unconverged=False)
+
+    def solve():
+        return mpc.solve(x0, P.QuadCost(torch.diag(q), p), dyn, params=params)
+
+    solve()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(profiling, "_SPAN_LOG", collections.deque())
+    before = fused.LAUNCHES
+    with profiling.profiled() as prof:
+        for _ in range(5):
+            solve()
+    log = profiling.span_log()
+    assert fused.LAUNCHES - before == 5
+    assert [e[0] for e in log] == ["solve.canonicalize", "ilqr.gate", "ilqr_fused.prepare",
+                                   "ilqr_fused.launch", "solve"] * 5
+    # microseconds from the trace's start, the profiler's time_range
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in prof.events() if e.name == "dilqr.ilqr_fused.launch")
+    launches = [((s - t0) / 1e3, (t - t0) / 1e3) for name, s, t in log
+                if name == "ilqr_fused.launch"]
+    assert len(ranges) == 5
+    for (a, b), (s, t) in zip(ranges, launches):
+        assert -1 <= s - a <= 20 and -1 <= b - t <= 20, (s - a, b - t)
+    kernels = sorted(e.time_range.start for e in profiling.device_events(prof)
+                     if "ilqr_fused_kernel" in e.name)
+    assert len(kernels) == 5
+    assert all(k >= a for k, (a, _) in zip(kernels, ranges)), \
+        [k - a for k, (a, _) in zip(kernels, ranges)]
 
 
 def _sweep_problem(dev, B):

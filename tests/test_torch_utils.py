@@ -1,13 +1,14 @@
 """The port's utilities against the JAX package's: table_log's text and the
 solver's verbose table, numdiff's central differences, and the profiling
-helpers (the busy time as a union of intervals, timeit, the throughput
-report, the FLOP model, a trace file), on the CPU.
+helpers (the busy time as a union of intervals, timeit, a trace file with
+the solve path's spans), on the CPU.
 
 Tolerances: the table text is compared character for character; the
 verbose solve's numbers (printed to 5 significant digits) within 5e-4
 relative; numdiff at f64 within 1e-9 of JAX's (the same differences of the
 same function, rounding aside) and within 1e-6 of the exact derivative
 (central differences at eps 1e-4 on order-one functions)."""
+import json
 import os
 
 import jax
@@ -20,7 +21,6 @@ import dilqr_tpu as J
 from dilqr_tpu.models import pendulum as jpend
 from dilqr_tpu.utils import logging as jlog
 from dilqr_tpu.utils import numdiff as jnd
-from dilqr_tpu.utils import profiling as jprof
 import dilqr_tpu_torch as P
 from dilqr_tpu_torch.convert import from_numpy
 from dilqr_tpu_torch.models import pendulum as tpend
@@ -151,18 +151,16 @@ def test_timeit_and_reports_on_cpu(tmp_path):
     x = torch.ones(8)
     dt = tprof.timeit(fn, x, n=5, warmup=2)
     assert dt > 0 and len(calls) == 7
-    rep = tprof.throughput_report(fn, x, batch=8, n=3)
-    assert set(rep) == {"wall_s_per_call", "examples_per_s"}
-    rep = tprof.throughput_report(fn, x, batch=8, flops_per_example=100.0, n=3)
-    assert set(rep) == {"wall_s_per_call", "examples_per_s", "achieved_flops"}
-    rep = tprof.throughput_report(fn, x, batch=8, flops_per_example=100.0, peak_flops=1e12,
-                                  n=3)
-    assert rep["peak_fraction"] == pytest.approx(rep["achieved_flops"] / 1e12)
-    for args in ((20, 5, 1, 20), (20, 13, 3, 15, 5)):
-        assert tprof.ilqr_flops_per_example(*args) == jprof.ilqr_flops_per_example(*args)
-    # the CPU has no device activities: nothing matched, nothing busy
-    dk = tprof.device_kernel_ms(fn, x, n=2, match="mul")
-    assert dk["matched_ms"] == 0.0 and dk["device_busy_ms"] == 0.0 and dk["top"] == []
+    # the chrome trace holds the solve path's spans beside its operators
+    th = torch.tensor([0.3, -0.4])
+    x0 = torch.stack([th.cos(), th.sin(), torch.zeros(2)], 1)
+    q, p = tpend.get_true_obj()
+    mpc = P.MPC(3, 1, 4, u_lower=-2.0, u_upper=2.0, lqr_iter=2, exit_unconverged=False,
+                backprop=False)
     with tprof.trace(str(tmp_path / "tr")):
         fn(x)
+        mpc.solve(x0, P.QuadCost(torch.diag(q), p), tpend.make(), params=tpend.default_params())
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    with open(tmp_path / "tr" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"dilqr.solve", "dilqr.solve.canonicalize", "dilqr.ilqr.gate"} <= names
