@@ -386,9 +386,8 @@ ILQR_ENTRY = (r"_ZN5dilqr(?:17ilqr_fused_kernel|20ilqr_fused_kernel_mb)INS_\d+(\
               r"ELi(\d+)ELb(\d)E\w*?EEv")
 # <Env, NU, block threads, per-example cost>: cartpole, pendulum and the
 # rocket with either cost form and their slew-rate wrappers with the
-# per-example one, at 128 and 64 threads a block, but the rocket's wrapper
-# at 64 only (its shared memory)
-ILQR_KERNELS = 17
+# per-example one, at 128 and 64 threads a block
+ILQR_KERNELS = 18
 KKT_ENTRY = r"_ZN5dilqr16kkt_fused_kernelILi(\d+)ELi(\d+)EEEv"
 # the KKT instantiations a main path runs: (5,1) and (6,1) at 8 lanes, the
 # rocket's (13,3) at 16
@@ -423,7 +422,8 @@ def cluster_report(torch, fused, card, label, args, ms):
     out, stats, smids = fused.ilqr_fused_probe(*args)
     votes, in_votes, total = (stats[:, i].double() for i in range(3))
     share = (in_votes / total).max().item()
-    print(f"clusters {label}: {stats.shape[0]} clusters of {G} blocks, {smids.numel()} blocks on "
+    print(f"clusters {label}: {stats.shape[0]} clusters of {G} blocks in {fused.WAVES} waves, "
+          f"{smids.numel()} blocks on "
           f"{len(set(smids.tolist()))} SMs; votes a tile {int(votes.min())}-{int(votes.max())}, "
           f"in votes {share:.3f} of the kernel's clock at most (about {share * ms:.3f} of "
           f"{ms:.3f} ms) [{card}]", flush=True)
@@ -828,7 +828,7 @@ def main():
               f"({', '.join(f'{r:.3f}' for r in runs)}), {B / ms * 1e3:.0f} solves/s, "
               f"n_iter {int(out[4])} [{card}]", flush=True)
     # the rocket's other cluster size (inputs from their own generator),
-    # and one probed launch at B=1024
+    # and one probed launch at B=1024 and at B=16384
     cgen = torch.Generator(device="cpu").manual_seed(SEED + 4)
     for B in (1024, 16384, 132 * fused.TILE):
         xg = rocket.bench_start(B, cgen, device=dev)
@@ -839,9 +839,10 @@ def main():
             figs.append(f"G={G}: {ms_g:.3f} ms ({', '.join(f'{r:.3f}' for r in runs)})")
         print(f"time ilqr_fused rocket B={B} by cluster size: {'; '.join(figs)} [{card}]",
               flush=True)
-    cluster_report(torch, fused, card, "rocket B=1024",
-                   (r_cfg, r_dyn, r_params, rocket.bench_start(1024, cgen, device=dev), r_cs, None,
-                    r_dyn.lower, r_dyn.upper), r_ms[1024])
+    for B in (1024, 16384):
+        cluster_report(torch, fused, card, f"rocket B={B}",
+                       (r_cfg, r_dyn, r_params, rocket.bench_start(B, cgen, device=dev), r_cs,
+                        None, r_dyn.lower, r_dyn.upper), r_ms[B])
     x0 = rocket.bench_start(1024, rgen, device=dev)
     r_plain_ms, _ = cuda_ms(lambda: fused.ilqr_fused_reference(
         r_cfg, r_dyn, r_params, x0, r_cs, None, r_dyn.lower, r_dyn.upper), 1, 3)

@@ -33,9 +33,8 @@ cudaError_t launch_slew(int lanes, F f) {
 
 // Calls f(Launch<Env, NU, 1024 / G, LANES>{}) for the env, the cost form
 // and the cluster size G in {8, 16}: blocks of 128 or 64 threads (the
-// rocket's shared memory caps a block at 128 examples, its slew-rate
-// wrapper's (NX = 16: 2,520 bytes an example) at 64, so that one has G =
-// 16 only; at 256 threads ptxas gave the pendulum 64 registers and a
+// slew-rate rocket's shared memory, 1,280 bytes an example, caps a block at
+// 128 examples; at 256 threads ptxas gave the pendulum 64 registers and a
 // stack). The slew-rate wrappers take the per-example cost only (the
 // wrapper expands an example-invariant one). Anything else is
 // cudaErrorInvalidValue.

@@ -1062,23 +1062,80 @@ struct StepVariant {
 
 // ---- the Riccati step over strided storage (nu = 2..8; nu = 1 past
 // kRegisterNx states) ----
-// One example's V, Q and F sit in strided storage: on the device
+// One example's V and Q sit in strided storage: on the device
 // [entry][example] in the block's shared memory, so none of them is in
 // local memory; v, q, the gains and one block of columns of V F are
-// registers. V and Q are kept as their upper triangles.
+// registers. V and Q are kept as their upper triangles. Where V, Q and F
+// together let two blocks of 128 examples share an SM (kTwoBlockFloats),
+// F is dense in the store too (the whole layout). Past that (the split
+// layout: the rocket, its slew-rate wrapper, the larger LinDx, MLP and
+// traced shapes) F leaves the store for a scratch of the launch in device
+// memory, [entry][example] a block as the store is (a LinDx's F too: read
+// in place, at the data's run-time stride, it spilled 2.9 KB on LinDx (15,
+// 2)), and so does Q's Quu block, which is the box-QP's Hessian and is
+// formed in registers; q waits in the scratch while Q is formed.
 
 // columns of V F formed together: each V entry is read once per block
 constexpr int kColBlock = 4;
 
-// the offsets (in entries) of V, Q and F in one example's storage
+// A store to and a load from device memory that the compiler keeps where
+// they stand (inline PTX): it neither carries the value in a register
+// between them nor moves them. The split layout parks q in the scratch
+// with these while Q is formed; plain accesses were forwarded into
+// registers, which ptxas then spilled (measured: 432 bytes of stack on the
+// rocket).
+DILQR_HD void store_kept(float* p, float v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.global.f32 [%0], %1;" ::"l"(p), "f"(v) : "memory");
+#else
+  *p = v;
+#endif
+}
+DILQR_HD float load_kept(const float* p) {
+#ifdef __CUDA_ARCH__
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return *p;
+#endif
+}
+
+// p, through a move the compiler cannot see through: a pointer formed from
+// it inside a loop is formed there again, not held in registers across the
+// loop
+DILQR_HD float* opaque(float* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.b64 %0, %0;" : "+l"(p));
+#endif
+  return p;
+}
+
+// Floats an example may take in the store for two blocks of 128 examples
+// (whole warps, kMaxWarps) to share an SM: a Hopper SM has 233,472 bytes
+// of shared memory and keeps 1,024 of them a block, and a block's vote
+// words (2 x kMaxWarps) are static shared memory beside the store: 225.
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemReservedPerBlock = 1024;
+constexpr int kTwoBlockFloats =
+    (kSmemPerSm / 2 - kSmemReservedPerBlock - 2 * kMaxWarps * (int)sizeof(unsigned)) /
+    ((int)sizeof(float) * 32 * kMaxWarps);
+
+// the offsets (in entries) of V, Q and F in one example's storage; kF is -1
+// in the split layout, whose F is in the scratch and whose Q ends before its
+// Quu block (the last entries of the triangle)
 template <class Env, int NU>
 struct BoxStepLayout {
   static constexpr int NX = Env::NX;
   static constexpr int N = NX + NU;
+  static constexpr int kWhole = SymMat<NX>::kSize + SymMat<N>::kSize + NX * N;
+  static constexpr bool kSplit = kWhole > kTwoBlockFloats;
   static constexpr int kV = 0;
   static constexpr int kQ = kV + SymMat<NX>::kSize;
-  static constexpr int kF = kQ + SymMat<N>::kSize;
-  static constexpr int kFloats = kF + NX * N;
+  static constexpr int kF = kSplit ? -1 : kQ + SymMat<N>::kSize;
+  static constexpr int kFloats = kSplit ? kQ + SymMat<N>::kSize - SymMat<NU>::kSize : kWhole;
+  // floats an example of the launch's scratch: F, then q while Q is formed
+  static constexpr int kScratch = kSplit ? NX * N + N : 0;
 };
 
 // One reverse Riccati step at tau = (x_t, u_t), the arithmetic of the JAX
@@ -1094,28 +1151,62 @@ struct BoxStepLayout {
 // (var.masked) takes the free subspace instead (:1313-1334): If = 1 - Iz,
 // H_free = Quu * If If^T + 1e-8 diag(Iz), k = -inv(H_free) (qu * If), and
 // no box-QP. One control takes the closed-form 1-D QP (or, masked, k =
-// -(qu If) / Quu) instead. V and v are read and overwritten; `store` holds V, Q, F with
-// `stride` between entries (BoxStepLayout); lo/hi are this step's bounds.
+// -(qu If) / Quu) instead. V and v are read and overwritten; `store` holds V and Q (and F
+// in the whole layout) with `stride` between entries (BoxStepLayout), `fscratch` F and q
+// with `fstride` between entries in the split layout (else unused); lo/hi are this step's
+// bounds. The layouts hold the same numbers and sum
+// them in the same order. Where `quu` points somewhere (the tests), it receives Quu,
+// [NU][NU] row-major, as the box-QP takes it.
 template <class Env, int NU, class Cost = CostView>
 DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, const Cost& cost,
                                const float* lo, const float* hi, const StepVariant<NU>& var,
                                const float* warm, int pnqp_iter, TileVote& vote, float* store,
-                               int stride, float* v, float K[NU][Env::NX], float* kt) {
+                               int stride, float* fscratch, int fstride, float* v,
+                               float K[NU][Env::NX], float* kt, Strided quu = {nullptr, 0}) {
   using L = BoxStepLayout<Env, NU>;
   constexpr int NX = Env::NX;
   constexpr int N = NX + NU;
   const SymMat<NX> V{{store + L::kV * stride, stride}};
   const SymMat<N> Q{{store + L::kQ * stride, stride}};
-  const DenseMat<NX, N> F{{store + L::kF * stride, stride}};
+  const DenseMat<NX, N> F{L::kSplit ? Strided{fscratch, fstride}
+                                     : Strided{store + L::kF * stride, stride}};
+  // Q's entry (i, j), i <= j: Quu in H (the box-QP's Hessian, mirrored) in
+  // the split layout, else in the store
+  float H[NU][NU];
+  auto put_q = [&](int i, int j, float e) {
+    if (L::kSplit && i >= NX) {
+      H[i - NX][j - NX] = e;
+      H[j - NX][i - NX] = e;
+    } else {
+      Q(i, j) = e;
+    }
+  };
 
-  float q[N];  // C tau + c (a callable cost's g) here, F^T v added below
+  // q: C tau + c (a callable cost's g) here, F^T v added below; in the
+  // split layout in the scratch after F until Q is formed
+  float q[N];
+  float* const qs = fscratch + NX * N * fstride;
+  auto put_qv = [&](int i, float e) {
+    if constexpr (L::kSplit) {
+      store_kept(qs + i * fstride, e);
+    } else {
+      q[i] = e;
+    }
+  };
+  auto get_qv = [&](int i) -> float {
+    if constexpr (L::kSplit) {
+      return load_kept(qs + i * fstride);
+    } else {
+      return q[i];
+    }
+  };
 #pragma unroll
-  for (int i = 0; i < N; ++i) q[i] = cost.template shift<N>(i, tau);
+  for (int i = 0; i < N; ++i) put_qv(i, cost.template shift<N>(i, tau));
   if (last) {
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = i; j < N; ++j) Q(i, j) = cost.Ce(i * N + j);
+      for (int j = i; j < N; ++j) put_q(i, j, cost.Ce(i * N + j));
   } else {
     env.jac(tau, tau + NX, F);
 #pragma unroll
@@ -1152,20 +1243,24 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
           float s = 0.0f;
 #pragma unroll
           for (int k = 0; k < NX; ++k) s += fi[k] * tmp[jj][k];
-          Q(i, j) = cost.Ce(i * N + j) + s;
+          put_q(i, j, cost.Ce(i * N + j) + s);
         }
         if (i >= j0) {
           float fv = 0.0f;
 #pragma unroll
           for (int k = 0; k < NX; ++k) fv += fi[k] * v[k];
-          q[i] += fv;
+          put_qv(i, get_qv(i) + fv);
         }
       }
     }
   }
+  if constexpr (L::kSplit) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) q[i] = get_qv(i);
+  }
 
   // the box-QP in delta space
-  float H[NU][NU], qu[NU], lb[NU], ub[NU], w[NU];
+  float qu[NU], lb[NU], ub[NU], w[NU];
 #pragma unroll
   for (int r = 0; r < NU; ++r) {
     qu[r] = q[NX + r];
@@ -1175,8 +1270,14 @@ DILQR_HD void riccati_box_step(const Env& env, bool last, const float* tau, cons
       lb[r] = maximum(lb[r], -var.du);
       ub[r] = minimum(ub[r], var.du);
     }
+    if constexpr (!L::kSplit) {
 #pragma unroll
-    for (int s = 0; s < NU; ++s) H[r][s] = Q(NX + r, NX + s);
+      for (int s = 0; s < NU; ++s) H[r][s] = Q(NX + r, NX + s);
+    }
+    if (quu.p) {
+#pragma unroll
+      for (int s = 0; s < NU; ++s) quu[r * NU + s] = H[r][s];
+    }
   }
   float If[NU], Hf[NU][NU], Hinv[NU][NU];
   if constexpr (NU == 1) {

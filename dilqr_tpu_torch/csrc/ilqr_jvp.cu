@@ -16,8 +16,7 @@
 // -DDILQR_JVP_ENV=<device env id> -DDILQR_JVP_CLAMPED=<0 | 1> into its own
 // library in dilqr_tpu_torch/_build/, so ilqr_fused.cu keeps its
 // instantiations and its compile time. Each library has the cluster sizes
-// whose shared memory fits (G = 8 and 16; the 16-state slew-rate rockets 16
-// only) and both cost forms (the slew-rate wrappers the per-example one
+// whose shared memory fits (G = 8 and 16) and both cost forms (the slew-rate wrappers the per-example one
 // only), behind the C interface of ilqr_fused.cu.
 //
 // What bounds it is what bounds the kernel: a serial recursion per example,

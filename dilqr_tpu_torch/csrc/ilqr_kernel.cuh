@@ -64,24 +64,32 @@
 //    n_ctrl == 1 instantiation of the envs spills.
 //  * otherwise (n_ctrl > 1, or a LinDx problem with one control and more
 //    states): the rocket's V (13x13), Q (16x16) and F (13x16) would
-//    not fit in registers; they live in dynamic shared memory as triangles
-//    (V, Q) and a dense F, [entry][example], 1740 bytes an example: 128
-//    examples a block (G = 8) take 222,720 of the 232,448 bytes a block may
-//    have, 64 (G = 16) half that. The slew-rate rocket (16 states) takes
-//    2,520 bytes an example, so it runs at G = 16 only; so does a LinDx
-//    shape past 454 floats an example (ilqr_lindx.cu). Q is formed four
-//    columns of V F at a time, so each V entry is read once a column
-//    block. riccati_box_step in the header is that step, built with g++ in
-//    the tests.
+//    not fit in registers. V and Q live in dynamic shared memory as
+//    triangles, [entry][example]; F joins them, dense, where all three let
+//    two blocks of 128 examples share an SM (at most kTwoBlockFloats = 225
+//    floats an example: LinDx (3,2), the MLPs and traced models of few
+//    states). Past that (BoxStepLayout's split layout) F, and q while Q is
+//    formed, are the launch's device-memory scratch, [entry][example] a
+//    block, and Q's Quu block is registers (the box-QP's H): the rocket
+//    takes 221 floats (884 bytes) an example, so two blocks of 128 (G = 8; 113,152 bytes each)
+//    share an SM, where V, Q and F (1,740 bytes, 222,720 a block) left
+//    room for one: the card holds 30 rocket tiles at once, not 15. The slew-rate rocket (16 states) takes 1,280 bytes an example,
+//    one block of 128 or two of 64 an SM; a shape past 454 floats an
+//    example runs at G = 16 only (ilqr_lindx.cu). Q is formed four columns
+//    of V F at a time, so each V entry is read once a column block.
+//    riccati_box_step in the header is that step, built with g++ in the
+//    tests.
 //
 // What bounds it. The work is a long sequential recursion per example
 // (T steps x lqr_iter iterations x Riccati + line search) with little data:
 // it is bound by operations and their latency, not by bytes. A tile now
 // spans G SMs (B=4096 fills 32 of the 132 SMs at G = 8, the rocket's
 // B=1024 8), but each SM holds only 1024/G threads of it: few warps to hide
-// latency behind. Each vote is a cluster barrier; the rocket takes several
-// per Riccati step. PERF.md has the times, the vote counts and the
-// -Xptxas -v report.
+// latency behind. A launch of more tiles than the card holds at once
+// (cudaOccupancyMaxActiveClusters) runs in waves, each about as long as
+// one. Each vote is a cluster barrier; the rocket takes several per
+// Riccati step. PERF.md has the times, the vote counts and the -Xptxas -v
+// report.
 //
 // Numerics: f32, compiled without -use_fast_math (cosf/sinf are the
 // accurate versions, division and sqrt IEEE-rounded); rsqrtf and nvcc's
@@ -124,6 +132,8 @@ struct Args {
   int lqr_iter, max_ls_iter, not_improved_lim, pnqp_iter;
   float eps, ls_decay, best_cost_eps;
   float* work;  // scratch: 3 x [T, NX + NU, Bp] trajectories, then K [T, NU*NX, Bp], k [T, NU, Bp]
+                // and, where the Riccati step's layout puts F and q there, those
+                // [Bp/EX, kScratch, EX] (BoxStepLayout)
   float* bx;    // [T, NX, Bp] out: best x (zero-initialized by the wrapper)
   float* bu;    // [T, NU, Bp] out: best u (zero-initialized by the wrapper)
   float* bc;    // [Bp]        out: best cost
@@ -209,6 +219,21 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
   float* ur = ubuf(ref);
   float* Kg = a.work + 3 * sTraj;  // feedback gains
   float* kg = Kg + T * sK;         // feedforward gains
+  // the step's Jacobian and q where the layout keeps them here,
+  // [entry][example] a block as in shared memory: the compile-time stride
+  // EX. With the per-example cost an env that computes its Jacobian forms
+  // the pointer again at each step, so that it holds no registers across
+  // the solve (measured on the rocket: 696 bytes of spill stores, 1,232
+  // with it held); the others hold it (forming it again cost the rocket's
+  // example-invariant cost 4% of the kernel's time, and LinDx (15, 2) 112
+  // bytes of stack).
+  constexpr bool kReform = LANES && BoxStepLayout<Env, NU>::kSplit && !kDataEnv<Env>;
+  auto f_scratch = [&]() {
+    float* w = kReform ? opaque(a.work) : a.work;
+    return w + 3 * sTraj + T * sK + T * sU +
+           (size_t)blockIdx.x * BoxStepLayout<Env, NU>::kScratch * EX + threadIdx.x;
+  };
+  [[maybe_unused]] float* const Fs = kReform ? nullptr : f_scratch();
 
   // step t's cost of this example (CostView): the example-invariant form's
   // entries are adjacent, the per-example form's Bp apart
@@ -415,7 +440,8 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
           v[i] = q[i] + Q[i][NX] * kt + K[i] * qk;
         }
       } else {
-        // V, Q, F in shared memory; the step is riccati_box_step
+        // V and Q in shared memory, F there or in device memory; the
+        // step is riccati_box_step
         float warm[NU], K[NU][NX], kt[NU];
         if (t < T - 1) {
           // warm start with the next step's k of this sweep
@@ -428,7 +454,8 @@ __device__ __forceinline__ void ilqr_solve(const Args& a) {
           for (int r = 0; r < NU; ++r) var.Iz[r] = a.uz[t * sU + r * Bp + b] ? 1.0f : 0.0f;
         }
         riccati_box_step<Env, NU>(env, t == T - 1, tau, cost, lo, hi, var, warm, a.pnqp_iter,
-                                  vote, box_store + threadIdx.x, EX, v, K, kt);
+                                  vote, box_store + threadIdx.x, EX, kReform ? f_scratch() : Fs,
+                                  EX, v, K, kt);
 #pragma unroll
         for (int r = 0; r < NU; ++r) {
 #pragma unroll

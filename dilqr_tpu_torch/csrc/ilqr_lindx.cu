@@ -10,9 +10,11 @@
 // -DDILQR_LINDX_LANES=<0 | 1> (the example-invariant or the per-example
 // cost) into its own library in dilqr_tpu_torch/_build/. Each has the
 // block sizes whose shared memory fits: 128 examples a block (a tile of
-// G = 8 blocks) while V, Q and F take at most 454 floats an example, and
-// 64 (G = 16) always. One control with at most kRegisterNx states keeps
-// them in registers instead.
+// G = 8 blocks) while the Riccati step's store (BoxStepLayout: V, Q and F,
+// or past 225 floats V and Q without Quu, F copied from the data into the
+// launch's scratch) takes at most 454 floats an example, and 64 (G = 16)
+// always. One control with at most kRegisterNx states keeps them in
+// registers instead.
 //
 // What bounds it is what bounds the kernel (ilqr_kernel.cuh): a serial
 // recursion per example, T steps x lqr_iter iterations, little data; a

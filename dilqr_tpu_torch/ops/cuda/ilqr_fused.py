@@ -66,9 +66,11 @@ free-subspace gains with 1e-8 on frozen diagonals instead of the box-QP
 Launch geometry (``geometry``): one tile is one thread-block cluster of G
 blocks, 1024/G examples a block, one thread an example; the tile's
 decisions are cluster votes. G is 8 unless a caller measuring the kernel
-passes another (``cluster``), or 16 for the rocket's slew-rate wrapper and
-the LinDx shapes whose shared memory admits 64 examples a block
-(``lindx_clusters``, ``mlp_clusters``); the result does not depend on G.
+passes another (``cluster``), or 16 where two blocks of 128 examples cannot
+share an SM (past ``TWO_BLOCK_FLOATS``: the slew-rate rockets and the
+larger LinDx, MLP and traced shapes; ``box_layout``, ``lindx_clusters``,
+``ENV_CLUSTERS``); the result does not depend on G. A launch of more tiles
+than the card holds at once runs in waves (``WAVES``).
 A LinDx shape's library, an (env, method)'s jvp library, an MLP shape's,
 a traced model's and a callable cost's libraries are built at first use
 (one nvcc each) and cached in ``dilqr_tpu_torch/_build/``. A launch the card
@@ -100,7 +102,6 @@ SOURCE = "ilqr_fused.cu"
 TILE = 1024  # examples per tile: the JAX kernel's base tile
 # cluster sizes G (blocks a tile) csrc/ilqr_fused.cu instantiates
 CLUSTERS = (8, 16)
-DEFAULT_CLUSTER = 8
 # device_env -> (params, controls) the device code reads (EnvId in
 # csrc/ilqr_fused.cuh): cartpole, pendulum, rocket, Passthrough<> of each
 # (the slew-rate state), the complex pendulum, the renormalizing rocket and
@@ -110,9 +111,11 @@ DEVICE_ENVS = {0: (4, 1), 1: (3, 1), 2: (5, 3), 3: (4, 1), 4: (3, 1), 5: (5, 3),
 # the envs with a hand-derived Jacobian, instantiated in csrc/ilqr_fused.cu;
 # the others, and every env under AUTO_DIFF, take csrc/ilqr_jvp.cu
 HAND_JAC_ENVS = (0, 1, 2, 3, 4, 5)
-# the instantiations with fewer cluster sizes: the slew-rate rockets (16
-# states) need 2,520 shared bytes an example, so 64 examples a block
-ENV_CLUSTERS = {5: (16,), 9: (16,)}
+# the slew-rate rockets (16 states, 3 controls: 320 shared floats an
+# example, one block of 128 or two of 64 an SM) take G = 16 first, as
+# lindx_clusters orders such a shape: at B=1,024 it ran 0-3% faster than
+# G = 8, at B=16,384 about 1% slower (H100, PERF.md)
+ENV_CLUSTERS = {5: (16, 8), 9: (16, 8)}
 # the slew-rate wrappers are instantiated for the per-example cost only:
 # ``prepare`` expands an example-invariant cost for them
 LANES_ONLY = (3, 4, 5, 8, 9, 11)
@@ -167,9 +170,18 @@ LINDX_MAX_NX = {False: (15, 15, 14, 14, 13, 12, 12, 11),
                 True: (17, 16, 16, 15, 15, 14, 14, 13)}
 REGISTER_NX = 6  # kRegisterNx in csrc/ilqr_kernel.cuh
 MAX_SMEM = 232448  # kMaxSmem: dynamic shared bytes a Hopper block may have
+# kTwoBlockFloats in csrc/ilqr_fused.cuh: the floats an example may take in
+# shared memory for two blocks of 128 examples to share an SM (233,472
+# bytes an SM, 1,024 kept a block, 32 bytes of vote words a block)
+TWO_BLOCK_FLOATS = (233472 // 2 - 1024 - 32) // (4 * 128)
 
 # kernel launches made by ilqr_fused (the plain version does not count)
 LAUNCHES = 0
+# waves of the last launch: its tiles over the clusters the card holds at
+# once (cudaOccupancyMaxActiveClusters of the launched kernel)
+WAVES = 0
+# (library spec, entry arguments, G) -> max active clusters, read once
+_MAX_CLUSTERS = {}
 
 
 def _bound_is_static(v, nu: int) -> bool:
@@ -331,23 +343,54 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
 
 
 def clusters(device_env: int) -> Tuple[int, ...]:
-    """The cluster sizes the env's instantiation has."""
+    """The cluster sizes the env's instantiation has, its default first:
+    every env's blocks fit the shared memory at both."""
     return ENV_CLUSTERS.get(device_env, CLUSTERS)
 
 
-def lindx_floats(nx: int, nu: int) -> int:
-    """Floats of shared memory an example of a LinDx shape takes (V and Q
-    as triangles, F dense: BoxStepLayout), 0 on the register path."""
+class BoxLayout(NamedTuple):
+    floats: int   # shared floats an example takes, 0 on the register path
+    split: bool   # F out of shared memory, Quu in registers
+    scratch: int  # floats an example of the launch's scratch (F, then q)
+
+
+def box_layout(nx: int, nu: int) -> BoxLayout:
+    """The strided path's layout (BoxStepLayout in csrc/ilqr_fused.cuh):
+    V and Q as triangles, and F dense, in shared memory where the three
+    take at most TWO_BLOCK_FLOATS an example; past that V and Q without
+    its Quu block, and F and q in a device-memory scratch of the launch,
+    (nx + 1)*(nx+nu) floats an example. One control with at most
+    REGISTER_NX states keeps everything in registers."""
     if nu == 1 and nx <= REGISTER_NX:
-        return 0
+        return BoxLayout(0, False, 0)
     n = nx + nu
-    return nx * (nx + 1) // 2 + n * (n + 1) // 2 + nx * n
+    whole = nx * (nx + 1) // 2 + n * (n + 1) // 2 + nx * n
+    if whole <= TWO_BLOCK_FLOATS:
+        return BoxLayout(whole, False, 0)
+    return BoxLayout(whole - nx * n - nu * (nu + 1) // 2, True, (nx + 1) * n)
+
+
+def lindx_floats(nx: int, nu: int) -> int:
+    """Floats of shared memory an example of a LinDx shape (or an MLP, or
+    a traced model, of its n_state and n_ctrl) takes: ``box_layout``."""
+    return box_layout(nx, nu).floats
 
 
 def lindx_clusters(nx: int, nu: int) -> Tuple[int, ...]:
     """The cluster sizes a LinDx shape's library has: those whose blocks
-    (1024 / G examples) fit the shared memory (csrc/ilqr_lindx.cu)."""
-    return tuple(G for G in CLUSTERS if 4 * lindx_floats(nx, nu) * (TILE // G) <= MAX_SMEM)
+    (1024 / G examples) fit the shared memory (csrc/ilqr_lindx.cu), the
+    default first: G = 16 where two blocks of 128 cannot share an SM (past
+    TWO_BLOCK_FLOATS), where two or three of 64 can (LinDx (15, 2): 35.4
+    ms at B=16,384 against G = 8's 47.4 on an H100, PERF.md)."""
+    floats = lindx_floats(nx, nu)
+    sizes = tuple(G for G in CLUSTERS if 4 * floats * (TILE // G) <= MAX_SMEM)
+    return sizes[::-1] if floats > TWO_BLOCK_FLOATS else sizes
+
+
+def waves(geo: "Geometry", max_clusters: int) -> int:
+    """The waves a launch of ``geo`` runs in where the card holds
+    ``max_clusters`` of its clusters at once."""
+    return -(-geo.tiles // max(max_clusters, 1))
 
 
 def uses_jvp(grad_method: GradMethod, device_env: int) -> bool:
@@ -450,10 +493,10 @@ class Geometry(NamedTuple):
 def geometry(B: int, cluster: int = 0, device_env: int = 0,
              sizes: Optional[Tuple[int, ...]] = None) -> Geometry:
     """The kernel's launch shape for a batch of B; ``cluster`` 0 takes the
-    instantiation's default G (8 where it has it). ``sizes``: the cluster
-    sizes of the instantiation, by default the env's."""
+    instantiation's default G, the first of its sizes. ``sizes``: the
+    cluster sizes of the instantiation, by default the env's."""
     sizes = sizes or clusters(device_env)
-    G = cluster or (DEFAULT_CLUSTER if DEFAULT_CLUSTER in sizes else sizes[0])
+    G = cluster or sizes[0]
     if G not in sizes:
         raise ValueError(f"ilqr_fused instantiates clusters of {sizes} blocks here; got {G}")
     Bp = _padded(B)
@@ -667,7 +710,7 @@ def ilqr_fused_probe(cfg: ILQRConfig, dyn, params, x_init: torch.Tensor, cost,
 
 def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, delta_u,
             cluster, probe=False):
-    global LAUNCHES
+    global LAUNCHES, WAVES
     with span("ilqr_fused.prepare"):
         T, B, nx, nu = cfg.T, x_init.shape[0], cfg.n_state, cfg.n_ctrl
         lin = isinstance(dyn, LinDx)
@@ -678,8 +721,11 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
         dev = x_init.device
 
         # three trajectories [T, nx + nu, Bp], K [T, nu*nx, Bp], k [T, nu, Bp]
-        work = torch.empty(T * (3 * (nx + nu) + nu * nx + nu) * Bp, dtype=torch.float32,
-                           device=dev)
+        # and the Riccati step's F and q [(nx+1)*(nx+nu), Bp] where its layout
+        # puts them there
+        scratch = box_layout(nx, nu).scratch
+        work = torch.empty((T * (3 * (nx + nu) + nu * nx + nu) + scratch) * Bp,
+                           dtype=torch.float32, device=dev)
         bx = torch.zeros(T, nx, Bp, dtype=torch.float32, device=dev)
         bu = torch.zeros(T, nu, Bp, dtype=torch.float32, device=dev)
         bc = torch.empty(Bp, dtype=torch.float32, device=dev)
@@ -698,8 +744,10 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
         # a callable cost's params, then what its captured tensors hold now
         cp = None if ctr is None else traced.launch_params(inp.C, ctr.captured, dev)
         if lin:
-            fn = _entry(with_cost(lindx_spec(nx, nu, inp.lanes), ctr), "dilqr_ilqr_lindx", 6, 2)
+            spec = with_cost(lindx_spec(nx, nu, inp.lanes), ctr)
+            fn = _entry(spec, "dilqr_ilqr_lindx", 6, 2)
             head = (nx, nu, T, Bp, int(inp.lanes), Tc, ptr(inp.F), ptr(inp.f))
+            which = ("dilqr_ilqr_lindx_info", (nx, nu, int(inp.lanes)))
         else:
             env = dyn.device_env
             p = params.to(torch.float32).contiguous()
@@ -717,6 +765,7 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
                 spec = with_cost(env_spec(cfg.grad_method, dyn.device_env), ctr)
             fn = _entry(spec, "dilqr_ilqr_fused", 5, 1)
             head = (env, T, Bp, int(inp.lanes), Tc, p.data_ptr())
+            which = ("dilqr_ilqr_fused_info", (env, int(inp.lanes)))
         # kMaxNu-long arrays for the kernel's arguments, the env's bounds first
         pad = (0.0,) * (MAX_NU - nu)
         lo_c, hi_c = ((ctypes.c_float * MAX_NU)(*v, *pad) for v in (inp.lo, inp.hi))
@@ -734,6 +783,11 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
         raise RuntimeError(f"ilqr_fused kernel launch failed ({geo.tiles} clusters of "
                            f"{geo.cluster} blocks of {geo.block} threads): CUDA error {rc}")
     LAUNCHES += 1
+    key = (spec, which, geo.cluster)
+    if key not in _MAX_CLUSTERS:
+        with torch.cuda.device(dev):
+            _MAX_CLUSTERS[key] = _info(spec, *which, geo.cluster)[0]
+    WAVES = waves(geo, _MAX_CLUSTERS[key])
     out = (bx.permute(0, 2, 1)[:, :B], bu.permute(0, 2, 1)[:, :B], bc[:B], bdu[:B],
            iters.max())
     return out, stats, smids
@@ -741,6 +795,20 @@ def _launch(cfg, dyn, params, x_init, cost, u_init, u_lower, u_upper, u_zero_I, 
 
 _INFO_KEYS = ("max_active_clusters", "registers", "local_bytes", "static_smem",
               "dynamic_smem")
+
+
+def _info(spec, name: str, args: Tuple[int, ...], G: int):
+    """The five numbers the info entry ``name`` of the library of ``spec``
+    gives for the kernel of ``args`` (the env's id or the LinDx shape, and
+    the cost form) at clusters of G blocks (_INFO_KEYS)."""
+    fn = getattr(build.load(spec), name)
+    fn.argtypes = [ctypes.c_int] * (len(args) + 1) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    rc = fn(*args, G, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} {args}, cluster {G}: CUDA error {rc}")
+    return list(out)
 
 
 def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False,
@@ -754,70 +822,48 @@ def kernel_info(device_env: int, cluster: int = 0, lanes: bool = False,
     thread, static and dynamic shared bytes a block."""
     G = geometry(TILE, cluster, device_env).cluster
     lanes = (lanes or device_env in LANES_ONLY) and cost is None
-    fn = build.load(with_cost(env_spec(grad_method, device_env), cost)).dilqr_ilqr_fused_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(device_env, int(lanes), G, out)
-    if rc != 0:
-        raise RuntimeError(f"ilqr_fused_info (env {device_env}, lanes {lanes}, cluster {G}): "
-                           f"CUDA error {rc}")
+    out = _info(with_cost(env_spec(grad_method, device_env), cost), "dilqr_ilqr_fused_info",
+                (device_env, int(lanes)), G)
     return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes)
+
+
+def _store(nx: int, nu: int) -> str:
+    """Where V, Q and F live: "registers", "shared" or, in the split
+    layout, "split" (V and Q but Quu in shared memory, F out of it)."""
+    layout = box_layout(nx, nu)
+    return "split" if layout.split else "shared" if layout.floats else "registers"
 
 
 def mlp_info(spec: MlpSpec, cluster: int = 0, lanes: bool = False) -> dict:
     """kernel_info for an MLP's library (built first if needed), with where
-    V, Q and F live: "registers" or "shared"."""
+    V, Q and F live (``_store``)."""
     nu = spec.n_ctrl
     nx = spec.n_state + (nu if spec.slew else 0)
     G = geometry(TILE, cluster, sizes=mlp_clusters(nx, nu)).cluster
     lanes = lanes or spec.slew
-    fn = build.load(mlp_spec(spec, lanes)).dilqr_ilqr_fused_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(ENV_MLP_SLEW if spec.slew else ENV_MLP, int(lanes), G, out)
-    if rc != 0:
-        raise RuntimeError(f"ilqr_fused_info ({spec}, lanes {lanes}, cluster {G}): "
-                           f"CUDA error {rc}")
-    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
-                store="shared" if lindx_floats(nx, nu) else "registers")
+    out = _info(mlp_spec(spec, lanes), "dilqr_ilqr_fused_info",
+                (ENV_MLP_SLEW if spec.slew else ENV_MLP, int(lanes)), G)
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes, store=_store(nx, nu))
 
 
 def user_info(model: traced.TracedModel, cost: Optional[traced.TracedCost],
               grad_method: GradMethod, cluster: int = 0, lanes: bool = False) -> dict:
     """kernel_info for a traced model's library (built first if needed),
-    with where V, Q and F live: "registers" or "shared"."""
+    with where V, Q and F live (``_store``)."""
     nx, nu = model.n_state, model.n_ctrl
     G = geometry(TILE, cluster, sizes=lindx_clusters(nx, nu)).cluster
     lanes = lanes and cost is None
-    fn = build.load(user_spec(model, cost, grad_method is GradMethod.AUTO_DIFF,
-                              lanes)).dilqr_ilqr_fused_info
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(ENV_TRACED, int(lanes), G, out)
-    if rc != 0:
-        raise RuntimeError(f"ilqr_fused_info (traced model {nx}x{nu}, lanes {lanes}, cluster "
-                           f"{G}): CUDA error {rc}")
-    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
-                store="shared" if lindx_floats(nx, nu) else "registers")
+    out = _info(user_spec(model, cost, grad_method is GradMethod.AUTO_DIFF, lanes),
+                "dilqr_ilqr_fused_info", (ENV_TRACED, int(lanes)), G)
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes, store=_store(nx, nu))
 
 
 def lindx_info(nx: int, nu: int, cluster: int = 0, lanes: bool = False) -> dict:
     """kernel_info for a LinDx shape's library (built first if needed),
-    with where V, Q and F live: "registers" or "shared"."""
+    with where V, Q and F live (``_store``)."""
     G = geometry(TILE, cluster, sizes=lindx_clusters(nx, nu)).cluster
-    fn = build.load(lindx_spec(nx, nu, lanes)).dilqr_ilqr_lindx_info
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    rc = fn(nx, nu, int(lanes), G, out)
-    if rc != 0:
-        raise RuntimeError(f"ilqr_lindx_info ({nx}, {nu}), lanes {lanes}, cluster {G}: "
-                           f"CUDA error {rc}")
-    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes,
-                store="shared" if lindx_floats(nx, nu) else "registers")
+    out = _info(lindx_spec(nx, nu, lanes), "dilqr_ilqr_lindx_info", (nx, nu, int(lanes)), G)
+    return dict(zip(_INFO_KEYS, out), cluster=G, lanes=lanes, store=_store(nx, nu))
 
 
 def _entry(spec, name: str, n_int: int, n_ptr: int):

@@ -103,6 +103,7 @@ extern "C" int qp_eval(int m, int B, const float* H, const float* q, const float
 extern "C" void cos_sin_eval(int n, const float* x, float* c, float* s) {
   for (int i = 0; i < n; ++i) cos_sin(x[i], c + i, s + i);
 }
+// BoxStepLayout of Env: kV, kQ, kF, kFloats, kSplit, kScratch
 template <class Env>
 static void layout_of(int* out) {
   using L = BoxStepLayout<Env, Env::NU>;
@@ -110,6 +111,8 @@ static void layout_of(int* out) {
   out[1] = L::kQ;
   out[2] = L::kF;
   out[3] = L::kFloats;
+  out[4] = L::kSplit;
+  out[5] = L::kScratch;
 }
 extern "C" void box_layout(int env, int* out) {
   if (env == ENV_ROCKET) layout_of<Rocket>(out);
@@ -117,14 +120,17 @@ extern "C" void box_layout(int env, int* out) {
 }
 // the Riccati step of the rocket (env 2) or its slew-rate wrapper (env 5)
 // per example, each example its own tile; store [kFloats, B] holds V's
-// triangle (in, out), Q and F (out). The cost is one [N*N] C and [N] c,
-// or per example (c_lanes) C [N*N, B], c [N, B]; lo/hi are per example
-// [B, NU]; Iz null or the mask [B, NU] of an unboxed solve.
+// triangle (in, out) and Q (out; without Quu in the split layout), F (out)
+// is in the store or, in the split layout, in fscratch [(NX+1)*N, B] (F,
+// then q); quu [NU*NU, B] (out) is Quu as the box-QP takes it. The cost
+// is one [N*N] C and [N] c, or per example (c_lanes) C [N*N, B], c [N, B];
+// lo/hi are per example [B, NU]; Iz null or the mask [B, NU] of an unboxed
+// solve.
 template <class Env>
 static void box_run(int B, int last, const float* p, const float* tau, const float* C,
                     const float* c, int c_lanes, const float* lo, const float* hi, int has_du,
                     float du, const float* Iz, const float* warm, int n_iter, float* store,
-                    float* v, float* K, float* k, int* votes) {
+                    float* fscratch, float* quu, float* v, float* K, float* k, int* votes) {
   constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
   Env env;
   env.load(p);
@@ -135,8 +141,8 @@ static void box_run(int B, int last, const float* p, const float* tau, const flo
     StepVariant<NU> var{has_du, du, Iz != nullptr, {}};
     for (int r = 0; Iz && r < NU; ++r) var.Iz[r] = Iz[b * NU + r];
     riccati_box_step<Env, NU>(env, last != 0, tau + b * N, cost, lo + b * NU, hi + b * NU, var,
-                              warm + b * NU, n_iter, vote, store + b, B, v + b * NX, Kb,
-                              k + b * NU);
+                              warm + b * NU, n_iter, vote, store + b, B, fscratch + b, B,
+                              v + b * NX, Kb, k + b * NU, Strided{quu + b, B});
     for (int r = 0; r < NU; ++r)
       for (int j = 0; j < NX; ++j) K[(b * NU + r) * NX + j] = Kb[r][j];
     votes[b] = vote.n;
@@ -145,14 +151,14 @@ static void box_run(int B, int last, const float* p, const float* tau, const flo
 extern "C" void box_step_host(int env, int B, int last, const float* p, const float* tau,
                               const float* C, const float* c, int c_lanes, const float* lo,
                               const float* hi, int has_du, float du, const float* Iz,
-                              const float* warm, int n_iter, float* store, float* v, float* K,
-                              float* k, int* votes) {
+                              const float* warm, int n_iter, float* store, float* fscratch,
+                              float* quu, float* v, float* K, float* k, int* votes) {
   if (env == ENV_ROCKET)
     box_run<Rocket>(B, last, p, tau, C, c, c_lanes, lo, hi, has_du, du, Iz, warm, n_iter, store,
-                    v, K, k, votes);
+                    fscratch, quu, v, K, k, votes);
   else
     box_run<Passthrough<Rocket>>(B, last, p, tau, C, c, c_lanes, lo, hi, has_du, du, Iz, warm,
-                                 n_iter, store, v, K, k, votes);
+                                 n_iter, store, fscratch, quu, v, K, k, votes);
 }
 // inv_small<M> of B matrices [B, M, M]
 template <int M>
@@ -179,11 +185,13 @@ extern "C" int inv_eval(int m, int B, const float* A, float* R) {
     default: return 1;
   }
 }
-// the LinDx shapes built here: (1,1), (3,2), (5,2), (9,1), (4,5), (4,8)
+// the LinDx shapes built here: (1,1), (3,2), (5,2), (9,1), (4,5), (4,8),
+// (15,2)
 template <class F>
 static int lindx_shape(int nx, int nu, F f) {
   if (nx == 1 && nu == 1) return f(LinDx<1, 1>{});
   if (nx == 3 && nu == 2) return f(LinDx<3, 2>{});
+  if (nx == 15 && nu == 2) return f(LinDx<15, 2>{});
   if (nx == 5 && nu == 2) return f(LinDx<5, 2>{});
   if (nx == 9 && nu == 1) return f(LinDx<9, 1>{});
   if (nx == 4 && nu == 5) return f(LinDx<4, 5>{});
@@ -214,19 +222,19 @@ extern "C" int lindx_eval(int nx, int nu, int t, int B, const float* F, const fl
 // riccati_box_step of LinDx<NX, NU> per example (each its own tile), with
 // F [1, NX*N, B] (step 0) unless `last`, the example-invariant cost C [N*N]
 // and c [N], per-example bounds lo/hi [B, NU], the warm start [B, NU];
-// store [kFloats, B] holds V's triangle (in, out), Q and F (out)
+// store [kFloats, B] holds V's triangle (in, out), Q and F (out; in the
+// split layout Q without Quu), fscratch [(NX+1)*N, B] F and q in the split
+// layout (out); quu [NU*NU, B] (out) is Quu as the box-QP takes it;
+// layout[6] as layout_of's
 extern "C" int lindx_box_step(int nx, int nu, int B, int last, const float* F,
                               const float* tau, const float* C, const float* c,
                               const float* lo, const float* hi, const float* warm, int n_iter,
-                              float* store, float* v, float* K, float* k, int* layout) {
+                              float* store, float* fscratch, float* quu, float* v, float* K,
+                              float* k, int* layout) {
   return lindx_shape(nx, nu, [&](auto e) {
     using Env = decltype(e);
     constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
-    using L = BoxStepLayout<Env, NU>;
-    layout[0] = L::kV;
-    layout[1] = L::kQ;
-    layout[2] = L::kF;
-    layout[3] = L::kFloats;
+    layout_of<Env>(layout);
     for (int b = 0; b < B; ++b) {
       Env env;
       env.bind(F, nullptr, B, b);
@@ -236,7 +244,8 @@ extern "C" int lindx_box_step(int nx, int nu, int B, int last, const float* F,
       StepVariant<NU> var{0, 0.0f, 0, {}};
       riccati_box_step<Env, NU>(env, last != 0, tau + b * N, CostView{C, c, 1}, lo + b * NU,
                                 hi + b * NU, var, warm + b * NU, n_iter, vote, store + b, B,
-                                v + b * NX, Kb, k + b * NU);
+                                fscratch + b, B, v + b * NX, Kb, k + b * NU,
+                                Strided{quu + b, B});
       for (int r = 0; r < NU; ++r)
         for (int j = 0; j < NX; ++j) K[(b * NU + r) * NX + j] = Kb[r][j];
     }
@@ -586,6 +595,19 @@ extern "C" int mlp_eval(int which, const float* w, const double* x, const double
     return Env::NP;
   });
 }
+// BoxStepLayout (layout_of) of the kernel's env on the MLP `which`: its
+// JvpJac, or the wrapper (7) as it stands
+extern "C" int mlp_layout(int which, int* out) {
+  return mlp_dispatch(which, [&](auto env) {
+    using Env = decltype(env);
+    if constexpr (is_mlp<Env>) {
+      layout_of<JvpJac<Env, false>>(out);
+    } else {
+      layout_of<Env>(out);
+    }
+    return 0;
+  });
+}
 extern "C" int mlp_step_ops(int which, const float* w, const float* x, const float* u,
                             long* out) {
   return mlp_dispatch(which, [&](auto env) {
@@ -660,13 +682,13 @@ def lib(tmp_path_factory):
     lib.box_layout.argtypes = [I, P]
     lib.box_layout.restype = None
     lib.box_step_host.argtypes = ([I, I, I] + [P] * 4 + [I, P, P, I, F32, P, P, I]
-                                  + [P] * 5)
+                                  + [P] * 7)
     lib.box_step_host.restype = None
     lib.inv_eval.argtypes = [I, I, P, P]
     lib.inv_eval.restype = I
     lib.lindx_eval.argtypes = [I, I, I, I] + [P] * 6
     lib.lindx_eval.restype = I
-    lib.lindx_box_step.argtypes = [I, I, I, I] + [P] * 7 + [I] + [P] * 5
+    lib.lindx_box_step.argtypes = [I, I, I, I] + [P] * 7 + [I] + [P] * 7
     lib.lindx_box_step.restype = I
     lib.jvp_eval.argtypes = [I, I, P, P, P, I, P, P]
     lib.jvp_eval.restype = I
@@ -676,6 +698,8 @@ def lib(tmp_path_factory):
     lib.step_ops.restype = I
     lib.mlp_eval.argtypes = [I, P, P, P, I, P, P, P, P]
     lib.mlp_eval.restype = I
+    lib.mlp_layout.argtypes = [I, P]
+    lib.mlp_layout.restype = I
     lib.mlp_step_ops.argtypes = [I, P, P, P, P]
     lib.mlp_step_ops.restype = I
     return lib
@@ -980,12 +1004,14 @@ def _box_step(lib, dyn, rng, x, u, last, lo, hi, lanes=False, du=None, Iz=None):
         v = (3.0 * rng.randn(B, nx)).astype(np.float32)
     warm = np.clip(0.3 * rng.randn(B, nu), lo - u, hi - u).astype(np.float32)
 
-    layout = np.zeros(4, np.int32)
+    layout = np.zeros(6, np.int32)
     lib.box_layout(dyn.device_env, _ptr(layout))
-    kV, kQ, kF, kFloats = (int(a) for a in layout)
+    kV, kQ, kF, kFloats, split, _ = (int(a) for a in layout)
     iu = np.triu_indices(nx)
     store = np.zeros((kFloats, B), np.float32)
     store[kV:kV + len(iu[0])] = V[:, iu[0], iu[1]].T
+    fscratch = np.zeros(((nx + 1) * n, B), np.float32)
+    quu = np.zeros((nu * nu, B), np.float32)
     v_dev = v.copy()
     K = np.zeros((B, nu, nx), np.float32)
     k = np.zeros((B, nu), np.float32)
@@ -996,7 +1022,8 @@ def _box_step(lib, dyn, rng, x, u, last, lo, hi, lanes=False, du=None, Iz=None):
     lib.box_step_host(dyn.device_env, B, int(last), _ptr(params), _ptr(tau), _ptr(C_in),
                       _ptr(c_in), int(lanes), _ptr(lo), _ptr(hi), int(du is not None),
                       0.0 if du is None else du, None if Iz_in is None else _ptr(Iz_in),
-                      _ptr(warm), 20, _ptr(store), _ptr(v_dev), _ptr(K), _ptr(k), _ptr(votes))
+                      _ptr(warm), 20, _ptr(store), _ptr(fscratch), _ptr(quu), _ptr(v_dev),
+                      _ptr(K), _ptr(k), _ptr(votes))
 
     t = {name: torch.from_numpy(a) for name, a in
          (("tau", tau), ("C", C), ("c", c), ("V", V), ("v", v), ("warm", warm))}
@@ -1007,12 +1034,16 @@ def _box_step(lib, dyn, rng, x, u, last, lo, hi, lanes=False, du=None, Iz=None):
     wK, wk, wV, wv = ilqr_fused.riccati_step(
         Q, qv, nx, tu, torch.from_numpy(lo), torch.from_numpy(hi), None if last else t["warm"],
         20, 1, du=du, Iz=None if Iz is None else torch.from_numpy(Iz_in))
-    iq = np.triu_indices(n)
-    got = {"F": store[kF:kF + nx * n].T.reshape(B, nx, n),
-           "Q": store[kQ:kQ + len(iq[0])].T, "K": K, "k": k,
+    # the triangle's entries the store holds: all, or in the split layout
+    # those before Quu (the box-QP's H, in registers, seen through quu)
+    iq = tuple(a[:kFloats - kQ - (0 if split else nx * n)] for a in np.triu_indices(n))
+    Fg = fscratch[:nx * n] if split else store[kF:kF + nx * n]
+    got = {"F": Fg.T.reshape(B, nx, n),
+           "Q": store[kQ:kQ + len(iq[0])].T, "Quu": quu.T.reshape(B, nu, nu), "K": K, "k": k,
            "V": store[kV:kV + len(iu[0])].T, "v": v_dev}
-    want = {"F": F.numpy(), "Q": Q.numpy()[:, iq[0], iq[1]], "K": wK.numpy(), "k": wk.numpy(),
-            "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    want = {"F": F.numpy(), "Q": Q.numpy()[:, iq[0], iq[1]], "Quu": Q.numpy()[:, nx:, nx:],
+            "K": wK.numpy(), "k": wk.numpy(), "V": wV.numpy()[:, iu[0], iu[1]],
+            "v": wv.numpy()}
     return got, want, k, votes
 
 
@@ -1197,15 +1228,18 @@ def test_device_lindx_code_matches_affine_step(lib, nx, nu, with_f):
 
 
 @pytest.mark.parametrize("last", [False, True], ids=["step", "last"])
-@pytest.mark.parametrize("nx,nu", [(3, 2), (4, 5), (9, 1)])
+@pytest.mark.parametrize("nx,nu", [(3, 2), (4, 5), (9, 1), (15, 2)])
 def test_device_lindx_riccati_step_matches_plain_version(lib, nx, nu, last):
     """riccati_box_step on LinDx<NX, NU> (V, Q, F in strided storage, F
-    read from the data) against the plain version's step (_q_terms and
-    riccati_step, each example its own tile): n_ctrl 2 (Cramer) and 5
-    (Gauss-Jordan) through the per-example box-QP, n_ctrl 1 past the
-    register path (the closed-form 1-D QP), a step with its warm start and
-    the last step (V = 0, F = 0). Bounds +-0.5 about the controls, which
-    bind; tolerance as test_device_rocket_riccati_step_matches_plain_version."""
+    read from the data; past 225 floats an example, (15, 2), the split
+    layout: F and q in a scratch, Quu in registers and compared through
+    the step's quu) against the plain version's
+    step (_q_terms and riccati_step, each example its own tile): n_ctrl 2
+    (Cramer) and 5 (Gauss-Jordan) through the per-example box-QP, n_ctrl 1
+    past the register path (the closed-form 1-D QP), a step with its warm
+    start and the last step (V = 0, F = 0). Bounds +-0.5 about the
+    controls, which bind; tolerance as
+    test_device_rocket_riccati_step_matches_plain_version."""
     B, n = 48, nx + nu
     rng = np.random.RandomState(70 + 3 * nx + nu + 100 * last)
     F = (rng.randn(1, B, nx, n) * 0.3 + np.eye(nx, n)).astype(np.float32)
@@ -1224,24 +1258,27 @@ def test_device_lindx_riccati_step_matches_plain_version(lib, nx, nu, last):
         V = (Av @ Av.transpose(0, 2, 1) + np.eye(nx)).astype(np.float32)
         v = (3.0 * rng.randn(B, nx)).astype(np.float32)
     warm = np.clip(0.3 * rng.randn(B, nu), -0.5, 0.5).astype(np.float32)
-    layout = np.zeros(4, np.int32)
+    layout = np.zeros(6, np.int32)
     Fl = np.ascontiguousarray(F.reshape(1, B, nx * n).transpose(0, 2, 1))
     # the layout first (a call on no example), then the step
     store = np.zeros((1, 1), np.float32)
     lib.lindx_box_step(nx, nu, 0, 1, _ptr(Fl), _ptr(tau), _ptr(C.reshape(-1)), _ptr(c),
-                       _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v), None, None,
-                       _ptr(layout))
-    kV, kQ, kF, kFloats = (int(a) for a in layout)
+                       _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), None, None, _ptr(v),
+                       None, None, _ptr(layout))
+    kV, kQ, kF, kFloats, split, scratch = (int(a) for a in layout)
+    assert (split, scratch) == (int(nx == 15), (nx + 1) * n if nx == 15 else 0)
     iu = np.triu_indices(nx)
     store = np.zeros((kFloats, B), np.float32)
     store[kV:kV + len(iu[0])] = V[:, iu[0], iu[1]].T
+    fscratch = np.zeros(((nx + 1) * n, B), np.float32)
+    quu = np.zeros((nu * nu, B), np.float32)
     v_dev = v.copy()
     K = np.zeros((B, nu, nx), np.float32)
     k = np.zeros((B, nu), np.float32)
     Cf = np.ascontiguousarray(C.reshape(-1))
     assert lib.lindx_box_step(nx, nu, B, int(last), _ptr(Fl), _ptr(tau), _ptr(Cf), _ptr(c),
-                              _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(v_dev),
-                              _ptr(K), _ptr(k), _ptr(layout)) == 0
+                              _ptr(lo), _ptr(hi), _ptr(warm), 20, _ptr(store), _ptr(fscratch),
+                              _ptr(quu), _ptr(v_dev), _ptr(K), _ptr(k), _ptr(layout)) == 0
     t = {name: torch.from_numpy(a) for name, a in
          (("tau", tau), ("C", C), ("c", c), ("V", V), ("v", v), ("warm", warm))}
     Ft = torch.zeros(B, nx, n) if last else torch.from_numpy(F[0])
@@ -1249,17 +1286,66 @@ def test_device_lindx_riccati_step_matches_plain_version(lib, nx, nu, last):
     wK, wk, wV, wv = ilqr_fused.riccati_step(
         Q, qv, nx, t["tau"][:, nx:], torch.from_numpy(lo), torch.from_numpy(hi),
         None if last else t["warm"], 20, 1)
-    iq = np.triu_indices(n)
-    got = {"Q": store[kQ:kQ + len(iq[0])].T, "K": K, "k": k,
+    iq = tuple(a[:kFloats - kQ - (0 if split else nx * n)] for a in np.triu_indices(n))
+    got = {"Q": store[kQ:kQ + len(iq[0])].T, "Quu": quu.T.reshape(B, nu, nu), "K": K, "k": k,
            "V": store[kV:kV + len(iu[0])].T, "v": v_dev}
-    want = {"Q": Q.numpy()[:, iq[0], iq[1]], "K": wK.numpy(), "k": wk.numpy(),
-            "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    want = {"Q": Q.numpy()[:, iq[0], iq[1]], "Quu": Q.numpy()[:, nx:, nx:], "K": wK.numpy(),
+            "k": wk.numpy(), "V": wV.numpy()[:, iu[0], iu[1]], "v": wv.numpy()}
+    # F as the store or, in the split layout, the scratch holds it
     if not last:
-        got["F"] = store[kF:kF + nx * n].T.reshape(B, nx, n)
+        Fg = fscratch[:nx * n] if split else store[kF:kF + nx * n]
+        got["F"] = Fg.T.reshape(B, nx, n)
         want["F"] = F[0]
     _assert_step(got, want)
     at = (np.abs(k + 0.5) < 1e-6) | (np.abs(k - 0.5) < 1e-6)
     assert at.mean() > 0.05, at.mean()
+
+
+# (name, the layout's source in the test library, n_state, n_ctrl)
+LAYOUT_CASES = [("rocket", ("box", 2), 13, 3), ("rocket_slew", ("box", 5), 16, 3),
+                ("lindx_3_2", ("lindx", 3, 2), 3, 2), ("lindx_15_2", ("lindx", 15, 2), 15, 2),
+                ("lindx_4_8", ("lindx", 4, 8), 4, 8), ("mlp_golden", ("mlp", 3), 3, 2)]
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES, ids=[c[0] for c in LAYOUT_CASES])
+def test_box_layout_mirror_residency_and_waves(lib, case):
+    """The strided path's layout as the C++ has it (BoxStepLayout, read
+    through the test library) against its Python mirror
+    (ilqr_fused.box_layout, which sizes the launch's scratch and the
+    cluster sizes): the shared floats an example, whether F and Quu left
+    shared memory, the floats of F's scratch. Two blocks of 128 examples
+    share an SM (233,472 bytes, 1,024 reserved and 32 of vote words a
+    block) exactly where the layout takes at most TWO_BLOCK_FLOATS, and
+    the rocket's do: 221 floats, where V, Q and F took 435; the cluster
+    sizes take G = 16 first where they cannot. And the waves
+    of a launch (ilqr_fused.waves): 1, 16 and 132 tiles over 15 clusters
+    at once (the rocket's occupancy with one block an SM) are 1, 2 and 9
+    waves, over 30 are 1, 1 and 5."""
+    name, src, nx, nu = case
+    out = np.zeros(6, np.int32)
+    if src[0] == "box":
+        lib.box_layout(src[1], _ptr(out))
+    elif src[0] == "lindx":
+        assert lib.lindx_box_step(src[1], src[2], 0, 1, None, None, None, None, None, None, None,
+                                  0, None, None, None, None, None, None, _ptr(out)) == 0
+    else:
+        assert lib.mlp_layout(src[1], _ptr(out)) == 0
+    kV, kQ, kF, kFloats, split, scratch = (int(a) for a in out)
+    assert (kFloats, bool(split), scratch) == tuple(ilqr_fused.box_layout(nx, nu))
+    assert (kF == -1) == bool(split) and kV == 0 and kQ == nx * (nx + 1) // 2
+    assert ilqr_fused.lindx_floats(nx, nu) == kFloats
+    two_blocks = 2 * (4 * kFloats * 128 + 32 + 1024) <= 233472
+    assert two_blocks == (kFloats <= ilqr_fused.TWO_BLOCK_FLOATS)
+    if name == "rocket":
+        assert kFloats == 221 and two_blocks
+        assert not 2 * (4 * 435 * 128 + 32 + 1024) <= 233472
+    # G = 16 first where two blocks of 128 cannot share an SM
+    sizes = ilqr_fused.lindx_clusters(nx, nu)
+    assert sizes == ((8, 16) if two_blocks else (16, 8))
+    for occupancy, want_waves in ((15, (1, 2, 9)), (30, (1, 1, 5))):
+        got = tuple(ilqr_fused.waves(ilqr_fused.geometry(B, sizes=sizes), occupancy)
+                    for B in (1024, 16384, 135168))
+        assert got == want_waves, (occupancy, got)
 
 
 def _jvp_case(name, B, rng):

@@ -168,6 +168,33 @@ def test_rocket_result_does_not_depend_on_the_cluster(dev):
     assert min(d["active_share"]) > 0.2, d
 
 
+def test_rocket_fleet_runs_in_one_wave(dev):
+    """Two blocks of 128 rockets share an SM (the split layout: F in device
+    memory, Quu in registers, 221 shared floats an example): the card holds
+    at least 16 rocket tiles at G = 8 at once, the hand Jacobian's library
+    (env 2) and the renormalizing rocket's jvp library (env 7) alike, so a
+    16,384-rocket launch runs in one wave, where one block an SM (15
+    clusters) took two; the 131,072-example cartpole launch takes two (128
+    tiles over its 77)."""
+    for env in (2, 7):
+        info = fused.kernel_info(env, 8)
+        assert info["max_active_clusters"] >= 16, (env, info)
+        assert info["dynamic_smem"] == 4 * fused.box_layout(13, 3).floats * 128, (env, info)
+    dyn, params = rocket.make(), rocket.default_params(device=dev)
+    q, p = rocket.get_true_obj(device=dev)
+    cfg = P.ILQRConfig(n_state=13, n_ctrl=3, T=5, lqr_iter=2, eps=1e-3, backprop=False)
+    x0 = torch.from_numpy(bench_start(16384, 8)).to(dev)
+    fused.ilqr_fused(cfg, dyn, params, x0, (torch.diag(q), p), None, dyn.lower, dyn.upper)
+    assert fused.WAVES == 1
+    cdyn, cparams = cartpole.make(), cartpole.default_params(device=dev)
+    cq, cp = cartpole.get_true_obj(device=dev)
+    ccfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=5, lqr_iter=2, eps=1e-4, backprop=False)
+    xc = torch.zeros(131072, 5, device=dev)
+    xc[:, 2] = -1.0
+    fused.ilqr_fused(ccfg, cdyn, cparams, xc, (torch.diag(cq), cp), None, -100.0, 100.0)
+    assert fused.WAVES == 2
+
+
 def test_cluster_launch_geometry(dev):
     """An uninstantiated cluster size raises before any launch; a launch
     spreads each tile over its cluster's blocks (every block reports an
@@ -308,7 +335,7 @@ def test_kernel_variants_match_plain_version(dev, env, variant):
 def test_slew_rate_kernel_matches_plain_version(dev, env):
     """The slew-rate state (Passthrough<Env>) through augment_slew_rate:
     the kernel against its plain version, at every cluster size the
-    instantiation has (the rocket's: 16 only)."""
+    instantiation has (the rocket's: 8 and 16, its F and q in the scratch)."""
     from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
 
     cfg, dyn, params, x0, cost, lo, hi, _ = _variant_problem(dev, env, "slew")
@@ -803,8 +830,8 @@ def test_lindx_kernel_matches_plain_version(dev, case):
     same CUDA inputs, one launch, the masked u exactly 0, and the same bits
     at every cluster size the shape has: the slice's (3,2) with its
     variants and slew rate, n_ctrl 4 and 8 (Gauss-Jordan), the gate's
-    (15,2) (G=16 only), one control in registers (6,1) and in shared memory
-    (15,1)."""
+    (15,2) (the split layout: F and q in the scratch, G=8 and 16), one
+    control in registers (6,1) and in shared memory (15,1)."""
     cfg, dyn, x0, cost, lo, hi, kw = _lindx_case(dev, case)
     assert fused.covered(cfg, dyn, None, torch.float32, cost if cost[0].dim() == 2 else None,
                          kw.get("u_zero_I"), kw.get("delta_u"), lo, hi)
