@@ -113,8 +113,9 @@ Phases, in order; any failure exits non-zero before the last line:
      IFT gradients against the plain backward, ILExp on pendulum-complex;
      each serving path against backend="torch" in turns, and the idle share
      of one complex-pendulum MPC call;
- 10. the small MLP on the whole-solve kernel (see small_mlp_paths;
-     JvpJac<Mlp>, one library per shape, activation, slew rate and cost form from
+ 10. the small MLP on the whole-solve kernel (see small_mlp_paths; Mlp
+     with its hand Jacobian for one hidden layer, else JvpJac<Mlp>, one
+     library per shape, activation, slew rate and cost form from
      csrc/ilqr_mlp.cu, built in phase 2 with the rest, a stack or spill
      failing at one control): each shape JAX's gate admits, against its
      plain version at each cluster size; MPC.solve and receding_horizon on
@@ -122,7 +123,10 @@ Phases, in order; any failure exits non-zero before the last line:
      one launch a solve, MPC.solve against backend="torch" in turns, with
      the idle share of one call; the IFT gradient with respect to its weights
      against the plain backward; the learned model at hidden 100 (1,205
-     weights) taking no whole-solve launch;
+     weights, one hidden layer, past JAX's 256; its one library built and
+     gated in phase 2) at its cell's B=16,384 against its plain version
+     under both methods, and in MPC.solve taking one whole-solve launch
+     and no Riccati launch;
  11. the batch sharded over ranks and devices (see multihost_paths;
      parallel/{multihost,mesh,audit}.py): multihost_solve and one
      multihost_train_step in a one-rank NCCL group, with the bits of solve
@@ -487,7 +491,7 @@ def main():
                               + list(user["specs"].values()))
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(reports)} libraries (three sources, "
           f"{len(LINDX_SHAPES)} LinDx shapes, {len(fused.jvp_specs())} jvp libraries, "
-          f"{len(SMALL_MLP_CASES)} MLP shapes and {len(user['specs'])} traced libraries)",
+          f"{len(small_mlp_specs(fused))} MLP libraries and {len(user['specs'])} traced libraries)",
           flush=True)
     for spec, rep in reports.items():
         src = spec if isinstance(spec, str) else build.library_path(spec).split("/")[-1]
@@ -3173,9 +3177,20 @@ def small_mlp_spec(case):
     return MlpSpec(nx, nu, hidden, act, True, slew)
 
 
+def learned_mlp_cases():
+    """The learned cartpole model (5, 1, (100,)) sigmoid with the residual:
+    its one library (the hand Jacobian, under either method), as (label,
+    MlpSpec, lanes)."""
+    from dilqr_tpu_torch.models import cartpole_mlp
+
+    return [("learned cartpole (5,1,(100,))", cartpole_mlp.make().device_mlp, False)]
+
+
 def small_mlp_specs(fused):
-    """The build specs of phase 10's MLP libraries."""
-    return [fused.mlp_spec(small_mlp_spec(c), c[5]) for c in SMALL_MLP_CASES]
+    """The build specs of phase 10's MLP libraries and of the learned
+    cartpole model's."""
+    return [fused.mlp_spec(small_mlp_spec(c), c[5]) for c in SMALL_MLP_CASES] + [
+        fused.mlp_spec(m, lanes) for _, m, lanes in learned_mlp_cases()]
 
 
 def small_mlp_ptxas(fused, reports):
@@ -3183,19 +3198,20 @@ def small_mlp_ptxas(fused, reports):
     and spills (one per cluster size whose shared memory fits, one cost
     form a library); a missing instantiation fails, and so does a stack or
     a spill at one control."""
-    for case, spec in zip(SMALL_MLP_CASES, small_mlp_specs(fused)):
-        m = small_mlp_spec(case)
+    labelled = [(c[0], small_mlp_spec(c)) for c in SMALL_MLP_CASES] + [
+        (label, m) for label, m, _ in learned_mlp_cases()]
+    for (label, m), spec in zip(labelled, small_mlp_specs(fused)):
         nx = m.n_state + (m.n_ctrl if m.slew else 0)
         seen = 0
         for name, regs, stack, st, ld in ptxas_entries(reports[spec], JVP_ENTRY, "MLP"):
-            print(f"ptxas ilqr_mlp {case[0]} <NU, threads, lanes> {name}: {regs} registers, "
+            print(f"ptxas ilqr_mlp {label} <NU, threads, lanes> {name}: {regs} registers, "
                   f"{stack} bytes stack, {st}/{ld} bytes spill stores/loads", flush=True)
             seen += 1
             if m.n_ctrl == 1 and (stack or st or ld):
-                fail(f"ilqr_mlp {case[0]} {name} (n_ctrl 1) has a stack frame or spills")
+                fail(f"ilqr_mlp {label} {name} (n_ctrl 1) has a stack frame or spills")
         want = len(fused.mlp_clusters(nx, m.n_ctrl))
         if seen != want:
-            fail(f"ilqr_mlp {case[0]}: {seen} instantiations, want {want}")
+            fail(f"ilqr_mlp {label}: {seen} instantiations, want {want}")
 
 
 def golden_mlp(torch, dev):
@@ -3245,8 +3261,82 @@ def small_mlp_case(torch, fused, card, label, cfg, dyn, flat, x0, cost, lo, hi):
             "max_abs_err": fig["max_abs_err"], "n_iter": fig["n_iter"]}
 
 
+LEARNED_MLP_B = 16384  # the learned model's cell, cartpole_mlp.mpc_loop.b16384
+
+
+def learned_mlp_case(torch, P, fused, card, dev, gen):
+    """Phase 10 (a) for the learned cartpole model (models/cartpole_mlp: 5
+    states, 1 control, hidden 100 sigmoid with the residual, 1,205 weights
+    from a seed, flat) at its cell's batch, B=16,384, on the cartpole's
+    cost, box +-100, T=20 and line search. Under ANALYTIC and AUTO_DIFF,
+    which one library serves (the hand Jacobian, Mlp::jac): one launch a
+    solve, held against its plain version (ilqr_fused_reference, jac_lanes)
+    on the same CUDA inputs after 2 iterations, as the card test holds
+    MPC.solve against backend="torch", since the random-weight model forks
+    in f32 past a few: n_iter 2 in both, every cost within rtol 1e-4, u
+    within 2e-2 on every example; the two methods' kernel outputs the same
+    bits; the same bits at every cluster size; then the kernel's time at
+    the cell's 20 iterations (CUDA events, median of 5). Returns the JSON
+    figures."""
+    import dataclasses
+
+    from dilqr_tpu_torch.models import cartpole, cartpole_mlp
+
+    B, T, box = LEARNED_MLP_B, 20, 100.0
+    dyn = cartpole_mlp.make()
+    flat = cartpole_mlp.flat_init_params(21, device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    cost = (torch.diag(q), p)
+    x0 = cartpole_start(torch, gen, B, dev)
+    label = f"phase 10 (a) learned cartpole (5,1,(100,)) sigmoid B={B} T={T}"
+    outs, err = {}, 0.0
+    for method in (P.GradMethod.ANALYTIC, P.GradMethod.AUTO_DIFF):
+        name = f"{label} {method.name} 2 iterations"
+        cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=T, lqr_iter=2, eps=1e-4, grad_method=method,
+                           linesearch_decay=0.5, max_linesearch_iter=2, exit_unconverged=False,
+                           detach_unconverged=False, backprop=False)
+        if not fused.covered(cfg, dyn, flat, torch.float32, cost, None, None, -box, box):
+            fail(f"{name}: not covered")
+        before = fused.LAUNCHES
+        k_out = fused.ilqr_fused(cfg, dyn, flat, x0, cost, None, -box, box)
+        torch.cuda.synchronize()
+        if fused.LAUNCHES != before + 1:
+            fail(f"{name}: {fused.LAUNCHES - before} launches for one solve")
+        r_out = fused.ilqr_fused_reference(cfg, dyn, flat, x0, cost, None, -box, box)
+        kc, rc = k_out[2], r_out[2]
+        cost_rel = ((kc - rc).abs() / rc.abs().clamp(min=1e-6)).max().item()
+        u_err = (k_out[1] - r_out[1]).abs().max().item()
+        x_err = (k_out[0] - r_out[0]).abs().max().item()
+        print(f"parity {name}: cost rel max {cost_rel:.2e} (bar 1e-4), u max {u_err:.2e} (bar "
+              f"2e-2), x max {x_err:.2e}, n_iter {int(k_out[4])} vs {int(r_out[4])} [{card}]",
+              flush=True)
+        if not (torch.isfinite(kc).all() and torch.isfinite(k_out[1]).all()):
+            fail(f"{name}: non-finite kernel output")
+        if int(k_out[4]) != 2 or int(r_out[4]) != 2:
+            fail(f"{name}: n_iter {int(k_out[4])} (kernel), {int(r_out[4])} (plain), want 2")
+        if cost_rel > 1e-4 or u_err > 2e-2:
+            fail(f"{name}: the kernel differs from its plain version past (1e-4, 2e-2)")
+        err = max(err, u_err)
+        outs[method] = k_out
+        if method is P.GradMethod.ANALYTIC:
+            same_bits(torch, fused, name, k_out, (cfg, dyn, flat, x0, cost, None, -box, box))
+    if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+        fail(f"{label}: ANALYTIC and AUTO_DIFF give different bits from one library")
+    print(f"parity {label}: ANALYTIC and AUTO_DIFF give the same bits", flush=True)
+    cfg = dataclasses.replace(cfg, lqr_iter=20)
+    ms, runs = cuda_ms(lambda: fused.ilqr_fused(cfg, dyn, flat, x0, cost, None, -box, box), 1, 5)
+    info = fused.mlp_info(dyn.device_mlp)
+    print(f"time {label} 20 iterations: {ms:.3f} ms median of {len(runs)} "
+          f"({', '.join(f'{r:.3f}' for r in runs)}); G={info['cluster']}, {info['registers']} "
+          f"registers, {info['local_bytes']} local bytes, {fused.WAVES} waves [{card}]",
+          flush=True)
+    return {"name": label.replace("phase 10 (a) ", ""), "ms": ms, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "max_abs_err": err, "n_iter": 20}
+
+
 def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
-    """Phase 10: the small MLP on the whole-solve kernel (JvpJac<Mlp> in
+    """Phase 10: the small MLP on the whole-solve kernel (Mlp with its hand
+    Jacobian Mlp::jac for one hidden layer, else JvpJac<Mlp>, in
     csrc/ilqr_fused.cuh, one library per case from csrc/ilqr_mlp.cu), T=20,
     box +-0.5, the identity cost (x and u to 0).
     (a) parity, the kernel against its plain version on the same CUDA
@@ -3255,6 +3345,8 @@ def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
         SMALL_MLP_CASES, lqr_iter 10, eps 1e-4, starts randn; the random-weight models fork in f32
         under a 1-ulp nudge by up to about 2e-2 in u while their costs agree
         to 1e-6, so x and u are held on the examples converged in both;
+        then the learned cartpole model at its cell's batch of 16,384 under
+        both methods, held after 2 iterations (learned_mlp_case);
     (b) serving on the golden's MLP (3 states, 2 controls, hidden 16,
         sigmoid, the residual; its weights as the pytree) through the entry
         points, every counter zeroed before each and read after, one
@@ -3267,9 +3359,10 @@ def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
         backward, within 1e-3 of the largest entry of the plain
         backward's;
     (d) the learned model at hidden 100 (5 states, 1 control, 1,205
-        weights from a seed, past the 256 JAX flattens) in MPC.solve at
-        B=1024: no whole-solve launch, the Riccati kernel a plain-loop
-        iteration.
+        weights from a seed, past the 256 JAX flattens, which the port's
+        kernel_params flattens for one hidden layer) in MPC.solve at
+        B=1024: one whole-solve launch (the hand Jacobian's library) and no
+        Riccati launch.
     Returns the JSON row, with the KKT launches of (c) under
     "kkt_launches"."""
     import dataclasses
@@ -3309,6 +3402,8 @@ def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
         cases.append(small_mlp_case(torch, fused, card, f"phase 10 (a) {label} B={B} T={T}", cfg,
                                     dyn, flat, x0, cost, -box, box))
         worst = max(worst, cases[-1]["max_abs_err"])
+    cases.append(learned_mlp_case(torch, P, fused, card, dev, gen))
+    worst = max(worst, cases[-1]["max_abs_err"])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3381,18 +3476,20 @@ def small_mlp_paths(torch, P, dev, kernels, card, fused, gen):
     if err > 1e-3 * g_ref.abs().max().item() + 1e-8:
         fail(f"{label}: the gradient differs from the plain backward's by {err:.3e}")
 
-    # ---- (d) hidden 100 stays off the kernel ----
+    # ---- (d) hidden 100 on the kernel ----
     big = nn_dynamics.make(5, 1, hidden_sizes=(100,))
     wb = nn_dynamics.init_params(5, 1, (100,), generator=gen, device=dev)
     if nn_dynamics.flat_params(wb) is not None:
-        fail("phase 10 (d): the 1,205 weights of hidden 100 flatten")
+        fail("phase 10 (d): flat_params, JAX's mirror, flattens the 1,205 weights of hidden 100")
+    if tuple(kernel_params(big, wb).shape) != (1205,):
+        fail("phase 10 (d): kernel_params does not flatten the 1,205 weights of hidden 100")
     q, p = cartpole.get_true_obj(device=dev)
     label = "MPC.solve learned model hidden 100 B=1024"
     out, got = run(label, lambda: P.MPC(5, 1, T, u_lower=-100.0, u_upper=100.0, lqr_iter=2,
                                         eps=1e-4, linesearch_decay=0.5, max_linesearch_iter=2,
                                         backprop=False, exit_unconverged=False).solve(
         cartpole_start(torch, gen, 1024, dev), P.QuadCost(torch.diag(q), p), big, params=wb),
-        {"ilqr_fused": 0, "kkt_fused": 0, "riccati_fused": None}, "d")
+        {"ilqr_fused": 1, "kkt_fused": 0, "riccati_fused": 0}, "d")
     if not torch.isfinite(out.costs).all():
         fail(f"{label}: non-finite costs")
     print(f"phase 10 (d) {label}: n_iter {int(out.n_iter)}, Riccati launches "

@@ -19,6 +19,8 @@ the plain loop below on the tensors' own device, whose Riccati backward
 ``ops/riccati.lqr_backward`` takes the CUDA Riccati kernel where that one
 covers it (``ops/cuda/riccati_fused.py``). The choice depends on the
 configuration and the device alone; nothing falls back after a failure.
+``PLAIN_SOLVES`` counts the solves that took the plain loop, beside
+``ilqr_fused.LAUNCHES``, which counts those that took the kernel.
 
 All arrays are time-major [T, B, ...] here; ``core/solver.py`` transposes.
 """
@@ -28,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.nn_dynamics import flat_params
+from ..models.nn_dynamics import flat_params, weight_limit
 from ..ops.cuda import ilqr_fused as fused
 from ..ops.cuda import traced
 from ..ops.riccati import lqr_backward
@@ -39,6 +41,10 @@ from ..utils.batch import bmv
 from ..utils.logging import table_log
 from ..utils.profiling import span
 from .linearize import approximate_cost, linearize_dynamics
+
+# solves ilqr_loop ran in the plain loop (ops/cuda/ilqr_fused.LAUNCHES
+# counts those it launched the kernel for)
+PLAIN_SOLVES = 0
 
 
 class ILQRInternal(NamedTuple):
@@ -96,11 +102,13 @@ def lqr_step(cfg: ILQRConfig, cost, dyn, params, x_init, x, u,
 def kernel_params(dyn, params):
     """The params the kernel reads: pytree params (the MLP's [(W, b), ...])
     flattened into one vector where ``flat_params`` takes them, as JAX
-    flattens them for its kernel (dilqr_tpu/core/ilqr.py:186-195); any other
-    params as they are. The plain loop and the backward keep the pytree."""
+    flattens them for its kernel (dilqr_tpu/core/ilqr.py:186-195), up to the
+    port's own limit for the model (``nn_dynamics.weight_limit``: past JAX's
+    256 for a net of one hidden layer); any other params as they are. The
+    plain loop and the backward keep the pytree."""
     if isinstance(dyn, LinDx):
         return params
-    flat = flat_params(params)
+    flat = flat_params(params, weight_limit(getattr(dyn, "device_mlp", None)))
     return params if flat is None else flat
 
 
@@ -172,6 +180,7 @@ def ilqr_loop(
     whose trace the kernel runs where it can (the plain loop calls
     ``cost``). All three are hints for the kernel, read (and a model or
     cost traced) only for CUDA tensors."""
+    global PLAIN_SOLVES
     with span("ilqr.gate"):
         kparams = kernel_params(dyn, params)
         card = cfg.backend != "torch" and x_init.is_cuda
@@ -191,6 +200,7 @@ def ilqr_loop(
             u_lower=u_lower, u_upper=u_upper, u_zero_I=u_zero_I, delta_u=delta_u,
         ))
 
+    PLAIN_SOLVES += 1
     T, B = cfg.T, x_init.shape[0]
     dyn_roll = dyn if isinstance(dyn, LinDx) else (dyn.step, params)
     inf = torch.full((B,), float("inf"), dtype=x_init.dtype, device=x_init.device)

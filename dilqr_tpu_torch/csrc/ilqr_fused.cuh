@@ -13,10 +13,11 @@
 // template over its scalar type (float, or a Dual of dual.cuh for the jvp
 // sweep) and over the control clamp (the clamped step, or the un-clamped
 // physics an ANALYTIC linearization differentiates). Cartpole, Pendulum and
-// Rocket carry the hand-derived Jacobian of the un-clamped step;
-// PendulumComplex and RocketNorm have none and take JvpJac's, and so does
-// Mlp, the learned model (models/nn_dynamics.py) with its widths as
-// template parameters, and Traced, a user's model whose step
+// Rocket carry the hand-derived Jacobian of the un-clamped step, and so
+// does Mlp, the learned model (models/nn_dynamics.py) with its widths as
+// template parameters, for one hidden layer; PendulumComplex and RocketNorm
+// have none and take JvpJac's, and so do a deeper Mlp and Traced, a user's
+// model whose step
 // ops/cuda/traced.py generated from its PyTorch code. The functions are
 // __host__ __device__ so a host compiler can build them too.
 #pragma once
@@ -558,6 +559,21 @@ DILQR_HD S mlp_act(S z) {
   }
 }
 
+// The derivative of the activation ACT at the pre-activation a, as the
+// Dual forms of mlp_act take it: sigmoid s (1 - s), relu 1 above 0 (0 at
+// 0), elu 1 above 0 and e^a below.
+template <int ACT, class S>
+DILQR_HD S mlp_act_grad(S a) {
+  if constexpr (ACT == MLP_SIGMOID) {
+    const S s = sigmoid_s(a);
+    return s * (1.0f - s);
+  } else if constexpr (ACT == MLP_RELU) {
+    return a > 0.0f ? S(1.0f) : S(0.0f);
+  } else {
+    return a > 0.0f ? S(1.0f) : expm1_s(a) + 1.0f;
+  }
+}
+
 // The learned model with its widths fixed (nn_dynamics.make(..., hidden_sizes=
 // (H...))): x' = MLP(x, u), plus x where Residual (the reference's
 // "passthrough" flag, a residual connection -- not the slew-rate wrapper
@@ -566,11 +582,18 @@ DILQR_HD S mlp_act(S z) {
 // vector of nn_dynamics.flat_params (JAX's ravel_pytree order: each layer's
 // W [out, in] row-major, then its b), the kernel's params: every example of
 // a warp reads the same weight at the same moment, so they are read in
-// place through the read-only cache (one transaction a warp, the <= 1 KB
-// held in L1) at compile-time offsets -- no thread holds a copy. Each row is
-// summed in step_scalars' order (models/nn_dynamics.py:92-112): the products
-// over the inputs in order, then the bias. No clamp (kClamp is ignored) and
-// no hand Jacobian: JvpJac<Mlp, C> forms it.
+// place through the read-only cache (one transaction a warp; the learned
+// cartpole model's 1,205 weights, 4.8 KB, stay in L1) at compile-time
+// offsets -- no thread holds a copy. The last hidden layer is streamed:
+// each of its units goes into the output rows as soon as it is activated,
+// so no thread holds that layer (a net of one hidden layer holds none; the
+// code is unrolled over every weight, so nn_dynamics.weight_limit keeps such
+// a net to the 1,205 built and timed); an earlier hidden layer of a deeper
+// net is an array per thread. Each row is summed in step_scalars' order
+// (models/nn_dynamics.py:92-112): the products over the inputs in order,
+// then the bias. No clamp (kClamp is ignored). A net of one hidden layer
+// has its hand Jacobian (jac, the reference's grad_input), which its
+// library takes under either method; otherwise JvpJac<Mlp, C> forms it.
 template <int NX_, int NU_, int ACT, bool Residual, int... H>
 struct Mlp {
   static constexpr int NX = NX_;
@@ -598,30 +621,94 @@ struct Mlp {
     layer<0, 0>(z, xs, xn);
   }
 
+  // unit i of the layer whose weights are at W (NIN inputs a row, the
+  // biases after the rows of NOUT units): the products over z in order,
+  // then the bias
+  template <int NIN, int NOUT, class S>
+  DILQR_HD S unit(const float* W, int i, const S* z) const {
+    S s = ldg_f(W + i * NIN) * z[0];
+#pragma unroll
+    for (int j = 1; j < NIN; ++j) s = s + ldg_f(W + i * NIN + j) * z[j];
+    return s + ldg_f(W + NOUT * NIN + i);
+  }
+
+  // x'_i from output row i's value y
+  template <class S>
+  DILQR_HD void emit(int i, const S& y, const S* xs, S* xn) const {
+    if constexpr (Residual) {
+      xn[i] = y + xs[i];
+    } else {
+      xn[i] = y;
+    }
+  }
+
   // layer L of the net, its weights at OFF: y = W z + b, activated unless
   // it is the last, whose output (plus x where Residual) is x'
   template <int L, int OFF, class S>
   DILQR_HD void layer(const S* z, const S* xs, S* xn) const {
     constexpr int NIN = kWidths[L], NOUT = kWidths[L + 1];
-    constexpr bool kLast = L + 1 == kLayers;
-    S y[kLast ? 1 : NOUT];
+    if constexpr (L + 1 == kLayers) {  // no hidden layer
 #pragma unroll
-    for (int i = 0; i < NOUT; ++i) {
-      S s = ldg_f(w + OFF + i * NIN) * z[0];
+      for (int i = 0; i < NX; ++i) emit(i, unit<NIN, NX>(w + OFF, i, z), xs, xn);
+    } else if constexpr (L + 2 == kLayers) {  // the last hidden layer, streamed
+      constexpr int OFF2 = OFF + (NIN + 1) * NOUT;  // the output layer's W [NX, NOUT]
+      S s[NX];
+      const S y0 = mlp_act<ACT>(unit<NIN, NOUT>(w + OFF, 0, z));
 #pragma unroll
-      for (int j = 1; j < NIN; ++j) s = s + ldg_f(w + OFF + i * NIN + j) * z[j];
-      s = s + ldg_f(w + OFF + NOUT * NIN + i);
-      if constexpr (kLast) {
-        if constexpr (Residual) {
-          xn[i] = s + xs[i];
-        } else {
-          xn[i] = s;
-        }
-      } else {
-        y[i] = mlp_act<ACT>(s);
+      for (int i = 0; i < NX; ++i) s[i] = ldg_f(w + OFF2 + i * NOUT) * y0;
+#pragma unroll
+      for (int h = 1; h < NOUT; ++h) {
+        const S y = mlp_act<ACT>(unit<NIN, NOUT>(w + OFF, h, z));
+#pragma unroll
+        for (int i = 0; i < NX; ++i) s[i] = s[i] + ldg_f(w + OFF2 + i * NOUT + h) * y;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) emit(i, s[i] + ldg_f(w + OFF2 + NX * NOUT + i), xs, xn);
+    } else {
+      S y[NOUT];
+#pragma unroll
+      for (int i = 0; i < NOUT; ++i) y[i] = mlp_act<ACT>(unit<NIN, NOUT>(w + OFF, i, z));
+      layer<L + 1, OFF + (NIN + 1) * NOUT>(y, xs, xn);
+    }
+  }
+
+  // D = [dx'/dx | dx'/du] of a net of one hidden layer, the reference's
+  // grad_input (dynamics.py:81-130) in the pass over the hidden units that
+  // the step makes: with a_h = W1[h, :] z + b1_h (unit's order), D += W2[:, h]
+  // (act'(a_h) W1[h, :]) for h in order, then I where Residual. The same
+  // order as nn_dynamics' jac_lanes. Every entry of D is written, so D may
+  // be registers or strided storage; S: float in the kernel, double too on
+  // the host.
+  template <class S, class Out>
+  DILQR_HD void jac(const S* xs, const S* us, Out&& D) const {
+    static_assert(kLayers == 2, "the hand Jacobian is that of one hidden layer");
+    constexpr int N = NX + NU, NH = kWidths[1], OFF2 = (N + 1) * NH;
+    S z[N];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) z[i] = xs[i];
+#pragma unroll
+    for (int r = 0; r < NU; ++r) z[NX + r] = us[r];
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) D[i][j] = S(0.0f);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const S g = mlp_act_grad<ACT>(unit<N, NH>(w, h, z));
+      S t[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) t[j] = g * ldg_f(w + h * N + j);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        const S w2 = ldg_f(w + OFF2 + i * NH + h);
+#pragma unroll
+        for (int j = 0; j < N; ++j) D[i][j] = D[i][j] + w2 * t[j];
       }
     }
-    if constexpr (!kLast) layer<L + 1, OFF + (NIN + 1) * NOUT>(y, xs, xn);
+    if constexpr (Residual) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) D[i][i] = D[i][i] + S(1.0f);
+    }
   }
 };
 

@@ -9,9 +9,10 @@
 //
 // Replaces the Pallas TPU kernel `_ilqr_kernel` in
 // dilqr_tpu/ops/pallas/ilqr_fused.py (called through `ilqr_fused`), for the
-// configurations the port runs: the env's hand-derived Jacobian, the jvp
-// sweep's (JvpJac: the step on Duals once a column; the MLP's, whose
-// weights are read in place) or a LinDx problem's F/f as data
+// configurations the port runs: the env's hand-derived Jacobian (the MLP's
+// of one hidden layer too, whose weights are read in place), the jvp
+// sweep's (JvpJac: the step on Duals once a column) or a LinDx problem's F/f
+// as data
 // (ilqr_fused.cuh), f32, a zero or given warm start,
 // and
 //  * n_ctrl == 1 (cartpole, simple pendulum, their slew-rate wrappers, a
@@ -618,6 +619,11 @@ template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
 constexpr int kMinBlocks128<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>, LANES> = 2;
 template <bool C, bool LANES, int NX, int NU, int ACT, bool R, int... H>
 constexpr int kMinBlocks128<Passthrough<JvpJac<Mlp<NX, NU, ACT, R, H...>, C>>, LANES> = 2;
+// the hand Jacobian's (one hidden layer, ANALYTIC) likewise
+template <bool LANES, int NX, int NU, int ACT, bool R, int... H>
+constexpr int kMinBlocks128<Mlp<NX, NU, ACT, R, H...>, LANES> = 2;
+template <bool LANES, int NX, int NU, int ACT, bool R, int... H>
+constexpr int kMinBlocks128<Passthrough<Mlp<NX, NU, ACT, R, H...>>, LANES> = 2;
 // and so does a traced user model's (ilqr_user.cu), whose generated step is
 // long straight-line code: ptxas may use up to 255 registers a thread
 // rather than trade spills for occupancy

@@ -3,11 +3,13 @@
 // (ilqr_fused.cuh): the counterpart of the JAX kernel on an MLP whose
 // weights it flattens into its scalars (`_flatten_pytree_params`,
 // dilqr_tpu/ops/pallas/ilqr_fused.py:405-428; the step `step_scalars`,
-// dilqr_tpu/models/nn_dynamics.py:92-112). The MLP has no hand Jacobian,
-// so under ANALYTIC and AUTO_DIFF alike the kernel takes JvpJac's (the jvp
-// sweep `lin_at`, :1258-1266): the step has no clamp, so both methods
-// differentiate the same function and one library serves both. Its
-// slew-rate wrapper is Passthrough<JvpJac<Mlp>>.
+// dilqr_tpu/models/nn_dynamics.py:92-112), past JAX's 256 weights for a net
+// of one hidden layer (its last hidden layer is streamed: Mlp). The step has
+// no clamp, so ANALYTIC and AUTO_DIFF differentiate the same function and
+// one library serves both: a net of one hidden layer takes its hand
+// Jacobian (Mlp::jac, the reference's grad_input; ilqr_fused.mlp_hand), a
+// deeper net JvpJac's (the jvp sweep `lin_at`, :1258-1266). Its slew-rate
+// wrapper is Passthrough<> of either.
 //
 // One library per (shape, activation, residual, slew rate, cost form), as
 // ilqr_lindx.cu is one per shape: ops/cuda/build.py compiles this file at
@@ -21,9 +23,10 @@
 // and `params` the flat weights [NP] on the card.
 //
 // What bounds it is what bounds the kernel: a serial recursion per example,
-// here with the Jacobian as n = NX + NU evaluations of the MLP on Duals at
-// each Riccati step (the values once, a tangent's products per column) --
-// operations, not bytes. The weights are read in place at each use (Mlp).
+// here with the Jacobian at each Riccati step as one pass over the hidden
+// units (the hand one) or n = NX + NU evaluations of the MLP on Duals (the
+// values once, a tangent's products per column) -- operations, not bytes.
+// The weights are read in place at each use (Mlp).
 #include <type_traits>
 #include <utility>
 
@@ -70,9 +73,11 @@ static_assert(Net::NU >= 1 && Net::NU <= kMaxNu, "1 <= n_ctrl <= kMaxNu");
 constexpr bool kSlew = DILQR_MLP_SLEW != 0;
 constexpr bool kLanes = DILQR_MLP_LANES != 0;
 static_assert(kLanes || !kSlew, "the slew-rate wrapper takes the per-example cost only");
+// the hand Jacobian for one hidden layer (ilqr_fused.mlp_hand)
+constexpr bool kHand = Net::kLayers == 2;
 constexpr int kEnvId = kSlew ? ENV_MLP_SLEW : ENV_MLP;
-using Jvp = JvpJac<Net, false>;
-using Env = std::conditional_t<kSlew, Passthrough<Jvp>, Jvp>;
+using Base = std::conditional_t<kHand, Net, JvpJac<Net, false>>;
+using Env = std::conditional_t<kSlew, Passthrough<Base>, Base>;
 
 // f(Launch<Env, NU, 1024 / G, kLanes>{}) for G in {8, 16} where it fits
 template <class F>

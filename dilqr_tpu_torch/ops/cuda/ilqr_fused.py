@@ -11,8 +11,9 @@ admits: f32 and either an env with device code -- cartpole, the simple and
 the complex pendulum (n_ctrl == 1, the closed-form 1-D box-QP), the rocket
 with normalize_quat False or True (n_ctrl == 3, the in-kernel
 projected-Newton box-QP), the learned MLP with its widths fixed
-(``nn_dynamics.make(..., hidden_sizes=...)``, up to 256 weights, n_ctrl
-1..8, as ``flat_params`` flattens them) and the slew-rate wrapper of each
+(``nn_dynamics.make(..., hidden_sizes=...)``, n_ctrl 1..8, its weights
+flat, up to ``nn_dynamics.weight_limit``: 1,205 for one hidden layer, JAX's
+256 for a deeper net) and the slew-rate wrapper of each
 (``models/ctrl_passthrough``), or a user's own model whose step and
 linearize_point ``traced.py`` traces into C++ (flat params, n_ctrl 1..8,
 JAX's per-tile memory admission; its slew-rate wrapper is traced as it
@@ -48,9 +49,11 @@ saturated control's column is 0, torch.clamp's derivative) and of the
 un-clamped physics under ANALYTIC (the complex pendulum, the renormalizing
 rocket and their slew-rate wrappers), ``JvpJac`` in ``csrc/ilqr_jvp.cu``,
 one library per (env, method) built at first use; the MLP's, which has no
-clamp, is the jvp sweep of its one step under either method
-(``JvpJac<Mlp>`` in ``csrc/ilqr_mlp.cu``, one library per shape,
-activation, residual, slew rate and cost form); a traced user model's,
+clamp, is under either method the hand one of a net of one hidden layer
+(the reference's grad_input, ``Mlp::jac``; ``jac_lanes``) and the jvp
+sweep of its one step for a deeper net (``JvpJac<Mlp>``; ``mlp_hand``),
+in ``csrc/ilqr_mlp.cu``, one library per shape, activation, residual,
+slew rate and cost form, which serves both methods; a traced user model's,
 likewise, is the jvp sweep of its generated step (``JvpJac<Traced>`` in
 ``csrc/ilqr_user.cu``, one library per model, method and cost form). A
 LinDx problem's step
@@ -91,6 +94,7 @@ import torch
 from torch.func import jvp, vmap
 
 from ...models.base import Dynamics, MlpSpec
+from ...models.nn_dynamics import weight_limit
 from ...types import GradMethod, ILQRConfig, LinDx
 from ...utils.batch import clamp, inv_small
 from ...utils.profiling import span
@@ -305,7 +309,7 @@ def covered(cfg: ILQRConfig, dyn, params, dtype, cost_small, u_zero_I, delta_u,
             and nx == dyn.n_state == mlp.n_state + (nu if mlp.slew else 0)
             and isinstance(params, torch.Tensor)
             and params.dim() == 1
-            and params.shape[0] == mlp.n_weights
+            and params.shape[0] == mlp.n_weights <= weight_limit(mlp)
             and jax_tile_fits(cfg, cost_small is None and not cost_callable,
                               u_zero_I is not None, not u_init_zero,
                               not (_bound_is_static(u_lower, nu)
@@ -428,10 +432,19 @@ def mlp_clusters(nx: int, nu: int) -> Tuple[int, ...]:
     return lindx_clusters(nx, nu)
 
 
+def mlp_hand(spec: MlpSpec) -> bool:
+    """The MLP's Jacobian is its hand one (Mlp::jac, ``jac_lanes``) under
+    either method for a net of one hidden layer (csrc/ilqr_mlp.cu's
+    kHand); else JvpJac<Mlp>'s. The step has no clamp, so ANALYTIC and
+    AUTO_DIFF differentiate the same function and one library serves
+    both."""
+    return len(spec.hidden) == 1
+
+
 def mlp_spec(spec: MlpSpec, lanes: bool):
     """The build spec (source, defines) of an MLP's library: its widths,
     activation, residual, slew rate and cost form (the slew-rate wrapper's
-    is the per-example one)."""
+    is the per-example one); its widths fix its Jacobian (``mlp_hand``)."""
     defines = [("DILQR_MLP_NX", spec.n_state), ("DILQR_MLP_NU", spec.n_ctrl)]
     if spec.hidden:
         defines.append(("DILQR_MLP_HIDDEN", "x".join(str(h) for h in spec.hidden)))
@@ -1074,12 +1087,15 @@ def _kernel_step(dyn: Dynamics):
 
 
 def _jacobian(grad_method: GradMethod, dyn: Dynamics):
-    """The kernel's Jacobian of a device env or a traced model: the
-    hand-derived ``jac_lanes`` under ANALYTIC where the env has one, else
-    the jvp sweep of the clamped kernel step (AUTO_DIFF) or of the
-    un-clamped physics (ANALYTIC; an env with no hand Jacobian has no
-    kernel form of its own, so that is ``linearize_point``)."""
-    if not uses_jvp(grad_method, dyn.device_env):
+    """The kernel's Jacobian of a device env, an MLP or a traced model: the
+    hand-derived ``jac_lanes`` under ANALYTIC where the env has one, and
+    under either method for an MLP that has one (``mlp_hand``), else the
+    jvp sweep of the clamped kernel step (AUTO_DIFF) or of the un-clamped
+    physics (ANALYTIC; an env with no hand Jacobian has no kernel form of
+    its own, so that is ``linearize_point``)."""
+    hand = (mlp_hand(dyn.device_mlp) if dyn.device_mlp is not None
+            else not uses_jvp(grad_method, dyn.device_env))
+    if hand:
         return dyn.jac_lanes
     return jvp_jacobian(_kernel_step(dyn) if grad_method is GradMethod.AUTO_DIFF
                         else dyn.linearize_point)

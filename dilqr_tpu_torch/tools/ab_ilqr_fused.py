@@ -13,10 +13,12 @@ and 135168, with inputs from fixed seeds. ``--rows`` adds the other
 libraries of chip_smoke.py's kernel table at its shapes: the rocket under
 AUTO_DIFF and the renormalizing rocket under both methods at B=1024, each
 with its slew rate (rows 1c, 1f, 1g), LinDx (3,2) at B=4096, the golden
-MLP's shape (3,2,(16,)) at B=4096 and its slew rate (row 1h) and the
-traced double pendulum at B=4096 under both methods (row 1j), each library
-built before the first timing. Run it on two checkouts in turns (A B B A)
-on one card in one run: two runs may land on two cards.
+MLP's shape (3,2,(16,)) at B=4096 and its slew rate (row 1h), the traced
+double pendulum at B=4096 under both methods (row 1j) and, where the tree
+has it, the learned cartpole model (5,1,(100,)) at B=1024, 4096 and 16384
+(row 1m; one library serves both methods), each library built before the
+first timing. Run it on two checkouts in turns (A B B A) on one card in
+one run: two runs may land on two cards.
 """
 import argparse
 import json
@@ -99,8 +101,8 @@ def main():
 
 
 def table_rows(torch, P, fused, dev, ms):
-    """The kernel table's rows 1c, 1f, 1g, 1h, 1j and LinDx (3,2), timed as
-    the rocket is (CUDA events, a warm-up first): {label: figures}."""
+    """The kernel table's rows 1c, 1f, 1g, 1h, 1j, 1m and LinDx (3,2), timed
+    as the rocket is (CUDA events, a warm-up first): {label: figures}."""
     import dataclasses
 
     from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
@@ -197,6 +199,23 @@ def table_rows(torch, P, fused, dev, ms):
                            exit_unconverged=False, detach_unconverged=False)
         timed(f"1j double pendulum traced {method.name} B=4096", cfg, model, params, x0, cost,
               -1.5, 1.5)
+
+    try:
+        from dilqr_tpu_torch.models import cartpole, cartpole_mlp
+    except ImportError:  # a tree from before the learned cartpole model
+        return out
+    dyn, params = cartpole_mlp.make(), cartpole_mlp.flat_init_params(21, device=dev)
+    q, p = cartpole.get_true_obj(device=dev)
+    gen = torch.Generator().manual_seed(5)
+    for B in (1024, 4096, 16384):
+        th = torch.pi / 1.05 + 0.1 * torch.randn(B, generator=gen)
+        z = torch.zeros(B)
+        x0 = torch.stack([z, z, th.cos(), th.sin(), z], 1).to(dev)
+        cfg = P.ILQRConfig(n_state=5, n_ctrl=1, T=T, lqr_iter=20, eps=1e-4,
+                           linesearch_decay=0.5, max_linesearch_iter=2, exit_unconverged=False,
+                           detach_unconverged=False, backprop=False)
+        timed(f"1m learned cartpole (5,1,(100,)) B={B}", cfg, dyn, params, x0,
+              (torch.diag(q), p), -100.0, 100.0, reps=3)
     return out
 
 

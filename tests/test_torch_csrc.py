@@ -542,7 +542,8 @@ constexpr bool is_mlp<Mlp<NX, NU, ACT, R, H...>> = true;
 // tests take, by index: (3,1,(8,)) sigmoid, (3,1,(6,6)) relu, (3,1,(8,))
 // elu, (3,2,(16,)) sigmoid (the golden's), (13,3,(8,)) sigmoid, all with the
 // residual; (3,1,()) elu and (4,2,(5,3)) relu without it. 7: the slew-rate
-// wrapper Passthrough<JvpJac<Mlp>> of the golden's shape.
+// wrapper Passthrough<JvpJac<Mlp>> of the golden's shape. 8: the learned
+// cartpole model (5,1,(100,)) sigmoid with the residual.
 template <class F>
 static int mlp_dispatch(int which, F f) {
   switch (which) {
@@ -554,6 +555,7 @@ static int mlp_dispatch(int which, F f) {
     case 5: return f(Mlp<3, 1, MLP_ELU, false>{});
     case 6: return f(Mlp<4, 2, MLP_RELU, false, 5, 3>{});
     case 7: return f(Passthrough<JvpJac<Mlp<3, 2, MLP_SIGMOID, true, 16>, false>>{});
+    case 8: return f(Mlp<5, 1, MLP_SIGMOID, true, 100>{});
     default: return 1;
   }
 }
@@ -606,6 +608,49 @@ extern "C" int mlp_layout(int which, int* out) {
       layout_of<Env>(out);
     }
     return 0;
+  });
+}
+// per example: the hand Jacobian (Mlp::jac, one hidden layer) at f64 and at
+// f32 (the kernel's code), and Passthrough<Mlp>'s at f32 (x: the wrapper's
+// state (u_{t-1}, x) when `slew`); returns NP, or -1 for a net it does not
+// hold
+extern "C" int mlp_hand_jac(int which, int slew, const float* w, const double* x,
+                            const double* u, int B, double* D64, float* D32) {
+  return mlp_dispatch(which, [&](auto env) {
+    using Env = decltype(env);
+    if constexpr (is_mlp<Env>) {
+      if constexpr (Env::kLayers == 2) {
+        constexpr int NX = Env::NX, NU = Env::NU, N = NX + NU;
+        env.load(w);
+        Passthrough<Env> pt;
+        pt.load(w);
+        constexpr int NA = NX + NU, MA = NA + NU;
+        for (int b = 0; b < B; ++b) {
+          if (slew) {
+            float xf[NA], uf[NU], J[NA][MA];
+            for (int i = 0; i < NA; ++i) xf[i] = (float)x[b * NA + i];
+            for (int r = 0; r < NU; ++r) uf[r] = (float)u[b * NU + r];
+            pt.jac(xf, uf, J);
+            for (int i = 0; i < NA; ++i)
+              for (int j = 0; j < MA; ++j) D32[(b * NA + i) * MA + j] = J[i][j];
+            continue;
+          }
+          double J64[NX][N];
+          float xf[NX], uf[NU], J32[NX][N];
+          env.jac(x + b * NX, u + b * NU, J64);
+          for (int i = 0; i < NX; ++i) xf[i] = (float)x[b * NX + i];
+          for (int r = 0; r < NU; ++r) uf[r] = (float)u[b * NU + r];
+          env.jac(xf, uf, J32);
+          for (int i = 0; i < NX; ++i)
+            for (int j = 0; j < N; ++j) {
+              D64[(b * NX + i) * N + j] = J64[i][j];
+              D32[(b * NX + i) * N + j] = J32[i][j];
+            }
+        }
+        return Env::NP;
+      }
+    }
+    return -1;
   });
 }
 extern "C" int mlp_step_ops(int which, const float* w, const float* x, const float* u,
@@ -702,6 +747,8 @@ def lib(tmp_path_factory):
     lib.mlp_layout.restype = I
     lib.mlp_step_ops.argtypes = [I, P, P, P, P]
     lib.mlp_step_ops.restype = I
+    lib.mlp_hand_jac.argtypes = [I, I, P, P, P, I, P, P]
+    lib.mlp_hand_jac.restype = I
     return lib
 
 
@@ -1573,6 +1620,93 @@ def test_device_mlp_passthrough_matches_torch_jvp(lib):
     np.testing.assert_allclose(xn, want_x, rtol=0, atol=4e-6 * scale)
     np.testing.assert_allclose(D, want, rtol=0, atol=4e-6 * scale)
     assert (D[:, :nu, :nx] == 0).all() and (D[:, :nu, nx:] == np.eye(nu)).all()
+
+
+# the one-hidden-layer nets of the shim (mlp_dispatch), whose hand Jacobian
+# Mlp::jac is, with the learned cartpole model (5,1,(100,)) at 8
+HAND_MLP = {0: MLP_HOST[0], 2: MLP_HOST[2], 3: MLP_HOST[3], 4: MLP_HOST[4],
+            8: (5, 1, (100,), "sigmoid", True)}
+
+
+def _hand_case(which, B, rng):
+    """_mlp_case for the shim's nets of HAND_MLP."""
+    nx, nu, hidden, act, res = HAND_MLP[which]
+    dyn = nn_dynamics.make(nx, nu, activation=act, passthrough=res, hidden_sizes=hidden)
+    ws = nn_dynamics.init_params(nx, nu, hidden, generator=torch.Generator().manual_seed(which))
+    for W, b in ws[:-1]:
+        b.zero_()
+    flat = torch.cat([a.reshape(-1) for layer in ws for a in layer]).numpy()
+    x, u = rng.randn(B, nx), rng.randn(B, nu)
+    x[:B // 2], u[:B // 2] = 0.0, 0.0
+    return dyn, flat, x, u
+
+
+@pytest.mark.parametrize("which", sorted(HAND_MLP),
+                         ids=[f"{a}_{b}_{c}_{d}" for a, b, c, d, _ in
+                              (HAND_MLP[k] for k in sorted(HAND_MLP))])
+def test_device_mlp_hand_jacobian_matches_jac_lanes(lib, which):
+    """Mlp::jac, the hand Jacobian of a net of one hidden layer (the
+    reference's grad_input, ANALYTIC's on the card), against the port's
+    jac_lanes and the jvp sweep of kernel_step at f64 (1e-12), and its f32
+    build (the kernel's own code) against those (4e-6 of the largest
+    entry, at least 1, with 1e-5 for hidden 100's sums of 100 products).
+    Where every hidden pre-activation is exactly 0, relu'(0) = 0 and
+    elu'(0) = 1, as the jvp sweep takes them."""
+    rng = np.random.RandomState(50 + which)
+    B = 16
+    dyn, flat, x, u = _hand_case(which, B, rng)
+    nx, nu = dyn.n_state, dyn.n_ctrl
+    n = nx + nu
+    D64, D32 = np.zeros((B, nx, n)), np.zeros((B, nx, n), np.float32)
+    assert lib.mlp_hand_jac(which, 0, _ptr(flat), _ptr(x), _ptr(u), B, _ptr(D64),
+                            _ptr(D32)) == flat.size == dyn.device_mlp.n_weights
+    tx, tu, tf = (torch.from_numpy(a) for a in (x, u, flat.astype(np.float64)))
+    want = dyn.jac_lanes(tx, tu, tf).numpy()
+    np.testing.assert_allclose(D64, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        want, ilqr_fused.jvp_jacobian(dyn.kernel_step)(tx, tu, tf).numpy(), rtol=0, atol=1e-12)
+    scale = max(1.0, np.abs(want).max())
+    tol = 1e-5 if HAND_MLP[which][2][0] > 16 else 4e-6
+    np.testing.assert_allclose(D32, want, rtol=0, atol=tol * scale)
+
+
+def test_device_mlp_hand_passthrough_matches_jac_lanes(lib):
+    """Passthrough<Mlp>: the slew-rate wrapper of the learned cartpole model
+    with the hand Jacobian, against the wrapper's jac_lanes at f64 (f32
+    build; the passthrough rows exact)."""
+    rng = np.random.RandomState(60)
+    B = 16
+    dyn, flat, x, u = _hand_case(8, B, rng)
+    aug = ctrl_passthrough.make(dyn)
+    nx, nu = aug.n_state, aug.n_ctrl
+    xa = np.concatenate([rng.uniform(-1, 1, (B, nu)), x], 1)
+    D = np.zeros((B, nx, nx + nu), np.float32)
+    assert lib.mlp_hand_jac(8, 1, _ptr(flat), _ptr(xa), _ptr(u), B, None, _ptr(D)) == flat.size
+    tx, tu, tf = (torch.from_numpy(a) for a in (xa, u, flat.astype(np.float64)))
+    want = aug.jac_lanes(tx, tu, tf).numpy()
+    np.testing.assert_allclose(D, want, rtol=0, atol=1e-5 * max(1.0, np.abs(want).max()))
+    assert (D[:, :nu, :nx] == 0).all() and (D[:, :nu, nx:] == np.eye(nu)).all()
+
+
+def test_device_mlp_streamed_step_matches_kernel_step(lib):
+    """The learned cartpole model's step (its hidden layer streamed into the
+    output, no array of it) at f64 against kernel_step (1e-12) and its f32
+    build against that (1e-5 of the largest entry)."""
+    rng = np.random.RandomState(61)
+    B = 16
+    dyn, flat, x, u = _hand_case(8, B, rng)
+    n = dyn.n_state + dyn.n_ctrl
+    xn32, D32 = np.zeros((B, 5), np.float32), np.zeros((B, 5, n), np.float32)
+    xn64, D64 = np.zeros((B, 5)), np.zeros((B, 5, n))
+    assert lib.mlp_eval(8, _ptr(flat), _ptr(x), _ptr(u), B, _ptr(xn32), _ptr(D32),
+                        _ptr(xn64), _ptr(D64)) == flat.size
+    tx, tu, tf = (torch.from_numpy(a) for a in (x, u, flat.astype(np.float64)))
+    want = dyn.kernel_step(tx, tu, tf).numpy()
+    np.testing.assert_allclose(xn64, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(D64, dyn.jac_lanes(tx, tu, tf).numpy(), rtol=0, atol=1e-12)
+    scale = max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(xn32, want, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(D32, D64, rtol=0, atol=1e-5 * max(1.0, np.abs(D64).max()))
 
 
 @pytest.mark.parametrize("which", range(len(MLP_HOST)),

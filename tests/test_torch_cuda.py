@@ -654,15 +654,19 @@ def test_kkt_backward_of_17_states_launches_the_riccati_kernel(dev):
 
 
 def test_mlp_solve_launches_the_riccati_kernel_per_iteration(dev):
-    """The learned MLP model (hidden 100, 1,205 weights) runs the plain
-    loop, whose Riccati backward is the kernel: one launch per iteration,
-    none of the whole-solve kernel; backend="torch" launches nothing. With
-    random weights the problem is chaotic in f32 after a few iterations
-    (chip_smoke.py's mlp_parity), so the two are held after 2: n_iter
-    equal, costs within rtol 1e-4, u within 2e-2."""
+    """The learned cartpole model (hidden 100, 1,205 weights, its widths
+    fixed: models/cartpole_mlp) runs the whole-solve kernel past JAX's 256
+    weights, its pytree weights flattened by kernel_params: one launch a
+    solve and no Riccati launch; backend="torch" launches nothing and runs
+    the plain loop (counted in PLAIN_SOLVES). With random weights the
+    problem is chaotic in f32 after a few iterations (chip_smoke.py's
+    mlp_parity), so the two are held after 2: n_iter equal, costs within
+    rtol 1e-4, u within 2e-2."""
+    from dilqr_tpu_torch.core import ilqr as tilqr
+
     gen = torch.Generator().manual_seed(5)
     params = nn_dynamics.init_params(5, 1, (100,), generator=gen, device=dev)
-    dyn = nn_dynamics.make(5, 1)
+    dyn = nn_dynamics.make(5, 1, hidden_sizes=(100,))
     q, p = cartpole.get_true_obj(device=dev)
     th = torch.pi + 0.3 * torch.randn(1030, generator=gen)
     z = torch.zeros(1030)
@@ -673,12 +677,13 @@ def test_mlp_solve_launches_the_riccati_kernel_per_iteration(dev):
             mpc = P.MPC(5, 1, 20, u_lower=-100.0, u_upper=100.0, lqr_iter=lqr_iter, eps=1e-4,
                         linesearch_decay=0.5, max_linesearch_iter=2, backprop=False,
                         exit_unconverged=False, backend=backend)
-            before = (fused.LAUNCHES, riccati_fused.LAUNCHES)
+            before = (fused.LAUNCHES, riccati_fused.LAUNCHES, tilqr.PLAIN_SOLVES)
             res = mpc.solve(x0, P.QuadCost(torch.diag(q), p), dyn, params=params)
             torch.cuda.synchronize()
-            n = int(res.n_iter)
-            assert fused.LAUNCHES == before[0]
-            assert riccati_fused.LAUNCHES - before[1] == (n if backend == "auto" else 0)
+            kernel = backend == "auto"
+            assert fused.LAUNCHES - before[0] == int(kernel)
+            assert riccati_fused.LAUNCHES == before[1]
+            assert tilqr.PLAIN_SOLVES - before[2] == int(not kernel)
             assert torch.isfinite(res.costs).all()
             out[lqr_iter, backend] = res
     a, b = out[2, "auto"], out[2, "torch"]
@@ -1070,10 +1075,11 @@ def _mlp_problem(dev, nx, nu, hidden, act, B=1030, T=12):
 @pytest.mark.parametrize("slew", [False, True], ids=["plain", "slew"])
 @pytest.mark.parametrize("nx,nu,hidden,act", MLP_CASES)
 def test_mlp_kernel_matches_plain_version(dev, nx, nu, hidden, act, slew):
-    """The small MLP's kernel (csrc/ilqr_mlp.cu, JvpJac<Mlp>) against its
-    plain version on the same CUDA inputs with the flat weights, box +-0.5,
-    one launch, the same bits at every cluster size its library has; with
-    slew the slew-rate wrapper Passthrough<JvpJac<Mlp>>."""
+    """The small MLP's kernel (csrc/ilqr_mlp.cu, Mlp with its hand Jacobian
+    Mlp::jac, one hidden layer) against its plain version on the same CUDA
+    inputs with the flat weights, box +-0.5, one launch, the same bits at
+    every cluster size its library has; with slew the slew-rate wrapper
+    Passthrough<Mlp>."""
     from dilqr_tpu_torch.core.ilqr import kernel_params
     from dilqr_tpu_torch.core.solver import augment_slew_rate, canonicalize_cost
 
@@ -1102,8 +1108,10 @@ def test_mlp_solves_launch_the_kernel_and_hidden_100_does_not(dev):
     pytree: one whole-solve launch a solve and no Riccati launch; its IFT
     gradient with respect to the weights runs the kernel forward and the
     KKT kernel backward, within 1e-3 (relative to the largest entry) of the
-    plain backward's; the learned model at hidden 100 (1,205 weights) takes
-    no whole-solve launch."""
+    plain backward's. Hidden 100 at (3, 2) (903 weights, one hidden layer,
+    past JAX's 256) takes one whole-solve launch too; two hidden layers of
+    100 (past 256, each earlier hidden layer an array per thread) take
+    none."""
     cfg, dyn, ws, x0, cost = _mlp_problem(dev, 3, 2, (16,), "sigmoid", B=1024, T=10)
     kw = dict(u_lower=-0.5, u_upper=0.5, lqr_iter=8, eps=1e-3, exit_unconverged=False)
     before, ric_before = fused.LAUNCHES, riccati_fused.LAUNCHES
@@ -1127,14 +1135,15 @@ def test_mlp_solves_launch_the_kernel_and_hidden_100_does_not(dev):
     g_ref = grad("torch")
     assert torch.isfinite(g).all() and g.abs().max().item() > 0
     assert (g - g_ref).abs().max().item() <= 1e-3 * g_ref.abs().max().item()
-    big = nn_dynamics.make(3, 2, hidden_sizes=(100,))
-    wb = nn_dynamics.init_params(3, 2, (100,), generator=torch.Generator().manual_seed(13),
-                                 device=dev)
-    before = fused.LAUNCHES
-    out = P.MPC(3, 2, 10, backprop=False, **dict(kw, lqr_iter=2))(x0, P.QuadCost(*cost), big,
-                                                                  params=wb)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES == before and torch.isfinite(out[2]).all()
+    for hidden, launches in (((100,), 1), ((100, 100), 0)):
+        big = nn_dynamics.make(3, 2, hidden_sizes=hidden)
+        wb = nn_dynamics.init_params(3, 2, hidden, generator=torch.Generator().manual_seed(13),
+                                     device=dev)
+        before = fused.LAUNCHES
+        out = P.MPC(3, 2, 10, backprop=False, **dict(kw, lqr_iter=2))(x0, P.QuadCost(*cost), big,
+                                                                      params=wb)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + launches and torch.isfinite(out[2]).all()
 
 
 def _profiled(fn):

@@ -74,13 +74,20 @@ def _tw(ws):
 def test_flat_params_matches_jax_ravel(nx, nu, hidden):
     """flat_params is _flatten_pytree_params bit for bit: 256 weights
     (1, 2, (51,)) flatten, 257 (1, 1, (64,)) and the learned model's 1,205
-    (hidden 100) give None in both."""
+    (hidden 100) give None in both. The port's kernel route flattens those
+    two past JAX's limit (kernel_params, nn_dynamics.weight_limit: one
+    hidden layer), in the same order."""
     ws = _weights(nx, nu, hidden, 0)
     j = _flatten_pytree_params(_jw(ws))
     t = tnn.flat_params(_tw(ws))
     n = sum(W.size + b.size for W, b in ws)
     if n > 256:
         assert j is None and t is None
+        dyn = tnn.make(nx, nu, hidden_sizes=hidden)
+        k = tilqr.kernel_params(dyn, _tw(ws))
+        want = np.concatenate([a.reshape(-1) for layer in ws for a in layer])
+        assert len(hidden) == 1 and k.shape == (n,)
+        assert np.array_equal(want.view(np.uint32), k.numpy().view(np.uint32))
         return
     assert t.shape == (n,) and t.dtype == torch.float32
     assert np.array_equal(np.asarray(j).view(np.uint32), t.numpy().view(np.uint32))
@@ -174,7 +181,7 @@ def test_plain_version_matches_jax_kernel(nx, nu, hidden, act):
 
 def test_slew_rate_matches_jax_kernel():
     """The slew rate (penalty 1.0) of the (8,) sigmoid MLP: the augmented
-    problem on Passthrough<JvpJac<Mlp>> (device env 11) against JAX's solve
+    problem on Passthrough<Mlp> (device env 11) against JAX's solve
     with slew_rate_penalty on its kernel."""
     ws, x0, kw, jdyn, tdyn = _problem(3, 1, (8,), "sigmoid", seed=3)
     jres = _jax_kernel_solve(kw, x0, jdyn, ws, slew_rate_penalty=1.0)

@@ -359,7 +359,15 @@ def test_covered_agrees_with_jax_gate():
     sigmoid (tests/test_fused_nn_dynamics.py:25), (6, 6) relu, (8,) elu, the
     reference golden's (3, 2, (16,)) in both cost forms and under AUTO_DIFF,
     its slew rate, (13, 3, (8,)) at 253 weights, and refused by both: f64,
-    hidden 100 (1,205 weights), 257 weights, a model without hidden_sizes.
+    two hidden layers past 256 weights (the port keeps JAX's limit where a
+    hidden layer is an array per thread), one hidden layer of 101 on the
+    cartpole's sizes (1,217 weights, past the 1,205 the port built and
+    timed on the card), a model without hidden_sizes.
+    The port's gate takes more than JAX's in one place: a net of one hidden
+    layer past JAX's 256 weights, hidden 100 (the learned cartpole model,
+    1,205 weights) and (1, 1, (64,)) at 257, which JAX refuses (its SMEM
+    scalar vector, MAX_PYTREE_PARAMS) and the port admits (Mlp streams the
+    hidden layer and reads the weights in place: nn_dynamics.weight_limit).
     A user's own model (the double pendulum) under both methods and its
     slew rate, a callable cost on cartpole, on a LinDx (16, 2) (past the
     per-example cost's gate, which a callable cost does not count) and on
@@ -452,8 +460,10 @@ def test_covered_agrees_with_jax_gate():
             ("MLP (13,3,(8,)) 253 weights", (13, 3, (8,)), {}),
             ("MLP (1,2,(51,)) 256 weights", (1, 2, (51,)), {}),
             ("MLP (3,2,(16,)) f64", (3, 2, (16,)), dict(dtype=np.float64)),
-            ("MLP (5,1,(100,)) hidden 100 past the gate", (5, 1, (100,)), {}),
-            ("MLP (1,1,(64,)) 257 weights past the gate", (1, 1, (64,)), {})):
+            ("MLP (5,1,(100,)) hidden 100 past JAX's gate only", (5, 1, (100,)), {}),
+            ("MLP (1,1,(64,)) 257 weights past JAX's gate only", (1, 1, (64,)), {}),
+            ("MLP (3,1,(16,16)) 403 weights past the gate", (3, 1, (16, 16)), {}),
+            ("MLP (5,1,(101,)) 1,217 weights past the gate", (5, 1, (101,)), {})):
         rows.append((label, *_mlp_gates(*args, **extra)))
     jmlp, tmlp = jnn.make(3, 1), tnn.make(3, 1)  # no hidden_sizes: the array step only
     jw = jnn.init_params(jax.random.PRNGKey(0), 3, 1, (8,))
@@ -526,5 +536,6 @@ def test_covered_agrees_with_jax_gate():
             lambda tau, p: 0.5 * jnp.sum(jw * tau * tau, axis=0),
             lambda tau, p: tmod.array_capture_cost(tau), 0))))
     for label, j_ok, t_ok in rows:
-        want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate", "refused"))
-        assert (j_ok, t_ok) == (want, want), label
+        want = not any(s in label for s in ("f64", "pnqp", "[1]", "past the gate", "refused",
+                                            "past JAX's gate only"))
+        assert (j_ok, t_ok) == (want, want or "past JAX's gate only" in label), label
